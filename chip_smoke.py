@@ -6,11 +6,12 @@
 Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. print the card (``nvidia-smi`` name and power limit), turn TF32 off for
-   matmuls and convolutions, build kernels A-D from ``kernels/csrc`` (one
+   matmuls and convolutions, build the kernels from ``kernels/csrc`` (one
    ``nvcc`` per source, in parallel) and print the build seconds;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of one 2048-ray chunk of the flagship eval render, with the
-   tolerance stated, and time both (CUDA events);
+2. hold each kernel against its plain PyTorch version on the card, with the
+   tolerance stated, and time both (CUDA events): A-D at the shapes of one
+   2048-ray chunk of the flagship eval render, F, G, D' and I at the shapes
+   of the flagship training step;
 3. render 400x400 frames of the full-width flagship model (random weights
    from a seed, plus a planted plane SDF so the frame has a surface) with
    ``render_image`` on a fully occupied grid and on a sparse shell grid,
@@ -20,7 +21,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the CPU's samples rendered on the card must agree within TOL_CROSS,
    and the card's whole path may differ by more only on rays whose
    samples differ from the CPU's;
-5. print a ``kernels`` JSON line, then as the last line
+5. train the full-width flagship model on the synthetic scene (24 views,
+   200x200): 4 ``sphere_init_step`` s (the loss must fall), ``_save`` of
+   the train state at iteration nr_iter_sphere_fit + TRAIN_FROM (every SDF
+   level open, curvature on, the lr past warm-up), then ``train`` resumed
+   from it for TRAIN_STEPS steps (3 occupancy refreshes), with the launch
+   counts reset before and read after; ms/step, rays/s, launches per step,
+   every parameter group changed and finite; one more step profiled;
+6. one full-width training step on the card and on the CPU with the same
+   draws and the CPU's fg samples: the loss and every leaf's gradient
+   within TOL_GRAD_CROSS;
+7. print a ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the CUDA toolkit (``nvcc``) and no network. It imports nothing of
@@ -34,6 +45,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -49,10 +61,32 @@ TOL_A = 1e-6  # features ~1e-4: same lattice float order (--fmad=false), only th
 TOL_B = 1e-5  # relative to max |grad|: sums over 24 levels in the same order
 TOL_C = 1e-6  # z and dt: identical float ops; the mask must match exactly
 TOL_D = 1e-5  # weights and integrals: warp-scan vs serial cumprod association
+# F and G add into the table with float atomics in no fixed order; each
+# level is held to TOL_F of its largest |gradient| (coarse slots sum ~1e5
+# terms in float32).
+TOL_F = 1e-4
+TOL_G = 1e-4  # G's table gradient per level as F; its feature cotangent is a gather
+# D' vs autograd of the plain forward: the transmittance recurrence sums in
+# another association; relative to each gradient's largest |value|.
+TOL_DB = 1e-4
+TOL_I = 0.0  # voxel ids, centers, values and occupancy: identical float ops
 # Card vs CPU render of the same samples: matmul summation order (cuBLAS
 # vs CPU BLAS) moves sdf by ~1e-7, which NeuS alphas amplify by inv_s ~ 3e3.
 TOL_CROSS = 2e-3
 N_FRAMES = 5  # timed frames per grid, after one warm-up frame
+TRAIN_FROM = 20000  # the resumed run starts past the SDF's c2f ease-in
+TRAIN_STEPS = 24  # three occupancy refreshes (every 8 iterations)
+WARMUP_STEPS = 2
+# Card vs CPU gradient of one training step on the same draws and samples,
+# per leaf as ||card - cpu|| / ||cpu||: matmul summation order moves the sdf
+# by ~1e-7, NeuS amplifies it by inv_s, and F/G add in atomic order. Not the
+# largest entry's error: the curvature loss takes arccos of a clipped dot
+# product, whose slope is ~700 just inside the clip and 0 outside, so a
+# rounding can move one sample across the bound and one table slot with it
+# (6.8e-3 of the SDF table's largest |gradient| on one run, 1.4e-5 on
+# another); the largest entry's error is printed beside.
+TOL_GRAD_CROSS = 1e-2
+TOL_LOSS_CROSS = 1e-3
 
 # Float operations per unit of work, for the operations side of the bound.
 # A, B and D: approximate counts from the kernel source; their bytes side
@@ -61,6 +95,10 @@ N_FRAMES = 5  # timed frames per grid, after one warm-up frame
 OPS_PER_POINT_LEVEL_A = 110
 OPS_PER_POINT_LEVEL_B = 150
 OPS_PER_SAMPLE_D = 60
+OPS_PER_POINT_LEVEL_F = 120  # A's lattice math + 2 (d+1) products
+OPS_PER_POINT_LEVEL_G = 170  # B's lattice math + the transposed E and the gathers
+OPS_PER_SAMPLE_DB = 120  # D's forward again + the reverse scan and the chain rule
+OPS_PER_PROBE_I = 40  # the Weyl map, the center, the logistic density
 
 
 def fail(msg: str):
@@ -316,22 +354,191 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
     return results
 
 
+def _level_err(got, want):
+    """Largest per-level error of a [L, 2, C] table gradient, relative to
+    the level's largest |value|."""
+    err = 0.0
+    for lvl in range(want.shape[0]):
+        scale = want[lvl].abs().max().item()
+        if scale > 0:
+            err = max(err, (got[lvl] - want[lvl]).abs().max().item() / scale)
+        elif got[lvl].abs().max().item() > 0:
+            err = math.inf
+    return err
+
+
+def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
+    """Kernels F, G, D' and I against their plain versions at the shapes of
+    the flagship training step. Returns {kernel: dict of numbers}."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+    from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
+
+    rng = np.random.default_rng(SEED + 1)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    L = cfg.nr_levels
+    R = cfg.nr_rays
+    S_fg = cfg.samples_per_ray
+    M = R * S_fg
+    results = {}
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+
+    def encoding(d, scaling):
+        spec = pe.PermutoEncodingSpec(pos_dim=d, capacity=cfg.capacity, nr_levels=L,
+                                      concat_points_scaling=scaling)
+        prm = pe.init_encoding_params(gen, spec, device)
+        prm["lattice_values"] *= 1e3  # a trained table's magnitude
+        scales, E, _ = pe.encoding_constants(spec, None, device)
+        return prm, scales, E
+
+    # --- F: the table gradient, for every encode of the step
+    timing = None
+    for label, d, n, scaling in (("sdf", 3, M, 1e-3), ("bg", 4, R * cfg.nr_samples_bg, 1.0),
+                                 ("sphere_init", 3, cfg.sphere_init_points, 1e-3),
+                                 ("offsurface", 3, 1024, 1e-3)):
+        prm, scales, E = encoding(d, scaling)
+        pts = tensor(rng.uniform(-0.45, 0.45, (n, d)))
+        window = torch.ones(L, device=device)
+        g = tensor(rng.normal(size=(n, 2 * L + d)))
+        args = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E, L, g)
+        got, want = pe.encode_table_grad_cuda(*args), pe.encode_table_grad_plain(*args)
+        err = _level_err(got, want)
+        ms = time_ms(lambda: pe.encode_table_grad_cuda(*args), reps, device)
+        pms = time_ms(lambda: pe.encode_table_grad_plain(*args), plain_reps, device)
+        nbytes = pts.numel() * 4 + n * 2 * L * 4 + got.numel() * 4
+        b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_F * n * L)
+        _report(f"F:{label} N={n} d={d} K={L} (per level, relative)", err, TOL_F, ms, pms, b)
+        if label == "sdf":
+            timing = (ms, pms, b, (got - want).abs().max().item())
+    results["F"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
+                        bound_ms=timing[2][0], bound_by=timing[2][1])
+
+    # --- G: the double backward of the SDF encoding (fg, curvature, sphere init)
+    timing = None
+    prm, scales, E = encoding(3, 1e-3)
+    for label, n in (("sdf", M), ("curvature", min(cfg.curvature_sample_budget, M)),
+                     ("sphere_init", cfg.sphere_init_points)):
+        pts = tensor(rng.uniform(-0.45, 0.45, (n, 3)))
+        window = torch.ones(L, device=device)
+        g = tensor(rng.normal(size=(n, 2 * L + 3)))
+        u = tensor(rng.normal(size=(n, 3)))
+        args = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E, L, 1e-3,
+                True, g, u)
+        (tk, gk), (tp, gp) = pe.encode_double_backward_cuda(*args), pe.encode_double_backward_plain(*args)
+        err = max(_level_err(tk, tp), ((gk - gp).abs().max() / gp.abs().max()).item())
+        ms = time_ms(lambda: pe.encode_double_backward_cuda(*args), reps, device)
+        pms = time_ms(lambda: pe.encode_double_backward_plain(*args), plain_reps, device)
+        uniq = torch.unique(pe.flat_slot_ids(pts, prm["lattice_values"], prm["shift_per_level"],
+                                             scales, E, L)).numel()
+        nbytes = (pts.numel() + u.numel() + 2 * g.numel()) * 4 + uniq * 2 * 4 + tk.numel() * 4
+        b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_G * n * L)
+        _report(f"G:{label} N={n} K={L} (per level / relative)", err, TOL_G, ms, pms, b)
+        if label == "sdf":
+            timing = (ms, pms, b, max((tk - tp).abs().max().item(), (gk - gp).abs().max().item()))
+    results["G"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
+                        bound_ms=timing[2][0], bound_by=timing[2][1])
+
+    # --- D': the backward of kernel D, NeuS (fg) and NeRF (bg) mode
+    timing = None
+    for mode, S in ((0, S_fg), (1, cfg.nr_samples_bg)):
+        nr = torch.from_numpy(rng.integers(0, S + 1, R)).to(device)
+        mask = prefix_mask(nr, S) if mode == 0 else torch.ones((R, S), dtype=torch.bool,
+                                                               device=device)
+        dirs = torch.nn.functional.normalize(tensor(rng.normal(size=(R, 3))), dim=-1)
+        smp = RaySamples(origins=dirs, dirs=dirs, z=torch.zeros((R, S), device=device),
+                         dt=tensor(rng.uniform(0, 0.02, (R, S))), mask=mask,
+                         ray_fixed_dt=torch.zeros(R, device=device))
+        rgb = tensor(rng.uniform(size=(R * S, 3)))
+        if mode == 0:
+            val = tensor(rng.uniform(-0.01, 0.01, (R, S)))
+            grads = tensor(rng.normal(size=(R * S, 3)))
+        else:
+            val, grads = tensor(rng.uniform(0, 80, (R, S))), None
+        cots = [tensor(rng.normal(size=shape)) for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
+        if mode == 1:
+            cots[4] = None
+        args = (mode, smp, val, grads, rgb, 2981.0, 1.0, *cots)
+        got, want = vr.render_weights_bwd_cuda(*args), vr.render_weights_bwd_plain(*args)
+        err = max(((a - b.reshape(a.shape)).abs().max() / b.abs().max()).item()
+                  for a, b in zip(got, want) if b is not None)
+        ms = time_ms(lambda: vr.render_weights_bwd_cuda(*args), reps, device)
+        pms = time_ms(lambda: vr.render_weights_bwd_plain(*args), plain_reps, device)
+        per_sample = (4 + 4 + 1 + 12 + 4 + 4 + 12) + (24 if mode == 0 else 0)
+        nbytes = R * S * per_sample + R * (12 + 4 + 4 + 12 + 12)
+        b = bound_ms(nbytes, OPS_PER_SAMPLE_DB * R * S)
+        _report(f"D':{'neus' if mode == 0 else 'nerf'} R={R} S={S} (relative)", err, TOL_DB,
+                ms, pms, b)
+        if mode == 0:
+            timing = (ms, pms, b, max((a - b_.reshape(a.shape)).abs().max().item()
+                                      for a, b_ in zip(got, want) if b_ is not None))
+    results["D'"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
+                         bound_ms=timing[2][0], bound_by=timing[2][1])
+
+    # --- I: the occupancy refresh (probe ids and centers; the grid update)
+    gcfg = cfg.grid
+    n = cfg.grid_nr_random_samples
+    jitter = tensor(rng.uniform(-0.5, 0.5, (n, 3)))
+    upd = 2501  # an update index past the first 64 (the ids wrap the grid)
+    (ck, lk), (cp, lp) = og.grid_points_cuda(gcfg, n, upd, jitter, device), \
+        og.grid_points_plain(gcfg, n, upd, jitter, device)
+    if not torch.equal(lk, lp):
+        fail(f"kernel I: {(lk != lp).sum().item()} probe ids differ from the plain version")
+    if torch.unique(lk).numel() != n:
+        fail("kernel I: two probes of one update share a voxel")
+    err = (ck - cp).abs().max().item()
+    sdf = tensor(rng.normal(0, 0.02, n))
+    grids = [og.make_occupancy_grid(gcfg, device=device) for _ in range(2)]
+    og.grid_update_cuda(gcfg, grids[0], lk, sdf, 2981.0, cfg.grid_occupancy_thresh)
+    og.grid_update_plain(gcfg, grids[1], lk, sdf, 2981.0, cfg.grid_occupancy_thresh)
+    err = max(err, (grids[0].values - grids[1].values).abs().max().item())
+    flips = int((grids[0].occupancy != grids[1].occupancy).sum())
+    if flips:
+        fail(f"kernel I: {flips} occupancy flags differ from the plain version")
+
+    def run_k():
+        c, lin = og.grid_points_cuda(gcfg, n, upd, jitter, device)
+        og.grid_update_cuda(gcfg, grids[0], lin, sdf, 2981.0, cfg.grid_occupancy_thresh)
+
+    def run_p():
+        c, lin = og.grid_points_plain(gcfg, n, upd, jitter, device)
+        og.grid_update_plain(gcfg, grids[1], lin, sdf, 2981.0, cfg.grid_occupancy_thresh)
+
+    ms = time_ms(run_k, reps, device)
+    pms = time_ms(run_p, plain_reps, device)
+    nbytes = n * (12 + 4 + 12) + n * (4 + 4 + 4 + 1)
+    b = bound_ms(nbytes, OPS_PER_PROBE_I * n)
+    _report(f"I n={n} grid={gcfg.nr_voxels_per_dim}^3 (both entries; "
+            f"{int((~grids[0].occupancy).sum())} voxels emptied)", err, TOL_I, ms, pms, b)
+    results["I"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    return results
+
+
 def counters():
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
     from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 
-    return {"A": pe.encode_fwd_cuda, "B": pe.encode_point_grad_cuda,
-            "C": og.probe_sampler_cuda, "D": vr.render_weights_cuda}
+    return {"A": (pe.encode_fwd_cuda,), "B": (pe.encode_point_grad_cuda,),
+            "C": (og.probe_sampler_cuda,), "D": (vr.render_weights_cuda,),
+            "F": (pe.encode_table_grad_cuda,), "G": (pe.encode_double_backward_cuda,),
+            "D'": (vr.render_weights_bwd_cuda,),
+            "I": (og.grid_points_cuda, og.grid_update_cuda)}
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fns in counters().values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
 
 
 def slice_phase(device, cfg, params, grids, width, height, chunk, frames=N_FRAMES):
@@ -372,7 +579,9 @@ def slice_phase(device, cfg, params, grids, width, height, chunk, frames=N_FRAME
 
 
 KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
-                  "C": "probe_sampler_kernel", "D": "render_weights_kernel"}
+                  "C": "probe_sampler_kernel", "D": "render_weights_kernel",
+                  "F": "encode_table_grad_kernel", "G": "encode_double_backward_kernel",
+                  "D'": "render_weights_bwd_kernel", "I": "grid_"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -394,6 +603,13 @@ def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
 
+    return _profile_summary(prof, wall_ms, "frame", top)
+
+
+def _profile_summary(prof, wall_ms, what, top=12):
+    """Device time by kernel name, the share of the port's kernels and the
+    device's busy share of the profiled wall time; prints a ``profile``
+    JSON line."""
     def dev_us(e):
         v = getattr(e, "self_device_time_total", None)
         return v if v is not None else getattr(e, "self_cuda_time_total", 0)
@@ -410,15 +626,15 @@ def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
     by_kernel = {k: sum(dev_us(e) for e in events if sym in e.key) / 1e3
                  for k, sym in KERNEL_SYMBOLS.items()}
     summary = {
-        "frame_wall_ms_profiled": wall_ms,
+        f"{what}_wall_ms_profiled": wall_ms,
         "device_busy_ms": total_ms,
         "device_idle_share": max(0.0, 1.0 - total_ms / wall_ms),
-        "kernels_AD_ms": by_kernel,
-        "kernels_AD_share_of_device": sum(by_kernel.values()) / total_ms,
+        "kernels_ms": by_kernel,
+        "kernels_share_of_device": sum(by_kernel.values()) / total_ms,
         "top": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3, "count": e.count}
                 for e in events[:top]],
     }
-    print(json.dumps({"profile": summary}), flush=True)
+    print(json.dumps({"profile": {what: summary}}), flush=True)
     return summary
 
 
@@ -505,6 +721,183 @@ def cross_check(device, cfg, params, grid, image, width, height):
     return summary
 
 
+def _param_groups(params):
+    """The parameter groups the training phase must move."""
+    return {"sdf_table": [params["sdf"]["encoding"]["lattice_values"]],
+            "rgb_table": [params["rgb"]["encoding"]["lattice_values"]],
+            "bg_table": [params["bg"]["encoding"]["lattice_values"]],
+            "sdf_mlp": [t for layer in params["sdf"]["mlp_sdf"] for t in layer.values()],
+            "rgb_mlp": [t for layer in params["rgb"]["mlp"] for t in layer.values()],
+            "bg_mlp": [t for key in ("mlp_feat_and_density", "mlp_rgb")
+                       for layer in params["bg"][key] for t in layer.values()],
+            "colorcal": list(params["colorcal"].values())}
+
+
+def train_phase(device, cfg):
+    """Sphere init, a saved train state, and ``train`` resumed from it (the
+    slice-2 path). Returns (params, grid, reel, launch counts, summary)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.synthetic import make_synthetic_reel
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import checkpoint as ckpt
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    t0 = time.perf_counter()
+    reel = make_synthetic_reel(device=device)
+    torch.cuda.synchronize(device)
+    reel_s = time.perf_counter() - t0
+    params = tps.init_params(SEED, cfg, reel.nr_images, device=device)
+    optimizer = tps.make_optimizer(cfg)
+    opt_state = optimizer.init(params)
+    losses = []
+    for it in range(4):
+        params, opt_state, loss = tps.sphere_init_step(
+            params, opt_state, tps.step_generators(SEED, it)[0], it, cfg, optimizer)
+        losses.append(float(loss))
+    print(f"[train] synthetic reel {reel.nr_images}x{reel.height}x{reel.width} in "
+          f"{reel_s:.1f} s; sphere-init losses {[round(x, 4) for x in losses]}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"sphere init: the loss did not fall ({losses})")
+    start = cfg.nr_iter_sphere_fit + TRAIN_FROM
+    before = {k: [t.clone() for t in v] for k, v in _param_groups(params).items()}
+    times, nr_samples = [], []
+
+    def on_step(it, loss, aux, params, grid):
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter())
+        if not math.isfinite(float(loss)):
+            fail(f"train: non-finite loss at iteration {it}")
+        nr_samples.append(float(aux["nr_samples"]))
+
+    with tempfile.TemporaryDirectory() as d:
+        grid = og.make_occupancy_grid(cfg.grid, device=device)
+        tps._save(d, "chip_smoke", start, params, grid, opt_state=opt_state, cfg=cfg,
+                  last_inv_s=float(torch.exp(torch.tensor(3.0))))
+        resume = ckpt.models_dir(d, "chip_smoke", start)
+        torch.cuda.synchronize(device)
+        reset_counts()
+        times.append(time.perf_counter())
+        params, grid, hist = tps.train(reel, cfg, nr_iters=start + 1 + TRAIN_STEPS,
+                                       resume_from=resume, log_every=1, callbacks=[on_step],
+                                       device=device)
+        counts = read_counts()
+    steps_ms = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])][WARMUP_STEPS:]
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        fail(f"train: the training path launched no kernel {missing}")
+    after = _param_groups(params)
+    for name, old in before.items():
+        new = after[name]
+        if not all(torch.isfinite(t).all() for t in new):
+            fail(f"train: parameter group {name} is not finite")
+        if all(torch.equal(a, b) for a, b in zip(old, new)):
+            fail(f"train: parameter group {name} did not change")
+    med = statistics.median(steps_ms)
+    samples = statistics.mean(nr_samples)
+    summary = {
+        "steps": TRAIN_STEPS, "warmup_steps": WARMUP_STEPS, "first_iter": start + 1,
+        "ms_per_step_median": med, "ms_per_step_min": min(steps_ms),
+        "ms_per_step_max": max(steps_ms), "ms_per_step_all": steps_ms,
+        "rays_per_s_median": cfg.nr_rays / med * 1e3,
+        "valid_samples_per_step_mean": samples,
+        "valid_samples_per_s_median": samples / med * 1e3,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+        "sphere_init_losses": losses, "final_loss": hist[-1][1],
+        "occupied_share": float(grid.occupancy.float().mean()),
+    }
+    print(f"[train] {TRAIN_STEPS} steps from iteration {start + 1}: median "
+          f"{med:.1f} ms/step (min {min(steps_ms):.1f}, max {max(steps_ms):.1f}), "
+          f"{summary['rays_per_s_median']:.0f} rays/s, "
+          f"{summary['valid_samples_per_s_median']:.0f} valid samples/s, "
+          f"launches/step {summary['launches_per_step']}", flush=True)
+    return params, grid, reel, counts, summary
+
+
+def profile_train_step(device, cfg, params, grid, reel):
+    """One more training step under torch.profiler: the device's busy and
+    idle share of its wall time and the kernels' device ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    optimizer = tps.make_optimizer(cfg)
+    opt_state = optimizer.init(params)
+    it = cfg.nr_iter_sphere_fit + TRAIN_FROM + 100
+    draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], cfg, reel)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tps.train_step(params, opt_state, grid, reel, draws, it, cfg, optimizer)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms, "step")
+
+
+def train_cross_check(device, cfg, params, grid, reel):
+    """One full-width training step on the CPU (the plain path) and on the
+    card, with the same draws and the CPU's fg samples: the loss within
+    TOL_LOSS_CROSS and every leaf's gradient within TOL_GRAD_CROSS
+    (relative L2 error); the card's gradients finite."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+    from permuto_sdf_tpu_torch.train.optimizers import tree_leaves
+
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    it = cfg.nr_iter_sphere_fit + TRAIN_FROM + 200
+    draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], cfg, reel)
+    t0 = time.perf_counter()
+    loss_c, aux_c, grads_c = tps.compute_loss_and_grads(
+        _tree_map(cpu, params), og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy)),
+        reel.to("cpu"), draws, it, cfg)
+    cpu_s = time.perf_counter() - t0
+    s = aux_c["samples"]
+    smp = RaySamples(*(getattr(s, f).to(device) for f in
+                       ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")))
+    loss_g, _, grads_g = tps.compute_loss_and_grads(params, grid, reel, draws, it, cfg,
+                                                    fg_samples=smp)
+    worst, largest, names = {}, {}, []
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}/{i}")
+        else:
+            names.append(prefix)
+
+    walk(params, "")
+    for name, gc, gg in zip(names, tree_leaves(grads_c), tree_leaves(grads_g)):
+        if gc is None and gg is None:
+            continue
+        if gc is None or gg is None:
+            fail(f"train cross-check: {name} has a gradient on one side only")
+        if not torch.isfinite(gg).all():
+            fail(f"train cross-check: non-finite gradient of {name} on the card")
+        diff = gg.cpu() - gc
+        norm, scale = gc.norm().item(), gc.abs().max().item()
+        worst[name] = diff.norm().item() / norm if norm > 0 else diff.norm().item()
+        largest[name] = diff.abs().max().item() / scale if scale > 0 else diff.abs().max().item()
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    summary = {"loss_cpu": float(loss_c), "loss_card": float(loss_g),
+               "loss_rel_err": loss_err, "tol_loss": TOL_LOSS_CROSS, "tol_grad": TOL_GRAD_CROSS,
+               "valid_samples": int(aux_c["nr_samples"]), "cpu_step_s": cpu_s,
+               "grad_rel_l2_err": worst, "grad_max_err_rel_to_max": largest}
+    print(json.dumps({"train_cross_check": summary}), flush=True)
+    if not loss_err <= TOL_LOSS_CROSS:
+        fail(f"train cross-check: loss {float(loss_g)} vs {float(loss_c)} on the CPU")
+    bad = {k: v for k, v in worst.items() if not v <= TOL_GRAD_CROSS}
+    if bad:
+        fail(f"train cross-check: gradients off by more than {TOL_GRAD_CROSS}: {bad}")
+    return summary
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -547,6 +940,7 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     results = kernel_phases(device, cfg)
+    results.update(train_kernel_phases(device, cfg))
 
     # 3. the slice: full-width render on both grids
     params = plant_plane_sdf(tps.init_params(SEED, cfg, device=device))
@@ -554,7 +948,7 @@ def main() -> int:
              "shell": shell_grid(cfg.grid, device)}
     images, counts, times = slice_phase(device, cfg, params, grids, WIDTH, HEIGHT, CHUNK)
     for name, c in counts.items():
-        missing = [k for k, v in c.items() if v <= 0]
+        missing = [k for k in "ABCD" if c[k] <= 0]
         if missing:
             fail(f"render on the {name} grid launched no kernel {missing}")
 
@@ -564,7 +958,14 @@ def main() -> int:
     # 4. the card against the CPU on the same rays
     cross_check(device, cfg, params, grids["full"], images["full"], WIDTH, HEIGHT)
 
-    # 5. summary lines
+    # 5. the training slice: sphere init, a saved state, train resumed from it
+    tparams, tgrid, reel, train_counts, train_summary = train_phase(device, cfg)
+    train_summary["profile"] = profile_train_step(device, cfg, tparams, tgrid, reel)
+
+    # 6. the card against the CPU on one training step
+    train_cross_check(device, cfg, tparams, tgrid, reel)
+
+    # 7. summary lines
     meta = {
         "A": ("permuto_encode_fwd", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
               "permuto_sdf_tpu/ops/permuto_encoding.py:504"),
@@ -574,13 +975,23 @@ def main() -> int:
               "permuto_sdf_tpu/ops/occupancy_grid.py:226"),
         "D": ("neus_nerf_render_weights", "permuto_sdf_tpu_torch/kernels/csrc/volume_rendering.cu",
               "permuto_sdf_tpu/ops/volume_rendering.py:151"),
+        "F": ("permuto_encode_table_grad", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
+              "permuto_sdf_tpu/ops/permuto_encoding.py:475"),
+        "G": ("permuto_encode_double_backward",
+              "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
+              "permuto_sdf_tpu/models/fields.py:167"),
+        "D'": ("neus_nerf_render_weights_bwd",
+               "permuto_sdf_tpu_torch/kernels/csrc/volume_rendering.cu",
+               "permuto_sdf_tpu/ops/volume_rendering.py:151"),
+        "I": ("occupancy_grid_refresh", "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
+              "permuto_sdf_tpu/ops/occupancy_grid.py:179"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
         r = results[k]
         entries.append({"name": f"{k}:{name}", "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": sum(c[k] for c in counts.values()),
+                        "launches": sum(c[k] for c in counts.values()) + train_counts[k],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
@@ -590,8 +1001,10 @@ def main() -> int:
         render[k] = {"ms_per_frame_median": med, "ms_per_frame_min": min(v),
                      "ms_per_frame_max": max(v), "ms_per_frame_all": v,
                      "rays_per_s_median": WIDTH * HEIGHT / med * 1e3,
-                     "launches_per_frame": {n: c / N_FRAMES for n, c in counts[k].items()}}
+                     "launches_per_frame": {n: c / N_FRAMES for n, c in counts[k].items()
+                                            if n in "ABCD"}}
     print(json.dumps({"render": render, "card": card}), flush=True)
+    print(json.dumps({"train": train_summary, "card": card}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

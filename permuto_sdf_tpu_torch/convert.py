@@ -5,7 +5,8 @@ after ``np.asarray`` on every leaf, or what
 :func:`permuto_sdf_tpu_torch.train.checkpoint.load_pytree` returns) and
 gives the same tree of float32 torch tensors: the same names and the same
 layouts (``lattice_values`` stays ``[L, F, C]``, MLP weights stay
-``[fan_in, fan_out]``).
+``[fan_in, fan_out]``). :func:`opt_state_from_jax` carries the JAX
+``AdamState`` (mu, nu, count) across the same way.
 """
 
 from __future__ import annotations
@@ -33,3 +34,14 @@ def params_from_jax(tree, device=None):
     """Tree of numpy arrays -> same tree of torch tensors on ``device``
     (None means the GPU)."""
     return _convert(tree, resolve_device(device))
+
+
+def opt_state_from_jax(state, device=None):
+    """JAX ``AdamState(mu, nu, count)`` (or the ``(mu, nu, count)`` tuple a
+    checkpoint reads back as) -> the port's ``AdamState`` on ``device``
+    (None means the GPU); count stays int32 of shape (1,) on the CPU."""
+    from permuto_sdf_tpu_torch.train.optimizers import AdamState
+
+    mu, nu, count = state
+    return AdamState(mu=params_from_jax(mu, device), nu=params_from_jax(nu, device),
+                     count=torch.from_numpy(np.asarray(count, dtype=np.int32).reshape(1)))

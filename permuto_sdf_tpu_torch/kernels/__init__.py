@@ -32,7 +32,7 @@ LIBRARIES = ("permuto_encoding", "occupancy_grid", "volume_rendering")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # The C signature of each library's exported launch functions; each returns
 # a cudaError_t as an int.
 SIGNATURES = {
@@ -40,12 +40,18 @@ SIGNATURES = {
         "psdf_encode_fwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _I, _P],
         "psdf_encode_point_grad": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P,
                                    _I, _P, _P],
+        "psdf_encode_table_grad": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+        "psdf_encode_double_backward": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I,
+                                        _P, _I, _P, _P, _P, _P],
     },
     "occupancy_grid": {
-        "psdf_probe_sampler": [_I] + [_P] * 5 + [_I] + [_F] * 6 + [_I, _I] + [_P] * 5,
+        "psdf_probe_sampler": [_I] + [_P] * 6 + [_I] + [_F] * 6 + [_I, _I] + [_P] * 5,
+        "psdf_grid_points": [_I, _U, _I] + [_F] * 5 + [_P] * 4,
+        "psdf_grid_update": [_I, _P, _P] + [_F] * 3 + [_P] * 3,
     },
     "volume_rendering": {
         "psdf_render_weights": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 6,
+        "psdf_render_weights_bwd": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 9,
     },
 }
 

@@ -1,23 +1,35 @@
 // Kernel C: sample placement through the occupied voxels of a ray.
+// Kernel I: the occupancy refresh from SDF probes.
 //
 // Replaces: permuto_sdf_tpu/ops/occupancy_grid.py:226
-// `compute_samples_in_occupied_regions` (with `_probe_occupancy` :212),
-// with jitter off (the eval render). The JAX package leaves it to XLA.
+// `compute_samples_in_occupied_regions` (with `_probe_occupancy` :212) --
+// kernel C -- and :138 `compute_stratified_sample_of_grid_points` with :179
+// `update_with_sdf_random_sample` -- kernel I, two entry points around the
+// SDF evaluation of the probes. The JAX package leaves them to XLA.
 //
-// What bounds it on an H100: memory latency and bytes of the probes. Each
+// What bounds C on an H100: memory latency and bytes of the probes. Each
 // ray reads P = 512 one-byte voxels of the 16.8 MB bool grid at positions
 // that step along the ray (mostly distinct 32-byte sectors), and writes
-// 64 samples of z, dt and mask; the arithmetic is small.
+// 64 samples of z, dt and mask; the arithmetic is small. I is bound by the
+// scattered writes: each of the n = 262,144 probes writes a 4-byte value
+// and a 1-byte flag at a voxel far from its neighbours' (a 32-byte sector
+// each).
 //
-// Design: one warp per ray. Lane k probes the contiguous run of P/32
+// Design of C: one warp per ray. Lane k probes the contiguous run of P/32
 // probes [k*P/32, (k+1)*P/32), so all of a lane's loads are independent
 // and in flight together; the occupied counts become a prefix count by a
 // warp scan of the lane totals and are kept in shared memory as integers
 // (cum = count * seg_len with one rounding, as in the plain version); each
 // lane then places S/32 samples by a binary search over the counts
 // (searchsorted side="right"). Rules kept from the JAX op: rays with <= 2
-// samples are zeroed, the start offset is 0.5 (no jitter), and the last
-// valid sample's dt is clamped to the distance left to t_exit.
+// samples are zeroed, the start offset is the per-ray jitter in [0, 1)
+// (0.5 without jitter), and the last valid sample's dt is clamped to the
+// distance left to t_exit.
+//
+// Design of I: one thread per probe in both entry points. The voxel of
+// probe i of update k is lin = (a (k n + i) + b) mod 2^m in uint32 with a
+// and b odd (a Weyl map): a bijection of the voxel ids, so no two probes
+// of one update share a voxel and the scatter needs no atomics.
 #include "common.cuh"
 
 namespace {
@@ -25,8 +37,8 @@ namespace {
 __global__ void __launch_bounds__(128) probe_sampler_kernel(
     int R, const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ t_entry, const float* __restrict__ t_exit,
-    const uint8_t* __restrict__ occ, int V, float half_extent, float tx,
-    float ty, float tz, float voxel_size, float min_dist, int S, int P,
+    const float* __restrict__ start, const uint8_t* __restrict__ occ, int V,
+    float half_extent, float tx, float ty, float tz, float voxel_size, float min_dist, int S, int P,
     float* __restrict__ z, float* __restrict__ dt, uint8_t* __restrict__ mask,
     float* __restrict__ ray_fixed_dt) {
   const int lane = threadIdx.x & 31;
@@ -42,6 +54,7 @@ __global__ void __launch_bounds__(128) probe_sampler_kernel(
               dz = dirs[ray * 3 + 2];
   const float te = t_entry[ray];
   const float tx1 = t_exit[ray];
+  const float st = (start != nullptr) ? start[ray] : 0.5f;
   const int per_lane = P / 32;
 
   int c = 0;
@@ -77,7 +90,7 @@ __global__ void __launch_bounds__(128) probe_sampler_kernel(
   const float dt_ray = nr > 0 ? occupied_dist / (float)max(nr, 1) : 0.f;
 
   for (int s = lane; s < S; s += 32) {
-    const float arc = ((float)s + 0.5f) * dt_ray;
+    const float arc = ((float)s + st) * dt_ray;
     // first probe whose cumulative occupied length exceeds arc
     int lo = 0, hi = P;
     while (lo < hi) {
@@ -100,13 +113,55 @@ __global__ void __launch_bounds__(128) probe_sampler_kernel(
   if (lane == 0) ray_fixed_dt[ray] = nr > 0 ? dt_ray : 0.f;
 }
 
+// Kernel I, entry 1: voxel ids and (jittered) centers of the n probes of
+// update `update_idx`. jitter [n, 3] in [-0.5, 0.5) voxels, or null.
+__global__ void __launch_bounds__(256) grid_points_kernel(
+    int n, uint32_t update_idx, int V, uint32_t lin_mask, float voxel_size,
+    float half_extent, float tx, float ty, float tz,
+    const float* __restrict__ jitter, int* __restrict__ lin_out,
+    float* __restrict__ centers) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const uint32_t i = update_idx * (uint32_t)n + (uint32_t)k;
+  const uint32_t lin = (i * 2654435761u + 340573321u) & lin_mask;
+  const uint32_t vv = (uint32_t)V * (uint32_t)V;
+  const float ijk[3] = {(float)(lin / vv), (float)((lin / (uint32_t)V) % V),
+                        (float)(lin % (uint32_t)V)};
+  const float t[3] = {tx, ty, tz};
+  lin_out[k] = (int)lin;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float c = ((ijk[j] + 0.5f) * voxel_size - half_extent) + t[j];
+    if (jitter != nullptr) c = c + jitter[(long long)k * 3 + j] * voxel_size;
+    centers[(long long)k * 3 + j] = c;
+  }
+}
+
+// Kernel I, entry 2: values[lin] = sdf and occupancy[lin] = the NeuS
+// logistic density of clip(|sdf| - half_diag, 0, 1e10) at inv_s is above
+// thresh. The probes' voxels are distinct (see above): plain stores.
+__global__ void __launch_bounds__(256) grid_update_kernel(
+    int n, const int* __restrict__ lin, const float* __restrict__ sdf,
+    float inv_s, float half_diag, float thresh, float* __restrict__ values,
+    uint8_t* __restrict__ occupancy) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  const float v = sdf[k];
+  const int at = lin[k];
+  values[at] = v;
+  const float x = fminf(fmaxf(fabsf(v) - half_diag, 0.f), 1e10f);
+  const float e = expf(-inv_s * x);
+  const float density = inv_s * e / ((1.0f + e) * (1.0f + e));
+  occupancy[at] = density > thresh ? 1 : 0;
+}
+
 }  // namespace
 
 extern "C" int psdf_probe_sampler(int R, const void* origins, const void* dirs,
                                   const void* t_entry, const void* t_exit,
-                                  const void* occ, int V, float half_extent,
-                                  float tx, float ty, float tz,
-                                  float voxel_size, float min_dist, int S,
+                                  const void* start, const void* occ, int V,
+                                  float half_extent, float tx, float ty,
+                                  float tz, float voxel_size, float min_dist, int S,
                                   int P, void* z, void* dt, void* mask,
                                   void* ray_fixed_dt, void* stream) {
   if (P % 32 != 0) return (int)cudaErrorInvalidValue;
@@ -117,8 +172,36 @@ extern "C" int psdf_probe_sampler(int R, const void* origins, const void* dirs,
   PSDF_LAUNCH(probe_sampler_kernel, grid, block, smem, stream, R,
               (const float*)origins, (const float*)dirs,
               (const float*)t_entry, (const float*)t_exit,
-              (const uint8_t*)occ, V, half_extent, tx, ty, tz, voxel_size,
-              min_dist, S, P, (float*)z, (float*)dt, (uint8_t*)mask,
+              (const float*)start, (const uint8_t*)occ, V, half_extent, tx,
+              ty, tz, voxel_size, min_dist, S, P, (float*)z, (float*)dt, (uint8_t*)mask,
               (float*)ray_fixed_dt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int psdf_grid_points(int n, unsigned int update_idx, int V,
+                                float voxel_size, float half_extent, float tx,
+                                float ty, float tz, const void* jitter,
+                                void* lin, void* centers, void* stream) {
+  const long long nv = (long long)V * V * V;
+  if ((nv & (nv - 1)) != 0 || nv > (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const int block = 256;
+  const int grid = psdf_blocks(n, block);
+  if (grid == 0) return 0;
+  PSDF_LAUNCH(grid_points_kernel, grid, block, 0, stream, n,
+              (uint32_t)update_idx, V, (uint32_t)(nv - 1), voxel_size,
+              half_extent, tx, ty, tz, (const float*)jitter, (int*)lin,
+              (float*)centers);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int psdf_grid_update(int n, const void* lin, const void* sdf,
+                                float inv_s, float half_diag, float thresh,
+                                void* values, void* occupancy, void* stream) {
+  const int block = 256;
+  const int grid = psdf_blocks(n, block);
+  if (grid == 0) return 0;
+  PSDF_LAUNCH(grid_update_kernel, grid, block, 0, stream, n, (const int*)lin,
+              (const float*)sdf, inv_s, half_diag, thresh, (float*)values,
+              (uint8_t*)occupancy);
   return (int)cudaGetLastError();
 }

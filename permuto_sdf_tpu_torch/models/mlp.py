@@ -83,3 +83,11 @@ def lipshitz_mlp_apply(layers: list, x: torch.Tensor,
         if not (i == len(layers) - 1 and last_layer_linear):
             x = gelu(x)
     return x
+
+
+def lipshitz_bound_full(layers: list) -> torch.Tensor:
+    """prod_i softplus(c_i): the Lipschitz regulariser."""
+    bound = torch.ones((), dtype=torch.float32, device=layers[0]["c"].device)
+    for p in layers:
+        bound = bound * F.softplus(p["c"][0])
+    return bound

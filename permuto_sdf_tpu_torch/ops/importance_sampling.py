@@ -1,6 +1,7 @@
 """SDF-guided two-round importance sampling (counterpart of
-``permuto_sdf_tpu/ops/importance_sampling.py``, on the eval path's branch:
-``masked=True``, ``carry_sdf=False``, no jitter).
+``permuto_sdf_tpu/ops/importance_sampling.py``, on the branch the trainer
+and the eval render take: ``masked=True``, ``carry_sdf=False``; the
+jitter of the two rounds is passed in).
 
 Round 1 evaluates the SDF at the uniform samples, turns it into NeuS
 section alphas, builds a normalized CDF and draws ``nr_imp_samples``; the
@@ -32,20 +33,24 @@ def _weights_cdf(samples: RaySamples, sdf, inv_s_multiplier: float):
 
 def importance_sampling_sdf_model(
     sdf_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-    samples: RaySamples, t_exit, nr_imp_samples: int = 16,
+    samples: RaySamples, t_exit, nr_imp_samples: int = 16, jitter=None,
 ) -> RaySamples:
-    """``sdf_fn(pts_flat, flat_mask)`` -> sdf [N] or [N, 1]. Returns the
-    merged samples (max_samples + 2 * nr_imp_samples per ray), without sdf."""
+    """``sdf_fn(pts_flat, flat_mask)`` -> sdf [N] or [N, 1]. ``jitter`` is
+    None (the eval render) or the two rounds' offsets ``(u1, u2)``, each
+    ``[R, nr_imp_samples]`` in +-1/(2(n+1)) (JAX draws them from the two
+    halves of its key, ``importance_sampling.py:63``). Returns the merged
+    samples (max_samples + 2 * nr_imp_samples per ray), without sdf."""
+    u1, u2 = jitter if jitter is not None else (None, None)
     sdf = sdf_fn(samples.flat_positions(), samples.flat_mask()).reshape(samples.mask.shape)
     samples = samples.with_sdf(sdf)
     cdf = _weights_cdf(samples, sdf, inv_s_multiplier=1.0)
-    imp = vr.importance_sample(samples, cdf, nr_imp_samples)
+    imp = vr.importance_sample(samples, cdf, nr_imp_samples, u1)
     sdf_imp = sdf_fn(imp.flat_positions(), imp.flat_mask()).reshape(imp.mask.shape)
     imp = imp.with_sdf(sdf_imp)
     combined = vr.combine_uniform_samples_with_imp(samples, imp, t_exit)
 
     cdf2 = _weights_cdf(combined, combined.sdf, inv_s_multiplier=2.0)
-    imp2 = vr.importance_sample(combined, cdf2, nr_imp_samples)
+    imp2 = vr.importance_sample(combined, cdf2, nr_imp_samples, u2)
     # the renderer re-evaluates the merged set, so the sdf is dropped
     return vr.combine_uniform_samples_with_imp(dataclasses.replace(combined, sdf=None),
                                                dataclasses.replace(imp2, sdf=None), t_exit)

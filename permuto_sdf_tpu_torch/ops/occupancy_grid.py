@@ -1,13 +1,15 @@
-"""Occupancy grid and the sampler through occupied space (counterpart of
-``permuto_sdf_tpu/ops/occupancy_grid.py``; the eval-render subset).
+"""Occupancy grid, the sampler through occupied space and the grid
+refresh (counterpart of ``permuto_sdf_tpu/ops/occupancy_grid.py``).
 
 The sampler ``compute_samples_in_occupied_regions`` is kernel C on the card
-(``kernels/csrc/occupancy_grid.cu``); its plain PyTorch version below is
-the CPU path and the kernel's reference. Both keep the occupied-probe
-counts as integers and form the cumulative occupied length as
-``count * seg_len`` with one rounding (the JAX op takes an f32 cumsum of
-``occ * seg_len`` instead, which can move a sample that lands exactly on a
-probe boundary across an unoccupied gap).
+(``kernels/csrc/occupancy_grid.cu``); ``compute_stratified_sample_of_grid_points``
+and ``update_with_sdf_random_sample`` are the two entry points of kernel
+I. Their plain PyTorch versions below are the CPU path and the kernels'
+reference. Kernel C and its plain version keep the occupied-probe counts
+as integers and form the cumulative occupied length as ``count * seg_len``
+with one rounding (the JAX op takes an f32 cumsum of ``occ * seg_len``
+instead, which can move a sample that lands exactly on a probe boundary
+across an unoccupied gap). The grid refresh updates the state in place.
 """
 
 from __future__ import annotations
@@ -75,9 +77,18 @@ def check_occupancy(cfg: OccupancyGridConfig, grid: OccupancyGridState,
     return grid.occupancy[lin] & in_bounds
 
 
+def lin_idx_to_voxel_center(cfg: OccupancyGridConfig, lin: torch.Tensor) -> torch.Tensor:
+    """Row-major linear index -> world voxel center [N, 3]."""
+    v = cfg.nr_voxels_per_dim
+    ijk = torch.stack([lin // (v * v), (lin // v) % v, lin % v], dim=-1).to(torch.float32)
+    t = torch.tensor(cfg.grid_translation, dtype=torch.float32, device=lin.device)
+    return ((ijk + 0.5) * cfg.voxel_size - cfg.grid_extent / 2.0) + t
+
+
 def probe_sampler_plain(cfg: OccupancyGridConfig, occupancy, origins, dirs,
-                        t_entry, t_exit, min_dist: float, S: int, P: int):
-    """Plain version of kernel C. Returns (z, dt, mask, ray_fixed_dt)."""
+                        t_entry, t_exit, min_dist: float, S: int, P: int, start=None):
+    """Plain version of kernel C. ``start [R]`` is the per-ray jitter of the
+    first sample in [0, 1) (None: 0.5). Returns (z, dt, mask, ray_fixed_dt)."""
     R = origins.shape[0]
     dev = origins.device
     t_entry = t_entry.reshape(-1, 1)
@@ -98,7 +109,8 @@ def probe_sampler_plain(cfg: OccupancyGridConfig, occupancy, origins, dirs,
     dt_ray = torch.where(nr > 0, occupied_dist / torch.clamp(nr, min=1).to(torch.float32),
                          torch.zeros_like(occupied_dist))
 
-    arc = (torch.arange(S, device=dev, dtype=torch.float32)[None, :] + 0.5) * dt_ray[:, None]
+    st = start.reshape(R, 1) if start is not None else 0.5
+    arc = (torch.arange(S, device=dev, dtype=torch.float32)[None, :] + st) * dt_ray[:, None]
     cum = counts.to(torch.float32) * seg_len[:, None]
     idx = torch.searchsorted(cum, arc.contiguous(), right=True)
     idx = torch.clamp(idx, 0, P - 1)
@@ -119,7 +131,7 @@ def probe_sampler_plain(cfg: OccupancyGridConfig, occupancy, origins, dirs,
 
 
 def probe_sampler_cuda(cfg: OccupancyGridConfig, occupancy, origins, dirs,
-                       t_entry, t_exit, min_dist: float, S: int, P: int):
+                       t_entry, t_exit, min_dist: float, S: int, P: int, start=None):
     """Kernel C launch. Counts launches in ``probe_sampler_cuda.launches``."""
     R = origins.shape[0]
     dev = origins.device
@@ -128,6 +140,9 @@ def probe_sampler_cuda(cfg: OccupancyGridConfig, occupancy, origins, dirs,
     if P % 32:
         raise ValueError("probe sampler: nr_probes must be a multiple of 32")
     args = [t.contiguous() for t in (origins, dirs, t_entry.reshape(-1), t_exit.reshape(-1))]
+    if start is not None:
+        start = start.reshape(-1).contiguous()
+        args.append(start)
     for t in args + [occupancy]:
         if t.device != dev or (t is not occupancy and t.dtype != torch.float32):
             raise ValueError("probe sampler: float32 rays and the grid on one device")
@@ -138,7 +153,8 @@ def probe_sampler_cuda(cfg: OccupancyGridConfig, occupancy, origins, dirs,
     lib = kernels.load("occupancy_grid")
     tx, ty, tz = (float(v) for v in cfg.grid_translation)
     err = lib.psdf_probe_sampler(
-        R, *(kernels.ptr(a) for a in args), kernels.ptr(occupancy.contiguous()),
+        R, *(kernels.ptr(a) for a in args[:4]), kernels.ptr(start),
+        kernels.ptr(occupancy.contiguous()),
         cfg.nr_voxels_per_dim, cfg.grid_extent / 2.0, tx, ty, tz, cfg.voxel_size,
         float(min_dist), S, P, kernels.ptr(z), kernels.ptr(dt), kernels.ptr(mask),
         kernels.ptr(fixed), kernels.current_stream(dev))
@@ -153,10 +169,12 @@ probe_sampler_cuda.launches = 0
 def compute_samples_in_occupied_regions(
     cfg: OccupancyGridConfig, grid: OccupancyGridState, origins, dirs, t_entry,
     t_exit, min_dist_between_samples: float, max_nr_samples_per_ray: int,
-    nr_probes: int = 512,
+    nr_probes: int = 512, start=None,
 ) -> RaySamples:
-    """Equispaced samples inside occupied voxels along each ray (jitter off:
-    the eval render). Rays with <= 2 samples are zeroed."""
+    """Equispaced samples inside occupied voxels along each ray. ``start
+    [R, 1]`` is the training jitter of the first sample in [0, 1) (JAX's
+    ``uniform(key, (R, 1))``); None (the eval render) places it at 0.5.
+    Rays with <= 2 samples are zeroed."""
     if origins.is_cuda:
         fn = probe_sampler_cuda
     elif origins.device.type == "cpu":
@@ -165,6 +183,126 @@ def compute_samples_in_occupied_regions(
         raise ValueError(f"probe sampler: unsupported device {origins.device}")
     z, dt, mask, fixed = fn(cfg, grid.occupancy, origins, dirs, t_entry, t_exit,
                             min_dist_between_samples, max_nr_samples_per_ray,
-                            nr_probes)
+                            nr_probes, start)
     return RaySamples(origins=origins, dirs=dirs, z=z, dt=dt, mask=mask,
                       ray_fixed_dt=fixed)
+
+
+# ---------------------------------------------------------------------------
+# Kernel I: the grid refresh from SDF probes
+# ---------------------------------------------------------------------------
+
+_WEYL_A, _WEYL_B = 2654435761, 340573321
+
+
+def grid_points_plain(cfg: OccupancyGridConfig, nr_points: int, update_idx: int,
+                      jitter=None, device=None):
+    """Plain version of kernel I, entry 1 -> (centers [n, 3], lin [n] int32)."""
+    if cfg.nr_voxels & (cfg.nr_voxels - 1):
+        raise ValueError("the stratified grid sample needs a power-of-2 voxel count")
+    k = torch.arange(nr_points, dtype=torch.int64, device=device)
+    i = ((update_idx * nr_points) + k) & 0xFFFFFFFF
+    # (i * a) mod 2^32 without int64 overflow: split a into 16-bit halves
+    ia = (i * (_WEYL_A & 0xFFFF) + (((i * (_WEYL_A >> 16)) & 0xFFFF) << 16)) & 0xFFFFFFFF
+    lin = (ia + _WEYL_B) & (cfg.nr_voxels - 1)
+    centers = lin_idx_to_voxel_center(cfg, lin)
+    if jitter is not None:
+        centers = centers + jitter * cfg.voxel_size
+    return centers, lin.to(torch.int32)
+
+
+def grid_points_cuda(cfg: OccupancyGridConfig, nr_points: int, update_idx: int,
+                     jitter=None, device=None):
+    """Kernel I launch, entry 1. Counts launches in ``grid_points_cuda.launches``."""
+    device = torch.device(device)
+    if jitter is not None:
+        jitter = jitter.contiguous()
+        if (jitter.shape != (nr_points, 3) or jitter.dtype != torch.float32
+                or jitter.device.type != device.type):
+            raise ValueError("grid points: jitter must be float32 [n, 3] on the device")
+        device = jitter.device
+    lin = torch.empty((nr_points,), dtype=torch.int32, device=device)
+    centers = torch.empty((nr_points, 3), dtype=torch.float32, device=device)
+    lib = kernels.load("occupancy_grid")
+    tx, ty, tz = (float(v) for v in cfg.grid_translation)
+    err = lib.psdf_grid_points(
+        nr_points, int(update_idx) & 0xFFFFFFFF, cfg.nr_voxels_per_dim, cfg.voxel_size,
+        cfg.grid_extent / 2.0, tx, ty, tz, kernels.ptr(jitter), kernels.ptr(lin),
+        kernels.ptr(centers), kernels.current_stream(device))
+    kernels.check(lib, err, "occupancy grid points (kernel I)")
+    grid_points_cuda.launches += 1
+    return centers, lin
+
+
+grid_points_cuda.launches = 0
+
+
+def _logistic_density(x, s):
+    e = torch.exp(-s * x)
+    return s * e / ((1.0 + e) * (1.0 + e))
+
+
+def grid_update_plain(cfg: OccupancyGridConfig, grid: OccupancyGridState, lin, sdf,
+                      inv_s: float, occupancy_thresh: float):
+    """Plain version of kernel I, entry 2 (in place)."""
+    sdf = sdf.reshape(-1)
+    lin = lin.to(torch.int64)
+    grid.values[lin] = sdf
+    x = torch.clamp(torch.abs(sdf) - cfg.half_diagonal, 0.0, 1e10)
+    s = torch.tensor(inv_s, dtype=torch.float32)
+    grid.occupancy[lin] = _logistic_density(x, s) > occupancy_thresh
+    return grid
+
+
+def grid_update_cuda(cfg: OccupancyGridConfig, grid: OccupancyGridState, lin, sdf,
+                     inv_s: float, occupancy_thresh: float):
+    """Kernel I launch, entry 2 (in place). Counts launches in
+    ``grid_update_cuda.launches``."""
+    sdf = sdf.reshape(-1).contiguous()
+    n = sdf.shape[0]
+    dev = sdf.device
+    if (lin.shape != (n,) or lin.dtype != torch.int32 or sdf.dtype != torch.float32
+            or lin.device != dev or grid.values.device != dev
+            or grid.occupancy.dtype != torch.bool or not grid.values.is_contiguous()
+            or not grid.occupancy.is_contiguous()):
+        raise ValueError("grid update: int32 ids, float32 sdf and the grid on one device")
+    lib = kernels.load("occupancy_grid")
+    err = lib.psdf_grid_update(
+        n, kernels.ptr(lin.contiguous()), kernels.ptr(sdf), float(inv_s),
+        float(cfg.half_diagonal), float(occupancy_thresh), kernels.ptr(grid.values),
+        kernels.ptr(grid.occupancy), kernels.current_stream(dev))
+    kernels.check(lib, err, "occupancy grid update (kernel I)")
+    grid_update_cuda.launches += 1
+    return grid
+
+
+grid_update_cuda.launches = 0
+
+
+def _grid_dispatch(device, cuda_fn, plain_fn):
+    device = torch.device(device)
+    if device.type == "cuda":
+        return cuda_fn
+    if device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"occupancy grid: unsupported device {device}")
+
+
+def compute_stratified_sample_of_grid_points(cfg: OccupancyGridConfig, nr_points: int,
+                                             update_idx: int, jitter=None, device=None):
+    """Voxel sample of update ``update_idx``: ``lin = (a i + b) mod V`` for
+    ``i`` in ``[k n, (k+1) n)`` (uint32; a bijection of the voxel ids), the
+    voxel centers moved by ``jitter [n, 3]`` in [-0.5, 0.5) voxels (JAX's
+    ``uniform(key, (n, 3), -0.5, 0.5)``). -> (centers [n, 3], lin [n] int32)."""
+    fn = _grid_dispatch(device, grid_points_cuda, grid_points_plain)
+    return fn(cfg, nr_points, update_idx, jitter, device)
+
+
+def update_with_sdf_random_sample(cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                                  lin_indices, sdf, inv_s: float,
+                                  occupancy_thresh: float = 1e-4) -> OccupancyGridState:
+    """values[lin] = sdf; occupancy[lin] = logistic density of
+    clip(|sdf| - half_diagonal, 0, 1e10) at ``inv_s`` > thresh. Updates
+    ``grid`` in place and returns it."""
+    fn = _grid_dispatch(grid.values.device, grid_update_cuda, grid_update_plain)
+    return fn(cfg, grid, lin_indices, sdf, inv_s, occupancy_thresh)

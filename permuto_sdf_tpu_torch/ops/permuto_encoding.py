@@ -7,17 +7,24 @@ vertices), each vertex hashed into a ``capacity``-slot table of 2 features,
 and the features blended with the barycentric weights. Levels are
 concatenated (level major, feature minor), followed by the scaled point.
 
-Two hand-written CUDA kernels implement it on the card
+Four hand-written CUDA kernels implement it on the card
 (``kernels/csrc/permuto_encoding.cu``): kernel A, the forward; kernel B,
-the gradient with respect to the points (for the SDF normals). Each has a
-plain PyTorch version here, which runs for CPU tensors and is what the
-kernels are held against. The plain versions compute the lattice in the
-same float order as the kernels, and the hash in int64 with a 32-bit mask
-after every multiply, so the slot ids equal the kernel's (uint32 wrap)
-and the JAX package's bit for bit.
+the gradient with respect to the points (for the SDF normals); kernel F,
+the gradient with respect to the table; kernel G, the backward of kernel
+B (the eikonal and curvature losses differentiate the SDF normals). Each
+has a plain PyTorch version here, which runs for CPU tensors and is what
+the kernels are held against. The plain versions compute the lattice in
+the same float order as the kernels, and the hash in int64 with a 32-bit
+mask after every multiply, so the slot ids equal the kernel's (uint32
+wrap) and the JAX package's bit for bit.
 
-The table keeps the JAX parameter layout ``[L, F, C]``. Table gradients
-(training) are not part of this slice and raise.
+Autograd: :func:`permuto_encode` is kernel A with a backward of F (table)
+and B (points). :func:`permuto_point_grad` is kernel B as a function of
+the table and of the feature cotangent ``g``, with a backward of G. The
+SDF's normals are built from the two (``models/fields.py``), which is the
+reverse-mode gradient JAX forms, without differentiating a backward pass.
+
+The table keeps the JAX parameter layout ``[L, F, C]``.
 """
 
 from __future__ import annotations
@@ -274,6 +281,71 @@ def encode_point_grad_plain(points, table, shift, scales, window, E, K: int,
     return torch.stack(cols, dim=-1)
 
 
+def encode_table_grad_plain(points, table, shift, scales, window, E, K: int,
+                            g: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel F: d table [L, 2, C] of sum(g * encode)
+    (``index_add_`` of the gather's transpose); levels >= K get zero."""
+    N, d = points.shape
+    L, _, C = table.shape
+    _, bary, slots = _simplex_plain(_lattice_points(points, shift, scales, K), E, C)
+    g_lv = g[:, :2 * K].t().reshape(K, 2, N)
+    if window is not None:
+        g_lv = g_lv * window[:K, None, None]
+    out = torch.zeros(L * 2 * C, dtype=torch.float32, device=points.device)
+    for f in range(2):
+        base = (torch.arange(K, device=points.device)[:, None] * 2 + f) * C
+        for r in range(d + 1):
+            out.index_add_(0, (base + slots[r]).reshape(-1), (bary[r] * g_lv[:, f]).reshape(-1))
+    return out.reshape(L, 2, C)
+
+
+def encode_double_backward_plain(points, table, shift, scales, window, E, K: int,
+                                 concat_scaling: float, concat: bool,
+                                 g: torch.Tensor, u: torch.Tensor):
+    """Plain version of kernel G: the VJP of kernel B's output (the point
+    gradient) with cotangent ``u [N, d]``, with respect to the table and to
+    the feature cotangent ``g``. Returns (d table [L, 2, C], d g)."""
+    N, d = points.shape
+    L, _, C = table.shape
+    dp1 = float(d + 1)
+    rank, _, slots = _simplex_plain(_lattice_points(points, shift, scales, K), E, C)
+    flat = table[:K].reshape(-1)
+    w = window[:K] if window is not None else torch.ones(K, device=points.device)
+    Eu = []
+    for i in range(d + 1):
+        acc = E[i, 0] * u[:, 0]
+        for j in range(1, d):
+            acc = acc + E[i, j] * u[:, j]
+        Eu.append(acc)
+    c = [Eu[i][None, :] / scales[:K, None] / dp1 for i in range(d + 1)]  # [K, N]
+    lo = [(d - rank[i]) for i in range(d + 1)]
+    hi = [(d + 1 - rank[i]) % (d + 1) for i in range(d + 1)]
+    h = []
+    for r in range(d + 1):
+        acc = torch.zeros_like(c[0])
+        for i in range(d + 1):
+            acc = acc + torch.where(lo[i] == r, c[i], 0.0)
+            acc = acc - torch.where(hi[i] == r, c[i], 0.0)
+        h.append(acc)
+    dg_cols = []
+    for f in range(2):
+        acc = h[0] * _gather(flat, K, C, slots[0], f)
+        for r in range(1, d + 1):
+            acc = acc + h[r] * _gather(flat, K, C, slots[r], f)
+        dg_cols.append(w[:, None] * acc)
+    d_g = torch.stack(dg_cols, dim=1).reshape(2 * K, N).t()
+    if concat:
+        d_g = torch.cat([d_g, u * concat_scaling], dim=-1)
+    g_lv = g[:, :2 * K].t().reshape(K, 2, N)
+    d_table = torch.zeros(L * 2 * C, dtype=torch.float32, device=points.device)
+    for f in range(2):
+        base = (torch.arange(K, device=points.device)[:, None] * 2 + f) * C
+        for r in range(d + 1):
+            d_table.index_add_(0, (base + slots[r]).reshape(-1),
+                               ((h[r] * w[:, None]) * g_lv[:, f]).reshape(-1))
+    return d_table.reshape(L, 2, C), d_g.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (CUDA tensors launch the kernel; CPU tensors run the plain
 # version; nothing else is accepted)
@@ -337,6 +409,60 @@ def encode_point_grad_cuda(points, table, shift, scales, window, E, K: int,
 encode_point_grad_cuda.launches = 0
 
 
+def encode_table_grad_cuda(points, table, shift, scales, window, E, K: int,
+                           g: torch.Tensor) -> torch.Tensor:
+    """Kernel F launch: d table [L, 2, C] (levels >= K zero). Counts
+    launches in ``encode_table_grad_cuda.launches``."""
+    _check_inputs(points, table, shift, scales, window, E, K)
+    N, d = points.shape
+    _check_cotangent(g, N, 2 * K, points.device)
+    d_table = torch.zeros_like(table)
+    lib = kernels.load("permuto_encoding")
+    err = lib.psdf_encode_table_grad(
+        d, kernels.ptr(points), N, table.shape[-1], kernels.ptr(shift), kernels.ptr(scales),
+        kernels.ptr(window), kernels.ptr(E), K, kernels.ptr(g), g.shape[1],
+        kernels.ptr(d_table), kernels.current_stream(points.device))
+    kernels.check(lib, err, "permuto encode table gradient (kernel F)")
+    encode_table_grad_cuda.launches += 1
+    return d_table
+
+
+encode_table_grad_cuda.launches = 0
+
+
+def encode_double_backward_cuda(points, table, shift, scales, window, E, K: int,
+                                concat_scaling: float, concat: bool,
+                                g: torch.Tensor, u: torch.Tensor):
+    """Kernel G launch: (d table [L, 2, C], d g). Counts launches in
+    ``encode_double_backward_cuda.launches``."""
+    _check_inputs(points, table, shift, scales, window, E, K)
+    N, d = points.shape
+    _check_cotangent(g, N, 2 * K + (d if concat else 0), points.device, exact=True)
+    if u.shape != (N, d) or u.dtype != torch.float32 or not u.is_contiguous():
+        raise ValueError(f"permuto encode double backward: bad cotangent {tuple(u.shape)}")
+    d_table = torch.zeros_like(table)
+    d_g = torch.empty_like(g)
+    lib = kernels.load("permuto_encoding")
+    err = lib.psdf_encode_double_backward(
+        d, kernels.ptr(points), N, kernels.ptr(table), table.shape[-1],
+        kernels.ptr(shift), kernels.ptr(scales), kernels.ptr(window), kernels.ptr(E), K,
+        float(concat_scaling), int(concat), kernels.ptr(g), g.shape[1], kernels.ptr(u),
+        kernels.ptr(d_table), kernels.ptr(d_g), kernels.current_stream(points.device))
+    kernels.check(lib, err, "permuto encode double backward (kernel G)")
+    encode_double_backward_cuda.launches += 1
+    return d_table, d_g
+
+
+encode_double_backward_cuda.launches = 0
+
+
+def _check_cotangent(g, N, min_cols, device, exact=False):
+    if (g.dim() != 2 or g.shape[0] != N or g.shape[1] < min_cols
+            or (exact and g.shape[1] != min_cols)
+            or g.dtype != torch.float32 or g.device != device or not g.is_contiguous()):
+        raise ValueError(f"permuto encode: bad feature cotangent {tuple(g.shape)}")
+
+
 def _dispatch(points, cuda_fn, plain_fn):
     if points.is_cuda:
         return cuda_fn
@@ -346,8 +472,10 @@ def _dispatch(points, cuda_fn, plain_fn):
 
 
 class _PermutoEncodeFn(torch.autograd.Function):
-    """Encode with a point gradient from kernel B (plain version on CPU).
-    The table gets no gradient in this slice."""
+    """Encode (kernel A) with a backward of kernel F for the table and
+    kernel B for the points (plain versions on the CPU). The backward is
+    not differentiated again: second-order terms go through
+    :class:`_PointGradFn`."""
 
     @staticmethod
     def forward(ctx, points, table, shift, scales, window, E, K, concat_scaling,
@@ -358,13 +486,48 @@ class _PermutoEncodeFn(torch.autograd.Function):
         return fn(points, table, shift, scales, window, E, K, concat_scaling, concat)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         points, table, shift, scales, window, E = ctx.saved_tensors
         K, concat_scaling, concat = ctx.args
+        g = g.contiguous()
+        d_points = d_table = None
+        if ctx.needs_input_grad[0]:
+            fn = _dispatch(points, encode_point_grad_cuda, encode_point_grad_plain)
+            d_points = fn(points, table, shift, scales, window, E, K, concat_scaling,
+                          concat, g)
+        if ctx.needs_input_grad[1]:
+            fn = _dispatch(points, encode_table_grad_cuda, encode_table_grad_plain)
+            d_table = fn(points, table, shift, scales, window, E, K, g)
+        return d_points, d_table, None, None, None, None, None, None, None
+
+
+class _PointGradFn(torch.autograd.Function):
+    """d/dpoints of sum(g * encode(points)) (kernel B) as a function of the
+    table and of ``g``, with a backward of kernel G. Its gradient with
+    respect to the points is zero: the barycentric weights are piecewise
+    linear in the points."""
+
+    @staticmethod
+    def forward(ctx, points, table, g, shift, scales, window, E, K, concat_scaling,
+                concat):
+        ctx.save_for_backward(points, table, g, shift, scales, window, E)
+        ctx.args = (K, concat_scaling, concat)
         fn = _dispatch(points, encode_point_grad_cuda, encode_point_grad_plain)
-        grad = fn(points, table, shift, scales, window, E, K, concat_scaling,
-                  concat, g.contiguous())
-        return grad, None, None, None, None, None, None, None, None
+        return fn(points, table, shift, scales, window, E, K, concat_scaling, concat, g)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, u):
+        points, table, g, shift, scales, window, E = ctx.saved_tensors
+        K, concat_scaling, concat = ctx.args
+        if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
+            return (None,) * 10
+        fn = _dispatch(points, encode_double_backward_cuda, encode_double_backward_plain)
+        d_table, d_g = fn(points, table, shift, scales, window, E, K, concat_scaling,
+                          concat, g, u.contiguous())
+        return (None, d_table if ctx.needs_input_grad[1] else None,
+                d_g if ctx.needs_input_grad[2] else None) + (None,) * 7
 
 
 def encoding_constants(spec: PermutoEncodingSpec, window, device):
@@ -380,6 +543,20 @@ def encoding_constants(spec: PermutoEncodingSpec, window, device):
     return scales, E, window
 
 
+def _encode_args(params: dict, points: torch.Tensor, spec: PermutoEncodingSpec,
+                 window, max_levels: Optional[int]):
+    d = spec.pos_dim
+    if points.shape[-1] != d:
+        raise ValueError(f"points must be [N, {d}]")
+    if spec.nr_feat_per_level != 2:
+        raise NotImplementedError("the port's encoding kernels take 2 features per level")
+    K = spec.nr_levels if max_levels is None else min(max_levels, spec.nr_levels)
+    scales, E, window = encoding_constants(spec, window, points.device)
+    return (points.contiguous(), params["lattice_values"].contiguous(),
+            params["shift_per_level"].detach().contiguous(), scales, window, E, K,
+            float(spec.concat_points_scaling), bool(spec.concat_points))
+
+
 def permuto_encode(params: dict, points: torch.Tensor, spec: PermutoEncodingSpec,
                    window=None, max_levels: Optional[int] = None,
                    zero_fill: bool = True) -> torch.Tensor:
@@ -388,22 +565,12 @@ def permuto_encode(params: dict, points: torch.Tensor, spec: PermutoEncodingSpec
     ``window`` is the per-level c2f weight (numpy or tensor, default ones);
     ``max_levels`` evaluates only the K coarsest levels, zero-filling the
     rest unless ``zero_fill=False`` (then the output is ``[N, 2K (+d)]``).
-    Differentiable in ``points`` (kernel B on the card)."""
-    d = spec.pos_dim
-    if points.shape[-1] != d:
-        raise ValueError(f"points must be [N, {d}]")
-    if spec.nr_feat_per_level != 2:
-        raise NotImplementedError("the port's encoding kernels take 2 features per level")
-    table = params["lattice_values"]
-    if table.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("hash-table gradients come with the training slice")
+    Differentiable in ``points`` (kernel B on the card) and in the table
+    (kernel F); the per-level shifts are fixed, as in the JAX package."""
+    points, table, shift, scales, window, E, K, cs, concat = _encode_args(
+        params, points, spec, window, max_levels)
+    out = _PermutoEncodeFn.apply(points, table, shift, scales, window, E, K, cs, concat)
     L_full = spec.nr_levels
-    K = L_full if max_levels is None else min(max_levels, L_full)
-    scales, E, window = encoding_constants(spec, window, points.device)
-    out = _PermutoEncodeFn.apply(
-        points.contiguous(), table.contiguous(),
-        params["shift_per_level"].detach().contiguous(), scales, window, E, K,
-        float(spec.concat_points_scaling), bool(spec.concat_points))
     if K < L_full and zero_fill:
         zeros = out.new_zeros((out.shape[0], (L_full - K) * 2))
         parts = [out[:, :2 * K], zeros]
@@ -411,3 +578,15 @@ def permuto_encode(params: dict, points: torch.Tensor, spec: PermutoEncodingSpec
             parts.append(out[:, 2 * K:])
         out = torch.cat(parts, dim=-1)
     return out
+
+
+def permuto_point_grad(params: dict, points: torch.Tensor, g: torch.Tensor,
+                       spec: PermutoEncodingSpec, window=None,
+                       max_levels: Optional[int] = None) -> torch.Tensor:
+    """d/dpoints of ``sum(g * permuto_encode(..., zero_fill=False))`` ->
+    ``[N, d]`` (kernel B), differentiable in the table and in ``g`` (kernel
+    G). ``g`` has the narrow layout ``[N, 2K (+d)]``."""
+    points, table, shift, scales, window, E, K, cs, concat = _encode_args(
+        params, points, spec, window, max_levels)
+    return _PointGradFn.apply(points, table, g.contiguous(), shift, scales, window, E, K,
+                              cs, concat)

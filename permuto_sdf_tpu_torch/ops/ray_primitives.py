@@ -1,9 +1,10 @@
-"""Bounding sphere with ray intersection (counterpart of
-``permuto_sdf_tpu/ops/ray_primitives.py``; only what the eval render uses)."""
+"""Bounding sphere with ray intersection and uniform sampling inside it
+(counterpart of ``permuto_sdf_tpu/ops/ray_primitives.py::Sphere``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -34,3 +35,21 @@ class Sphere:
         p0 = ray_origins + t0 * ray_dirs
         p1 = ray_origins + t1 * ray_dirs
         return p0, t0, p1, t1, hit
+
+    def rand_points_inside(self, nr_points: int, generator=None, draws=None,
+                           device=None) -> torch.Tensor:
+        """Uniform points in the ball via (phi, cos theta, u^(1/3)).
+        ``draws`` = (phi [n] in [0, 2 pi), cos theta [n] in [-1, 1), u [n]
+        in [0, 1)) as JAX draws them from the three parts of its key; else
+        they are drawn from ``generator`` on the CPU. On ``device``."""
+        if draws is None:
+            u3 = torch.rand((3, nr_points), generator=generator, dtype=torch.float32)
+            draws = (u3[0] * (2 * math.pi), u3[1] * 2.0 - 1.0, u3[2])
+        phi, costheta, u = (torch.as_tensor(t, dtype=torch.float32).to(device)
+                            for t in draws)
+        theta = torch.arccos(costheta)
+        r = self.radius * u ** (1.0 / 3.0)
+        sin_t = torch.sin(theta)
+        pts = torch.stack([r * sin_t * torch.cos(phi), r * sin_t * torch.sin(phi),
+                           r * torch.cos(theta)], dim=-1)
+        return pts + torch.tensor(self.center, dtype=torch.float32, device=pts.device)

@@ -1,10 +1,11 @@
 """Background ray sampler (counterpart of
-``permuto_sdf_tpu/ops/ray_sampler.py::compute_samples_bg``, jitter off).
+``permuto_sdf_tpu/ops/ray_sampler.py::compute_samples_bg``).
 
 NeRF++ background: ``nr_samples_bg`` samples per ray at inverse depth
-t in [1 -> 1e-3], z = t_exit / t, with the 4D parameterisation
-(direction from the sphere center, radius / distance); dt in z-space and
-the last dt = 1e10.
+t in [1 -> 1e-3] (each moved by up to half a step with the jitter ``rand
+[R, S]`` in [0, 1) when given), z = t_exit / t, with the 4D
+parameterisation (direction from the sphere center, radius / distance);
+dt in z-space and the last dt = 1e10.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
 
 
 def compute_samples_bg(origins, dirs, t_exit, nr_samples_bg: int,
-                       sphere_radius: float, sphere_center) -> RaySamples:
+                       sphere_radius: float, sphere_center, rand=None) -> RaySamples:
     R = origins.shape[0]
     S = nr_samples_bg
     dev = origins.device
@@ -24,7 +25,10 @@ def compute_samples_bg(origins, dirs, t_exit, nr_samples_bg: int,
     min_t = 1e-3
     t_between = (1.0 - min_t) / (S - 1)
     t = 1.0 - torch.arange(S, dtype=torch.float32, device=dev)[None, :] * t_between
-    t = torch.clamp(t.expand(R, S), min_t, 1.0)
+    t = t.expand(R, S)
+    if rand is not None:
+        t = t + (t_between * rand - t_between / 2.0)
+    t = torch.clamp(t, min_t, 1.0)
     z = t1 / t
     pos3d = origins[:, None, :] + z[..., None] * dirs[:, None, :]
     rel = pos3d - center

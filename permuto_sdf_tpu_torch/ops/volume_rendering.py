@@ -1,12 +1,14 @@
 """Volume-rendering math on dense masked ray batches (counterpart of
-``permuto_sdf_tpu/ops/volume_rendering.py``; the eval-render subset).
+``permuto_sdf_tpu/ops/volume_rendering.py``).
 
 The NeuS and NeRF weights together with the weighted integration of rgb
 and gradients per ray are kernel D on the card
 (``kernels/csrc/volume_rendering.cu``): :func:`neus_render` and
-:func:`nerf_render`. Their plain versions compose the functions below,
-which mirror the JAX ones one to one. Every function assumes the
-prefix-mask invariant of :class:`RaySamples`.
+:func:`nerf_render`, autograd functions whose backward is kernel D'.
+Their plain versions compose the functions below, which mirror the JAX
+ones one to one; the plain backward is PyTorch's autograd of the plain
+forward. Every function assumes the prefix-mask invariant of
+:class:`RaySamples`.
 """
 
 from __future__ import annotations
@@ -153,6 +155,14 @@ def nerf_render_plain(samples, density, rgb):
     return w, wsum, bg_T, rgb_int
 
 
+def _check_render_inputs(dev, tensors, mask):
+    for t in tensors:
+        if t is not None and (t.device != dev or t.dtype != torch.float32):
+            raise ValueError("render weights: float32 inputs on the mask's device")
+    if mask.dtype != torch.bool:
+        raise ValueError("render weights: mask must be bool")
+
+
 def render_weights_cuda(mode: int, samples: RaySamples, val, grads, rgb,
                         inv_s: float, cos_anneal_ratio: float):
     """Kernel D launch (mode 0 NeuS, 1 NeRF). Counts launches in
@@ -166,11 +176,7 @@ def render_weights_cuda(mode: int, samples: RaySamples, val, grads, rgb,
     dirs = samples.dirs.contiguous()
     if grads is not None:
         grads = grads.reshape(R, S, 3).contiguous()
-    for t in (val, rgb, dt, dirs) + ((grads,) if grads is not None else ()):
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError("render weights: float32 inputs on the mask's device")
-    if mask.dtype != torch.bool:
-        raise ValueError("render weights: mask must be bool")
+    _check_render_inputs(dev, (val, rgb, dt, dirs, grads), mask)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     wsum = torch.empty((R, 1), dtype=torch.float32, device=dev)
     bg_T = torch.empty((R,), dtype=torch.float32, device=dev)
@@ -191,6 +197,71 @@ def render_weights_cuda(mode: int, samples: RaySamples, val, grads, rgb,
 render_weights_cuda.launches = 0
 
 
+def render_weights_bwd_plain(mode: int, samples: RaySamples, val, grads, rgb,
+                             inv_s: float, cos_anneal_ratio: float, g_weights, g_wsum,
+                             g_bg_T, g_rgb, g_grad=None):
+    """Plain version of kernel D': autograd of the plain forward. Takes the
+    cotangents of (weights, weights_sum, bg_T, rgb_int[, grad_int]) and
+    returns (d val [R,S], d grads [R,S,3] or None, d rgb [R,S,3])."""
+    R, S = samples.mask.shape
+    with torch.enable_grad():
+        v = val.detach().reshape(R, S).requires_grad_(True)
+        c = rgb.detach().reshape(R, S, 3).requires_grad_(True)
+        if mode == 0:
+            gr = grads.detach().reshape(R, S, 3).requires_grad_(True)
+            outs = neus_render_plain(samples, v, gr, c, inv_s, cos_anneal_ratio)
+            cots = (g_weights, g_wsum, g_bg_T, g_rgb, g_grad)
+            inputs = (v, gr, c)
+        else:
+            outs = nerf_render_plain(samples, v, c)
+            cots = (g_weights, g_wsum, g_bg_T, g_rgb)
+            inputs = (v, c)
+        d = torch.autograd.grad(outs, inputs, [t.reshape(o.shape) for t, o in zip(cots, outs)],
+                                allow_unused=True)
+    d = [torch.zeros_like(x) if y is None else y for x, y in zip(inputs, d)]
+    if mode == 0:
+        return d[0], d[1], d[2]
+    return d[0], None, d[1]
+
+
+def render_weights_bwd_cuda(mode: int, samples: RaySamples, val, grads, rgb,
+                            inv_s: float, cos_anneal_ratio: float, g_weights, g_wsum,
+                            g_bg_T, g_rgb, g_grad=None):
+    """Kernel D' launch: same returns as :func:`render_weights_bwd_plain`.
+    Counts launches in ``render_weights_bwd_cuda.launches``."""
+    R, S = samples.mask.shape
+    dev = samples.mask.device
+    val = val.reshape(R, S).contiguous()
+    rgb = rgb.reshape(R, S, 3).contiguous()
+    dt = samples.dt.contiguous()
+    mask = samples.mask.contiguous()
+    dirs = samples.dirs.contiguous()
+    cots = [g_weights.reshape(R, S).contiguous(), g_wsum.reshape(R).contiguous(),
+            g_bg_T.reshape(R).contiguous(), g_rgb.reshape(R, 3).contiguous()]
+    if mode == 0:
+        grads = grads.reshape(R, S, 3).contiguous()
+        cots.append(g_grad.reshape(R, 3).contiguous())
+    else:
+        grads = None
+        cots.append(None)
+    _check_render_inputs(dev, (val, rgb, dt, dirs, grads, *cots), mask)
+    d_val = torch.empty((R, S), dtype=torch.float32, device=dev)
+    d_grads = torch.empty((R, S, 3), dtype=torch.float32, device=dev) if mode == 0 else None
+    d_rgb = torch.empty((R, S, 3), dtype=torch.float32, device=dev)
+    lib = kernels.load("volume_rendering")
+    err = lib.psdf_render_weights_bwd(
+        mode, R, S, kernels.ptr(val), kernels.ptr(grads), kernels.ptr(dirs), kernels.ptr(dt),
+        kernels.ptr(mask), kernels.ptr(rgb), float(inv_s), float(cos_anneal_ratio),
+        *(kernels.ptr(t) for t in cots), kernels.ptr(d_val), kernels.ptr(d_grads),
+        kernels.ptr(d_rgb), kernels.current_stream(dev))
+    kernels.check(lib, err, "render weights backward (kernel D')")
+    render_weights_bwd_cuda.launches += 1
+    return d_val, d_grads, d_rgb
+
+
+render_weights_bwd_cuda.launches = 0
+
+
 def _on_cuda(samples: RaySamples) -> bool:
     dev = samples.mask.device
     if dev.type not in ("cuda", "cpu"):
@@ -198,23 +269,59 @@ def _on_cuda(samples: RaySamples) -> bool:
     return dev.type == "cuda"
 
 
+def _weights_view(dirs, dt, mask) -> RaySamples:
+    """The fields of a sample batch that the weights read."""
+    return RaySamples(origins=dirs, dirs=dirs, z=dt, dt=dt, mask=mask,
+                      ray_fixed_dt=dt[:, 0])
+
+
+class _RenderWeightsFn(torch.autograd.Function):
+    """Kernel D (mode 0 NeuS: 5 outputs, mode 1 NeRF: 4) with a backward of
+    kernel D' (plain versions on the CPU). The samples are constants."""
+
+    @staticmethod
+    def forward(ctx, mode, val, grads, rgb, dirs, dt, mask, inv_s, cos_anneal_ratio):
+        ctx.save_for_backward(val, grads, rgb, dirs, dt, mask)
+        ctx.args = (mode, inv_s, cos_anneal_ratio)
+        smp = _weights_view(dirs, dt, mask)
+        if _on_cuda(smp):
+            out = render_weights_cuda(mode, smp, val, grads, rgb, inv_s, cos_anneal_ratio)
+        elif mode == 0:
+            out = neus_render_plain(smp, val, grads, rgb, inv_s, cos_anneal_ratio)
+        else:
+            out = nerf_render_plain(smp, val, rgb)
+        return tuple(out[:5 if mode == 0 else 4])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cots):
+        val, grads, rgb, dirs, dt, mask = ctx.saved_tensors
+        mode, inv_s, cos_anneal_ratio = ctx.args
+        smp = _weights_view(dirs, dt, mask)
+        fn = render_weights_bwd_cuda if _on_cuda(smp) else render_weights_bwd_plain
+        d_val, d_grads, d_rgb = fn(mode, smp, val, grads, rgb, inv_s, cos_anneal_ratio,
+                                   *(c.contiguous() for c in cots))
+        return (None, d_val.reshape(val.shape),
+                d_grads.reshape(grads.shape) if d_grads is not None else None,
+                d_rgb.reshape(rgb.shape), None, None, None, None, None)
+
+
 def neus_render(samples: RaySamples, sdf, sdf_gradients, rgb, inv_s: float,
                 cos_anneal_ratio: float):
     """NeuS weights + integrated rgb and gradient per ray -> (weights,
-    weights_sum, bg_T, rgb_int, grad_int). ``inv_s`` is a python float."""
-    if _on_cuda(samples):
-        return render_weights_cuda(0, samples, sdf, sdf_gradients, rgb, inv_s,
-                                   cos_anneal_ratio)
-    return neus_render_plain(samples, sdf, sdf_gradients, rgb, inv_s,
-                             cos_anneal_ratio)
+    weights_sum, bg_T, rgb_int, grad_int). ``inv_s`` is a python float.
+    Differentiable in sdf, sdf_gradients and rgb (kernel D')."""
+    _on_cuda(samples)
+    return _RenderWeightsFn.apply(0, sdf, sdf_gradients, rgb, samples.dirs, samples.dt,
+                                  samples.mask, float(inv_s), float(cos_anneal_ratio))
 
 
 def nerf_render(samples: RaySamples, density, rgb):
     """NeRF weights + integrated rgb per ray -> (weights, weights_sum, bg_T,
-    rgb_int)."""
-    if _on_cuda(samples):
-        return render_weights_cuda(1, samples, density, None, rgb, 0.0, 0.0)[:4]
-    return nerf_render_plain(samples, density, rgb)
+    rgb_int). Differentiable in density and rgb (kernel D')."""
+    _on_cuda(samples)
+    return _RenderWeightsFn.apply(1, density, None, rgb, samples.dirs, samples.dt,
+                                  samples.mask, 0.0, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -235,18 +342,22 @@ def variance_inv_s(params, forced_variance=None) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Importance sampling + merge (plain PyTorch in this slice)
+# Importance sampling + merge (plain PyTorch: hot op E, still to port)
 # ---------------------------------------------------------------------------
 
-def importance_sample(samples: RaySamples, cdf, nr_importance_samples: int) -> RaySamples:
-    """Invert the per-ray CDF at the stratified positions (i+1)/(n+1) (no
-    jitter: the eval render), snapped to within ray_fixed_dt of the nearest
+def importance_sample(samples: RaySamples, cdf, nr_importance_samples: int,
+                      jitter=None) -> RaySamples:
+    """Invert the per-ray CDF at the stratified positions (i+1)/(n+1), moved
+    by ``jitter [R, n]`` (offsets in +-1/(2(n+1)), the training draw; None
+    for the eval render), snapped to within ray_fixed_dt of the nearest
     bracketing sample."""
     R, S = samples.mask.shape
     n = nr_importance_samples
     dev = cdf.device
     strata = (torch.arange(n, dtype=torch.float32, device=dev) + 1.0) / float(n + 1)
     u = strata[None, :].expand(R, n)
+    if jitter is not None:
+        u = u + jitter
     u = torch.clamp(u, 1e-6, 1.0 - 1e-5).contiguous()
     nr = samples.nr_samples_per_ray()
     cdf_valid = torch.where(samples.mask, cdf, torch.full_like(cdf, float("inf")))

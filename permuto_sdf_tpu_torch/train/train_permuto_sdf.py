@@ -1,43 +1,53 @@
-"""PermutoSDF: configuration, parameters and the exact volumetric eval render
-(counterpart of ``permuto_sdf_tpu/train/train_permuto_sdf.py``).
+"""PermutoSDF: configuration, parameters, the training step and loop, and
+the exact volumetric eval render (counterpart of
+``permuto_sdf_tpu/train/train_permuto_sdf.py``).
 
-Slice 1 of the port serves frames: :func:`render_image` renders a view
-with the flagship model through ``run_net`` on the eval branch (no
-sample budget, no train-time LOD, no hit-ray compaction, no jitter). The
-training step, the other renderers and multi-device rendering come in
-later slices and raise ``NotImplementedError`` here.
+Slice 1 of the port serves frames (:func:`render_image`); slice 2 trains
+(:func:`sphere_init_step`, :func:`compute_loss_and_grads`,
+:func:`apply_updates`, :func:`train_step`, :func:`occupancy_update` and
+:func:`train`, with ``resume_from``). JAX draws its randomness from keys
+split inside the step; the port takes the same draws as tensors
+(:class:`TrainDraws`), made from a ``torch.Generator`` that :func:`train`
+derives from ``(seed, iteration)``, so a resumed run sees the draws of an
+uninterrupted one. Knobs and branches not ported yet raise
+``NotImplementedError`` naming what they wait for.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
-from permuto_sdf_tpu_torch.convert import params_from_jax
-from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+from permuto_sdf_tpu_torch.convert import opt_state_from_jax, params_from_jax
+from permuto_sdf_tpu_torch.datasets.tensor_reel import (
+    TensorReel, draw_ray_indices, random_rays_from_reel, rays_from_frame,
+)
 from permuto_sdf_tpu_torch.device import resolve_device
 from permuto_sdf_tpu_torch.models.fields import (
-    NerfHashConfig, RGBConfig, SDFConfig, init_nerf_hash, init_rgb, init_sdf,
-    nerf_hash_apply, rgb_apply, sdf_apply, sdf_with_gradient,
+    NerfHashConfig, RGBConfig, SDFConfig, init_colorcal, init_nerf_hash, init_rgb, init_sdf,
+    nerf_hash_apply, rgb_apply, sdf_apply, sdf_curvature_from_gradient, sdf_with_gradient,
 )
+from permuto_sdf_tpu_torch.models.mlp import lipshitz_bound_full
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 from permuto_sdf_tpu_torch.ops.importance_sampling import importance_sampling_sdf_model
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg
 from permuto_sdf_tpu_torch.train import checkpoint as ckpt
-
-_TRAINING_SLICE = "training slice"
+from permuto_sdf_tpu_torch.train.optimizers import ManualAdam, tree_leaves, tree_map
+from permuto_sdf_tpu_torch.utils.losses import sdf_loss_sphere
 
 
 @dataclasses.dataclass(frozen=True)
 class PermutoSDFTrainConfig:
     """The fields and defaults of the JAX ``PermutoSDFTrainConfig``. Knobs
-    that only steer the TPU lowering or the training step are accepted and
-    ignored by the eval render."""
+    that only steer the TPU lowering (gather and scatter forms) are
+    accepted and ignored."""
 
     s_mult: float = 1.0
     lr: float = 1e-3
@@ -100,6 +110,15 @@ class PermutoSDFTrainConfig:
     sdf_active_levels: Optional[int] = None
 
     @property
+    def iter_finish_reduce_curv(self) -> int:
+        return self.iter_start_reduce_curv + 1001
+
+    @property
+    def samples_per_ray(self) -> int:
+        return self.max_nr_samples_per_ray + (
+            2 * self.nr_samples_imp_sampling if self.do_importance_sampling else 0)
+
+    @property
     def sdf_model(self) -> SDFConfig:
         return SDFConfig(in_channels=3, geom_feat_size_out=self.sdf_geom_feat_size,
                          nr_iters_for_c2f=self.sdf_nr_iters_for_c2f,
@@ -141,73 +160,562 @@ def init_params(seed, cfg: PermutoSDFTrainConfig, nr_cams: int = 1, device=None)
         "variance": vr.init_variance(0.3, device),
     }
     if cfg.use_color_calibration:
-        params["colorcal"] = {"weight_delta": torch.zeros((nr_cams, 3), device=device),
-                              "bias": torch.zeros((nr_cams, 3), device=device)}
+        params["colorcal"] = init_colorcal(nr_cams, device)
     return params
 
 
-def _check_eval_branch(cfg: PermutoSDFTrainConfig, jitter: bool):
-    if (jitter or cfg.train_lod_top_k is not None or cfg.hit_ray_frac is not None
-            or cfg.render_sample_budget is not None):
-        raise NotImplementedError(_TRAINING_SLICE)
+# ---------------------------------------------------------------------------
+# Schedules, optimizer, weight decay
+# ---------------------------------------------------------------------------
+
+def _map_range_f32(x, in_start, in_end, out_start, out_end) -> float:
+    """map_range_val on a scalar in float32, as JAX evaluates it on a traced
+    iteration count."""
+    x = np.float32(np.clip(np.float32(x), in_start, in_end))
+    k = np.float32((out_end - out_start) / (in_end - in_start))
+    return float(np.float32(np.float32(out_start) + k * (x - np.float32(in_start))))
+
+
+def lr_schedule(cfg: PermutoSDFTrainConfig, iter_nr) -> np.float32:
+    """Flat during sphere init; then a linear warm-up over ``warmup_iters``
+    and x ``lr_decay_gamma`` at each milestone (counted after sphere init)."""
+    it = np.float32(iter_nr)
+    s = it - np.float32(cfg.nr_iter_sphere_fit)
+    warm = np.float32(np.clip(s / np.float32(cfg.warmup_iters), 0.0, 1.0))
+    n = np.float32(sum(s >= np.float32(m) for m in cfg.lr_milestones))
+    decay = np.float32(np.float32(cfg.lr_decay_gamma) ** n)
+    if it < cfg.nr_iter_sphere_fit:
+        return np.float32(cfg.lr)
+    return np.float32(np.float32(np.float32(cfg.lr) * warm) * decay)
+
+
+def make_optimizer(cfg: PermutoSDFTrainConfig) -> ManualAdam:
+    return ManualAdam(b1=0.9, b2=0.99, eps=1e-15)
+
+
+@torch.no_grad()
+def _apply_weight_decay(params, lr_now, iter_nr, cfg: PermutoSDFTrainConfig):
+    """Decoupled decay of the colorcal group (1e-1 always) and of the rgb
+    encoding's table (1.0 once curvature starts to reduce), in place."""
+    lr_now = np.float32(lr_now)
+    if "colorcal" in params:
+        factor = float(np.float32(1.0) - lr_now * np.float32(1e-1))
+        for t in params["colorcal"].values():
+            t.mul_(factor)
+    if (iter_nr - cfg.nr_iter_sphere_fit) >= cfg.iter_start_reduce_curv:
+        params["rgb"]["encoding"]["lattice_values"].mul_(float(np.float32(1.0) - lr_now))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Random draws of one step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainDraws:
+    """Every random number one training step uses (JAX draws each from its
+    own part of the step's key):
+
+    ray_indices (image ids [R], pixel ids [R]) -- ``random_rays_from_reel``;
+    fg_start [R, 1] in [0, 1) -- the occupancy sampler's first-sample jitter;
+    imp_jitter (u1, u2), each [R, n] in +-1/(2(n+1)) -- importance sampling;
+    bg_rand [R, S_bg] in [0, 1) -- the background sampler's jitter;
+    curv_dirs [Nc, 3] standard normal -- the curvature loss's directions;
+    off_points (phi, cos theta, u), each [1024] -- the offsurface points."""
+
+    ray_indices: tuple
+    fg_start: torch.Tensor
+    imp_jitter: tuple
+    bg_rand: torch.Tensor
+    curv_dirs: torch.Tensor
+    off_points: tuple
+
+    def to(self, device) -> "TrainDraws":
+        move = lambda t: tuple(x.to(device) for x in t) if isinstance(t, tuple) else t.to(device)  # noqa: E731
+        return TrainDraws(**{f.name: move(getattr(self, f.name))
+                             for f in dataclasses.fields(self)})
+
+
+NR_OFFSURFACE_POINTS = 1024
+
+
+def _compact_size(cfg: PermutoSDFTrainConfig) -> int:
+    """Samples the fields evaluate per step: R * S, capped at the budget."""
+    M = cfg.nr_rays * cfg.samples_per_ray
+    return min(M, cfg.render_sample_budget) if cfg.render_sample_budget else M
+
+
+def draw_train_step(generator: torch.Generator, cfg: PermutoSDFTrainConfig,
+                    reel: TensorReel) -> TrainDraws:
+    """One step's draws from ``generator`` (on the CPU)."""
+    R, n = cfg.nr_rays, cfg.nr_samples_imp_sampling
+    mov = 1.0 / (n + 1) / 2.0
+    nc = _compact_size(cfg)
+    cb = min(cfg.curvature_sample_budget, nc) if cfg.curvature_sample_budget else nc
+    rand = lambda *shape: torch.rand(shape, generator=generator)  # noqa: E731
+    return TrainDraws(
+        ray_indices=draw_ray_indices(reel, R, generator),
+        fg_start=rand(R, 1),
+        imp_jitter=((rand(R, n) * 2.0 - 1.0) * mov, (rand(R, n) * 2.0 - 1.0) * mov),
+        bg_rand=rand(R, cfg.nr_samples_bg),
+        curv_dirs=torch.randn((cb, 3), generator=generator),
+        off_points=(rand(NR_OFFSURFACE_POINTS) * (2 * np.pi),
+                    rand(NR_OFFSURFACE_POINTS) * 2.0 - 1.0, rand(NR_OFFSURFACE_POINTS)),
+    )
+
+
+def step_generators(seed: int, it: int):
+    """(step, grid) generators of iteration ``it``: a function of (seed,
+    it) only, so a resumed run draws what an uninterrupted one does."""
+    return tuple(torch.Generator().manual_seed(
+        int(np.random.SeedSequence([seed, it, k]).generate_state(1, np.uint64)[0] >> 1))
+        for k in (0, 1))
+
+
+# ---------------------------------------------------------------------------
+# Rendering a ray batch (run_net)
+# ---------------------------------------------------------------------------
+
+def _check_branches(cfg: PermutoSDFTrainConfig):
+    if cfg.hit_ray_frac is not None:
+        raise NotImplementedError("hit_ray_frac: hit-ray compaction (Queue 2 row H) is "
+                                  "not ported yet")
+    if cfg.train_lod_top_k is not None:
+        raise NotImplementedError("train_lod_top_k: the train-time LOD is not ported yet")
     if not cfg.use_occupancy_grid:
-        raise NotImplementedError("sampling without the occupancy grid is not ported yet")
+        raise NotImplementedError("use_occupancy_grid=False: compute_samples_fg is not "
+                                  "ported yet")
 
 
+def _check_train_cfg(cfg: PermutoSDFTrainConfig):
+    _check_branches(cfg)
+    if cfg.table_grad_alternate or cfg.table_grad_parity is not None:
+        raise NotImplementedError("table_grad_alternate: alternating-level table "
+                                  "gradients are not ported yet")
+
+
+def _pad_one(a, fill=0.0):
+    return torch.cat([a, torch.full((1,) + a.shape[1:], fill, dtype=a.dtype,
+                                    device=a.device)], 0)
+
+
+def _compact_idx(flat_mask, budget: int):
+    """First ``budget`` valid flat indices (row-major: whole rays first, then
+    a valid prefix of the next ray) and their validity; unused slots hold M.
+    Sync-free glue (cumsum positions and a scatter) standing in for the
+    compaction of Queue 2 row H."""
+    M = flat_mask.shape[0]
+    pos = torch.cumsum(flat_mask.to(torch.int64), 0) - 1
+    keep = flat_mask & (pos < budget)
+    idx = torch.full((budget + 1,), M, dtype=torch.int64, device=flat_mask.device)
+    idx.scatter_(0, torch.where(keep, pos, torch.full_like(pos, budget)),
+                 torch.arange(M, device=flat_mask.device))
+    idx = idx[:budget]
+    return idx, idx < M
+
+
+def _masked_sdf_value(params_sdf, pts_flat, flat_mask, iter_nr, sdf_cfg, budget,
+                      max_levels=None):
+    """sdf at the valid flat positions, at most ``budget`` of them; the
+    others report far from the surface (+1e3)."""
+    M = pts_flat.shape[0]
+    if budget is None or budget >= M:
+        return sdf_apply(params_sdf, pts_flat, iter_nr, sdf_cfg, max_levels=max_levels)[0]
+    idx, _ = _compact_idx(flat_mask, budget)
+    sdf_c = sdf_apply(params_sdf, _pad_one(pts_flat)[idx], iter_nr, sdf_cfg,
+                      max_levels=max_levels)[0].reshape(-1)
+    out = torch.full((M + 1,), 1e3, dtype=pts_flat.dtype, device=pts_flat.device)
+    out[idx] = sdf_c
+    return out[:M][:, None]
+
+
+@torch.no_grad()
 def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
-                       iter_nr_anneal, cfg: PermutoSDFTrainConfig):
-    """Uniform occupancy sampling + importance sampling (eval branch)."""
+                       iter_nr_anneal, cfg: PermutoSDFTrainConfig, draws=None):
+    """Occupancy sampling + importance sampling (constants for the losses,
+    as JAX's stop_gradient makes them). ``draws`` None: no jitter."""
     samples = og.compute_samples_in_occupied_regions(
         cfg.grid, grid, origins, dirs, t_entry, t_exit,
-        cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray)
+        cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray,
+        start=draws.fg_start if draws is not None else None)
     if cfg.do_importance_sampling:
-        def sdf_fn(pts, _flat_mask):
-            return sdf_apply(params["sdf"], pts, iter_nr_anneal, cfg.sdf_model,
-                             max_levels=cfg.imp_sampling_max_levels)[0]
+        def sdf_fn(pts, flat_mask):
+            return _masked_sdf_value(params["sdf"], pts, flat_mask, iter_nr_anneal,
+                                     cfg.sdf_model, cfg.render_sample_budget,
+                                     max_levels=cfg.imp_sampling_max_levels)
 
-        samples = importance_sampling_sdf_model(sdf_fn, samples, t_exit,
-                                                cfg.nr_samples_imp_sampling)
+        samples = importance_sampling_sdf_model(
+            sdf_fn, samples, t_exit, cfg.nr_samples_imp_sampling,
+            jitter=draws.imp_jitter if draws is not None else None)
     return samples
 
 
 def run_net(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
-            forced_variance, cfg: PermutoSDFTrainConfig, jitter: bool = False):
-    """Eval-branch render of a ray batch. Returns (pred_rgb [R,3],
-    pred_normals [R,3], weights_sum [R,1], extras) with ``extras`` holding
-    the fg ``samples`` and their ``weights``."""
-    _check_eval_branch(cfg, jitter)
+            forced_variance, cfg: PermutoSDFTrainConfig, draws: Optional[TrainDraws] = None,
+            img_indices=None, fg_samples=None):
+    """Render a ray batch. Returns (pred_rgb [R,3], pred_normals [R,3],
+    weights_sum [R,1], extras) with ``extras`` holding the fg ``samples``,
+    their ``weights``, ``compact`` (the per-sample pos, sdf, grads, valid
+    the losses read), ``inv_s``, ``does_intersect`` and the sample counts.
+
+    ``draws`` carries the training jitter (None: the eval render);
+    ``img_indices [R]`` switch on the colour calibration; ``fg_samples``
+    replaces the sampling stage with given samples."""
+    _check_branches(cfg)
     if grid is None:
         raise NotImplementedError("sampling without the occupancy grid is not ported yet")
-    _, t_entry, _, t_exit, _ = BOUND.ray_intersection(origins, dirs)
-    samples = _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
-                                 iter_nr_anneal, cfg)
-    return render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
-                          forced_variance, cfg)
+    _, t_entry, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
+    samples = fg_samples
+    if samples is None:
+        samples = _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
+                                     iter_nr_anneal, cfg, draws)
+    out = render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
+                         forced_variance, cfg, img_indices=img_indices,
+                         bg_rand=draws.bg_rand if draws is not None else None)
+    out[3]["does_intersect"] = does_intersect
+    return out
 
 
 def render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
-                   forced_variance, cfg: PermutoSDFTrainConfig):
+                   forced_variance, cfg: PermutoSDFTrainConfig, img_indices=None,
+                   bg_rand=None):
     """The part of :func:`run_net` after the fg samples are placed: the
     fields, the NeuS weights and the background. Same returns."""
     origins, dirs = samples.origins, samples.dirs
+    R, S = samples.mask.shape
+    M = R * S
+    budget = min(M, cfg.render_sample_budget) if cfg.render_sample_budget else M
     inv_s = vr.variance_inv_s(params["variance"], forced_variance)
-    pos = samples.flat_positions()
-    sdf, grads, geom = sdf_with_gradient(params["sdf"], pos, iter_nr_anneal,
-                                         cfg.sdf_model)
-    rgb = rgb_apply(params["rgb"], pos, samples.flat_dirs(), grads, geom,
-                    iter_nr_anneal, cfg.rgb_model)
+    nr_samples_total = samples.mask.sum()
+    nr_hit_rays = samples.mask.any(dim=1).sum()
+    idx = None
+    if budget < M:
+        # the first `budget` valid samples; the overflow leaves the batch
+        idx, valid_c = _compact_idx(samples.flat_mask(), budget)
+        kept = torch.zeros((M + 1,), dtype=torch.bool, device=idx.device)
+        kept[idx] = valid_c
+        samples = dataclasses.replace(samples, mask=kept[:M].reshape(R, S) & samples.mask)
+        pos_c = _pad_one(samples.flat_positions())[idx]
+        dirs_c = _pad_one(samples.flat_dirs())[idx]
+    else:
+        valid_c = samples.flat_mask()
+        pos_c = samples.flat_positions()
+        dirs_c = samples.flat_dirs()
+    sdf_c, grads_c, geom_c = sdf_with_gradient(params["sdf"], pos_c, iter_nr_anneal,
+                                               cfg.sdf_model)
+    cc = params.get("colorcal") if img_indices is not None else None
+    per_sample_img = None
+    if cc is not None:
+        per_sample_img = img_indices[:, None].expand(R, S).reshape(-1)
+        if idx is not None:
+            per_sample_img = _pad_one(per_sample_img, 0)[idx]
+    rgb_c = rgb_apply(params["rgb"], pos_c, dirs_c, grads_c, geom_c, iter_nr_anneal,
+                      cfg.rgb_model, colorcal_params=cc, per_sample_img_indices=per_sample_img)
+    compact = {"pos": pos_c, "sdf": sdf_c, "grads": grads_c, "valid": valid_c}
+    if idx is not None:
+        vc = valid_c[:, None].to(sdf_c.dtype)
+
+        def scatter(x):
+            return torch.zeros((M + 1, x.shape[1]), dtype=x.dtype,
+                               device=x.device).index_put((idx,), x * vc)[:M]
+
+        sdf, sdf_gradients, rgb_flat = scatter(sdf_c), scatter(grads_c), scatter(rgb_c)
+    else:
+        sdf, sdf_gradients, rgb_flat = sdf_c, grads_c, rgb_c
     weights, weights_sum, bg_T, pred_rgb, grad_int = vr.neus_render(
-        samples, sdf, grads, rgb, inv_s, cos_anneal_ratio)
+        samples, sdf, sdf_gradients, rgb_flat, inv_s, cos_anneal_ratio)
     pred_normals = grad_int / (torch.linalg.norm(grad_int, dim=-1, keepdim=True) + 1e-12)
     if not cfg.with_mask:
-        bg = compute_samples_bg(origins, dirs, t_exit, cfg.nr_samples_bg,
-                                BOUND.radius, BOUND.center)
+        with torch.no_grad():
+            bg = compute_samples_bg(origins, dirs, t_exit, cfg.nr_samples_bg,
+                                    BOUND.radius, BOUND.center, rand=bg_rand)
+        img_bg = (img_indices[:, None].expand(R, cfg.nr_samples_bg).reshape(-1)
+                  if cc is not None else None)
         rgb_bg, dens_bg = nerf_hash_apply(params["bg"], bg.pos_4d.reshape(-1, 4),
-                                          bg.flat_dirs(), iter_nr_anneal, cfg.bg_model)
+                                          bg.flat_dirs(), iter_nr_anneal, cfg.bg_model,
+                                          colorcal_params=cc, per_sample_img_indices=img_bg)
         pred_rgb_bg = vr.nerf_render(bg, dens_bg, rgb_bg)[3]
         pred_rgb = pred_rgb + bg_T[:, None] * pred_rgb_bg
-    return pred_rgb, pred_normals, weights_sum, {"samples": samples, "weights": weights}
+    extras = {"samples": samples, "weights": weights, "compact": compact, "inv_s": inv_s,
+              "nr_samples_total": nr_samples_total,
+              "nr_samples_rendered": samples.mask.sum(), "nr_hit_rays": nr_hit_rays}
+    return pred_rgb, pred_normals, weights_sum, extras
 
+
+# ---------------------------------------------------------------------------
+# The training step
+# ---------------------------------------------------------------------------
+
+def _with_grad(params):
+    """The same tensors (shared storage) as leaves that record gradients."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+
+def _grads_of(loss, p):
+    leaves = tree_leaves(p)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(grads)
+    return tree_map(lambda _: next(it), p)
+
+
+def sphere_init_step(params, opt_state, draws, iter_nr, cfg: PermutoSDFTrainConfig,
+                     optimizer):
+    """Fit the SDF to a sphere of radius ``sphere_init_radius``.
+    ``draws`` is a generator or the (phi, cos theta, u) of the points (see
+    ``Sphere.rand_points_inside``). Returns (params, opt_state, loss)."""
+    device = params["sdf"]["encoding"]["lattice_values"].device
+    gen = draws if isinstance(draws, torch.Generator) else None
+    pts = BOUND.rand_points_inside(cfg.sphere_init_points, generator=gen,
+                                   draws=None if gen is not None else draws, device=device)
+    p = _with_grad(params)
+    sdf, grads, _ = sdf_with_gradient(p["sdf"], pts, iter_nr, cfg.sdf_model)
+    loss, _, _ = sdf_loss_sphere(pts, sdf, grads, cfg.sphere_init_radius, (0.0, 0.0, 0.0))
+    g = _grads_of(loss, p)
+    params, opt_state = optimizer.update(g, opt_state, params, lr_schedule(cfg, iter_nr))
+    return params, opt_state, loss.detach()
+
+
+def compute_loss_and_grads(params, grid, reel: TensorReel, draws, iter_nr,
+                           cfg: PermutoSDFTrainConfig, fg_samples=None):
+    """Loss and the gradient of every leaf for one ray batch. ``draws`` is a
+    :class:`TrainDraws` or a generator to make one from; ``fg_samples``
+    replaces the sampling stage. Returns (loss, aux, grads) with ``grads``
+    a tree like ``params`` (None where a leaf gets no gradient)."""
+    _check_train_cfg(cfg)
+    device = params["sdf"]["encoding"]["lattice_values"].device
+    if isinstance(draws, torch.Generator):
+        draws = draw_train_step(draws, cfg, reel)
+    draws = draws.to(device)
+    it_anneal = iter_nr - cfg.nr_iter_sphere_fit
+    cos_anneal_ratio = _map_range_f32(it_anneal, 0.0, cfg.forced_variance_finish_iter, 0.0, 1.0)
+    forced_variance = _map_range_f32(it_anneal, 0.0, cfg.forced_variance_finish_iter, 0.3,
+                                     cfg.forced_variance_finish)
+    origins, dirs, gt_rgb, gt_mask, img_indices = random_rays_from_reel(
+        reel, cfg.nr_rays, indices=draws.ray_indices, apply_mask=cfg.with_mask)
+    global_weight_curvature = _map_range_f32(it_anneal, cfg.iter_start_reduce_curv,
+                                             cfg.iter_finish_reduce_curv, 1.0, 0.0)
+    eik_w = (cfg.eikonal_weight_reduced if it_anneal >= cfg.iter_start_reduce_curv
+             else cfg.eikonal_weight)
+
+    p = _with_grad(params)
+    pred_rgb, _, weights_sum, ex = run_net(
+        p, grid, origins, dirs, it_anneal, cos_anneal_ratio, forced_variance, cfg,
+        draws=draws, img_indices=img_indices, fg_samples=fg_samples)
+    loss_rgb = torch.mean(torch.abs(gt_rgb - pred_rgb) * ex["does_intersect"])
+    loss = loss_rgb
+    valid_c, grads_c = ex["compact"]["valid"], ex["compact"]["grads"]
+    nvalid = torch.clamp(valid_c.sum().to(torch.float32), min=1.0)
+    zero = torch.zeros((), device=device)
+    loss_eik = zero
+    if cfg.enable_eikonal:
+        gnorm = torch.linalg.norm(grads_c, dim=-1)
+        loss_eik = torch.sum(torch.where(valid_c, (gnorm - 1.0) ** 2, zero)) / nvalid
+        loss = loss + loss_eik * eik_w
+    loss_curv = zero
+    if cfg.enable_curvature:
+        # the prefix of the compacted batch (a random subset of the rays)
+        cb = min(draws.curv_dirs.shape[0], valid_c.shape[0])
+        pos_cv = ex["compact"]["pos"][:cb]
+        valid_cv = valid_c[:cb]
+        _, curvature = sdf_curvature_from_gradient(p["sdf"], draws.curv_dirs[:cb], pos_cv,
+                                                   grads_c[:cb], it_anneal, cfg.sdf_model)
+        nvalid_cv = torch.clamp(valid_cv.sum().to(torch.float32), min=1.0)
+        loss_curv = torch.sum(torch.where(valid_cv[:, None], curvature, zero)) / nvalid_cv
+        loss = loss + loss_curv * cfg.curvature_weight * global_weight_curvature
+    if cfg.use_occupancy_grid and cfg.enable_offsurface:
+        off_pts = BOUND.rand_points_inside(NR_OFFSURFACE_POINTS, draws=draws.off_points,
+                                           device=device)
+        sdf_rand, _ = sdf_apply(p["sdf"], off_pts, it_anneal, cfg.sdf_model)
+        loss = loss + torch.mean(torch.exp(-1e2 * torch.abs(sdf_rand))) * cfg.offsurface_weight
+    if cfg.enable_lipshitz and it_anneal >= cfg.iter_start_reduce_curv:
+        loss = loss + lipshitz_bound_full(p["rgb"]["mlp"]) * cfg.lipshitz_weight
+    if cfg.with_mask:
+        ws = torch.clamp(weights_sum, 1e-3, 1.0 - 1e-3)
+        bce = -(gt_mask * torch.log(ws) + (1 - gt_mask) * torch.log(1 - ws))
+        loss = loss + torch.mean(bce) * cfg.mask_weight
+    grads = _grads_of(loss, p)
+    aux = {"loss_rgb": loss_rgb.detach(), "loss_eikonal": loss_eik.detach(),
+           "loss_curvature": loss_curv.detach(), "inv_s": ex["inv_s"],
+           "nr_samples": ex["nr_samples_total"],
+           "nr_samples_rendered": ex["nr_samples_rendered"],
+           "nr_hit_rays": ex["nr_hit_rays"], "samples": ex["samples"]}
+    return loss.detach(), aux, grads
+
+
+def apply_updates(params, opt_state, grads, iter_nr, cfg: PermutoSDFTrainConfig, optimizer):
+    """The Adam step at the scheduled lr, then the per-group weight decay
+    (in place)."""
+    lr_now = lr_schedule(cfg, iter_nr)
+    params, opt_state = optimizer.update(grads, opt_state, params, lr_now)
+    params = _apply_weight_decay(params, lr_now, iter_nr, cfg)
+    return params, opt_state
+
+
+def train_step(params, opt_state, grid, reel: TensorReel, draws, iter_nr,
+               cfg: PermutoSDFTrainConfig, optimizer):
+    """One training iteration -> (params, opt_state, loss, aux)."""
+    loss, aux, grads = compute_loss_and_grads(params, grid, reel, draws, iter_nr, cfg)
+    params, opt_state = apply_updates(params, opt_state, grads, iter_nr, cfg, optimizer)
+    return params, opt_state, loss, aux
+
+
+def occupancy_update(params, grid, draws, iter_nr_anneal, inv_s,
+                     cfg: PermutoSDFTrainConfig):
+    """SDF-based occupancy refresh of ``grid_nr_random_samples`` voxels
+    (kernel I around a proxy SDF of ``grid_update_max_levels`` levels), in
+    place. ``draws`` is a generator or the in-voxel jitter [n, 3] in
+    [-0.5, 0.5)."""
+    device = grid.values.device
+    n = cfg.grid_nr_random_samples
+    jitter = (torch.rand((n, 3), generator=draws) - 0.5
+              if isinstance(draws, torch.Generator) else draws)
+    update_idx = int(iter_nr_anneal) // cfg.grid_update_every
+    centers, lin = og.compute_stratified_sample_of_grid_points(
+        cfg.grid, n, update_idx, jitter.to(device), device)
+    max_levels = cfg.grid_update_max_levels
+    if max_levels is None:
+        max_levels = cfg.imp_sampling_max_levels
+    with torch.no_grad():
+        sdf, _ = sdf_apply(params["sdf"], centers, iter_nr_anneal, cfg.sdf_model,
+                           max_levels=max_levels)
+    return og.update_with_sdf_random_sample(cfg.grid, grid, lin, sdf, inv_s,
+                                            cfg.grid_occupancy_thresh)
+
+
+# ---------------------------------------------------------------------------
+# The training loop
+# ---------------------------------------------------------------------------
+
+def _c2f_active_levels(it_anneal: int, cfg: PermutoSDFTrainConfig):
+    """SDF levels with a nonzero c2f window weight at this iteration, rounded
+    up to a multiple of 4; None once every level is open."""
+    if it_anneal >= cfg.sdf_nr_iters_for_c2f:
+        return None
+    t = 0.3 + 0.7 * it_anneal / max(cfg.sdf_nr_iters_for_c2f, 1)
+    act = int(np.ceil(t * cfg.nr_levels))
+    act = min(cfg.nr_levels, -(-act // 4) * 4)
+    return None if act >= cfg.nr_levels else act
+
+
+def _ray_bucket(n: int, lo: int = 128, hi: int = 4096, current: Optional[int] = None) -> int:
+    """Snap a ray count up to the {2^k, 3 * 2^(k-1)} ladder; stay on the
+    current rung while ``n`` is within +-20% of it."""
+    if current is not None and 0.8 * current <= n <= 1.2 * current:
+        return current
+    b = lo
+    while b < n and b < hi:
+        b = (b * 3 // 2) if (b & (b - 1)) == 0 else (b * 4 // 3)
+    return min(b, hi)
+
+
+def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] = None,
+          seed: int = 0, log_every: int = 1000, checkpoint_path: Optional[str] = None,
+          experiment_name: str = "permuto_sdf", save_every: int = 10000, callbacks=None,
+          dynamic_nr_rays: bool = True, resume_from: Optional[str] = None,
+          data_parallel: Optional[bool] = None, device=None):
+    """Train from scratch or from ``resume_from`` (a ``<...>/<iter>/models``
+    dir holding a train state). ``dynamic_nr_rays`` rescales the ray count
+    every 50 iterations toward the target of ``nr_rays * samples_per_ray``
+    valid samples. Single device (None means the GPU); the reel is moved
+    there. Returns (params, grid, history of (it, loss, loss_rgb))."""
+    if data_parallel:
+        raise NotImplementedError("data_parallel: data parallelism (Queue 1 item 8) is "
+                                  "not ported yet")
+    _check_train_cfg(cfg)
+    device = resolve_device(device)
+    reel = reel.to(device)
+    nr_iters = nr_iters or cfg.iter_finish_training
+    target_nr_samples = cfg.nr_rays * (cfg.max_nr_samples_per_ray
+                                       + 2 * cfg.nr_samples_imp_sampling)
+    optimizer = make_optimizer(cfg)
+    start_iter = 0
+    last_inv_s = float(np.exp(np.float32(0.3 * 10.0)))
+    if resume_from:
+        st = ckpt.load_train_state(resume_from)
+        params = params_from_jax(st["params"], device)
+        opt_state = opt_state_from_jax(st["opt_state"], device)
+        grid = None
+        if st["grid"] is not None:
+            g = params_from_jax(st["grid"], device)
+            grid = og.OccupancyGridState(values=g["values"], occupancy=g["occupancy"].bool())
+        start_iter = int(st["iter"]) + 1
+        last_inv_s = float(st["last_inv_s"])
+        if dynamic_nr_rays and int(st["nr_rays"]) != cfg.nr_rays:
+            cfg = dataclasses.replace(cfg, nr_rays=int(st["nr_rays"]))
+        print(f"resumed from {resume_from} at iter {start_iter}")
+    else:
+        params = init_params(seed, cfg, reel.nr_images, device)
+        opt_state = optimizer.init(params)
+        grid = og.make_occupancy_grid(cfg.grid, device=device)
+
+    history = []
+    loss, aux = None, {}
+    t0 = time.perf_counter()
+    for it in range(start_iter, nr_iters):
+        g_step, g_grid = step_generators(seed, it)
+        if it < cfg.nr_iter_sphere_fit:
+            params, opt_state, loss = sphere_init_step(params, opt_state, g_step, it, cfg,
+                                                       optimizer)
+            aux = {}
+        else:
+            it_anneal = it - cfg.nr_iter_sphere_fit
+            if cfg.enable_curvature and it_anneal >= cfg.iter_finish_reduce_curv:
+                cfg = dataclasses.replace(cfg, enable_curvature=False)
+            if cfg.c2f_level_skip:
+                act = _c2f_active_levels(it_anneal, cfg)
+                if act != cfg.sdf_active_levels:
+                    cfg = dataclasses.replace(cfg, sdf_active_levels=act)
+            if it % cfg.grid_update_every == 0:
+                grid = occupancy_update(params, grid, g_grid, it_anneal, last_inv_s, cfg)
+            params, opt_state, loss, aux = train_step(params, opt_state, grid, reel, g_step,
+                                                      it, cfg, optimizer)
+            last_inv_s = aux["inv_s"]
+            if dynamic_nr_rays and it % 50 == 0:
+                cur = max(float(aux["nr_samples"]), 1.0)
+                want = int(cfg.nr_rays * target_nr_samples / cur)
+                bucket = _ray_bucket(want, current=cfg.nr_rays)
+                if bucket != cfg.nr_rays:
+                    cfg = dataclasses.replace(cfg, nr_rays=bucket)
+        if it % log_every == 0 or it == nr_iters - 1:
+            lv = float(loss)
+            history.append((it, lv, float(aux["loss_rgb"]) if aux else None))
+            extra = (f"  rgb {float(aux['loss_rgb']):.4f} eik {float(aux['loss_eikonal']):.4f}"
+                     if aux else "  (sphere init)")
+            print(f"iter {it:6d}  loss {lv:.6f}{extra}  ({time.perf_counter() - t0:.1f}s)")
+            for cb in callbacks or ():
+                cb(it, loss, aux, params, grid)
+        if checkpoint_path and save_every and it > 0 and it % save_every == 0:
+            _save(checkpoint_path, experiment_name, it, params, grid, opt_state=opt_state,
+                  cfg=cfg, last_inv_s=last_inv_s)
+    if checkpoint_path:
+        _save(checkpoint_path, experiment_name, nr_iters, params, grid, opt_state=opt_state,
+              cfg=cfg, last_inv_s=last_inv_s, final_iter=nr_iters - 1)
+    return params, grid, history
+
+
+def _save(checkpoint_path, experiment_name, it, params, grid, opt_state=None, cfg=None,
+          last_inv_s=None, final_iter=None):
+    """The JAX trainer's checkpoint: one ``.npz`` per model, the grid and,
+    with ``opt_state``, the train state ``--resume`` reads."""
+    for name, key in (("sdf_model", "sdf"), ("rgb_model", "rgb"),
+                      ("nerf_hash_model_bg", "bg"), ("variance", "variance"),
+                      ("colorcal_model", "colorcal")):
+        if key in params:
+            ckpt.save_model(checkpoint_path, experiment_name, it, name, params[key])
+    if grid is not None:
+        ckpt.save_model(checkpoint_path, experiment_name, it, "occupancy_grid", grid)
+    if opt_state is not None:
+        ckpt.save_train_state(checkpoint_path, experiment_name, it, {
+            "params": params, "opt_state": opt_state, "grid": grid,
+            "iter": np.asarray(final_iter if final_iter is not None else it),
+            "last_inv_s": np.float32(last_inv_s if last_inv_s is not None else 0.0),
+            "nr_rays": np.asarray(cfg.nr_rays if cfg is not None else 0),
+        })
+
+
+# ---------------------------------------------------------------------------
+# Eval rendering
+# ---------------------------------------------------------------------------
 
 def _eval_cfg(cfg: PermutoSDFTrainConfig) -> PermutoSDFTrainConfig:
     """The eval render strips the training-batch contracts (sample budget,

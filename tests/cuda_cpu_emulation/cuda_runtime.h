@@ -2,11 +2,13 @@
 // CPU stand-in for the CUDA runtime subset that the port's kernels use
 // (permuto_sdf_tpu_torch/kernels/csrc), so `g++ -std=c++20` can compile
 // the .cu sources and run them on the CPU in tests: each block runs its
-// threads as std::threads, the warp shuffles and ballots exchange values
+// threads as std::threads, atomicAdd is a std::atomic_ref add, the warp
+// shuffles and ballots exchange values
 // through a per-warp slot array between two barriers, and PSDF_LAUNCH /
 // psdf_dynamic_smem are redefined for that. It checks the kernels' logic,
 // not their speed or the GPU's own float rounding.
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -41,6 +43,7 @@ template <class T> T emu_exchange(T v, int src) {
   T out; std::memcpy(&out, &r, sizeof(T)); return out;
 }
 template <class T> T __shfl_up_sync(unsigned, T v, int d) { int l = emu_lane(); return emu_exchange(v, l >= d ? l - d : l); }
+template <class T> T __shfl_down_sync(unsigned, T v, int d) { int l = emu_lane(); return emu_exchange(v, l + d < 32 ? l + d : l); }
 template <class T> T __shfl_sync(unsigned, T v, int src) { return emu_exchange(v, src); }
 template <class T> T __shfl_xor_sync(unsigned, T v, int m) { return emu_exchange(v, emu_lane() ^ m); }
 inline unsigned __ballot_sync(unsigned, bool p) {
@@ -51,6 +54,7 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncwarp() { emu_warp->bar->arrive_and_wait(); }
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
 template <class F> void emu_launch(int grid, int block, size_t smem, F&& body) {
   for (int b = 0; b < grid; ++b) {
     std::vector<unsigned char> sm(smem + 16);

@@ -172,10 +172,19 @@ def test_point_gradient_matches_jax_vjp(d, scaling):
 
 
 def test_table_gradient_raises():
+    """The table-gradient wrappers (kernels F and G) raise on cotangents the
+    kernels do not take, before anything launches."""
     _, spec_t, _, params_t, pts = _setup(3)
-    params_t["lattice_values"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tpe.permuto_encode(params_t, torch.from_numpy(pts), spec_t)
+    scales, E, _ = tpe.encoding_constants(spec_t, None, "cpu")
+    args = (torch.from_numpy(pts), params_t["lattice_values"], params_t["shift_per_level"],
+            scales, None, E, 4)
+    with pytest.raises(ValueError, match="cotangent"):
+        tpe.encode_table_grad_cuda(*args, torch.zeros((pts.shape[0], 5)))
+    g = torch.zeros((pts.shape[0], spec_t.output_dims))
+    with pytest.raises(ValueError, match="cotangent"):
+        tpe.encode_double_backward_cuda(*args, 1e-3, True, g, torch.zeros((pts.shape[0], 2)))
+    with pytest.raises(ValueError, match="cotangent"):
+        tpe.encode_double_backward_cuda(*args, 1e-3, True, g.double(), torch.zeros_like(g))
 
 
 def test_coarse2fine_window_matches_jax():
@@ -191,3 +200,105 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(TypeError):
         tpe.encode_fwd_cuda(torch.from_numpy(pts).double(), params_t["lattice_values"],
                             params_t["shift_per_level"], scales, None, E, 4, 1.0, True)
+
+
+def _unambiguous_points(d, n=300, seed=0, scaling=1.0, spec_j=None, **kw):
+    """_setup with the points near a simplex tie at any level left out (a
+    flip there moves a whole slot's gradient, and both choices are valid).
+    ``spec_j`` replaces the JAX spec the ties are found with."""
+    spec_j0, spec_t, params_j, params_t, pts = _setup(d, n=n, seed=seed, scaling=scaling, **kw)
+    spec_j = spec_j or spec_j0
+    ok = ~_ambiguous_mask(pts, np.asarray(params_j["shift_per_level"]), spec_j,
+                          spec_j.nr_levels).any(0)
+    return spec_j, spec_t, params_j, params_t, pts[ok]
+
+
+def _table_tol(pts, shift, spec, g_abs_sum):
+    """Per-level absolute tolerance of a table gradient sum_n bary_n g_n:
+    each weight is good to ~4 d ulp of the lattice coordinates (as in
+    _feature_tol), plus float32 sums."""
+    tol = _feature_tol(pts, shift, spec, spec.nr_levels, 1.0)[:2 * spec.nr_levels:2]
+    return tol * g_abs_sum + 1e-6
+
+
+@pytest.mark.parametrize("d,scaling,partial_window,max_levels", [
+    (3, 1e-3, True, None), (3, 1e-3, False, 3), (4, 1.0, True, None)])
+def test_table_gradient_matches_jax_grad(d, scaling, partial_window, max_levels):
+    """The table gradient of sum(w * encode) (kernel F's plain version,
+    ``index_add_`` of the gather's transpose) against jax.grad, per level;
+    levels past ``max_levels`` get zero."""
+    spec_j, spec_t, params_j, params_t, pts = _unambiguous_points(d, scaling=scaling)
+    window = jpe.coarse2fine_window(0.6 if partial_window else 1.0, 4)
+    w = np.random.default_rng(3).normal(size=(pts.shape[0], spec_j.output_dims)).astype(np.float32)
+
+    def f(table):
+        out = jpe.permuto_encode({**params_j, "lattice_values": table}, jnp.asarray(pts),
+                                 spec_j, window, max_levels=max_levels)
+        return jnp.sum(out * w)
+
+    want = np.asarray(jax.grad(f)(params_j["lattice_values"]))
+    table = params_t["lattice_values"].clone().requires_grad_(True)
+    out = tpe.permuto_encode({**params_t, "lattice_values": table}, torch.from_numpy(pts),
+                             spec_t, np.asarray(window), max_levels=max_levels)
+    (got,) = torch.autograd.grad((out * torch.from_numpy(w)).sum(), table)
+    got = got.numpy()
+    K = max_levels or 4
+    assert np.all(got[K:] == 0) and np.all(want[K:] == 0)
+    tol = _table_tol(pts, np.asarray(params_j["shift_per_level"]), spec_j,
+                     np.abs(w[:, :8]).sum())
+    for lvl in range(K):
+        assert np.abs(got[lvl] - want[lvl]).max() <= tol[lvl], lvl
+        assert (np.abs(want[lvl]).max() > 0) == (float(window[lvl]) > 0), lvl
+
+
+@pytest.mark.parametrize("concat,mlp,finest", [(False, False, 0.05), (False, False, 1e-4),
+                                               (True, True, 1e-4)])
+def test_double_backward_matches_jax_grad(concat, mlp, finest):
+    """The eikonal pattern of test_encoding.py:223 (the first case is its
+    spec): the gradient, with respect to the table and an MLP, of a loss on
+    d sdf / d points. The port builds the point gradient from the MLP's
+    feature cotangent (kernel B, ``permuto_point_grad``), whose backward is
+    kernel G; with a GELU layer the cotangent depends on the features, so
+    the gradient also runs through G's feature output and kernel F."""
+    rng = np.random.default_rng(5)
+    spec = dict(pos_dim=3, capacity=2 ** 10, nr_levels=4, finest_scale=finest,
+                concat_points=concat, concat_points_scaling=1e-3)
+    spec_j, _, params_j, params_t, pts = _unambiguous_points(
+        3, table_scale=1e3, spec_j=jpe.PermutoEncodingSpec(**spec))
+    spec_t = tpe.PermutoEncodingSpec(**spec)
+    D = spec_j.output_dims
+    W1 = rng.normal(size=(D, 16)).astype(np.float32) * 0.5
+    w2 = rng.normal(size=(16 if mlp else D, 1)).astype(np.float32) * 0.5
+    window = jpe.coarse2fine_window(0.8, 4)
+
+    def sdf_j(table, p, W1):
+        feats = jpe.permuto_encode({**params_j, "lattice_values": table}, p, spec_j, window)
+        h = jax.nn.gelu(feats @ W1) if mlp else feats
+        return jnp.sum(h @ w2)
+
+    def eik_j(table, W1):
+        g = jax.grad(sdf_j, argnums=1)(table, jnp.asarray(pts), W1)
+        return jnp.mean((jnp.linalg.norm(g, axis=-1) - 1.0) ** 2)
+
+    want_t, want_w = (np.asarray(a) for a in jax.grad(eik_j, argnums=(0, 1))(
+        params_j["lattice_values"], jnp.asarray(W1)))
+    table = params_t["lattice_values"].clone().requires_grad_(True)
+    W1_t = torch.from_numpy(W1).requires_grad_(True)
+    p_t = torch.from_numpy(pts)
+    prm = {**params_t, "lattice_values": table}
+    feats = tpe.permuto_encode(prm, p_t, spec_t, np.asarray(window))
+    h = torch.nn.functional.gelu(feats @ W1_t, approximate="tanh") if mlp else feats
+    sdf = h @ torch.from_numpy(w2)
+    (g,) = torch.autograd.grad(sdf, feats, torch.ones_like(sdf), create_graph=True)
+    grads = tpe.permuto_point_grad(prm, p_t, g, spec_t, np.asarray(window))
+    loss = torch.mean((torch.linalg.norm(grads, dim=-1) - 1.0) ** 2)
+    got_t, got_w = torch.autograd.grad(loss, [table, W1_t], allow_unused=True)
+    got_t = got_t.numpy()
+    assert np.abs(want_t).max() > 0
+    for lvl in range(4):
+        scale = np.abs(want_t[lvl]).max()
+        # the finest level's barycentric weights are good to ~1e-3 (_feature_tol)
+        np.testing.assert_allclose(got_t[lvl], want_t[lvl], atol=2e-3 * scale + 1e-9,
+                                   err_msg=f"level {lvl}")
+    if mlp:
+        np.testing.assert_allclose(got_w.numpy(), want_w, atol=2e-3 * np.abs(want_w).max())

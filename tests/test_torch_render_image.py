@@ -183,14 +183,21 @@ def test_render_image_default_device_needs_cuda(setup, monkeypatch):
 
 
 def test_unported_branches_raise(setup):
+    """The branches that wait for a later slice raise, naming what they
+    wait for."""
+    import dataclasses
+
     _, cfg_t, _, pt, _ = setup
     grid_t = tog.make_occupancy_grid(cfg_t.grid, device="cpu")
     with pytest.raises(NotImplementedError):
         tt.render_image(pt, grid_t, _K, _TF, 16, 12, 20000, cfg_t, lod=True, device="cpu")
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tt.run_net(pt, grid_t, o, d, 0, 1.0, 0.8, cfg_t)  # sample budget set: training batch
+    for knob, match in ((dict(hit_ray_frac=0.5), "row H"),
+                        (dict(train_lod_top_k=8), "train_lod_top_k"),
+                        (dict(use_occupancy_grid=False), "use_occupancy_grid")):
+        with pytest.raises(NotImplementedError, match=match):
+            tt.run_net(pt, grid_t, o, d, 0, 1.0, 0.8, dataclasses.replace(cfg_t, **knob))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -221,3 +221,83 @@ def test_combine_keeps_stable_order_on_ties():
     ct = tvr.combine_uniform_samples_with_imp(at, bt, torch.from_numpy(np.asarray(tj)))
     np.testing.assert_array_equal(ct.sdf.numpy(), np.asarray(cj.sdf))
     np.testing.assert_allclose(ct.dt.numpy(), np.asarray(cj.dt), atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", ["neus", "nerf"])
+def test_render_weights_backward_matches_jax_vjp(mode):
+    """The backward of kernel D (kernel D''s plain version: autograd of the
+    plain forward) against jax.vjp of the JAX weight functions with
+    integration, with random cotangents on every output. Tolerance 1e-4 of
+    each gradient's largest |value| (float32; the transmittance chain's
+    gradient is a sum over the ray)."""
+    R, S = 64, 40
+    sj, st, rng = _random_samples(R, S, seed=8)
+    rgb = rng.uniform(size=(R * S, 3)).astype(np.float32)
+    if mode == "neus":
+        val = rng.uniform(-0.02, 0.05, (R, S)).astype(np.float32)
+        grads = rng.normal(size=(R * S, 3)).astype(np.float32)
+        inv_s = float(np.exp(np.float32(5.0)))
+
+        def f(v, g, c):
+            w, ws, bg = jvr.neus_compute_weights(sj, v, g, inv_s, 0.6)
+            return (w, ws, bg, jvr.integrate_with_weights(c.reshape(R, S, 3), w, sj.mask),
+                    jvr.integrate_with_weights(g.reshape(R, S, 3), w, sj.mask))
+
+        args = (val, grads, rgb)
+    else:
+        val = rng.uniform(0, 30, (R, S)).astype(np.float32)
+
+        def f(v, c):
+            w, ws, bg = jvr.nerf_compute_weights(sj, v)
+            return w, ws, bg, jvr.integrate_with_weights(c.reshape(R, S, 3), w, sj.mask)
+
+        args = (val, rgb)
+    outs, vjp = jax.vjp(f, *(jnp.asarray(a) for a in args))
+    cots = [rng.normal(size=o.shape).astype(np.float32) for o in outs]
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    if mode == "neus":
+        got_outs = tvr.neus_render(st, ins[0], ins[1], ins[2], inv_s, 0.6)
+    else:
+        got_outs = tvr.nerf_render(st, ins[0], ins[1])
+    got = torch.autograd.grad(got_outs, ins, [torch.from_numpy(c) for c in cots])
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-4 * np.abs(b).max(), rtol=0)
+
+
+def test_jittered_samplers_match_jax():
+    """The occupancy sampler with a per-ray start, the background sampler
+    with its jitter and the importance stage with its two rounds' offsets,
+    all drawn by jax.random and passed to the port."""
+    cfg_j, cfg_t = jog.OccupancyGridConfig(16), tog.OccupancyGridConfig(16)
+    o, d = _rays(128, seed=9, miss_frac=0.1)
+    (oj, dj), (ot, dt_) = _both(o, d)
+    _, te_j, _, tx_j, _ = JSphere().ray_intersection(oj, dj)
+    _, te_t, _, tx_t, _ = TSphere().ray_intersection(ot, dt_)
+    key = jax.random.PRNGKey(4)
+    k_uni, k_imp, k_bg = jax.random.split(key, 3)
+    start = jax.random.uniform(k_uni, (128, 1))
+    uj = jog.compute_samples_in_occupied_regions(cfg_j, jog.make_occupancy_grid(cfg_j), oj, dj,
+                                                 te_j, tx_j, 1e-4, 24, key=k_uni, jitter=True)
+    ut = tog.compute_samples_in_occupied_regions(cfg_t, tog.make_occupancy_grid(cfg_t), ot, dt_,
+                                                 te_t, tx_t, 1e-4, 24,
+                                                 start=torch.from_numpy(np.array(start)))
+    np.testing.assert_array_equal(ut.mask.numpy(), np.asarray(uj.mask))
+    np.testing.assert_allclose(ut.z.numpy(), np.asarray(uj.z), atol=1e-5)
+    sphere_j = lambda p, _m: jnp.linalg.norm(p, axis=-1) - 0.3  # noqa: E731
+    sphere_t = lambda p, _m: torch.linalg.norm(p, dim=-1) - 0.3  # noqa: E731
+    rj = jis.importance_sampling_sdf_model(sphere_j, uj, tx_j, k_imp, 8, jitter=True, masked=True)
+    k1, k2 = jax.random.split(k_imp)
+    mov = 1.0 / 9 / 2.0
+    jit = tuple(torch.from_numpy(np.array(jax.random.uniform(k, (128, 8), minval=-mov,
+                                                             maxval=mov))) for k in (k1, k2))
+    rt = tis.importance_sampling_sdf_model(sphere_t, ut, tx_t, 8, jitter=jit)
+    np.testing.assert_array_equal(rt.mask.numpy(), np.asarray(rj.mask))
+    np.testing.assert_allclose(rt.z.numpy(), np.asarray(rj.z), atol=1e-5)
+    bj = jrs.compute_samples_bg(oj, dj, tx_j, 32, 0.5, (0.0, 0.0, 0.0), key=k_bg, jitter=True)
+    rand = torch.from_numpy(np.array(jax.random.uniform(k_bg, (128, 32))))
+    bt = trs.compute_samples_bg(ot, dt_, tx_t, 32, 0.5, (0.0, 0.0, 0.0), rand=rand)
+    np.testing.assert_allclose(bt.z.numpy(), np.asarray(bj.z), rtol=1e-6)
+    np.testing.assert_allclose(bt.pos_4d.numpy(), np.asarray(bj.pos_4d), atol=1e-6)
