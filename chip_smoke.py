@@ -31,8 +31,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 6. one full-width training step on the card and on the CPU with the same
    draws and the CPU's fg samples: the loss and every leaf's gradient
    within TOL_GRAD_CROSS;
-7. print a ``kernels`` JSON line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+7. the sphere scene (the full-width model after SPHERE_INIT_STEPS
+   ``sphere_init_step`` s, its grid refreshed over every voxel) and the
+   planted-plane scene on a full grid; kernels J0, J1, J2 and H0 against
+   their plain versions at the shapes of one 400x400 chunk of
+   ``render_image_sphere_traced_fast``;
+8. sphere-traced frames at the interactive viewer's operating point
+   (ST_KW): 400x400 on both scenes (ST_FRAMES timed frames after a warm-up)
+   and 1920x1080 on the sphere scene (ST_FRAMES_1080), with the launch
+   counts reset before the warm-up frame and read after the last, and one
+   more profiled 400x400 frame;
+9. 1024 rays of the sphere scene (a strided subsample of the whole view:
+   misses, prepass deaths, silhouettes and hits) traced and shaded on the
+   card and on the CPU: the lit masks agree on ST_CROSS_LIT_AGREE of the
+   rays, the CPU's final positions shaded on the card give its rgb and
+   normals within TOL_ST_CROSS, and on the whole path a ray lit in both
+   differs by more only where its final position differs by at most
+   ST_CROSS_MAX_POS_GAP, and on at most ST_CROSS_MAX_OFF_SHARE of the rays
+   lit in both;
+10. print ``render``, ``train``, ``sphere_traced`` and ``kernels`` JSON
+   lines, then as the last line ``{"ok": true, "device": {...}}``.
 
 It needs the CUDA toolkit (``nvcc``) and no network. It imports nothing of
 JAX and nothing of the JAX package.
@@ -99,6 +117,35 @@ OPS_PER_POINT_LEVEL_F = 120  # A's lattice math + 2 (d+1) products
 OPS_PER_POINT_LEVEL_G = 170  # B's lattice math + the transposed E and the gathers
 OPS_PER_SAMPLE_DB = 120  # D's forward again + the reverse scan and the chain rule
 OPS_PER_PROBE_I = 40  # the Weyl map, the center, the logistic density
+OPS_PER_LOOKUP = 20  # a distance-field jump: position 6, voxel index 9, floor 3, jump 2
+OPS_PER_TRACE_STEP = 12  # J2's update of one ray around its jumps
+# J0's function in linear time: the lower-envelope scans of Meijster, Roerdink
+# and Hesselink (2000), which cover the L-inf metric, take about 10 operations
+# per voxel per 1-D pass, whatever the field's values.
+OPS_PER_CHEBYSHEV_VOXEL_PASS = 10
+
+# The sphere-traced render (slice 3).
+SPHERE_INIT_STEPS = 300
+INV_S_TRAINED = 2981.0  # exp(0.8 * 10): the forced variance at the end of training
+# the interactive viewer's sphere mode (permuto_sdf_tpu/experiments/interactive.py:122-126)
+ST_KW = dict(nr_rounds=3, iters_per_round=5, nr_refine_iters=3, lod_schedule=(6, 12, 18))
+ST_FRAMES = 5  # timed 400x400 frames per scene, after one warm-up frame
+ST_FRAMES_1080 = 3  # timed 1920x1080 frames, after one warm-up frame
+ST_RUNS = (("sphere_400", "sphere", WIDTH, HEIGHT, ST_FRAMES),
+           ("plane_400", "plane", WIDTH, HEIGHT, ST_FRAMES),
+           ("sphere_1080p", "sphere", 1920, 1080, ST_FRAMES_1080))
+TOL_J = 1e-6  # J1, J2: t and positions, the same float operations (--fmad=false); masks exact
+# Card vs CPU sphere-traced pixels: one quantization step of the uint8 frame,
+# plus the finest level's ~1e-3 (the two packages' float order differs).
+TOL_ST_CROSS = 2.0 / 255
+ST_CROSS_LIT_AGREE = 0.99
+# Share of the rays lit in both that may be off by more than TOL_ST_CROSS on
+# the whole path, each only where its final position differs from the CPU's,
+# by at most ST_CROSS_MAX_POS_GAP in any coordinate (the SDF's matmuls sum in
+# another order, ~1e-7, and the random fine levels make the normal jump where
+# a position crosses a fine lattice cell's face).
+ST_CROSS_MAX_OFF_SHARE = 0.01
+ST_CROSS_MAX_POS_GAP = 1e-6
 
 
 def fail(msg: str):
@@ -520,15 +567,23 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
 
 
 def counters():
+    from permuto_sdf_tpu_torch.ops import compaction
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
     from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 
     return {"A": (pe.encode_fwd_cuda,), "B": (pe.encode_point_grad_cuda,),
             "C": (og.probe_sampler_cuda,), "D": (vr.render_weights_cuda,),
             "F": (pe.encode_table_grad_cuda,), "G": (pe.encode_double_backward_cuda,),
             "D'": (vr.render_weights_bwd_cuda,),
-            "I": (og.grid_points_cuda, og.grid_update_cuda)}
+            "I": (og.grid_points_cuda, og.grid_update_cuda),
+            "J0": (og.chebyshev_field_cuda,), "J1": (st.jump_prepass_cuda,),
+            "J2": (st.trace_step_cuda,), "H0": (compaction.nonzero_static_cuda,)}
+
+
+TRAIN_KERNELS = ("A", "B", "C", "D", "F", "G", "D'", "I")
+SPHERE_KERNELS = ("J0", "J1", "J2", "H0", "A", "B")
 
 
 def reset_counts():
@@ -581,7 +636,9 @@ def slice_phase(device, cfg, params, grids, width, height, chunk, frames=N_FRAME
 KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "C": "probe_sampler_kernel", "D": "render_weights_kernel",
                   "F": "encode_table_grad_kernel", "G": "encode_double_backward_kernel",
-                  "D'": "render_weights_bwd_kernel", "I": "grid_"}
+                  "D'": "render_weights_bwd_kernel", "I": "grid_",
+                  "J0": "chebyshev_pass_kernel", "J1": "jump_prepass_kernel",
+                  "J2": "trace_step_kernel", "H0": "compact_"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -783,7 +840,7 @@ def train_phase(device, cfg):
                                        device=device)
         counts = read_counts()
     steps_ms = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])][WARMUP_STEPS:]
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"train: the training path launched no kernel {missing}")
     after = _param_groups(params)
@@ -802,7 +859,7 @@ def train_phase(device, cfg):
         "rays_per_s_median": cfg.nr_rays / med * 1e3,
         "valid_samples_per_step_mean": samples,
         "valid_samples_per_s_median": samples / med * 1e3,
-        "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+        "launches_per_step": {k: counts[k] / TRAIN_STEPS for k in TRAIN_KERNELS},
         "sphere_init_losses": losses, "final_loss": hist[-1][1],
         "occupied_share": float(grid.occupancy.float().mean()),
     }
@@ -898,6 +955,450 @@ def train_cross_check(device, cfg, params, grid, reel):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: the interactive sphere-traced render
+# ---------------------------------------------------------------------------
+
+def camera_k(width: int, height: int):
+    """The viewer's pinhole at any frame size (focal 1.1 x height, centered),
+    and the camera of ``camera()``."""
+    import numpy as np
+
+    K = np.array([[height * 1.1, 0, width / 2], [0, height * 1.1, height / 2], [0, 0, 1]],
+                 np.float32)
+    return K, camera()[1]
+
+
+def sphere_scene(device, cfg):
+    """The full-width model after SPHERE_INIT_STEPS sphere-init steps (its
+    SDF then approximates |p| - 0.3), its grid refreshed over every voxel by
+    ``occupancy_update`` (all levels open, at the trained inv_s). Returns
+    (params, grid, summary)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.models.fields import sdf_apply
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    params = tps.init_params(SEED, cfg, device=device)
+    optimizer = tps.make_optimizer(cfg)
+    opt_state = optimizer.init(params)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    losses = []
+    for it in range(SPHERE_INIT_STEPS):
+        params, opt_state, loss = tps.sphere_init_step(
+            params, opt_state, tps.step_generators(SEED, it)[0], it, cfg, optimizer)
+        if it in (0, SPHERE_INIT_STEPS - 1):
+            losses.append(float(loss))
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    grid = og.make_occupancy_grid(cfg.grid, device=device)
+    updates = cfg.grid.nr_voxels // cfg.grid_nr_random_samples
+    t0 = time.perf_counter()
+    for k in range(updates):  # 64 consecutive updates visit every voxel once
+        tps.occupancy_update(params, grid, torch.Generator().manual_seed(SEED + k),
+                             ITER + k * cfg.grid_update_every, INV_S_TRAINED, cfg)
+    torch.cuda.synchronize(device)
+    refresh_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(SEED)
+    pts = ((torch.rand((65536, 3), generator=gen) - 0.5) * 0.9).to(device)
+    with torch.no_grad():
+        sdf = sdf_apply(params["sdf"], pts, ITER, cfg.sdf_model)[0][:, 0]
+    dev = (sdf - (pts.norm(dim=-1) - cfg.sphere_init_radius)).abs()
+    summary = {"sphere_init_steps": SPHERE_INIT_STEPS, "first_loss": losses[0],
+               "final_loss": losses[-1], "sphere_init_s": init_s,
+               "sdf_vs_sphere_mean_abs": dev.mean().item(),
+               "sdf_vs_sphere_max_abs": dev.max().item(),
+               "grid_updates": updates, "grid_refresh_s": refresh_s,
+               "occupied_fraction": grid.occupancy.float().mean().item()}
+    print(f"[sphere scene] {SPHERE_INIT_STEPS} sphere-init steps in {init_s:.1f} s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.5f}; |sdf - (|p| - 0.3)| mean "
+          f"{summary['sdf_vs_sphere_mean_abs']:.4f} max {summary['sdf_vs_sphere_max_abs']:.4f}; "
+          f"grid refreshed by {updates} updates in {refresh_s:.2f} s, occupied fraction "
+          f"{summary['occupied_fraction']:.5f}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"sphere scene: the sphere-init loss did not fall ({losses})")
+    if not 0 < summary["occupied_fraction"] < 0.2:
+        fail(f"sphere scene: the refreshed grid is not a shell ({summary['occupied_fraction']})")
+    return params, grid, summary
+
+
+def _jump_lookups(field, gcfg, o, d, t, allow, jumps):
+    """Replays a kernel's chained jumps (J1, J2): the number of field
+    lookups and the distinct voxels they read."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    lookups, voxels = 0, []
+    for _ in range(jumps):
+        lin, inb = og.point_to_lin_idx(gcfg, o + t[:, None] * d)
+        lookups += int(allow.sum())
+        voxels.append(lin[allow & inb])
+        k = torch.where(inb, field[lin].to(torch.int32), 63)
+        allow = allow & (k > 1)
+        t = torch.where(allow, t + (k - 1).to(t.dtype) * gcfg.voxel_size, t)
+    return lookups, int(torch.unique(torch.cat(voxels)).numel())
+
+
+def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
+    """Kernels J0, J1, J2 and H0 against their plain versions on the sphere
+    scene, at the shapes of one 400x400 chunk of the sphere-traced render
+    (R = 196,608 rows, the frame's rays padded as the render pads them).
+    Kernels that update the state in place are timed from a restored copy
+    of it, the restore's own time subtracted. Returns {kernel: numbers}."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    gcfg, cap = cfg.grid, st._EMPTY_DIST_CAP
+    results = {}
+
+    # --- J0: the distance field of the refreshed grid
+    got = og.chebyshev_field_cuda(gcfg, grid.occupancy, cap)
+    want = og.chebyshev_field_plain(gcfg, grid.occupancy, cap)
+    err = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+    ms = time_ms(lambda: og.chebyshev_field_cuda(gcfg, grid.occupancy, cap), reps, device)
+    pms = time_ms(lambda: og.chebyshev_field_plain(gcfg, grid.occupancy, cap), plain_reps, device)
+    # the occupancy read once and the uint8 field written once; three passes
+    # of a linear-time method
+    b = bound_ms(2 * gcfg.nr_voxels, 3 * gcfg.nr_voxels * OPS_PER_CHEBYSHEV_VOXEL_PASS)
+    hist = torch.bincount(want.to(torch.int64), minlength=cap + 1)
+    _report(f"J0 V={gcfg.nr_voxels_per_dim} cap={cap} (occupied {int(hist[0])}, "
+            f"at the cap {int(hist[cap])})", err, 0.0, ms, pms, b)
+    results["J0"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    field = got
+
+    # --- the padded state of one 400x400 chunk
+    K, tf = camera_k(WIDTH, HEIGHT)
+    o, d = rays_from_frame(K, tf, WIDTH, HEIGHT, device=device)
+    R = st.pow2_bucket(o.shape[0], lo=256, hi=1 << 21)
+    pad = R - o.shape[0]
+    o = torch.cat([o, torch.tensor([[10.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+    d = torch.cat([d, torch.tensor([[1.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+    _, te, _, tx, hit = tps.BOUND.ray_intersection(o, d)
+    state0 = {"origins_f": st._padded(o), "dirs_f": st._padded(d), "texit_f": st._padded(tx[:, 0]),
+              "t_f": st._padded(te[:, 0]), "alive_f": st._padded(hit[:, 0], False),
+              "conv_f": torch.zeros(R + 1, dtype=torch.bool, device=device),
+              "sdf_f": torch.zeros(R + 1, device=device)}
+    work = {k: v.clone() for k, v in state0.items()}
+
+    def restore():
+        for k, v in work.items():
+            v.copy_(state0[k])
+
+    def compare(name, a, b):
+        if a.dtype == torch.bool:
+            if not torch.equal(a, b):
+                fail(f"kernel {name}: {(a != b).sum().item()} flags differ from the plain version")
+            return 0.0
+        return (a - b).abs().max().item()
+
+    restore_ms = time_ms(restore, reps, device)
+
+    # --- J1: the jump prepass
+    jumps = 16
+    ks, ps = ({k: v.clone() for k, v in state0.items()} for _ in range(2))
+    args = lambda s: (field, s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"], s["alive_f"])  # noqa: E731
+    n_k = st.jump_prepass_cuda(*args(ks), gcfg, jumps)
+    n_p = st.jump_prepass_plain(*args(ps), gcfg, jumps)
+    err = max(compare("J1", ks[k], ps[k]) for k in ("t_f", "alive_f"))
+    if int(n_k) != int(n_p):
+        fail(f"kernel J1: alive count {int(n_k)} vs {int(n_p)}")
+
+    def run_j1(fn):
+        restore()
+        fn(*args(work), gcfg, jumps)
+
+    ms = time_ms(lambda: run_j1(st.jump_prepass_cuda), reps, device) - restore_ms
+    pms = time_ms(lambda: run_j1(st.jump_prepass_plain), plain_reps, device) - restore_ms
+    lookups, voxels = _jump_lookups(field, gcfg, state0["origins_f"], state0["dirs_f"],
+                                    state0["t_f"], state0["alive_f"], jumps)
+    b = bound_ms((R + 1) * (12 + 12 + 4 + 4 + 1 + 4 + 1) + voxels + 4, lookups * OPS_PER_LOOKUP)
+    _report(f"J1 R={R} jumps={jumps} (alive {int(state0['alive_f'].sum())} -> {int(n_p)}, "
+            f"{lookups} lookups of {voxels} voxels)", err, TOL_J, ms, pms, b)
+    results["J1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+
+    # --- H0: the round-0 bucket of the parked rays; below, at and above the count
+    state1 = ps  # after the prepass
+    mask = (state1["alive_f"] & ~state1["conv_f"])[:R].contiguous()
+    count = int(mask.sum())
+    bucket = st.pow2_bucket(count, lo=256, hi=R)
+    for size in (count // 2, count, bucket):
+        gi, gc = compaction.nonzero_static_cuda(mask, size, R)
+        wi, wc = compaction.nonzero_static_plain(mask, size, R)
+        if not torch.equal(gi, wi) or int(gc) != int(wc):
+            fail(f"kernel H0: size {size}: {(gi != wi).sum().item()} ids differ, count "
+                 f"{int(gc)} vs {int(wc)}")
+    ms = time_ms(lambda: compaction.nonzero_static_cuda(mask, bucket, R), reps, device)
+    pms = time_ms(lambda: compaction.nonzero_static_plain(mask, bucket, R), plain_reps, device)
+    lib_ms = time_ms(lambda: torch.nonzero(mask), reps, device)
+    b = bound_ms(R + 8 * bucket + 4, 2 * R)
+    _report(f"H0 n={R} count={count} bucket={bucket} (library torch.nonzero {lib_ms:.4f} ms)",
+            0.0, 0.0, ms, pms, b)
+    results["H0"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         library_ms=lib_ms)
+
+    # --- J2: one iteration of round 0 (LOD 6) on that bucket, 4 chained jumps
+    idx, _ = compaction.nonzero_static_plain(mask, bucket, R)
+    kw = dict(dist_field=field, grid_cfg=gcfg, sdf_multiplier=0.9, sdf_converged_tresh=2e-4,
+              jump_substeps=4, jump_gate=gcfg.voxel_size)
+    sargs = lambda s: (s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"], s["alive_f"],  # noqa: E731
+                       s["conv_f"], s["sdf_f"])
+    pos, _ = st.trace_step_plain(idx, None, *sargs(state1), **kw)
+    with torch.no_grad():
+        s_val = tps._make_sdf_eval(cfg.sdf_model, ST_KW["lod_schedule"][0])(
+            (params["sdf"], ITER), pos)
+    ks, ps = ({k: v.clone() for k, v in state1.items()} for _ in range(2))
+    out_k = st.trace_step_cuda(idx, s_val, *sargs(ks), **kw, counts=True)
+    out_p = st.trace_step_plain(idx, s_val, *sargs(ps), **kw, counts=True)
+    err = max([compare("J2", ks[k], ps[k]) for k in ("t_f", "alive_f", "conv_f", "sdf_f")]
+              + [compare("J2", out_k[0], out_p[0])])
+    if not torch.equal(out_k[1], out_p[1]):
+        fail(f"kernel J2: counts {out_k[1].tolist()} vs {out_p[1].tolist()}")
+    state0, work = state1, {k: v.clone() for k, v in state1.items()}
+    restore_ms = time_ms(restore, reps, device)
+
+    def run_j2(fn):
+        restore()
+        fn(idx, s_val, *sargs(work), **kw, counts=True)
+
+    ms = time_ms(lambda: run_j2(st.trace_step_cuda), reps, device) - restore_ms
+    pms = time_ms(lambda: run_j2(st.trace_step_plain), plain_reps, device) - restore_ms
+    real = idx < R
+    ii = idx[real]
+    alive, conv = state1["alive_f"][ii], state1["conv_f"][ii]
+    sv = s_val[real]
+    conv = conv | ((sv.abs() < 2e-4) & alive)
+    act = ~conv & alive
+    lookups, voxels = _jump_lookups(field, gcfg, state1["origins_f"][ii], state1["dirs_f"][ii],
+                                    state1["t_f"][ii] + sv * 0.9, act & (sv > gcfg.voxel_size), 4)
+    per_ray = 8 + 4 + (12 + 12 + 4 + 4 + 1 + 1 + 4) + (4 + 1 + 1 + 4) + 12
+    b = bound_ms(bucket * per_ray + voxels + 8, bucket * OPS_PER_TRACE_STEP
+                 + lookups * OPS_PER_LOOKUP)
+    _report(f"J2 R={R} bucket={bucket} substeps=4 (counts {out_p[1].tolist()}, {lookups} "
+            f"lookups of {voxels} voxels)", err, TOL_J, ms, pms, b)
+    results["J2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    return results, field
+
+
+def sphere_render_phase(device, cfg, scenes):
+    """Sphere-traced frames at the viewer's operating point: for each run
+    (scene, width, height, frames) the field's build time apart, then the
+    launch counts reset, one warm-up frame (the render builds and caches the
+    field) and the timed frames (host clock ending in a synchronize), the
+    counts read. Returns {run: summary}."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    out = {}
+    for run, scene, width, height, frames in ST_RUNS:
+        params, grid = scenes[scene]
+        K, tf = camera_k(width, height)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        og.chebyshev_empty_distance(cfg.grid, grid.occupancy, st._EMPTY_DIST_CAP)
+        torch.cuda.synchronize(device)
+        field_ms = (time.perf_counter() - t0) * 1e3
+        reset_counts()
+        times, stats = [], []
+        for f in range(frames + 1):
+            stats = []
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            img = tps.render_image_sphere_traced_fast(params, grid, K, tf, width, height, ITER,
+                                                      cfg, device=device, stats_out=stats,
+                                                      **ST_KW)
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        missing = [k for k in SPHERE_KERNELS if counts[k] <= 0]
+        if missing:
+            fail(f"sphere-traced render {run}: no launch of kernel {missing}")
+        for t in img:
+            if not torch.isfinite(t).all():
+                fail(f"sphere-traced render {run}: non-finite values")
+        warm, timed = times[0], times[1:]
+        med = statistics.median(timed)
+        stats = [(s[0], int(s[1])) if s[0] == "lit" else s for s in stats]
+        lit = sum(s[1] for s in stats if s[0] == "lit")
+        out[run] = {"width": width, "height": height, "frames": frames,
+                    "ms_per_frame_median": med, "ms_per_frame_min": min(timed),
+                    "ms_per_frame_max": max(timed), "ms_per_frame_all": timed,
+                    "warmup_frame_ms": warm, "field_build_ms": field_ms,
+                    "rays_per_s_median": width * height / med * 1e3,
+                    "launches_per_frame": {k: counts[k] / (frames + 1) for k in SPHERE_KERNELS},
+                    "stats_last_frame": stats, "lit": lit,
+                    "mean_alpha": img[2].mean().item(), "launches": counts}
+        print(f"[sphere_traced] {run} {width}x{height}, {frames} frames: median {med:.1f} "
+              f"ms/frame (min {min(timed):.1f}, max {max(timed):.1f}; all "
+              f"{[round(t, 1) for t in timed]}), warm-up {warm:.1f} ms, field build "
+              f"{field_ms:.2f} ms; lit {lit}; launches/frame "
+              f"{ {k: round(v, 2) for k, v in out[run]['launches_per_frame'].items()} }; "
+              f"rounds {stats}", flush=True)
+        if lit <= 0:
+            fail(f"sphere-traced render {run}: nothing lit")
+    return out
+
+
+def profile_sphere_frame(device, cfg, params, grid):
+    """One more 400x400 sphere-traced frame under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    K, tf = camera_k(WIDTH, HEIGHT)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tps.render_image_sphere_traced_fast(params, grid, K, tf, WIDTH, HEIGHT, ITER, cfg,
+                                            device=device, **ST_KW)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms, "sphere_frame")
+
+
+def _sphere_trace_rays(params, grid, o, d, cfg, field):
+    """The render's trace and lit gate for one chunk of rays (the body of
+    render_image_sphere_traced_fast at ST_KW) -> (final positions, lit)."""
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    ctx = (params["sdf"], ITER)
+    march, refine, refine_ctx, rounds = tps._make_trace_lod_evals(
+        cfg, ctx, None, ST_KW["lod_schedule"])
+    pos, _, conv, alive = st.sphere_trace_adaptive(
+        march, ctx, o, d, tps.BOUND, ST_KW["nr_rounds"], ST_KW["iters_per_round"],
+        grid_cfg=cfg.grid, grid=grid, refine_sdf_eval=refine, refine_ctx=refine_ctx,
+        nr_refine_iters=ST_KW["nr_refine_iters"], dist_field=field, round_sdf_evals=rounds,
+        final_refresh=False, jump_substeps=4, prepass_jumps=16)
+    return pos, tps._lit_and_state(pos, conv, alive, grid, cfg.grid, cfg)
+
+
+def _strided_camera(width, height, side):
+    """The camera of a side x side frame whose pixel centers are every
+    stride-th pixel center of the width x height frame (centered): a strided
+    subsample of the whole view, misses and silhouettes included."""
+    K, tf = camera_k(width, height)
+    K = K.copy()
+    for axis, n in ((0, width), (1, height)):
+        stride = n // side
+        off = (n - stride * (side - 1) - 1) // 2
+        K[axis, axis] /= stride
+        K[axis, 2] = 0.5 - (off + 0.5 - K[axis, 2]) / stride
+    return K, tf
+
+
+def sphere_cross_check(device, cfg, params, grid, field):
+    """CROSS_RAYS rays (a strided subsample of the whole 400x400 view) of
+    the sphere scene rendered on the card and on the CPU (plain versions;
+    the same params and grid; the CPU takes the card's distance field,
+    which equals J0's plain version exactly, rather than 63 min-pool sweeps
+    of the 256^3 grid on the host). The sample must hold rays that miss the
+    bound, rays that die in the jump prepass and lit rays. Then:
+
+    1. through ``render_image_sphere_traced_fast``: the lit masks agree on
+       ST_CROSS_LIT_AGREE of the rays;
+    2. the CPU's final positions and lit mask shaded on the card
+       (``_shade_hits_compact``) give the CPU's uint8 rgb and normals within
+       TOL_ST_CROSS on every lit ray;
+    3. on the whole path, a ray lit in both may differ by more only where
+       the card's final position differs from the CPU's, by at most
+       ST_CROSS_MAX_POS_GAP, and such rays are at most
+       ST_CROSS_MAX_OFF_SHARE of the rays lit in both."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    side = int(CROSS_RAYS ** 0.5)
+    K, tf = _strided_camera(WIDTH, HEIGHT, side)
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    params_cpu = _tree_map(cpu, params)
+    grid_cpu = og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy))
+    stats_c, stats_p = [], []
+    card = tps.render_image_sphere_traced_fast(params, grid, K, tf, side, side, ITER, cfg,
+                                               device=device, stats_out=stats_c, **ST_KW)
+    t0 = time.perf_counter()
+    ref = tps.render_image_sphere_traced_fast(params_cpu, grid_cpu, K, tf, side, side, ITER, cfg,
+                                              device="cpu", dist_field=cpu(field),
+                                              stats_out=stats_p, **ST_KW)
+    cpu_s = time.perf_counter() - t0
+    lit_c, lit_p = card[2].cpu()[..., 0].reshape(-1) > 0, ref[2][..., 0].reshape(-1) > 0
+    both = lit_c & lit_p
+    agree = (lit_c == lit_p).float().mean().item()
+    err = {k: (card[i].cpu() - ref[i]).abs().amax(dim=-1).reshape(-1)
+           for i, k in ((0, "rgb"), (1, "normals"))}
+
+    o, d = rays_from_frame(K, tf, side, side, device="cpu")
+    n = o.shape[0]
+    _, te, _, tx, meets = tps.BOUND.ray_intersection(o, d)
+    alive = st._padded(meets[:, 0], False)
+    after_prepass = int(st.jump_prepass_plain(
+        cpu(field), st._padded(o), st._padded(d), st._padded(tx[:, 0]), st._padded(te[:, 0]),
+        alive, cfg.grid, 16))
+    with torch.no_grad():
+        pos_c, _ = _sphere_trace_rays(params, grid, o.to(device), d.to(device), cfg, field)
+        pos_p, lit_pp = _sphere_trace_rays(params_cpu, grid_cpu, o, d, cfg, cpu(field))
+        same = tps._shade_hits_compact(params, pos_p.to(device), d.to(device), lit_pp.to(device),
+                                       ITER, cfg, n)
+        want = tps._shade_hits_compact(params_cpu, pos_p, d, lit_pp, ITER, cfg, n)
+    valid = want[0] < n
+    steps = max(((a.cpu().to(torch.int32) - b.to(torch.int32)).abs()[valid].max().item()
+                 if valid.any() else 0) for a, b in zip(same[1:3], want[1:3]))
+    gap = (pos_c.cpu() - pos_p).abs().amax(dim=-1)
+    off = both & ((err["rgb"] > TOL_ST_CROSS) | (err["normals"] > TOL_ST_CROSS))
+    unexcused = off & ~((gap > 0) & (gap <= ST_CROSS_MAX_POS_GAP))
+    n_meet = int(meets.sum())
+    summary = {"rays": n, "stride": WIDTH // side, "miss_the_bound": n - n_meet,
+               "die_in_prepass": n_meet - after_prepass,
+               "lit_card": int(lit_c.sum()), "lit_cpu": int(lit_p.sum()),
+               "lit_agreement": agree, "rays_lit_differently": int((lit_c != lit_p).sum()),
+               "rounds_card": [list(map(int, r[1:])) for r in stats_c if r[0] != "lit"],
+               "rounds_cpu": [list(map(int, r[1:])) for r in stats_p if r[0] != "lit"],
+               "same_positions_max_err_uint8_steps": steps,
+               "whole_path_rgb_max_err": err["rgb"][both].max().item(),
+               "whole_path_normals_max_err": err["normals"][both].max().item(),
+               "whole_path_rays_off": int(off.sum()),
+               "rays_with_other_positions": int((gap > 0).sum()),
+               "max_position_gap": gap.max().item(),
+               "off_rays_position_gaps": gap[off].tolist(),
+               "off_rays_unexcused": int(unexcused.sum()),
+               "tol": TOL_ST_CROSS, "min_lit_agreement": ST_CROSS_LIT_AGREE,
+               "max_off_share": ST_CROSS_MAX_OFF_SHARE, "max_pos_gap": ST_CROSS_MAX_POS_GAP,
+               "cpu_s": cpu_s}
+    print(json.dumps({"sphere_cross_check": summary}), flush=True)
+    if not (summary["miss_the_bound"] and summary["die_in_prepass"] and lit_p.any()
+            and not lit_p.all()):
+        fail(f"sphere cross-check: the sample lacks misses, prepass deaths or lit rays "
+             f"({summary})")
+    if not torch.equal(lit_pp, lit_p):
+        fail("sphere cross-check: the CPU's render and its trace disagree")
+    if not agree >= ST_CROSS_LIT_AGREE:
+        fail(f"sphere cross-check: lit masks agree on {agree:.4f} of the rays")
+    if not steps / 255.0 <= TOL_ST_CROSS:
+        fail(f"sphere cross-check: the CPU's positions shaded on the card differ by {steps}/255")
+    if summary["off_rays_unexcused"]:
+        fail(f"sphere cross-check: {summary['off_rays_unexcused']} rays differ by more than "
+             f"{TOL_ST_CROSS:.4f} at a final position the same as the CPU's or more than "
+             f"{ST_CROSS_MAX_POS_GAP:g} from it")
+    if not summary["whole_path_rays_off"] <= ST_CROSS_MAX_OFF_SHARE * int(both.sum()):
+        fail(f"sphere cross-check: {summary['whole_path_rays_off']} of {int(both.sum())} rays lit "
+             f"in both differ by more than {TOL_ST_CROSS:.4f}")
+    return summary
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -965,7 +1466,20 @@ def main() -> int:
     # 6. the card against the CPU on one training step
     train_cross_check(device, cfg, tparams, tgrid, reel)
 
-    # 7. summary lines
+    # 7. the sphere scene and the plane scene; J0-J2 and H0 against their plain versions
+    sphere_params, sphere_grid, scene_summary = sphere_scene(device, cfg)
+    st_results, field = sphere_kernel_phases(device, cfg, sphere_params, sphere_grid)
+    results.update(st_results)
+    scenes = {"sphere": (sphere_params, sphere_grid), "plane": (params, grids["full"])}
+
+    # 8. sphere-traced frames at the viewer's operating point, one profiled
+    st_runs = sphere_render_phase(device, cfg, scenes)
+    st_profile = profile_sphere_frame(device, cfg, sphere_params, sphere_grid)
+
+    # 9. the card against the CPU on 1024 sphere-traced rays
+    st_cross = sphere_cross_check(device, cfg, sphere_params, sphere_grid, field)
+
+    # 10. summary lines
     meta = {
         "A": ("permuto_encode_fwd", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
               "permuto_sdf_tpu/ops/permuto_encoding.py:504"),
@@ -985,16 +1499,25 @@ def main() -> int:
                "permuto_sdf_tpu/ops/volume_rendering.py:151"),
         "I": ("occupancy_grid_refresh", "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
               "permuto_sdf_tpu/ops/occupancy_grid.py:179"),
+        "J0": ("chebyshev_empty_distance", "permuto_sdf_tpu_torch/kernels/csrc/sphere_trace.cu",
+               "permuto_sdf_tpu/ops/occupancy_grid.py:315"),
+        "J1": ("sphere_trace_jump_prepass", "permuto_sdf_tpu_torch/kernels/csrc/sphere_trace.cu",
+               "permuto_sdf_tpu/ops/sphere_trace.py:394"),
+        "J2": ("sphere_trace_step", "permuto_sdf_tpu_torch/kernels/csrc/sphere_trace.cu",
+               "permuto_sdf_tpu/ops/sphere_trace.py:337"),
+        "H0": ("nonzero_static_compaction", "permuto_sdf_tpu_torch/kernels/csrc/compaction.cu",
+               "permuto_sdf_tpu/ops/sphere_trace.py:328"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
         r = results[k]
+        launches = (sum(c[k] for c in counts.values()) + train_counts[k]
+                    + sum(v["launches"][k] for v in st_runs.values()))
         entries.append({"name": f"{k}:{name}", "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": sum(c[k] for c in counts.values()) + train_counts[k],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     render = {}
     for k, v in times.items():
         med = statistics.median(v)
@@ -1005,6 +1528,9 @@ def main() -> int:
                                             if n in "ABCD"}}
     print(json.dumps({"render": render, "card": card}), flush=True)
     print(json.dumps({"train": train_summary, "card": card}), flush=True)
+    print(json.dumps({"sphere_traced": {"operating_point": ST_KW, "scene": scene_summary,
+                                        "runs": st_runs, "cross_check": st_cross,
+                                        "profile": st_profile}, "card": card}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

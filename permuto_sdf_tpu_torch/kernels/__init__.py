@@ -28,11 +28,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
-LIBRARIES = ("permuto_encoding", "occupancy_grid", "volume_rendering")
+LIBRARIES = ("permuto_encoding", "occupancy_grid", "volume_rendering", "sphere_trace",
+             "compaction")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 # The C signature of each library's exported launch functions; each returns
 # a cudaError_t as an int.
 SIGNATURES = {
@@ -52,6 +54,15 @@ SIGNATURES = {
     "volume_rendering": {
         "psdf_render_weights": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 6,
         "psdf_render_weights_bwd": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 9,
+    },
+    "sphere_trace": {
+        "psdf_chebyshev_field": [_I, _I] + [_P] * 4,
+        "psdf_jump_prepass": [_I, _I, _P, _I] + [_F] * 5 + [_I] + [_P] * 5 + [_I, _P, _P],
+        "psdf_trace_step": [_I, _I] + [_P] * 10 + [_I] + [_F] * 5 + [_I] + [_F] * 3
+                           + [_I] + [_P] * 3,
+    },
+    "compaction": {
+        "psdf_compact": [_I, _P, _I, _L] + [_P] * 4,
     },
 }
 
@@ -151,6 +162,17 @@ def check(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
         msg = lib.psdf_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
+
+
+def dispatch(device, cuda_fn, plain_fn):
+    """The kernel's wrapper for tensors on the card, its plain version for
+    tensors on the CPU; any other device raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return cuda_fn
+    if device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"unsupported device {device}: kernels run on cuda, plain versions on cpu")
 
 
 def current_stream(device) -> ctypes.c_void_p:

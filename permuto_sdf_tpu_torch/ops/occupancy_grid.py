@@ -1,15 +1,20 @@
-"""Occupancy grid, the sampler through occupied space and the grid
-refresh (counterpart of ``permuto_sdf_tpu/ops/occupancy_grid.py``).
+"""Occupancy grid, the sampler through occupied space, the grid refresh
+and the empty-space distance field (counterpart of
+``permuto_sdf_tpu/ops/occupancy_grid.py``).
 
 The sampler ``compute_samples_in_occupied_regions`` is kernel C on the card
 (``kernels/csrc/occupancy_grid.cu``); ``compute_stratified_sample_of_grid_points``
 and ``update_with_sdf_random_sample`` are the two entry points of kernel
-I. Their plain PyTorch versions below are the CPU path and the kernels'
+I; ``chebyshev_empty_distance`` is kernel J0 (``kernels/csrc/sphere_trace.cu``).
+Their plain PyTorch versions below are the CPU path and the kernels'
 reference. Kernel C and its plain version keep the occupied-probe counts
 as integers and form the cumulative occupied length as ``count * seg_len``
 with one rounding (the JAX op takes an f32 cumsum of ``occ * seg_len``
 instead, which can move a sample that lands exactly on a probe boundary
-across an unoccupied gap). The grid refresh updates the state in place.
+across an unoccupied gap). The grid refresh updates the state in place and
+bumps the occupancy tensor's version counter on both paths (the kernel's
+ctypes launch does it by hand), so a cache keyed by that counter sees the
+change.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from permuto_sdf_tpu_torch import kernels
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
@@ -175,12 +181,7 @@ def compute_samples_in_occupied_regions(
     [R, 1]`` is the training jitter of the first sample in [0, 1) (JAX's
     ``uniform(key, (R, 1))``); None (the eval render) places it at 0.5.
     Rays with <= 2 samples are zeroed."""
-    if origins.is_cuda:
-        fn = probe_sampler_cuda
-    elif origins.device.type == "cpu":
-        fn = probe_sampler_plain
-    else:
-        raise ValueError(f"probe sampler: unsupported device {origins.device}")
+    fn = kernels.dispatch(origins.device, probe_sampler_cuda, probe_sampler_plain)
     z, dt, mask, fixed = fn(cfg, grid.occupancy, origins, dirs, t_entry, t_exit,
                             min_dist_between_samples, max_nr_samples_per_ray,
                             nr_probes, start)
@@ -273,19 +274,12 @@ def grid_update_cuda(cfg: OccupancyGridConfig, grid: OccupancyGridState, lin, sd
         kernels.ptr(grid.occupancy), kernels.current_stream(dev))
     kernels.check(lib, err, "occupancy grid update (kernel I)")
     grid_update_cuda.launches += 1
+    for t in (grid.values, grid.occupancy):
+        torch.autograd.graph.increment_version(t)
     return grid
 
 
 grid_update_cuda.launches = 0
-
-
-def _grid_dispatch(device, cuda_fn, plain_fn):
-    device = torch.device(device)
-    if device.type == "cuda":
-        return cuda_fn
-    if device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"occupancy grid: unsupported device {device}")
 
 
 def compute_stratified_sample_of_grid_points(cfg: OccupancyGridConfig, nr_points: int,
@@ -294,7 +288,7 @@ def compute_stratified_sample_of_grid_points(cfg: OccupancyGridConfig, nr_points
     ``i`` in ``[k n, (k+1) n)`` (uint32; a bijection of the voxel ids), the
     voxel centers moved by ``jitter [n, 3]`` in [-0.5, 0.5) voxels (JAX's
     ``uniform(key, (n, 3), -0.5, 0.5)``). -> (centers [n, 3], lin [n] int32)."""
-    fn = _grid_dispatch(device, grid_points_cuda, grid_points_plain)
+    fn = kernels.dispatch(device, grid_points_cuda, grid_points_plain)
     return fn(cfg, nr_points, update_idx, jitter, device)
 
 
@@ -304,5 +298,60 @@ def update_with_sdf_random_sample(cfg: OccupancyGridConfig, grid: OccupancyGridS
     """values[lin] = sdf; occupancy[lin] = logistic density of
     clip(|sdf| - half_diagonal, 0, 1e10) at ``inv_s`` > thresh. Updates
     ``grid`` in place and returns it."""
-    fn = _grid_dispatch(grid.values.device, grid_update_cuda, grid_update_plain)
+    fn = kernels.dispatch(grid.values.device, grid_update_cuda, grid_update_plain)
     return fn(cfg, grid, lin_indices, sdf, inv_s, occupancy_thresh)
+
+
+# ---------------------------------------------------------------------------
+# Kernel J0: the Chebyshev empty-space distance field
+# ---------------------------------------------------------------------------
+
+def chebyshev_field_plain(cfg: OccupancyGridConfig, occupancy, max_dist: int):
+    """Plain version of kernel J0, the JAX op's form: ``max_dist`` sweeps of
+    d = min(d, 3x3x3 min-pool of d + 1) from 0 (occupied) / max_dist, the
+    voxels outside the grid ignored. -> [V^3] uint8."""
+    v = cfg.nr_voxels_per_dim
+    d = torch.where(occupancy.reshape(1, 1, v, v, v), 0.0, float(max_dist))
+    for _ in range(max_dist):
+        d = torch.minimum(d, 1.0 - F.max_pool3d(-d, 3, stride=1, padding=1))
+    return d.reshape(-1).to(torch.uint8)
+
+
+def chebyshev_field_cuda(cfg: OccupancyGridConfig, occupancy, max_dist: int):
+    """Kernel J0 launch (three separable passes in one call). Counts
+    launches in ``chebyshev_field_cuda.launches``."""
+    nv = cfg.nr_voxels
+    if (occupancy.dtype != torch.bool or occupancy.numel() != nv
+            or not occupancy.is_contiguous()):
+        raise ValueError("distance field: occupancy must be a contiguous bool [V^3] tensor")
+    field = torch.empty((nv,), dtype=torch.uint8, device=occupancy.device)
+    scratch = torch.empty_like(field)
+    lib = kernels.load("sphere_trace")
+    err = lib.psdf_chebyshev_field(cfg.nr_voxels_per_dim, int(max_dist), kernels.ptr(occupancy),
+                                   kernels.ptr(scratch), kernels.ptr(field),
+                                   kernels.current_stream(occupancy.device))
+    kernels.check(lib, err, "Chebyshev distance field (kernel J0)")
+    chebyshev_field_cuda.launches += 1
+    return field
+
+
+chebyshev_field_cuda.launches = 0
+
+
+def chebyshev_empty_distance(cfg: OccupancyGridConfig, occupancy: torch.Tensor,
+                             max_dist: int = 15) -> torch.Tensor:
+    """[V^3] uint8: the L-inf voxel distance to the nearest occupied voxel,
+    capped at ``max_dist`` (0 = occupied; at most 255). A point in a voxel
+    at distance k can advance (k - 1) voxels along any ray without entering
+    occupied space. The JAX op returns the same values as int32."""
+    if not 0 <= max_dist <= 255:
+        raise ValueError("distance field: max_dist must fit in a byte")
+    fn = kernels.dispatch(occupancy.device, chebyshev_field_cuda, chebyshev_field_plain)
+    return fn(cfg, occupancy, max_dist)
+
+
+def empty_distance_at(cfg: OccupancyGridConfig, dist_field: torch.Tensor,
+                      points: torch.Tensor, max_dist: int = 15) -> torch.Tensor:
+    """[N] int32 voxel distances at world points (out-of-grid -> max_dist)."""
+    lin, in_bounds = point_to_lin_idx(cfg, points)
+    return torch.where(in_bounds, dist_field[lin].to(torch.int32), max_dist)

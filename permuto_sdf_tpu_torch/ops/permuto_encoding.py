@@ -463,14 +463,6 @@ def _check_cotangent(g, N, min_cols, device, exact=False):
         raise ValueError(f"permuto encode: bad feature cotangent {tuple(g.shape)}")
 
 
-def _dispatch(points, cuda_fn, plain_fn):
-    if points.is_cuda:
-        return cuda_fn
-    if points.device.type == "cpu":
-        return plain_fn
-    raise ValueError(f"permuto encode: unsupported device {points.device}")
-
-
 class _PermutoEncodeFn(torch.autograd.Function):
     """Encode (kernel A) with a backward of kernel F for the table and
     kernel B for the points (plain versions on the CPU). The backward is
@@ -482,7 +474,7 @@ class _PermutoEncodeFn(torch.autograd.Function):
                 concat):
         ctx.save_for_backward(points, table, shift, scales, window, E)
         ctx.args = (K, concat_scaling, concat)
-        fn = _dispatch(points, encode_fwd_cuda, encode_fwd_plain)
+        fn = kernels.dispatch(points.device, encode_fwd_cuda, encode_fwd_plain)
         return fn(points, table, shift, scales, window, E, K, concat_scaling, concat)
 
     @staticmethod
@@ -493,11 +485,11 @@ class _PermutoEncodeFn(torch.autograd.Function):
         g = g.contiguous()
         d_points = d_table = None
         if ctx.needs_input_grad[0]:
-            fn = _dispatch(points, encode_point_grad_cuda, encode_point_grad_plain)
+            fn = kernels.dispatch(points.device, encode_point_grad_cuda, encode_point_grad_plain)
             d_points = fn(points, table, shift, scales, window, E, K, concat_scaling,
                           concat, g)
         if ctx.needs_input_grad[1]:
-            fn = _dispatch(points, encode_table_grad_cuda, encode_table_grad_plain)
+            fn = kernels.dispatch(points.device, encode_table_grad_cuda, encode_table_grad_plain)
             d_table = fn(points, table, shift, scales, window, E, K, g)
         return d_points, d_table, None, None, None, None, None, None, None
 
@@ -513,7 +505,7 @@ class _PointGradFn(torch.autograd.Function):
                 concat):
         ctx.save_for_backward(points, table, g, shift, scales, window, E)
         ctx.args = (K, concat_scaling, concat)
-        fn = _dispatch(points, encode_point_grad_cuda, encode_point_grad_plain)
+        fn = kernels.dispatch(points.device, encode_point_grad_cuda, encode_point_grad_plain)
         return fn(points, table, shift, scales, window, E, K, concat_scaling, concat, g)
 
     @staticmethod
@@ -523,7 +515,8 @@ class _PointGradFn(torch.autograd.Function):
         K, concat_scaling, concat = ctx.args
         if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
             return (None,) * 10
-        fn = _dispatch(points, encode_double_backward_cuda, encode_double_backward_plain)
+        fn = kernels.dispatch(points.device, encode_double_backward_cuda,
+                              encode_double_backward_plain)
         d_table, d_g = fn(points, table, shift, scales, window, E, K, concat_scaling,
                           concat, g, u.contiguous())
         return (None, d_table if ctx.needs_input_grad[1] else None,

@@ -1,5 +1,6 @@
-"""Bounding sphere with ray intersection and uniform sampling inside it
-(counterpart of ``permuto_sdf_tpu/ops/ray_primitives.py::Sphere``)."""
+"""Bounding sphere with ray intersection, the inside test and uniform
+sampling inside it (counterpart of
+``permuto_sdf_tpu/ops/ray_primitives.py::Sphere``)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ class Sphere:
         p0 = ray_origins + t0 * ray_dirs
         p1 = ray_origins + t1 * ray_dirs
         return p0, t0, p1, t1, hit
+
+    def check_point_inside_primitive(self, points: torch.Tensor) -> torch.Tensor:
+        """[N, 3] -> [N, 1] bool: strictly inside the sphere."""
+        center = torch.tensor(self.center, dtype=points.dtype, device=points.device)
+        d2 = torch.sum((points - center) ** 2, dim=-1, keepdim=True)
+        return d2 < self.radius ** 2
 
     def rand_points_inside(self, nr_points: int, generator=None, draws=None,
                            device=None) -> torch.Tensor:

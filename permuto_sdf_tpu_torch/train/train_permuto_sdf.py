@@ -5,7 +5,8 @@ the exact volumetric eval render (counterpart of
 Slice 1 of the port serves frames (:func:`render_image`); slice 2 trains
 (:func:`sphere_init_step`, :func:`compute_loss_and_grads`,
 :func:`apply_updates`, :func:`train_step`, :func:`occupancy_update` and
-:func:`train`, with ``resume_from``). JAX draws its randomness from keys
+:func:`train`, with ``resume_from``); slice 3 serves the interactive
+sphere-traced frame (:func:`render_image_sphere_traced_fast`). JAX draws its randomness from keys
 split inside the step; the port takes the same draws as tensors
 (:class:`TrainDraws`), made from a ``torch.Generator`` that :func:`train`
 derives from ``(seed, iteration)``, so a resumed run sees the draws of an
@@ -16,6 +17,7 @@ uninterrupted one. Knobs and branches not ported yet raise
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Optional
@@ -35,9 +37,13 @@ from permuto_sdf_tpu_torch.models.fields import (
 from permuto_sdf_tpu_torch.models.mlp import lipshitz_bound_full
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+from permuto_sdf_tpu_torch.ops.compaction import nonzero_static
 from permuto_sdf_tpu_torch.ops.importance_sampling import importance_sampling_sdf_model
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg
+from permuto_sdf_tpu_torch.ops.sphere_trace import (
+    _grid_distance_field, pow2_bucket, sphere_trace_adaptive,
+)
 from permuto_sdf_tpu_torch.train import checkpoint as ckpt
 from permuto_sdf_tpu_torch.train.optimizers import ManualAdam, tree_leaves, tree_map
 from permuto_sdf_tpu_torch.utils.losses import sdf_loss_sphere
@@ -301,16 +307,10 @@ def _pad_one(a, fill=0.0):
 
 def _compact_idx(flat_mask, budget: int):
     """First ``budget`` valid flat indices (row-major: whole rays first, then
-    a valid prefix of the next ray) and their validity; unused slots hold M.
-    Sync-free glue (cumsum positions and a scatter) standing in for the
-    compaction of Queue 2 row H."""
+    a valid prefix of the next ray) and their validity; unused slots hold M
+    (kernel H0 on the card)."""
     M = flat_mask.shape[0]
-    pos = torch.cumsum(flat_mask.to(torch.int64), 0) - 1
-    keep = flat_mask & (pos < budget)
-    idx = torch.full((budget + 1,), M, dtype=torch.int64, device=flat_mask.device)
-    idx.scatter_(0, torch.where(keep, pos, torch.full_like(pos, budget)),
-                 torch.arange(M, device=flat_mask.device))
-    idx = idx[:budget]
+    idx, _ = nonzero_static(flat_mask, budget, fill_value=M)
     return idx, idx < M
 
 
@@ -759,6 +759,180 @@ def render_image(params, grid, K, tf_world_cam, width, height, iter_nr_anneal,
                              iter_nr_anneal, 1.0, forced_variance, cfg)
             for s in range(0, n + pad, chunk)]
     rgb, nrm, alpha = (torch.cat(parts, 0)[:n] for parts in zip(*outs))
+    return (rgb.reshape(height, width, 3), nrm.reshape(height, width, 3),
+            alpha.reshape(height, width, 1))
+
+
+# ---------------------------------------------------------------------------
+# Sphere-traced rendering (the interactive viewer's frame)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _make_sdf_eval(sdf_cfg: SDFConfig, max_levels):
+    """The tracer's sdf evaluation on the ``max_levels`` coarsest levels
+    (None: all), ctx = (params_sdf, iteration)."""
+
+    def eval_fn(ctx, pts):
+        params_sdf, it = ctx
+        return sdf_apply(params_sdf, pts, it, sdf_cfg, max_levels=max_levels)[0].reshape(-1)
+
+    return eval_fn
+
+
+def _make_trace_lod_evals(cfg, ctx, lod_levels, lod_schedule):
+    """The tracer's march, refine and per-round SDF evaluations for a LOD
+    setting -> (march_eval, refine_eval, refine_ctx, round_evals)."""
+    full_eval = _make_sdf_eval(cfg.sdf_model, None)
+    round_evals = ()
+    if lod_schedule is not None:
+        # explicit per-round LOD ramp (the last entry repeats); full-res refine
+        march_eval = _make_sdf_eval(cfg.sdf_model, lod_schedule[-1])
+        refine_eval, refine_ctx = full_eval, ctx
+        round_evals = tuple(_make_sdf_eval(cfg.sdf_model, lv) for lv in lod_schedule)
+    elif lod_levels is not None and lod_levels < cfg.nr_levels:
+        march_eval = _make_sdf_eval(cfg.sdf_model, lod_levels)
+        refine_eval, refine_ctx = full_eval, ctx
+        # round 0 processes every bound-hitting ray: an even coarser LOD
+        round_evals = (_make_sdf_eval(cfg.sdf_model, max(4, lod_levels // 2)),)
+    else:
+        march_eval, refine_eval, refine_ctx = full_eval, None, None
+    return march_eval, refine_eval, refine_ctx, round_evals
+
+
+def _lit_and_state(pos, converged, alive, grid, grid_cfg, cfg, bucket=None):
+    """The shading gate: every alive ray whose final position is inside the
+    bound and, with a grid, in occupied space; convergence is not
+    required."""
+    in_bounds = BOUND.check_point_inside_primitive(pos)[:, 0]
+    if grid_cfg is not None:
+        in_bounds = in_bounds & og.check_occupancy(grid_cfg, grid, pos)
+    return alive & in_bounds
+
+
+_DIST_FIELD_CACHE: dict = {}
+
+
+def _cached_dist_field(grid_cfg, grid):
+    """One Chebyshev distance field per grid state, so repeated frames of one
+    scene skip its build (kernel J0). The cache holds the occupancy tensor
+    it was built from and that tensor's version counter, which every
+    in-place write bumps (the grid refresh bumps it on the card too, where
+    its ctypes launch would not): a refreshed grid gets a new field."""
+    occ = grid.occupancy
+    if (_DIST_FIELD_CACHE.get("occ") is not occ or _DIST_FIELD_CACHE.get("cfg") != grid_cfg
+            or _DIST_FIELD_CACHE.get("version") != occ._version):
+        _DIST_FIELD_CACHE.update(occ=occ, cfg=grid_cfg, version=occ._version,
+                                 field=_grid_distance_field(grid_cfg, grid))
+    return _DIST_FIELD_CACHE["field"]
+
+
+def _quantize(x):
+    """[0, 1] -> uint8, as the JAX render packs its frame (x * 255 + 0.5,
+    clipped, truncated)."""
+    return torch.clamp(x * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+
+def _shade_hits_compact(params, pos, dirs, lit, iter_nr_anneal, cfg: PermutoSDFTrainConfig,
+                        bucket: int, shade_sdf_levels: Optional[int] = None):
+    """Shade exactly the lit rays, listed into a host-sized bucket (kernel
+    H0): the SDF gradient (normals, geometry features) and the RGB model ->
+    (idx [bucket] (R in the unused slots), rgb uint8 [bucket, 3], normals
+    uint8 [bucket, 3] (n * 0.5 + 0.5), lit). ``shade_sdf_levels`` takes the
+    gradient on the coarsest K levels only."""
+    R = pos.shape[0]
+    idx, _ = nonzero_static(lit, bucket, fill_value=R)
+    sub_pos = _pad_one(pos)[idx]
+    sub_dirs = _pad_one(dirs)[idx]
+    sdf_cfg = cfg.sdf_model
+    if shade_sdf_levels is not None:
+        sdf_cfg = dataclasses.replace(sdf_cfg, active_levels=shade_sdf_levels)
+    _, grads_end, geom_end = sdf_with_gradient(params["sdf"], sub_pos, iter_nr_anneal, sdf_cfg)
+    sub_rgb = rgb_apply(params["rgb"], sub_pos, sub_dirs, grads_end, geom_end, iter_nr_anneal,
+                        cfg.rgb_model)
+    sub_normals = grads_end / (torch.linalg.norm(grads_end, dim=-1, keepdim=True) + 1e-12)
+    return idx, _quantize(sub_rgb), _quantize(sub_normals * 0.5 + 0.5), lit
+
+
+def _mesh_size(mesh) -> int:
+    return mesh.size() if callable(getattr(mesh, "size", None)) else len(mesh)
+
+
+@torch.no_grad()
+def render_image_sphere_traced_fast(
+        params, grid, K, tf_world_cam, width, height, iter_nr_anneal,
+        cfg: PermutoSDFTrainConfig, chunk: int = 1 << 21,
+        lod_levels: Optional[int] = 12, nr_rounds: int = 5,
+        iters_per_round: int = 3, nr_refine_iters: int = 4,
+        sdf_multiplier: float = 0.9, sdf_converged_tresh: float = 2e-4,
+        dist_field=None, mesh=None, lod_schedule: Optional[tuple] = None,
+        jump_substeps: int = 4, prepass_jumps: int = 16,
+        jump_gate_voxels: float = 1.0, shade_sdf_levels: Optional[int] = None,
+        device=None, stats_out: Optional[list] = None):
+    """The interactive viewer's frame: host-adaptive sphere tracing
+    (:func:`~permuto_sdf_tpu_torch.ops.sphere_trace.sphere_trace_adaptive`)
+    with empty-space jumps through the grid's distance field (built once per
+    grid state, or pass ``dist_field``), a LOD march on the coarsest
+    ``lod_levels`` levels (or the per-round ``lod_schedule``) with a
+    full-resolution refine, and the lit rays shaded in a bucket sized from
+    the alive count. One device (None means the GPU; params and grid must
+    live there); ``mesh`` may name one device only. ``stats_out`` collects
+    each chunk's per-round (stage, bucket, n_active, n_hit) and its
+    ``("lit", n_lit)``. Returns (rgb [H,W,3], normals [H,W,3], alpha
+    [H,W,1]) on ``device``, rgb and normals quantized to 1/255 as the JAX
+    render returns them."""
+    if mesh is not None and _mesh_size(mesh) > 1:
+        raise NotImplementedError("sphere-traced rendering over several devices (ROADMAP "
+                                  "Queue 1 item 8) is not ported yet")
+    device = resolve_device(device)
+    table = params["sdf"]["encoding"]["lattice_values"]
+    if table.device.type != device.type or (grid is not None
+                                           and grid.occupancy.device.type != device.type):
+        raise ValueError(f"render_image_sphere_traced_fast: params and grid must be on {device}")
+    origins, dirs = rays_from_frame(K, tf_world_cam, width, height, device=device)
+    n = origins.shape[0]
+    # clamp the chunk to the frame's ray count (bucket-ladder granularity)
+    chunk = min(chunk, pow2_bucket(n, lo=256, hi=chunk))
+    pad = (-n) % chunk
+    # pad rays start outside the bound pointing away: the boundary
+    # intersection kills them before any SDF evaluation
+    origins = torch.cat([origins, torch.tensor([[10.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+    dirs = torch.cat([dirs, torch.tensor([[1.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+
+    ctx = (params["sdf"], iter_nr_anneal)
+    march_eval, refine_eval, refine_ctx, round_evals = _make_trace_lod_evals(
+        cfg, ctx, lod_levels, lod_schedule)
+    grid_cfg = cfg.grid if (cfg.use_occupancy_grid and grid is not None) else None
+    if grid_cfg is not None and dist_field is None:
+        dist_field = _cached_dist_field(grid_cfg, grid)
+    rgbs, normals, alphas = [], [], []
+    for i in range(0, n + pad, chunk):
+        o, d = origins[i:i + chunk], dirs[i:i + chunk]
+        pos, _, conv, alive, n_alive = sphere_trace_adaptive(
+            march_eval, ctx, o, d, BOUND, nr_rounds, iters_per_round, sdf_multiplier,
+            sdf_converged_tresh, grid_cfg=grid_cfg, grid=grid, refine_sdf_eval=refine_eval,
+            refine_ctx=refine_ctx, nr_refine_iters=nr_refine_iters, dist_field=dist_field,
+            return_n_hit=True, round_sdf_evals=round_evals,
+            final_refresh=False,  # the shading pass re-evaluates the hits
+            jump_substeps=jump_substeps, prepass_jumps=prepass_jumps,
+            jump_gate_voxels=jump_gate_voxels, stats_out=stats_out)
+        lit = _lit_and_state(pos, conv, alive, grid, grid_cfg, cfg)
+        # n_alive >= the lit count: it sizes the shading bucket without
+        # another host round-trip
+        bucket = pow2_bucket(max(n_alive, 1), lo=256, hi=max(256, chunk))
+        idx, rgb_u8, nrm_u8, lit = _shade_hits_compact(params, pos, d, lit, iter_nr_anneal,
+                                                       cfg, bucket, shade_sdf_levels)
+        if stats_out is not None:
+            stats_out.append(("lit", lit.sum()))
+        R = o.shape[0]
+        w = lit.to(torch.float32)[:, None]
+        rgb = torch.zeros((R + 1, 3), device=device)
+        nrm = torch.zeros((R + 1, 3), device=device)
+        rgb[idx] = rgb_u8.to(torch.float32) / 255.0  # unused slots land on the pad row
+        nrm[idx] = nrm_u8.to(torch.float32) / 255.0 * 2.0 - 1.0
+        rgbs.append(rgb[:R] * w)
+        normals.append(nrm[:R] * w)
+        alphas.append(w)
+    rgb, nrm, alpha = (torch.cat(parts, 0)[:n] for parts in (rgbs, normals, alphas))
     return (rgb.reshape(height, width, 3), nrm.reshape(height, width, 3),
             alpha.reshape(height, width, 1))
 

@@ -4,7 +4,8 @@
 // the .cu sources and run them on the CPU in tests: each block runs its
 // threads as std::threads, atomicAdd is a std::atomic_ref add, the warp
 // shuffles and ballots exchange values
-// through a per-warp slot array between two barriers, and PSDF_LAUNCH /
+// through a per-warp slot array between two barriers, __syncthreads is a
+// barrier of the block's threads, and PSDF_LAUNCH /
 // psdf_dynamic_smem are redefined for that. It checks the kernels' logic,
 // not their speed or the GPU's own float rounding.
 #include <algorithm>
@@ -35,6 +36,7 @@ inline thread_local emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local unsigned char* emu_smem;
 struct EmuWarp { std::unique_ptr<std::barrier<>> bar; uint64_t slot[32]; };
 inline thread_local EmuWarp* emu_warp;
+inline thread_local std::barrier<>* emu_block_bar;
 inline int emu_lane() { return threadIdx.x & 31; }
 template <class T> T emu_exchange(T v, int src) {
   uint64_t bits = 0; std::memcpy(&bits, &v, sizeof(T));
@@ -53,6 +55,7 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncwarp() { emu_warp->bar->arrive_and_wait(); }
+inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
 template <class F> void emu_launch(int grid, int block, size_t smem, F&& body) {
@@ -61,11 +64,15 @@ template <class F> void emu_launch(int grid, int block, size_t smem, F&& body) {
     int nw = (block + 31) / 32;
     std::vector<EmuWarp> warps(nw);
     for (auto& w : warps) w.bar = std::make_unique<std::barrier<>>(32);
+    std::barrier<> block_bar(block);
     std::vector<std::thread> ts;
     for (int t = 0; t < block; ++t)
       ts.emplace_back([&, t] {
         threadIdx.x = t; blockIdx.x = b; blockDim.x = block; gridDim.x = grid;
-        emu_smem = sm.data(); emu_warp = &warps[t / 32]; body();
+        emu_smem = sm.data(); emu_warp = &warps[t / 32]; emu_block_bar = &block_bar;
+        body();
+        // a thread that returns early leaves the block's later barriers
+        block_bar.arrive_and_drop();
       });
     for (auto& th : ts) th.join();
   }

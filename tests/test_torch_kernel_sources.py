@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels A-D, F, G, D' and I, compiled for the CPU with g++ against a
+"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2 and H0, compiled for the CPU with g++ against a
 small CUDA stand-in (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run
 through the port's own kernel wrappers, against the plain PyTorch versions.
 
@@ -21,8 +21,10 @@ import pytest
 import torch
 
 from permuto_sdf_tpu_torch import kernels
+from permuto_sdf_tpu_torch.ops import compaction
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+from permuto_sdf_tpu_torch.ops import sphere_trace as st
 from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
@@ -32,7 +34,7 @@ _EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_cpu_emulat
 
 @pytest.fixture(scope="module")
 def cpu_kernels(tmp_path_factory):
-    """Build the three kernel libraries for the CPU (in parallel)."""
+    """Build the kernel libraries for the CPU (in parallel)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available: cannot compile the kernel sources for the CPU")
@@ -235,3 +237,136 @@ def test_kernel_C_jittered_start_source_matches_plain(emulated):
     assert want[2].sum() > 50
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("V,cap,kind", [(16, 63, "sparse"), (32, 15, "sparse"), (32, 63, "shell")])
+def test_kernel_J0_source_matches_plain(emulated, V, cap, kind):
+    """Kernel J0 (three separable passes) against the plain version (the
+    JAX op's min-pool sweeps): the same integers."""
+    rng = np.random.default_rng(V + cap)
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=V)
+    occ = torch.from_numpy(rng.uniform(size=V ** 3) < 0.002) if kind == "sparse" else _shell(V)
+    launches = og.chebyshev_field_cuda.launches
+    got = og.chebyshev_field_cuda(cfg, occ, cap)
+    assert og.chebyshev_field_cuda.launches == launches + 1
+    want = og.chebyshev_field_plain(cfg, occ, cap)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert 0 == int(want.min()) < 3 < int(want.max())
+
+
+@pytest.mark.parametrize("n,p,sizes", [(5000, 0.3, (100, 1500, 1523, 6000)), (0, 0.0, (0, 256)),
+                                       (2048, 1.0, (2048,)), (777, 0.01, (256, 3))])
+def test_kernel_H0_source_matches_plain(emulated, n, p, sizes):
+    """Kernel H0 (tile counts, then the offsets and the in-block scan)
+    against the plain version: the same indices in the same order, the fill
+    value in the unused slots, and the true count; buckets below, at and
+    above the count, and a mask shorter than a tile."""
+    mask = torch.from_numpy(np.random.default_rng(n).uniform(size=n) < p)
+    count = int(mask.sum())
+    for size in sizes + (count,):
+        for fill in (None, n + 5):
+            got = compaction.nonzero_static_cuda(mask, size, fill)
+            want = compaction.nonzero_static_plain(mask, size, fill)
+            np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+            assert int(got[1]) == int(want[1]) == count
+
+
+def _shell(V):
+    """Voxels whose center is within 1.5 voxels of the sphere |p| = 0.25."""
+    c = (torch.arange(V, dtype=torch.float32) + 0.5) / V - 0.5
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    return (torch.abs(torch.sqrt(x * x + y * y + z * z) - 0.25) < 1.5 / V).reshape(-1)
+
+
+def _trace_state(V=32, n=300, seed=0):
+    """A shell grid, its distance field and padded per-ray state of rays
+    from cameras around the grid towards its center."""
+    rng = np.random.default_rng(seed)
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=V)
+    occ = _shell(V)
+    field = og.chebyshev_field_plain(cfg, occ, 63)
+    o = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    o = o / o.norm(dim=-1, keepdim=True) * 1.2
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.uniform(-0.35, 0.35, (n, 3)).astype(np.float32)) - o, dim=-1)
+    _, te, _, tx, hit = Sphere().ray_intersection(o, d)
+    pad = lambda t, fill=0.0: torch.cat([t, torch.full((1,) + t.shape[1:], fill, dtype=t.dtype)])  # noqa: E731
+    state = dict(origins_f=pad(o), dirs_f=pad(d), texit_f=pad(tx[:, 0]), t_f=pad(te[:, 0]),
+                 alive_f=pad(hit[:, 0], False))
+    return cfg, occ, field, state
+
+
+def test_kernels_J1_J2_source_match_plain(emulated):
+    """Kernel J1 (the jump prepass) and kernel J2 (one trace iteration:
+    positions only, then with SDF values, with and without the field and the
+    gate, with the counts) against their plain versions on cloned state:
+    identical float operations, so t, the flags, the sdf, the positions and
+    the counts are equal."""
+    cfg, _, field, s0 = _trace_state()
+    R = s0["t_f"].shape[0] - 1
+    ks = {k: v.clone() for k, v in s0.items()}
+    ps = {k: v.clone() for k, v in s0.items()}
+    args = lambda s: (field, s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"], s["alive_f"])  # noqa: E731
+    n_k = st.jump_prepass_cuda(*args(ks), cfg, 16)
+    n_p = st.jump_prepass_plain(*args(ps), cfg, 16)
+    for k in ks:
+        np.testing.assert_array_equal(ks[k].numpy(), ps[k].numpy())
+    assert int(n_k) == int(n_p) and 0 < int(n_p) < int(s0["alive_f"].sum())
+    assert not torch.equal(ks["t_f"], s0["t_f"])
+
+    rng = np.random.default_rng(1)
+    for s in (ks, ps):
+        s["conv_f"] = torch.zeros(R + 1, dtype=torch.bool)
+        s["sdf_f"] = torch.zeros(R + 1)
+    idx, _ = compaction.nonzero_static_plain(ps["alive_f"][:R] & ~ps["conv_f"][:R], 384, R)
+    for it, (fld, gate, subs) in enumerate(((field, 1.0 / 32, 4), (field, 0.0, 1), (None, 0.0, 1))):
+        sdf = torch.from_numpy(rng.uniform(-0.02, 0.2, idx.shape[0]).astype(np.float32))
+        sdf[::7] = 1e-5  # converge some rays
+        for s_in in (None, sdf):
+            outs = []
+            for fn, s in ((st.trace_step_cuda, ks), (st.trace_step_plain, ps)):
+                outs.append(fn(idx, s_in, s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"],
+                               s["alive_f"], s["conv_f"], s["sdf_f"], fld, cfg, 0.9, 2e-4, subs,
+                               gate, counts=True))
+            for a, b in zip(*outs):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
+            for k in ks:
+                np.testing.assert_array_equal(ks[k].numpy(), ps[k].numpy())
+    assert 0 < int(ps["conv_f"].sum()) and int((~ps["alive_f"][:R] & s0["alive_f"][:R]).sum()) > 0
+
+
+def test_sphere_trace_through_the_kernel_sources_matches_plain(emulated, monkeypatch):
+    """``sphere_trace_adaptive`` with H0, J0, J1 and J2 all taken from the
+    kernel sources (on CPU tensors) gives the plain path's trace exactly."""
+    cfg, occ, _, s0 = _trace_state()
+    o, d = s0["origins_f"][:-1], s0["dirs_f"][:-1]
+    grid = og.OccupancyGridState(values=torch.zeros(cfg.nr_voxels), occupancy=occ)
+
+    def sdf(ctx, p):
+        return torch.sqrt(p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1] + p[:, 2] * p[:, 2]) - ctx
+
+    kw = dict(nr_rounds=4, iters_per_round=3, grid_cfg=cfg, grid=grid, min_bucket=64,
+              refine_sdf_eval=sdf, refine_ctx=0.25, jump_substeps=4, prepass_jumps=16,
+              return_n_hit=True)
+    stats_p, stats_k = [], []
+    want = st.sphere_trace_adaptive(sdf, 0.255, o, d, Sphere(), stats_out=stats_p, **kw)
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    got = st.sphere_trace_adaptive(sdf, 0.255, o, d, Sphere(), stats_out=stats_k, **kw)
+    assert stats_k == stats_p and stats_p[-1][0] == "refine" and stats_p[-1][3] > 20
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_kernel_I_launch_bumps_the_grid_version(emulated):
+    """The refresh kernel writes the grid through ctypes, so its wrapper
+    bumps the tensors' version counters by hand (the distance-field cache
+    keys on them); the plain path's index writes bump them as well."""
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    lin = torch.arange(100, dtype=torch.int32)
+    sdf = torch.full((100,), 0.5)
+    for fn in (og.grid_update_cuda, og.grid_update_plain):
+        grid = og.make_occupancy_grid(cfg, device="cpu")
+        before = grid.occupancy._version
+        fn(cfg, grid, lin, sdf, 300.0, 1e-4)
+        assert grid.occupancy._version > before
+        assert not grid.occupancy[:100].any()
