@@ -49,8 +49,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    differs by more only where its final position differs by at most
    ST_CROSS_MAX_POS_GAP, and on at most ST_CROSS_MAX_OFF_SHARE of the rays
    lit in both;
-10. print ``render``, ``train``, ``sphere_traced`` and ``kernels`` JSON
-   lines, then as the last line ``{"ok": true, "device": {...}}``.
+10. kernels E1 and E2 (the importance stage) against their plain versions
+   on one chunk's samples (rounds at S = 64 and 80, no jitter) and one
+   training batch's (jitter on), H1 and H2 (the hit-ray take and scatter,
+   and H2's backward) at the training step's shapes; the exact frames of
+   phase 3 launch E1 and E2 twice per chunk each;
+11. LOD frames (``render_image(lod=(12, 32))``, the viewer's volumetric
+   mode) at 400x400 on the sphere and the plane scene, timed, against the
+   exact frame of the same scene (PSNR of rgb and alpha, pixels off by
+   more than 0.1), one profiled, and 1024 LOD rays on the card against the
+   CPU (the CPU's selected samples rendered on the card within TOL_CROSS;
+   on the whole path a ray may be off by more only where its selected set
+   differs or its samples lie at most LOD_CROSS_MAX_Z_GAP from the CPU's,
+   on at most LOD_CROSS_MAX_OFF_SHARE of the rays);
+12. hit-ray compaction in training on the sphere scene: a late-compacted
+   step against the dense step on the same draws, and an early-compacted
+   step against the dense step on the same draws with the importance
+   jitter zero (loss within TOL_HIT_LOSS, gradients within TOL_GRAD_CROSS), then
+   TRAIN_STEPS steps of ``train`` with and without ``hit_ray_frac``
+   (ms/step, apart before and after the window's rebalancer point, the
+   settled fraction, H1/H2 launches per step);
+13. print ``render``, ``train``, ``sphere_traced``, ``lod``,
+   ``hit_ray_train`` and ``kernels`` JSON lines, then as the last line
+   ``{"ok": true, "device": {...}}``.
 
 It needs the CUDA toolkit (``nvcc``) and no network. It imports nothing of
 JAX and nothing of the JAX package.
@@ -106,6 +127,12 @@ WARMUP_STEPS = 2
 TOL_GRAD_CROSS = 1e-2
 TOL_LOSS_CROSS = 1e-3
 
+# E1 and E2 vs their plain versions: the CDF's sums and products run in
+# another order (E1 accumulates in double, the plain CUDA scans in float),
+# which moves a drawn z by (cdf rounding) / (bracket weight) x (bracket
+# length); E2's order and dt are exact.
+TOL_E = 1e-5
+
 # Float operations per unit of work, for the operations side of the bound.
 # A, B and D: approximate counts from the kernel source; their bytes side
 # is at least twice their operations side. C: counted operation by
@@ -119,6 +146,14 @@ OPS_PER_SAMPLE_DB = 120  # D's forward again + the reverse scan and the chain ru
 OPS_PER_PROBE_I = 40  # the Weyl map, the center, the logistic density
 OPS_PER_LOOKUP = 20  # a distance-field jump: position 6, voxel index 9, floor 3, jump 2
 OPS_PER_TRACE_STEP = 12  # J2's update of one ray around its jumps
+# E1 per sample: the section alpha (two logistic sigmoids ~ 2 x 12, the
+# mid-point, slope and clamps ~ 15), the transmittance, weight, sum,
+# normalization and CDF ~ 8; per drawn sample: the binary search over S
+# (~ 3 per step, 7 steps) and the interpolation and snap ~ 14.
+OPS_PER_SAMPLE_E1 = 47
+OPS_PER_DRAW_E1 = 35
+# E2 per output slot, beyond a merge's log2(S) comparisons: the slot's dt ~ 4.
+OPS_PER_SLOT_E2 = 4
 # J0's function in linear time: the lower-envelope scans of Meijster, Roerdink
 # and Hesselink (2000), which cover the L-inf metric, take about 10 operations
 # per voxel per 1-D pass, whatever the field's values.
@@ -146,6 +181,13 @@ ST_CROSS_LIT_AGREE = 0.99
 # a position crosses a fine lattice cell's face).
 ST_CROSS_MAX_OFF_SHARE = 0.01
 ST_CROSS_MAX_POS_GAP = 1e-6
+# The LOD render's card-vs-CPU check (slice 4) on the same terms: a ray may be
+# off by more than TOL_CROSS on the whole path only where its selected set
+# differs from the CPU's, or where its samples' z differ from the CPU's by at
+# most LOD_CROSS_MAX_Z_GAP (the importance stage's CDF sums in another order);
+# at most LOD_CROSS_MAX_OFF_SHARE of the rays.
+LOD_CROSS_MAX_OFF_SHARE = 0.01
+LOD_CROSS_MAX_Z_GAP = 1e-6
 
 
 def fail(msg: str):
@@ -568,6 +610,7 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
 
 def counters():
     from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
     from permuto_sdf_tpu_torch.ops import sphere_trace as st
@@ -579,10 +622,13 @@ def counters():
             "D'": (vr.render_weights_bwd_cuda,),
             "I": (og.grid_points_cuda, og.grid_update_cuda),
             "J0": (og.chebyshev_field_cuda,), "J1": (st.jump_prepass_cuda,),
-            "J2": (st.trace_step_cuda,), "H0": (compaction.nonzero_static_cuda,)}
+            "J2": (st.trace_step_cuda,), "H0": (compaction.nonzero_static_cuda,),
+            "E1": (isp.importance_round_cuda,), "E2": (isp.merge_samples_cuda,),
+            "H1": (compaction.take_rows_cuda,), "H2": (compaction.scatter_rows_cuda,)}
 
 
-TRAIN_KERNELS = ("A", "B", "C", "D", "F", "G", "D'", "I")
+RENDER_KERNELS = ("A", "B", "C", "D", "E1", "E2")
+TRAIN_KERNELS = ("A", "B", "C", "D", "E1", "E2", "F", "G", "D'", "I")
 SPHERE_KERNELS = ("J0", "J1", "J2", "H0", "A", "B")
 
 
@@ -638,7 +684,9 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "F": "encode_table_grad_kernel", "G": "encode_double_backward_kernel",
                   "D'": "render_weights_bwd_kernel", "I": "grid_",
                   "J0": "chebyshev_pass_kernel", "J1": "jump_prepass_kernel",
-                  "J2": "trace_step_kernel", "H0": "compact_"}
+                  "J2": "trace_step_kernel", "H0": "compact_",
+                  "E1": "importance_round_kernel", "E2": "merge_samples_kernel",
+                  "H1": "take_rows_kernel", "H2": "scatter_rows_kernel"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -680,8 +728,9 @@ def _profile_summary(prof, wall_ms, what, top=12):
         print(json.dumps({"profile": "not measured: the profiler recorded no device time"}))
         return None
     events.sort(key=dev_us, reverse=True)
-    by_kernel = {k: sum(dev_us(e) for e in events if sym in e.key) / 1e3
-                 for k, sym in KERNEL_SYMBOLS.items()}
+    by_kernel = {k: sum(dev_us(e) for e in events
+                        if any(x in e.key for x in (sym if isinstance(sym, tuple) else (sym,))))
+                 / 1e3 for k, sym in KERNEL_SYMBOLS.items()}
     summary = {
         f"{what}_wall_ms_profiled": wall_ms,
         "device_busy_ms": total_ms,
@@ -1399,6 +1448,521 @@ def sphere_cross_check(device, cfg, params, grid, field):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: the importance stage (E1, E2), the hit-ray take and scatter (H1,
+# H2), the LOD volumetric frame and the hit-ray training step
+# ---------------------------------------------------------------------------
+
+def importance_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
+    """Kernels E1 and E2 against their plain versions on the samples of one
+    chunk of the exact frame (R = CHUNK rays through the frame's center,
+    kernel C's uniform samples, the proxy sdf on the imp_sampling_max_levels
+    coarsest levels; round 1 at S = 64, round 2 at S = 80, no jitter) and of
+    the training step (the first nr_rays of them, jitter on). Masks and a
+    carried sdf must be exact, z and dt within TOL_E. Returns {kernel:
+    numbers} timed at the chunk's round-1 and first-merge shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    K_cam, tf = camera()
+    origins, dirs = rays_from_frame(K_cam, tf, WIDTH, HEIGHT, device=device)
+    mid = (origins.shape[0] // 2 // CHUNK) * CHUNK
+    n = cfg.nr_samples_imp_sampling
+    rng = np.random.default_rng(SEED + 4)
+    results, timing = {}, {}
+
+    def proxy_sdf(smp):
+        with torch.no_grad():
+            return tps._masked_sdf_value(params["sdf"], smp.flat_positions(), smp.flat_mask(),
+                                         ITER, cfg.sdf_model, None,
+                                         max_levels=cfg.imp_sampling_max_levels
+                                         ).reshape(smp.mask.shape)
+
+    errs = {"E1": [0.0, 0], "E2": [0.0, 0]}
+
+    def check(name, what, got, want, exact=("mask",), close=("z",)):
+        for f in exact:
+            a, b = got[f], want[f]
+            if a is None and b is None:
+                continue
+            if not torch.equal(a, b):
+                fail(f"kernel {name} ({what}): {f} differs in {int((a != b).sum())} slots")
+        for f in close:
+            d = (got[f] - want[f]).abs()
+            errs[name][0] = max(errs[name][0], d.max().item())
+            errs[name][1] += int((d > 1e-6).sum())
+            if not d.max().item() <= TOL_E:
+                fail(f"kernel {name} ({what}): {f} off by {d.max().item():.3e} > {TOL_E:.0e}")
+
+    for label, R, jittered in (("chunk", CHUNK, False), ("train", cfg.nr_rays, True)):
+        o, d = origins[mid:mid + R].contiguous(), dirs[mid:mid + R].contiguous()
+        _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
+        smp = og.compute_samples_in_occupied_regions(cfg.grid, grid, o, d, te, tx,
+                                                     cfg.min_dist_between_samples,
+                                                     cfg.max_nr_samples_per_ray)
+        mov = 1.0 / (n + 1) / 2.0
+        jit = [torch.from_numpy(rng.uniform(-mov, mov, (R, n)).astype(np.float32)).to(device)
+               if jittered else None for _ in range(2)]
+        sdf = proxy_sdf(smp)
+        smp = smp.with_sdf(sdf)
+        # round 1, the first merge (carrying sdf), round 2, the last merge
+        a1 = (smp, sdf, n, jit[0], 1.0)
+        zk, mk = isp.importance_round_cuda(*a1)
+        zp, mp = isp.importance_round_plain(*a1)
+        check("E1", f"{label} round 1 S={smp.max_samples}", {"z": zk, "mask": mk},
+              {"z": zp, "mask": mp})
+        imp = isp.importance_round(smp, sdf, n, jit[0], 1.0)
+        imp = imp.with_sdf(proxy_sdf(imp))
+        m_args = (smp, imp, tx)
+        gk, gp = isp.merge_samples_cuda(*m_args), vr.combine_uniform_samples_with_imp(*m_args)
+        fields = lambda r: {f: getattr(r, f) for f in ("z", "dt", "mask", "sdf")}  # noqa: E731
+        check("E2", f"{label} merge 1 S={gp.max_samples} with sdf", fields(gk), fields(gp),
+              exact=("mask", "sdf"), close=("z", "dt"))
+        a2 = (gp, gp.sdf, n, jit[1], 2.0)
+        zk2, mk2 = isp.importance_round_cuda(*a2)
+        zp2, mp2 = isp.importance_round_plain(*a2)
+        check("E1", f"{label} round 2 S={gp.max_samples}", {"z": zk2, "mask": mk2},
+              {"z": zp2, "mask": mp2})
+        imp2 = isp.importance_round(gp, gp.sdf, n, jit[1], 2.0)
+        m2 = (dataclasses.replace(gp, sdf=None), imp2, tx)
+        check("E2", f"{label} merge 2 S={gp.max_samples + n}", fields(isp.merge_samples_cuda(*m2)),
+              fields(vr.combine_uniform_samples_with_imp(*m2)), close=("z", "dt"))
+        valid = int(smp.mask.sum())
+        print(f"[kernel E] {label}: R={R} n={n} jitter={jittered} valid uniform samples "
+              f"{valid}; E1 max z err {errs['E1'][0]:.3e} ({errs['E1'][1]} above 1e-6), "
+              f"E2 max z/dt err {errs['E2'][0]:.3e} ({errs['E2'][1]} above 1e-6)", flush=True)
+        if label != "chunk":
+            continue
+        S = smp.max_samples
+        timing["E1"] = (time_ms(lambda: isp.importance_round_cuda(*a1), reps, device),
+                        time_ms(lambda: isp.importance_round_plain(*a1), plain_reps, device),
+                        bound_ms(R * S * (4 + 4 + 4 + 1) + R * 4 + R * n * (4 + 1),
+                                 R * S * OPS_PER_SAMPLE_E1 + R * n * OPS_PER_DRAW_E1))
+        S2 = S + n
+        timing["E2"] = (time_ms(lambda: isp.merge_samples_cuda(*m_args), reps, device),
+                        time_ms(lambda: vr.combine_uniform_samples_with_imp(*m_args), plain_reps,
+                                device),
+                        bound_ms(R * S2 * (4 + 1 + 4) + R * 8 + R * S2 * (4 + 4 + 1 + 4),
+                                 R * S2 * (math.ceil(math.log2(S2)) + OPS_PER_SLOT_E2)))
+    for name in ("E1", "E2"):
+        ms, pms, b = timing[name]
+        what = "round 1, S=64" if name == "E1" else "merge 1, 64+16 with sdf"
+        _report(f"{name} R={CHUNK} ({what})", errs[name][0], TOL_E, ms, pms, b)
+        results[name] = dict(max_abs_err=errs[name][0], ms=ms, plain_ms=pms, bound_ms=b[0],
+                             bound_by=b[1], count_above_1e6=errs[name][1])
+    return results
+
+
+def hit_ray_kernel_phases(device, cfg, reps=20, plain_reps=3):
+    """Kernels H1 and H2 (and H2's backward) against their plain versions at
+    the training step's shapes: nr_rays rays of S = max_nr_samples_per_ray
+    uniform samples, half of them hit, into the bucket of hit_ray_frac 0.5
+    (early compaction's arrays: origins, dirs, z, dt, mask, ray_fixed_dt,
+    t_exit, image ids), and the four per-ray results back. Exact."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    rng = np.random.default_rng(SEED + 5)
+    R, S = cfg.nr_rays, cfg.max_nr_samples_per_ray
+    B = tps._hit_ray_budget(R, 0.5)
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+
+    nr = torch.from_numpy(rng.integers(0, S + 1, R) * (rng.uniform(size=R) < 0.5)).to(device)
+    mask = torch.arange(S, device=device)[None, :] < nr[:, None]
+    arrays = [f32(R, 3), f32(R, 3), f32(R, S), f32(R, S), mask, f32(R), f32(R, 1),
+              torch.from_numpy(rng.integers(0, 24, R)).to(device)]
+    hits = int(mask.any(dim=1).sum())
+    idx, _ = compaction.nonzero_static(mask.any(dim=1).contiguous(), B, R)
+    got, want = compaction.take_rows_cuda(arrays, idx), compaction.take_rows_plain(arrays, idx)
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            fail(f"kernel H1: array {k} differs from the plain version")
+    xs = [f32(B, 3), f32(B, 3), f32(B, 1), f32(B)]
+    fills = (0.0, 0.0, 0.0, 1.0)
+    for a, b in zip(compaction.scatter_rows_cuda(xs, idx, R, fills),
+                    compaction.scatter_rows_plain(xs, idx, R, fills)):
+        if not torch.equal(a, b):
+            fail("kernel H2: a scattered array differs from the plain version")
+    leaves = [x.clone().requires_grad_(True) for x in xs]
+    cots = [f32(R, 3), f32(R, 3), f32(R, 1), f32(R)]
+    torch.autograd.backward(compaction.scatter_rows(leaves, idx, R, fills), cots)
+    for leaf, c in zip(leaves, cots):
+        if not torch.equal(leaf.grad, compaction.take_rows_plain([c], idx)[0]):
+            fail("kernel H2's backward (H1 on the cotangents) differs from the plain gather")
+    row_in = sum(a[0].numel() * a.element_size() for a in arrays)
+    t1 = (time_ms(lambda: compaction.take_rows_cuda(arrays, idx), reps, device),
+          time_ms(lambda: compaction.take_rows_plain(arrays, idx), plain_reps, device),
+          bound_ms(B * 8 + hits * row_in + B * row_in, 0))
+    row_out = (3 + 3 + 1 + 1) * 4
+    t2 = (time_ms(lambda: compaction.scatter_rows_cuda(xs, idx, R, fills), reps, device),
+          time_ms(lambda: compaction.scatter_rows_plain(xs, idx, R, fills), plain_reps, device),
+          bound_ms(B * 8 + B * row_out + R * row_out, 0))
+    _report(f"H1 R={R} S={S} bucket={B} hits={hits} (8 arrays)", 0.0, 0.0, *t1)
+    _report(f"H2 R={R} bucket={B} (4 arrays; backward = H1, exact)", 0.0, 0.0, *t2)
+    return {"H1": dict(max_abs_err=0.0, ms=t1[0], plain_ms=t1[1], bound_ms=t1[2][0],
+                       bound_by=t1[2][1]),
+            "H2": dict(max_abs_err=0.0, ms=t2[0], plain_ms=t2[1], bound_ms=t2[2][0],
+                       bound_by=t2[2][1])}
+
+
+LOD = (12, 32)  # the interactive viewer's volumetric mode (interactive.py:127-134)
+LOD_TRAIN_FROM = TRAIN_FROM + 30  # the resumed window holds iteration % 50 == 0
+TOL_HIT_LOSS = 1e-6  # the compacted step's loss vs the dense step's (sums in another order)
+
+
+def _psnr(a, b) -> float:
+    mse = ((a - b) ** 2).mean().item()
+    return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
+
+
+def lod_render_phase(device, cfg, scenes, exact, frames=N_FRAMES):
+    """``render_image(lod=LOD)`` frames at WIDTH x HEIGHT on each scene (the
+    camera of the exact frames): one warm-up frame, then the launch counts
+    reset and ``frames`` timed frames (host clock ending in a synchronize),
+    the counts read; then each LOD frame against the exact frame of the
+    same scene rendered in this call (``exact``): the PSNR of rgb and alpha
+    and the share of pixels off by more than 0.1. Returns {scene: summary}."""
+    import torch
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    K, tf = camera()
+    out = {}
+    for name, (params, grid) in scenes.items():
+        tps.render_image(params, grid, K, tf, WIDTH, HEIGHT, ITER, cfg, chunk=CHUNK,
+                         device=device, lod=LOD)
+        reset_counts()
+        times = []
+        for _ in range(frames):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            img = tps.render_image(params, grid, K, tf, WIDTH, HEIGHT, ITER, cfg, chunk=CHUNK,
+                                   device=device, lod=LOD)
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        missing = [k for k in RENDER_KERNELS if counts[k] <= 0]
+        if missing:
+            fail(f"LOD render on the {name} scene launched no kernel {missing}")
+        for t in img:
+            if not torch.isfinite(t).all():
+                fail(f"LOD render on the {name} scene produced non-finite values")
+        ref = exact[name]
+        off = torch.maximum((img[0] - ref[0]).abs().amax(dim=-1),
+                            (img[2] - ref[2]).abs()[..., 0]) > 0.1
+        med = statistics.median(times)
+        out[name] = {"lod": list(LOD), "ms_per_frame_median": med, "ms_per_frame_min": min(times),
+                     "ms_per_frame_max": max(times), "ms_per_frame_all": times,
+                     "rays_per_s_median": WIDTH * HEIGHT / med * 1e3,
+                     "launches_per_frame": {k: counts[k] / frames for k in RENDER_KERNELS},
+                     "psnr_rgb_vs_exact": _psnr(img[0], ref[0]),
+                     "psnr_alpha_vs_exact": _psnr(img[2], ref[2]),
+                     "share_pixels_off_by_0.1": off.float().mean().item(),
+                     "mean_alpha": img[2].mean().item(), "mean_alpha_exact": ref[2].mean().item(),
+                     "launches": counts}
+        print(f"[lod] scene={name} {WIDTH}x{HEIGHT} lod={LOD}, {frames} frames: median {med:.1f} "
+              f"ms/frame (min {min(times):.1f}, max {max(times):.1f}); vs exact: PSNR rgb "
+              f"{out[name]['psnr_rgb_vs_exact']:.2f} dB, alpha "
+              f"{out[name]['psnr_alpha_vs_exact']:.2f} dB, pixels off by > 0.1: "
+              f"{out[name]['share_pixels_off_by_0.1']:.5f}; launches/frame "
+              f"{out[name]['launches_per_frame']}", flush=True)
+    return out
+
+
+def profile_lod_frame(device, cfg, params, grid):
+    """One more LOD frame under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    K, tf = camera()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tps.render_image(params, grid, K, tf, WIDTH, HEIGHT, ITER, cfg, chunk=CHUNK,
+                         device=device, lod=LOD)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _profile_summary(prof, wall_ms, "lod_frame")
+
+
+def lod_cross_check(device, cfg, params, grid):
+    """CROSS_RAYS rays (a block at the frame's center) of the LOD render on
+    the card and on the CPU (plain versions): the CPU's selected samples
+    rendered on the card (``_lod_fine_render``) must give the CPU's rgb,
+    normals and weights_sum within TOL_CROSS. The whole path on the card
+    runs ``render_rays_eval_lod`` with the cfg the timed frames pass; a ray
+    may be off by more only where its selected set differs from the CPU's
+    (a top-k tie) or its samples' z differ from the CPU's by at most
+    LOD_CROSS_MAX_Z_GAP (a sample a rounding apart across a fine lattice
+    face), on at most LOD_CROSS_MAX_OFF_SHARE of the rays; the script prints
+    how many those are and the largest z gap it excused."""
+    import dataclasses
+
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    K, tf = camera()
+    side = int(CROSS_RAYS ** 0.5)
+    y0, x0 = HEIGHT // 2 - side // 2, WIDTH // 2 - side // 2
+    ys, xs = torch.meshgrid(torch.arange(y0, y0 + side), torch.arange(x0, x0 + side),
+                            indexing="ij")
+    pix = (ys * WIDTH + xs).reshape(-1)
+    origins, dirs = rays_from_frame(K, tf, WIDTH, HEIGHT, device="cpu")
+    o, d = origins[pix], dirs[pix]
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+
+    def to_card(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        return dataclasses.replace(v, **{f.name: getattr(v, f.name).to(device)
+                                         for f in dataclasses.fields(v)
+                                         if getattr(v, f.name) is not None})
+
+    params_cpu = _tree_map(cpu, params)
+    grid_cpu = og.OccupancyGridState(values=cpu(grid.values), occupancy=cpu(grid.occupancy))
+    ecfg = tps._eval_cfg(cfg)
+    args = (ITER, 1.0, 0.8, ecfg)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mid_p = tps._lod_coarse_select(params_cpu, grid_cpu, o, d, *args, *LOD)
+        ref = tps._lod_fine_render(params_cpu, mid_p, o, d, *args)
+        cpu_s = time.perf_counter() - t0
+        mid_moved = {k: to_card(v) for k, v in mid_p.items()}
+        same = tps._lod_fine_render(params, mid_moved, o.to(device), d.to(device), *args)
+        mid_c = tps._lod_coarse_select(params, grid, o.to(device), d.to(device), *args, *LOD)
+        whole = tps.render_rays_eval_lod(params, grid, o.to(device), d.to(device), ITER, 1.0,
+                                         0.8, cfg, *LOD)
+    names = ("rgb", "normals", "weights_sum")
+    errs = {k: (g.cpu() - r).abs().max().item() for k, g, r in zip(names, same, ref)}
+    sp, sc = mid_p["samples"], mid_c["samples"]
+    zc, mc = sc.z.cpu(), sc.mask.cpu()
+    # per ray: the largest |z card - z CPU| over its samples, inf where the masks differ
+    z_gap = torch.where(mc & sp.mask, (zc - sp.z).abs(), torch.zeros_like(zc))
+    z_gap = torch.where(mc != sp.mask, torch.full_like(z_gap, math.inf), z_gap).amax(dim=1)
+    sel_p = torch.sort(mid_p["ik"], dim=1).values
+    sel_c = torch.sort(mid_c["ik"].cpu(), dim=1).values
+    selection_differs = (sel_p != sel_c).any(dim=1)
+    excused = selection_differs | ((z_gap > 0) & (z_gap <= LOD_CROSS_MAX_Z_GAP))
+    off = torch.stack([(g.cpu() - r).abs().amax(dim=-1) for g, r in zip(whole, ref)]
+                      ).amax(dim=0) > TOL_CROSS
+    unexcused = off & ~excused
+    gaps_off = z_gap[off & ~selection_differs]
+    gaps_excused = z_gap[off & excused & ~selection_differs]
+    summary = {"rays": len(pix), "tol": TOL_CROSS, "lod": list(LOD),
+               "max_z_gap": LOD_CROSS_MAX_Z_GAP, "max_off_share": LOD_CROSS_MAX_OFF_SHARE,
+               "same_selection_max_err": errs,
+               "whole_path_max_err": {k: (g.cpu() - r).abs().max().item()
+                                      for k, g, r in zip(names, whole, ref)},
+               "whole_path_rays_off": int(off.sum()),
+               "rays_off_with_another_selection": int((off & selection_differs).sum()),
+               "rays_off_excused_by_z_gap": int((off & excused & ~selection_differs).sum()),
+               "largest_z_gap_excused": gaps_excused.max().item() if len(gaps_excused) else 0.0,
+               "z_gaps_of_rays_off_same_selection": gaps_off.tolist(),
+               "rays_off_unexcused": int(unexcused.sum()),
+               "rays_with_other_samples": int((z_gap > 0).sum()),
+               "rays_by_z_gap": {"0": int((z_gap == 0).sum()),
+                                 "<=1e-7": int(((z_gap > 0) & (z_gap <= 1e-7)).sum()),
+                                 "<=1e-6": int(((z_gap > 1e-7) & (z_gap <= 1e-6)).sum()),
+                                 "<=1e-5": int(((z_gap > 1e-6) & (z_gap <= 1e-5)).sum()),
+                                 ">1e-5": int((z_gap > 1e-5).sum())},
+               "largest_finite_z_gap": z_gap[torch.isfinite(z_gap)].max().item(),
+               "rays_with_another_selection": int(selection_differs.sum()),
+               "mean_alpha": ref[2].mean().item(), "cpu_s": cpu_s}
+    print(json.dumps({"lod_cross_check": summary}), flush=True)
+    for k, v in errs.items():
+        if not v <= TOL_CROSS:
+            fail(f"LOD cross-check {k}: card vs CPU on the same selection {v:.3e} above "
+                 f"{TOL_CROSS:.0e}")
+    if unexcused.any():
+        fail(f"LOD cross-check: {int(unexcused.sum())} rays differ by more than "
+             f"{TOL_CROSS:.0e} although card and CPU selected the same samples, placed no "
+             f"more than {LOD_CROSS_MAX_Z_GAP:g} apart or exactly alike")
+    if off.float().mean().item() > LOD_CROSS_MAX_OFF_SHARE:
+        fail(f"LOD cross-check: {int(off.sum())} of {len(pix)} rays differ by more than "
+             f"{TOL_CROSS:.0e} (at most {LOD_CROSS_MAX_OFF_SHARE:.0%} may)")
+    return summary
+
+
+def hit_ray_train_phase(device, cfg, params, grid, reel):
+    """Hit-ray compaction in training, on the sphere scene (params and its
+    shell grid, which many rays miss) and the synthetic reel:
+
+    1. one dense step; its hit fraction;
+    2. a late-compaction step (``hit_ray_compact_early=False``) whose bucket
+       holds every hit ray, on the dense step's draws, and an
+       early-compaction step (the default) on the same draws with the
+       importance jitter zero (its shape follows the bucket) beside a dense
+       step with it zero: each loss within TOL_HIT_LOSS relative of its dense
+       step's and every leaf's gradient within TOL_GRAD_CROSS (relative L2:
+       F adds in atomic order). All without the curvature term, whose random
+       tangents pair with the i-th evaluated sample, which the compaction
+       renumbers (JAX's own exactness test turns it off too);
+    3. TRAIN_STEPS steps of ``train`` resumed at LOD_TRAIN_FROM (a window
+       that holds a rebalancer point, iteration % 50 == 0) with
+       ``hit_ray_frac = _hit_frac_bucket(measured, 1.0)`` (early
+       compaction; where that rung is 1.0, compaction off, the smallest
+       rung that holds the batch's hits), beside the same window without
+       compaction: ms/step over the whole window and apart before and after
+       the rebalancer point (which may switch the compaction off), the
+       settled fraction, H1/H2 launches per step. Returns a summary."""
+    import dataclasses
+
+    import torch
+
+    from permuto_sdf_tpu_torch.models.fields import init_colorcal
+    from permuto_sdf_tpu_torch.train import checkpoint as ckpt
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+    from permuto_sdf_tpu_torch.train.optimizers import tree_leaves
+
+    params = {**params, "colorcal": init_colorcal(reel.nr_images, device)}  # one per view
+    it = cfg.nr_iter_sphere_fit + LOD_TRAIN_FROM
+    cfg_nc = dataclasses.replace(cfg, enable_curvature=False)
+    draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], cfg_nc, reel)
+    loss_d, aux_d, grads_d = tps.compute_loss_and_grads(params, grid, reel, draws, it, cfg_nc)
+    hits = int(aux_d["nr_hit_rays"])
+    hit_frac = hits / cfg.nr_rays
+    ladder_frac = frac = tps._hit_frac_bucket(hit_frac, 1.0)
+    if not frac < 1.0:
+        # the ladder wants 1.3x headroom; take the smallest rung that holds
+        # this batch's hits (the rebalancer may then move it back up)
+        rungs = [f for f in tps._HIT_FRAC_LADDER
+                 if f < 1.0 and tps._hit_ray_budget(cfg.nr_rays, f) >= hits]
+        if not rungs:
+            fail(f"hit-ray phase: hit fraction {hit_frac:.3f} leaves no room for compaction")
+        frac = rungs[0]
+    if tps._hit_ray_budget(cfg.nr_rays, frac) < hits:
+        fail("hit-ray phase: the bucket does not hold every hit ray")
+
+    def against_dense(mode, step_draws, dense):
+        """A compacted step of ``mode`` on ``step_draws`` against the dense
+        step ``dense`` = (loss, grads) -> (loss rel err, worst leaf rel L2)."""
+        mode_cfg = dataclasses.replace(cfg_nc, hit_ray_frac=frac,
+                                       hit_ray_compact_early=mode == "early")
+        loss_c, _, grads_c = tps.compute_loss_and_grads(params, grid, reel, step_draws, it,
+                                                        mode_cfg)
+        loss_err = abs(float(loss_c) - float(dense[0])) / abs(float(dense[0]))
+        grad_err = {}
+        for k, (a, b) in enumerate(zip(tree_leaves(grads_c), tree_leaves(dense[1]))):
+            if a is None or b is None:
+                if (a is None) != (b is None):
+                    fail(f"hit-ray phase ({mode}): leaf {k} has a gradient on one path only")
+                continue
+            norm = b.norm().item()
+            grad_err[k] = (a - b).norm().item() / norm if norm > 0 else (a - b).norm().item()
+        worst = max(grad_err.values())
+        print(f"[hit rays] {mode}-compacted step vs dense: loss {float(loss_c):.7f} vs "
+              f"{float(dense[0]):.7f} (rel {loss_err:.2e}), worst leaf gradient rel L2 "
+              f"{worst:.2e}", flush=True)
+        if not loss_err <= TOL_HIT_LOSS:
+            fail(f"hit-ray phase: {mode}-compacted loss off by {loss_err:.2e} relative")
+        if not worst <= TOL_GRAD_CROSS:
+            fail(f"hit-ray phase: an {mode}-compacted gradient is off by {worst:.2e} (rel L2)")
+        return loss_err, worst
+
+    print(f"[hit rays] dense step: {hits} of {cfg.nr_rays} rays hit ({hit_frac:.3f}); bucket "
+          f"fraction {frac} ({tps._hit_ray_budget(cfg.nr_rays, frac)} rays; the ladder's rung "
+          f"for this fraction: {ladder_frac})", flush=True)
+    gates = {"late": against_dense("late", draws, (loss_d, grads_d))}
+
+    def zero_jitter(rays):
+        n = cfg.nr_samples_imp_sampling
+        return dataclasses.replace(draws, imp_jitter=(torch.zeros(rays, n), torch.zeros(rays, n)))
+
+    loss_dn, _, grads_dn = tps.compute_loss_and_grads(params, grid, reel,
+                                                      zero_jitter(cfg.nr_rays), it, cfg_nc)
+    gates["early"] = against_dense("early", zero_jitter(tps._hit_ray_budget(cfg.nr_rays, frac)),
+                                   (loss_dn, grads_dn))
+
+    runs = {}
+    optimizer = tps.make_optimizer(cfg)
+    hit_cfg = dataclasses.replace(cfg, hit_ray_frac=frac)
+    rebalance_it = (it + 1 + 49) // 50 * 50  # the window's rebalancer point
+    for label, run_cfg in (("dense", cfg), ("hit_rays", hit_cfg), ("dense_again", cfg)):
+        times, fracs, rays, iters = [], [], [], []
+
+        def on_step(i, loss, aux, params_, grid_):
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter())
+            if not math.isfinite(float(loss)):
+                fail(f"hit-ray train ({label}): non-finite loss at iteration {i}")
+            fracs.append(aux.get("hit_ray_frac"))
+            rays.append(aux.get("nr_rays"))
+            iters.append(i)
+
+        with tempfile.TemporaryDirectory() as d:
+            g = tps.og.OccupancyGridState(values=grid.values.clone(),
+                                          occupancy=grid.occupancy.clone())
+            tps._save(d, "chip_smoke", it, params, g, opt_state=optimizer.init(params),
+                      cfg=run_cfg, last_inv_s=INV_S_TRAINED)
+            torch.cuda.synchronize(device)
+            reset_counts()
+            times.append(time.perf_counter())
+            tps.train(reel, run_cfg, nr_iters=it + 1 + TRAIN_STEPS,
+                      resume_from=ckpt.models_dir(d, "chip_smoke", it), log_every=1,
+                      callbacks=[on_step], device=device)
+            counts = read_counts()
+        steps = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])][WARMUP_STEPS:]
+        med = statistics.median(steps)
+        # the steps up to the rebalancer point ran at the starting fraction
+        # and ray count; after it both may differ
+        parts = {}
+        for part, keep in (("before", lambda i: i <= rebalance_it),
+                           ("after", lambda i: i > rebalance_it)):
+            sel = [(t, f, r) for t, f, r, i in zip(steps, fracs[WARMUP_STEPS:],
+                                                   rays[WARMUP_STEPS:], iters[WARMUP_STEPS:])
+                   if keep(i)]
+            if sel:
+                parts[part] = {"steps": len(sel),
+                               "ms_per_step_median": statistics.median(t for t, _, _ in sel),
+                               "ms_per_step_min": min(t for t, _, _ in sel),
+                               "ms_per_step_max": max(t for t, _, _ in sel),
+                               "hit_ray_fracs": sorted({f for _, f, _ in sel}, key=str),
+                               "nr_rays": sorted({r for _, _, r in sel})}
+        runs[label] = {"first_iter": it + 1, "steps": TRAIN_STEPS, "warmup_steps": WARMUP_STEPS,
+                       "ms_per_step_median": med, "ms_per_step_min": min(steps),
+                       "ms_per_step_max": max(steps), "ms_per_step_all": steps,
+                       "rebalance_iter": rebalance_it, "by_rebalance": parts,
+                       "hit_ray_frac_per_step": fracs, "nr_rays_per_step": rays,
+                       "launches_per_step": {k: counts[k] / TRAIN_STEPS
+                                             for k in TRAIN_KERNELS + ("H0", "H1", "H2")},
+                       "launches": counts}
+        split = "; ".join(f"{k} the rebalancer point {rebalance_it}: {v['steps']} steps, median "
+                          f"{v['ms_per_step_median']:.1f} ms/step at hit_ray_frac "
+                          f"{v['hit_ray_fracs']}, nr_rays {v['nr_rays']}"
+                          for k, v in parts.items())
+        print(f"[hit rays] train {label}: {TRAIN_STEPS} steps from {it + 1}: median {med:.1f} "
+              f"ms/step (min {min(steps):.1f}, max {max(steps):.1f}); {split}; H1/H2 per step "
+              f"{counts['H1'] / TRAIN_STEPS:.2f}/{counts['H2'] / TRAIN_STEPS:.2f}", flush=True)
+    if not (runs["hit_rays"]["launches"]["H1"] > 0 and runs["hit_rays"]["launches"]["H2"] > 0):
+        fail("hit-ray train: kernels H1/H2 were not launched")
+    return {"hit_fraction": hit_frac, "hits": hits, "nr_rays": cfg.nr_rays,
+            "bucket_frac": frac, "ladder_frac": ladder_frac,
+            "late_vs_dense_loss_rel_err": gates["late"][0],
+            "late_vs_dense_worst_grad_rel_l2": gates["late"][1],
+            "early_vs_dense_no_imp_jitter_loss_rel_err": gates["early"][0],
+            "early_vs_dense_no_imp_jitter_worst_grad_rel_l2": gates["early"][1],
+            "tol_loss": TOL_HIT_LOSS,
+            "tol_grad": TOL_GRAD_CROSS, "settled_hit_ray_frac": runs["hit_rays"][
+                "hit_ray_frac_per_step"][-1], "runs": runs}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -1442,19 +2006,27 @@ def main() -> int:
     # 2. kernels against their plain versions
     results = kernel_phases(device, cfg)
     results.update(train_kernel_phases(device, cfg))
+    results.update(hit_ray_kernel_phases(device, cfg))
 
     # 3. the slice: full-width render on both grids
     params = plant_plane_sdf(tps.init_params(SEED, cfg, device=device))
     grids = {"full": tps.og.make_occupancy_grid(cfg.grid, device=device),
              "shell": shell_grid(cfg.grid, device)}
     images, counts, times = slice_phase(device, cfg, params, grids, WIDTH, HEIGHT, CHUNK)
+    chunks = -(-WIDTH * HEIGHT // CHUNK)
     for name, c in counts.items():
-        missing = [k for k in "ABCD" if c[k] <= 0]
+        missing = [k for k in RENDER_KERNELS if c[k] <= 0]
         if missing:
             fail(f"render on the {name} grid launched no kernel {missing}")
+        # the importance stage: two rounds (E1) and two merges (E2) per chunk
+        if not c["E1"] == c["E2"] == 2 * chunks * N_FRAMES:
+            fail(f"render on the {name} grid: E1/E2 launches {c['E1']}/{c['E2']}, expected "
+                 f"{2 * chunks * N_FRAMES} each")
 
     # where the frame's device time goes (one extra profiled frame)
     profile_phase(device, cfg, params, grids["full"], WIDTH, HEIGHT, CHUNK)
+    # E1 and E2 against their plain versions at one chunk's and one step's shapes
+    results.update(importance_kernel_phases(device, cfg, params, grids["full"]))
 
     # 4. the card against the CPU on the same rays
     cross_check(device, cfg, params, grids["full"], images["full"], WIDTH, HEIGHT)
@@ -1479,7 +2051,20 @@ def main() -> int:
     # 9. the card against the CPU on 1024 sphere-traced rays
     st_cross = sphere_cross_check(device, cfg, sphere_params, sphere_grid, field)
 
-    # 10. summary lines
+    # 10. the LOD volumetric frame on both scenes against their exact frames,
+    # one profiled, and the card against the CPU on 1024 LOD rays
+    K_cam, tf_cam = camera()
+    exact = {"sphere": tps.render_image(sphere_params, sphere_grid, K_cam, tf_cam, WIDTH, HEIGHT,
+                                        ITER, cfg, chunk=CHUNK, device=device),
+             "plane": images["full"]}
+    lod_runs = lod_render_phase(device, cfg, scenes, exact)
+    lod_profile = profile_lod_frame(device, cfg, sphere_params, sphere_grid)
+    lod_cross = lod_cross_check(device, cfg, sphere_params, sphere_grid)
+
+    # 11. hit-ray compaction in training on the sphere scene
+    hit_train = hit_ray_train_phase(device, cfg, sphere_params, sphere_grid, reel)
+
+    # 12. summary lines
     meta = {
         "A": ("permuto_encode_fwd", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
               "permuto_sdf_tpu/ops/permuto_encoding.py:504"),
@@ -1507,12 +2092,22 @@ def main() -> int:
                "permuto_sdf_tpu/ops/sphere_trace.py:337"),
         "H0": ("nonzero_static_compaction", "permuto_sdf_tpu_torch/kernels/csrc/compaction.cu",
                "permuto_sdf_tpu/ops/sphere_trace.py:328"),
+        "E1": ("importance_round", "permuto_sdf_tpu_torch/kernels/csrc/importance_sampling.cu",
+               "permuto_sdf_tpu/ops/importance_sampling.py:38"),
+        "E2": ("merge_samples", "permuto_sdf_tpu_torch/kernels/csrc/importance_sampling.cu",
+               "permuto_sdf_tpu/ops/volume_rendering.py:294"),
+        "H1": ("take_rays", "permuto_sdf_tpu_torch/kernels/csrc/compaction.cu",
+               "permuto_sdf_tpu/train/train_permuto_sdf.py:451"),
+        "H2": ("scatter_rays", "permuto_sdf_tpu_torch/kernels/csrc/compaction.cu",
+               "permuto_sdf_tpu/train/train_permuto_sdf.py:469"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
         r = results[k]
         launches = (sum(c[k] for c in counts.values()) + train_counts[k]
-                    + sum(v["launches"][k] for v in st_runs.values()))
+                    + sum(v["launches"][k] for v in st_runs.values())
+                    + sum(v["launches"][k] for v in lod_runs.values())
+                    + sum(v["launches"][k] for v in hit_train["runs"].values()))
         entries.append({"name": f"{k}:{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1525,12 +2120,18 @@ def main() -> int:
                      "ms_per_frame_max": max(v), "ms_per_frame_all": v,
                      "rays_per_s_median": WIDTH * HEIGHT / med * 1e3,
                      "launches_per_frame": {n: c / N_FRAMES for n, c in counts[k].items()
-                                            if n in "ABCD"}}
+                                            if n in RENDER_KERNELS},
+                     "chunks_per_frame": chunks,
+                     "e_launches_per_chunk": (counts[k]["E1"] + counts[k]["E2"])
+                     / (chunks * N_FRAMES)}
     print(json.dumps({"render": render, "card": card}), flush=True)
     print(json.dumps({"train": train_summary, "card": card}), flush=True)
     print(json.dumps({"sphere_traced": {"operating_point": ST_KW, "scene": scene_summary,
                                         "runs": st_runs, "cross_check": st_cross,
                                         "profile": st_profile}, "card": card}), flush=True)
+    print(json.dumps({"lod": {"runs": lod_runs, "profile": lod_profile,
+                              "cross_check": lod_cross}, "card": card}), flush=True)
+    print(json.dumps({"hit_ray_train": hit_train, "card": card}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

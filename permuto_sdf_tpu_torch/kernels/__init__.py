@@ -29,12 +29,24 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 LIBRARIES = ("permuto_encoding", "occupancy_grid", "volume_rendering", "sphere_trace",
-             "compaction")
+             "compaction", "importance_sampling")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
+MAX_ROW_ARRAYS = 12
+
+
+class RowArrays(ctypes.Structure):
+    """The arrays kernels H1 and H2 move, passed by value (``RowArrays`` in
+    ``csrc/compaction.cu``)."""
+
+    _fields_ = [("src", _P * MAX_ROW_ARRAYS), ("dst", _P * MAX_ROW_ARRAYS),
+                ("row_bytes", _L * MAX_ROW_ARRAYS), ("fill", _U * MAX_ROW_ARRAYS),
+                ("count", _I)]
+
+
 # The C signature of each library's exported launch functions; each returns
 # a cudaError_t as an int.
 SIGNATURES = {
@@ -63,6 +75,12 @@ SIGNATURES = {
     },
     "compaction": {
         "psdf_compact": [_I, _P, _I, _L] + [_P] * 4,
+        "psdf_take_rows": [RowArrays, _P, _I, _L, _P],
+        "psdf_scatter_rows": [RowArrays, _P, _I, _L, _P],
+    },
+    "importance_sampling": {
+        "psdf_importance_round": [_I] * 3 + [_P] * 6 + [_F] + [_P] * 3,
+        "psdf_merge_samples": [_I] * 3 + [_P] * 13,
     },
 }
 

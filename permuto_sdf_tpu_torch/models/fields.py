@@ -118,9 +118,11 @@ def sdf_apply(params, points, iter_nr, cfg: SDFConfig, max_levels=None):
     return _split_sdf(mlp_apply(_sdf_mlp(params, K, cfg), feats), cfg)
 
 
-def sdf_with_gradient(params, points, iter_nr, cfg: SDFConfig):
+def sdf_with_gradient(params, points, iter_nr, cfg: SDFConfig, max_levels=None):
     """(sdf, d sdf / d points, geom_feat): one reverse pass with a unit
-    cotangent on the sdf (reverse mode, as the JAX default).
+    cotangent on the sdf (reverse mode, as the JAX default). With
+    ``max_levels`` both come from the K coarsest levels, as
+    :func:`sdf_apply` does (JAX takes a ``vjp`` of ``sdf_apply(max_levels=)``).
 
     With gradients enabled (training) all three keep their graph: the
     point gradient is differentiable in the parameters (kernel G for the
@@ -128,7 +130,7 @@ def sdf_with_gradient(params, points, iter_nr, cfg: SDFConfig):
     ``torch.no_grad`` (the eval render) the results carry no graph."""
     train = torch.is_grad_enabled()
     window = coarse2fine_window(_c2f_t(iter_nr, cfg.nr_iters_for_c2f), cfg.nr_levels)
-    K = _sdf_levels(cfg, None)
+    K = _sdf_levels(cfg, max_levels)
     with torch.enable_grad():
         feats = permuto_encode(params["encoding"], points, cfg.encoding, window,
                                max_levels=K, zero_fill=False)

@@ -41,6 +41,10 @@ class RaySamples:
     def nr_samples_per_ray(self) -> torch.Tensor:
         return torch.sum(self.mask, dim=-1)
 
+    def valid_rays(self) -> torch.Tensor:
+        """[R] bool: the rays with at least one valid sample."""
+        return torch.any(self.mask, dim=-1)
+
     def positions(self) -> torch.Tensor:
         """[R, S, 3] world positions (zero at invalid slots)."""
         p = self.origins[:, None, :] + self.z[..., None] * self.dirs[:, None, :]

@@ -342,7 +342,8 @@ def variance_inv_s(params, forced_variance=None) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Importance sampling + merge (plain PyTorch: hot op E, still to port)
+# Importance sampling + merge: the plain versions of kernels E1 and E2
+# (ops/importance_sampling.py launches them)
 # ---------------------------------------------------------------------------
 
 def importance_sample(samples: RaySamples, cdf, nr_importance_samples: int,

@@ -6,7 +6,9 @@ Slice 1 of the port serves frames (:func:`render_image`); slice 2 trains
 (:func:`sphere_init_step`, :func:`compute_loss_and_grads`,
 :func:`apply_updates`, :func:`train_step`, :func:`occupancy_update` and
 :func:`train`, with ``resume_from``); slice 3 serves the interactive
-sphere-traced frame (:func:`render_image_sphere_traced_fast`). JAX draws its randomness from keys
+sphere-traced frame (:func:`render_image_sphere_traced_fast`); slice 4 adds
+the hit-ray compaction of the step (``hit_ray_frac``) and the viewer's LOD
+volumetric frame (``render_image(lod=)``). JAX draws its randomness from keys
 split inside the step; the port takes the same draws as tensors
 (:class:`TrainDraws`), made from a ``torch.Generator`` that :func:`train`
 derives from ``(seed, iteration)``, so a resumed run sees the draws of an
@@ -37,10 +39,11 @@ from permuto_sdf_tpu_torch.models.fields import (
 from permuto_sdf_tpu_torch.models.mlp import lipshitz_bound_full
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import volume_rendering as vr
-from permuto_sdf_tpu_torch.ops.compaction import nonzero_static
+from permuto_sdf_tpu_torch.ops.compaction import nonzero_static, scatter_rows, take_rows
 from permuto_sdf_tpu_torch.ops.importance_sampling import importance_sampling_sdf_model
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg
+from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
 from permuto_sdf_tpu_torch.ops.sphere_trace import (
     _grid_distance_field, pow2_bucket, sphere_trace_adaptive,
 )
@@ -224,7 +227,9 @@ class TrainDraws:
 
     ray_indices (image ids [R], pixel ids [R]) -- ``random_rays_from_reel``;
     fg_start [R, 1] in [0, 1) -- the occupancy sampler's first-sample jitter;
-    imp_jitter (u1, u2), each [R, n] in +-1/(2(n+1)) -- importance sampling;
+    imp_jitter (u1, u2), each [R, n] in +-1/(2(n+1)) -- importance sampling
+    (R is the hit-ray bucket's size with early hit-ray compaction, which
+    runs the importance stage on the bucket);
     bg_rand [R, S_bg] in [0, 1) -- the background sampler's jitter;
     curv_dirs [Nc, 3] standard normal -- the curvature loss's directions;
     off_points (phi, cos theta, u), each [1024] -- the offsurface points."""
@@ -245,9 +250,24 @@ class TrainDraws:
 NR_OFFSURFACE_POINTS = 1024
 
 
+def _hit_compaction(cfg: PermutoSDFTrainConfig) -> bool:
+    return cfg.hit_ray_frac is not None and cfg.hit_ray_frac < 1.0
+
+
+def _hit_ray_budget(nr_rays: int, frac: float) -> int:
+    """Static hit-ray bucket size: ceil(R * frac) rounded up to 64."""
+    h = -(-int(nr_rays * frac) // 64) * 64
+    return max(64, min(nr_rays, h))
+
+
+def _fg_rays(cfg: PermutoSDFTrainConfig) -> int:
+    """Rays the fg fields see per step: the hit-ray bucket or all of them."""
+    return _hit_ray_budget(cfg.nr_rays, cfg.hit_ray_frac) if _hit_compaction(cfg) else cfg.nr_rays
+
+
 def _compact_size(cfg: PermutoSDFTrainConfig) -> int:
     """Samples the fields evaluate per step: R * S, capped at the budget."""
-    M = cfg.nr_rays * cfg.samples_per_ray
+    M = _fg_rays(cfg) * cfg.samples_per_ray
     return min(M, cfg.render_sample_budget) if cfg.render_sample_budget else M
 
 
@@ -255,6 +275,7 @@ def draw_train_step(generator: torch.Generator, cfg: PermutoSDFTrainConfig,
                     reel: TensorReel) -> TrainDraws:
     """One step's draws from ``generator`` (on the CPU)."""
     R, n = cfg.nr_rays, cfg.nr_samples_imp_sampling
+    R_imp = _fg_rays(cfg) if cfg.hit_ray_compact_early else R
     mov = 1.0 / (n + 1) / 2.0
     nc = _compact_size(cfg)
     cb = min(cfg.curvature_sample_budget, nc) if cfg.curvature_sample_budget else nc
@@ -262,7 +283,7 @@ def draw_train_step(generator: torch.Generator, cfg: PermutoSDFTrainConfig,
     return TrainDraws(
         ray_indices=draw_ray_indices(reel, R, generator),
         fg_start=rand(R, 1),
-        imp_jitter=((rand(R, n) * 2.0 - 1.0) * mov, (rand(R, n) * 2.0 - 1.0) * mov),
+        imp_jitter=((rand(R_imp, n) * 2.0 - 1.0) * mov, (rand(R_imp, n) * 2.0 - 1.0) * mov),
         bg_rand=rand(R, cfg.nr_samples_bg),
         curv_dirs=torch.randn((cb, 3), generator=generator),
         off_points=(rand(NR_OFFSURFACE_POINTS) * (2 * np.pi),
@@ -283,11 +304,10 @@ def step_generators(seed: int, it: int):
 # ---------------------------------------------------------------------------
 
 def _check_branches(cfg: PermutoSDFTrainConfig):
-    if cfg.hit_ray_frac is not None:
-        raise NotImplementedError("hit_ray_frac: hit-ray compaction (Queue 2 row H) is "
-                                  "not ported yet")
     if cfg.train_lod_top_k is not None:
-        raise NotImplementedError("train_lod_top_k: the train-time LOD is not ported yet")
+        raise NotImplementedError("train_lod_top_k: the train-time LOD (ROADMAP Queue 1, "
+                                  "slice 5: a kernel D variant that takes cos) is not "
+                                  "ported yet")
     if not cfg.use_occupancy_grid:
         raise NotImplementedError("use_occupancy_grid=False: compute_samples_fg is not "
                                   "ported yet")
@@ -314,6 +334,34 @@ def _compact_idx(flat_mask, budget: int):
     return idx, idx < M
 
 
+def _take_rays(samples: RaySamples, ray_idx, *extra):
+    """Gather the bucket's rays ``ray_idx`` [B] out of a sample batch, with
+    per-ray ``extra`` arrays (t_exit, image ids; None passes through), in
+    one launch of kernel H1. Fill ids (== R) land on an all-invalid pad ray
+    (mask false, zeros), so overflow and fill slots look like miss rays
+    downstream. -> (bucket samples, *bucket extras)."""
+    fields = ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt", "sdf", "pos_4d")
+    names = [f for f in fields if getattr(samples, f) is not None]
+    arrays = [getattr(samples, f) for f in names] + [e for e in extra if e is not None]
+    outs = iter(take_rows(arrays, ray_idx))
+    bucket = dataclasses.replace(samples, **{f: next(outs) for f in names})
+    return (bucket, *(next(outs) if e is not None else None for e in extra))
+
+
+def _hit_bucket(samples: RaySamples, t_exit, img_indices, cfg: PermutoSDFTrainConfig):
+    """Hit-ray compaction: the rays with a valid sample listed into a
+    bucket of ``_hit_ray_budget`` rays (kernel H0) and gathered with their
+    t_exit and image ids (kernel H1). The last hit rays drop for this step
+    when they overflow the bucket. -> (bucket samples, hit) with hit =
+    dict(ray_idx, nr_hit_rays, t_exit, img_indices)."""
+    R0 = samples.nr_rays
+    valid_rays = samples.valid_rays()
+    ray_idx, _ = _compact_idx(valid_rays, _hit_ray_budget(R0, cfg.hit_ray_frac))
+    bucket, t_exit_b, img_b = _take_rays(samples, ray_idx, t_exit, img_indices)
+    return bucket, {"ray_idx": ray_idx, "nr_hit_rays": valid_rays.sum(), "t_exit": t_exit_b,
+                    "img_indices": img_b}
+
+
 def _masked_sdf_value(params_sdf, pts_flat, flat_mask, iter_nr, sdf_cfg, budget,
                       max_levels=None):
     """sdf at the valid flat positions, at most ``budget`` of them; the
@@ -331,13 +379,22 @@ def _masked_sdf_value(params_sdf, pts_flat, flat_mask, iter_nr, sdf_cfg, budget,
 
 @torch.no_grad()
 def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
-                       iter_nr_anneal, cfg: PermutoSDFTrainConfig, draws=None):
+                       iter_nr_anneal, cfg: PermutoSDFTrainConfig, draws=None,
+                       img_indices=None):
     """Occupancy sampling + importance sampling (constants for the losses,
-    as JAX's stop_gradient makes them). ``draws`` None: no jitter."""
+    as JAX's stop_gradient makes them). ``draws`` None: no jitter. Returns
+    (samples, hit): with early hit-ray compaction (``hit_ray_frac`` < 1 and
+    ``hit_ray_compact_early``) the rays are compacted after the occupancy
+    sampler, the importance stage runs on the bucket, and ``hit`` is the
+    dict of :func:`_hit_bucket`; else ``hit`` is None."""
     samples = og.compute_samples_in_occupied_regions(
         cfg.grid, grid, origins, dirs, t_entry, t_exit,
         cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray,
         start=draws.fg_start if draws is not None else None)
+    hit = None
+    if _hit_compaction(cfg) and cfg.hit_ray_compact_early:
+        samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg)
+        t_exit = hit["t_exit"]
     if cfg.do_importance_sampling:
         def sdf_fn(pts, flat_mask):
             return _masked_sdf_value(params["sdf"], pts, flat_mask, iter_nr_anneal,
@@ -346,8 +403,9 @@ def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
 
         samples = importance_sampling_sdf_model(
             sdf_fn, samples, t_exit, cfg.nr_samples_imp_sampling,
-            jitter=draws.imp_jitter if draws is not None else None)
-    return samples
+            jitter=draws.imp_jitter if draws is not None else None,
+            carry_sdf=cfg.train_lod_top_k is not None)
+    return samples, hit
 
 
 def run_net(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
@@ -360,34 +418,56 @@ def run_net(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
 
     ``draws`` carries the training jitter (None: the eval render);
     ``img_indices [R]`` switch on the colour calibration; ``fg_samples``
-    replaces the sampling stage with given samples."""
+    replaces the sampling stage with given samples (with ``hit_ray_frac``
+    they are then compacted late, after sampling). With ``hit_ray_frac`` the
+    fg samples and ``compact`` are the hit-ray bucket's."""
     _check_branches(cfg)
     if grid is None:
         raise NotImplementedError("sampling without the occupancy grid is not ported yet")
     _, t_entry, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
-    samples = fg_samples
+    samples, hit = fg_samples, None
     if samples is None:
-        samples = _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
-                                     iter_nr_anneal, cfg, draws)
+        samples, hit = _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
+                                          iter_nr_anneal, cfg, draws, img_indices)
     out = render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
                          forced_variance, cfg, img_indices=img_indices,
-                         bg_rand=draws.bg_rand if draws is not None else None)
+                         bg_rand=draws.bg_rand if draws is not None else None, hit=hit,
+                         rays=(origins, dirs))
     out[3]["does_intersect"] = does_intersect
     return out
 
 
 def render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
                    forced_variance, cfg: PermutoSDFTrainConfig, img_indices=None,
-                   bg_rand=None):
+                   bg_rand=None, hit=None, rays=None):
     """The part of :func:`run_net` after the fg samples are placed: the
-    fields, the NeuS weights and the background. Same returns."""
-    origins, dirs = samples.origins, samples.dirs
+    fields, the NeuS weights and the background. Same returns. ``hit`` (from
+    :func:`_hit_bucket`) says the samples are an early-compacted bucket of
+    the rays ``rays = (origins, dirs)`` (default: the samples' own); else
+    with ``hit_ray_frac`` the rays are compacted here (late). Either way the
+    bucket's per-ray results go back to every ray (kernel H2) and the
+    background runs on every ray."""
+    origins, dirs = rays if rays is not None else (samples.origins, samples.dirs)
+    R0 = origins.shape[0]
+    img_fg = img_indices
+    if hit is not None:
+        # early compaction: the valid count the rebalancer reads, scaled up by
+        # the (rare) overflow of the bucket
+        kept = torch.clamp((hit["ray_idx"] < R0).sum(), min=1).to(torch.float32)
+        scale = hit["nr_hit_rays"].to(torch.float32) / kept
+        nr_samples_total = (samples.mask.sum().to(torch.float32) * scale).to(torch.int32)
+        nr_hit_rays = hit["nr_hit_rays"]
+    else:
+        nr_samples_total = samples.mask.sum()
+        nr_hit_rays = samples.valid_rays().sum()
+        if _hit_compaction(cfg):  # late: after sampling, exact against the dense path
+            samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg)
+    if hit is not None:
+        img_fg = hit["img_indices"]
     R, S = samples.mask.shape
     M = R * S
     budget = min(M, cfg.render_sample_budget) if cfg.render_sample_budget else M
     inv_s = vr.variance_inv_s(params["variance"], forced_variance)
-    nr_samples_total = samples.mask.sum()
-    nr_hit_rays = samples.mask.any(dim=1).sum()
     idx = None
     if budget < M:
         # the first `budget` valid samples; the overflow leaves the batch
@@ -406,7 +486,7 @@ def render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
     cc = params.get("colorcal") if img_indices is not None else None
     per_sample_img = None
     if cc is not None:
-        per_sample_img = img_indices[:, None].expand(R, S).reshape(-1)
+        per_sample_img = img_fg[:, None].expand(R, S).reshape(-1)
         if idx is not None:
             per_sample_img = _pad_one(per_sample_img, 0)[idx]
     rgb_c = rgb_apply(params["rgb"], pos_c, dirs_c, grads_c, geom_c, iter_nr_anneal,
@@ -425,11 +505,17 @@ def render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
     weights, weights_sum, bg_T, pred_rgb, grad_int = vr.neus_render(
         samples, sdf, sdf_gradients, rgb_flat, inv_s, cos_anneal_ratio)
     pred_normals = grad_int / (torch.linalg.norm(grad_int, dim=-1, keepdim=True) + 1e-12)
+    if hit is not None:
+        # the bucket's per-ray results back to every ray (kernel H2): miss
+        # rays get exactly what the dense path computes for them
+        pred_rgb, pred_normals, weights_sum, bg_T = scatter_rows(
+            [pred_rgb, pred_normals, weights_sum, bg_T], hit["ray_idx"], R0,
+            (0.0, 0.0, 0.0, 1.0))
     if not cfg.with_mask:
         with torch.no_grad():
             bg = compute_samples_bg(origins, dirs, t_exit, cfg.nr_samples_bg,
                                     BOUND.radius, BOUND.center, rand=bg_rand)
-        img_bg = (img_indices[:, None].expand(R, cfg.nr_samples_bg).reshape(-1)
+        img_bg = (img_indices[:, None].expand(R0, cfg.nr_samples_bg).reshape(-1)
                   if cc is not None else None)
         rgb_bg, dens_bg = nerf_hash_apply(params["bg"], bg.pos_4d.reshape(-1, 4),
                                           bg.flat_dirs(), iter_nr_anneal, cfg.bg_model,
@@ -538,7 +624,8 @@ def compute_loss_and_grads(params, grid, reel: TensorReel, draws, iter_nr,
            "loss_curvature": loss_curv.detach(), "inv_s": ex["inv_s"],
            "nr_samples": ex["nr_samples_total"],
            "nr_samples_rendered": ex["nr_samples_rendered"],
-           "nr_hit_rays": ex["nr_hit_rays"], "samples": ex["samples"]}
+           "nr_hit_rays": ex["nr_hit_rays"], "samples": ex["samples"],
+           "nr_rays": cfg.nr_rays, "hit_ray_frac": cfg.hit_ray_frac}
     return loss.detach(), aux, grads
 
 
@@ -608,6 +695,22 @@ def _ray_bucket(n: int, lo: int = 128, hi: int = 4096, current: Optional[int] = 
     return min(b, hi)
 
 
+_HIT_FRAC_LADDER = (0.25, 0.375, 0.5, 0.625, 0.75, 1.0)
+
+
+def _hit_frac_bucket(hit_frac: float, current: float) -> float:
+    """The hit-ray bucket fraction from the ladder for a measured hit
+    fraction: the smallest rung with >= 1.3x headroom, moving down only
+    to a rung with >= 1.45x headroom (hysteresis). 1.0 turns the compaction
+    off (every ray hits a dense grid)."""
+    want = min(1.0, hit_frac * 1.3)
+    up = next((f for f in _HIT_FRAC_LADDER if f >= want), 1.0)
+    if up > current:
+        return up
+    down = next((f for f in _HIT_FRAC_LADDER if f >= min(1.0, hit_frac * 1.45)), 1.0)
+    return down if down < current else current
+
+
 def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] = None,
           seed: int = 0, log_every: int = 1000, checkpoint_path: Optional[str] = None,
           experiment_name: str = "permuto_sdf", save_every: int = 10000, callbacks=None,
@@ -616,8 +719,10 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
     """Train from scratch or from ``resume_from`` (a ``<...>/<iter>/models``
     dir holding a train state). ``dynamic_nr_rays`` rescales the ray count
     every 50 iterations toward the target of ``nr_rays * samples_per_ray``
-    valid samples. Single device (None means the GPU); the reel is moved
-    there. Returns (params, grid, history of (it, loss, loss_rgb))."""
+    valid samples, and with ``hit_ray_frac`` set it moves the hit-ray
+    bucket along :data:`_HIT_FRAC_LADDER` after the measured hit fraction.
+    Single device (None means the GPU); the reel is moved there. Returns
+    (params, grid, history of (it, loss, loss_rgb))."""
     if data_parallel:
         raise NotImplementedError("data_parallel: data parallelism (Queue 1 item 8) is "
                                   "not ported yet")
@@ -672,10 +777,16 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
             last_inv_s = aux["inv_s"]
             if dynamic_nr_rays and it % 50 == 0:
                 cur = max(float(aux["nr_samples"]), 1.0)
+                prev_rays = cfg.nr_rays  # the batch aux was measured on
                 want = int(cfg.nr_rays * target_nr_samples / cur)
                 bucket = _ray_bucket(want, current=cfg.nr_rays)
                 if bucket != cfg.nr_rays:
                     cfg = dataclasses.replace(cfg, nr_rays=bucket)
+                if cfg.hit_ray_frac is not None:
+                    hf = float(aux["nr_hit_rays"]) / max(prev_rays, 1)
+                    frac = _hit_frac_bucket(hf, cfg.hit_ray_frac)
+                    if frac != cfg.hit_ray_frac:
+                        cfg = dataclasses.replace(cfg, hit_ray_frac=frac)
         if it % log_every == 0 or it == nr_iters - 1:
             lv = float(loss)
             history.append((it, lv, float(aux["loss_rgb"]) if aux else None))
@@ -733,30 +844,119 @@ def render_rays_eval(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_rat
     return rgb, nrm, wsum
 
 
+def _lod_coarse_select(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
+                       forced_variance, cfg: PermutoSDFTrainConfig, coarse_levels: int,
+                       top_k: int):
+    """Stage 1 of the LOD eval render: the samples (kernels C, E1, E2, no
+    jitter), their sdf and gradient on the ``coarse_levels`` coarsest levels
+    (kernels A, B), their NeuS weights (kernel D) and the ``top_k`` heaviest
+    samples of each ray. Returns a dict of ray-leading tensors."""
+    _, t_entry, _, t_exit, _ = BOUND.ray_intersection(origins, dirs)
+    samples, _ = _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
+                                    iter_nr_anneal, cfg)
+    R, S = samples.mask.shape
+    pos = samples.flat_positions()
+    K = min(top_k, S)
+    sdf_c, grads_c, _ = sdf_with_gradient(params["sdf"], pos, iter_nr_anneal, cfg.sdf_model,
+                                          max_levels=coarse_levels)
+    inv_s = vr.variance_inv_s(params["variance"], forced_variance)
+    # kernel D's rgb slot takes any [N, 3] here: only the weights are read
+    w_c = vr.neus_render(samples, sdf_c, grads_c, grads_c, inv_s, cos_anneal_ratio)[0]
+    # lax.top_k's order: the largest first, ties by the lower index (a stable
+    # descending sort; invalid slots rank at -1)
+    ik = torch.sort(torch.where(samples.mask, w_c, torch.full_like(w_c, -1.0)), dim=1,
+                    descending=True, stable=True).indices[:, :K]
+    flat_ik = (torch.arange(R, device=ik.device)[:, None] * S + ik).reshape(-1)
+    return {"samples": samples, "sdf_c": sdf_c.reshape(R, S),
+            "grads_c": grads_c.reshape(R, S, 3), "ik": ik,
+            "sel_mask": samples.flat_mask()[flat_ik].reshape(R, K),
+            "pos_k": pos[flat_ik].reshape(R, K, 3),
+            "dirs_k": samples.flat_dirs()[flat_ik].reshape(R, K, 3), "t_exit": t_exit}
+
+
+def _lod_fine_render(params, mid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
+                     forced_variance, cfg: PermutoSDFTrainConfig):
+    """Stage 2 of the LOD eval render: the full-width SDF gradient and rgb
+    on the selected samples only (kernels A, B), the weights of the mixed
+    dense arrays (full-width values at the selected slots, coarse ones
+    elsewhere; kernel D), the selected samples' integration and the
+    background (kernels A and D). -> (rgb, normals, weights_sum)."""
+    samples = mid["samples"]
+    R, S = samples.mask.shape
+    K = mid["ik"].shape[1]
+    flat_ik = (torch.arange(R, device=mid["ik"].device)[:, None] * S + mid["ik"]).reshape(-1)
+    sel_mask = mid["sel_mask"].reshape(-1)
+    pos_k, dirs_k = mid["pos_k"].reshape(-1, 3), mid["dirs_k"].reshape(-1, 3)
+    inv_s = vr.variance_inv_s(params["variance"], forced_variance)
+    sdf_k, grads_k, geom_k = sdf_with_gradient(params["sdf"], pos_k, iter_nr_anneal,
+                                               cfg.sdf_model)
+    rgb_k = rgb_apply(params["rgb"], pos_k, dirs_k, grads_k, geom_k, iter_nr_anneal,
+                      cfg.rgb_model)
+    sdf_m = mid["sdf_c"].reshape(-1).clone()
+    sdf_m[flat_ik] = torch.where(sel_mask, sdf_k.reshape(-1), sdf_m[flat_ik])
+    grads_m = mid["grads_c"].reshape(-1, 3).clone()
+    grads_m[flat_ik] = torch.where(sel_mask[:, None], grads_k, grads_m[flat_ik])
+    w_m, weights_sum, bg_T = vr.neus_render(samples, sdf_m, grads_m, grads_m, inv_s,
+                                            cos_anneal_ratio)[:3]
+    wk = torch.where(sel_mask, w_m.reshape(-1)[flat_ik], 0.0).reshape(R, K, 1)
+    pred_rgb = torch.sum(wk * rgb_k.reshape(R, K, 3), dim=1)
+    grad_int = torch.sum(wk * grads_k.reshape(R, K, 3), dim=1)
+    pred_normals = grad_int / (torch.linalg.norm(grad_int, dim=-1, keepdim=True) + 1e-12)
+    if not cfg.with_mask:
+        bg = compute_samples_bg(origins, dirs, mid["t_exit"], cfg.nr_samples_bg,
+                                BOUND.radius, BOUND.center)
+        rgb_bg, dens_bg = nerf_hash_apply(params["bg"], bg.pos_4d.reshape(-1, 4),
+                                          bg.flat_dirs(), iter_nr_anneal, cfg.bg_model)
+        pred_rgb = pred_rgb + bg_T[:, None] * vr.nerf_render(bg, dens_bg, rgb_bg)[3]
+    return pred_rgb, pred_normals, weights_sum
+
+
+@torch.no_grad()
+def render_rays_eval_lod(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
+                         forced_variance, cfg: PermutoSDFTrainConfig, coarse_levels: int = 12,
+                         top_k: int = 32):
+    """LOD eval render of one ray batch: the ``top_k`` samples of each ray
+    that carry the most NeuS weight on the ``coarse_levels`` coarsest SDF
+    levels get the full-width fields -> (rgb, normals, weights_sum). The
+    training-batch contracts are stripped (:func:`_eval_cfg`)."""
+    cfg = _eval_cfg(cfg)
+    mid = _lod_coarse_select(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
+                             forced_variance, cfg, coarse_levels, top_k)
+    return _lod_fine_render(params, mid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
+                            forced_variance, cfg)
+
+
 @torch.no_grad()
 def render_image(params, grid, K, tf_world_cam, width, height, iter_nr_anneal,
                  cfg: PermutoSDFTrainConfig, forced_variance=0.8, chunk: int = 2048,
                  mesh=None, lod=False, device=None):
-    """Exact volumetric render of one view, ``chunk`` rays at a time ->
-    (rgb [H,W,3], normals [H,W,3], alpha [H,W,1]) tensors on ``device``
-    (None means the GPU; params and grid must already live there)."""
+    """Volumetric render of one view, ``chunk`` rays at a time -> (rgb
+    [H,W,3], normals [H,W,3], alpha [H,W,1]) tensors on ``device`` (None
+    means the GPU; params and grid must already live there). Exact, or with
+    ``lod`` the LOD render (:func:`render_rays_eval_lod`): ``True`` means
+    ``(coarse_levels, top_k) = (12, 32)``, the interactive viewer's
+    volumetric mode. Both renders strip the training-batch contracts
+    (:func:`_eval_cfg`). A failing LOD render raises (JAX's fallback to the
+    exact render works around an XLA:TPU compiler crash)."""
     if mesh is not None:
         raise NotImplementedError("multi-device rendering is not ported yet")
-    if lod:
-        raise NotImplementedError("the LOD eval render is not ported yet")
     device = resolve_device(device)
     table = params["sdf"]["encoding"]["lattice_values"]
     if table.device.type != device.type or grid.occupancy.device.type != device.type:
         raise ValueError(f"render_image: params and grid must be on {device}")
-    cfg = _eval_cfg(cfg)
     origins, dirs = rays_from_frame(K, tf_world_cam, width, height, device=device)
     n = origins.shape[0]
     pad = (-n) % chunk
     origins = torch.cat([origins, torch.zeros((pad, 3), device=device)], 0)
     pad_dirs = torch.tensor([[0.0, 0.0, 1.0]], device=device).expand(pad, 3)
     dirs = torch.cat([dirs, pad_dirs], 0)
-    outs = [render_rays_eval(params, grid, origins[s:s + chunk], dirs[s:s + chunk],
-                             iter_nr_anneal, 1.0, forced_variance, cfg)
+    if lod:
+        cl, tk = lod if isinstance(lod, tuple) else (12, 32)
+        render = functools.partial(render_rays_eval_lod, coarse_levels=cl, top_k=tk)
+    else:
+        render = render_rays_eval
+    outs = [render(params, grid, origins[s:s + chunk], dirs[s:s + chunk], iter_nr_anneal,
+                   1.0, forced_variance, cfg)
             for s in range(0, n + pad, chunk)]
     rgb, nrm, alpha = (torch.cat(parts, 0)[:n] for parts in zip(*outs))
     return (rgb.reshape(height, width, 3), nrm.reshape(height, width, 3),

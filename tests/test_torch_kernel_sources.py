@@ -1,16 +1,19 @@
-"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2 and H0, compiled for the CPU with g++ against a
-small CUDA stand-in (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run
-through the port's own kernel wrappers, against the plain PyTorch versions.
+"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1 and E2,
+compiled for the CPU with g++ against a small CUDA stand-in
+(``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
+own kernel wrappers, against the plain PyTorch versions.
 
 This checks the kernels' logic (indexing, warp scans, masks, the lattice)
 on every CPU run; the card itself checks them in ``chip_smoke.py``. The
 emulation compiles the same float operations in the same order as nvcc
 with ``--fmad=false`` would, so the lattice and the sampler agree exactly;
 kernel D's warp-scan product differs from the serial cumprod by
-association only (tolerance 1e-6).
+association only (tolerance 1e-6), and so do E1's sums (its scans
+accumulate in double, as the CPU's cumsum does: 1e-6).
 """
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -370,3 +373,162 @@ def test_kernel_I_launch_bumps_the_grid_version(emulated):
         fn(cfg, grid, lin, sdf, 300.0, 1e-4)
         assert grid.occupancy._version > before
         assert not grid.occupancy[:100].any()
+
+
+def _imp_batch(rng, R, S, nr):
+    """A prefix-masked uniform sample set whose sdf crosses zero once per
+    ray (a surface), plus noise."""
+    from permuto_sdf_tpu_torch.ops.ray_samples import prefix_mask as pm
+
+    fixed = torch.from_numpy(rng.uniform(2e-3, 2e-2, R).astype(np.float32))
+    start = torch.from_numpy(rng.uniform(0.2, 0.6, R).astype(np.float32))
+    z = start[:, None] + fixed[:, None] * torch.arange(S, dtype=torch.float32)[None, :]
+    mask = pm(nr, S)
+    dt = torch.where(mask, fixed[:, None].expand(R, S), torch.zeros(R, S))
+    surf = start + fixed * torch.from_numpy(rng.uniform(0, S, R).astype(np.float32))
+    sdf = (surf[:, None] - z) + torch.from_numpy(rng.normal(0, 2e-3, (R, S)).astype(np.float32))
+    sdf = torch.where(mask, sdf, torch.full_like(sdf, 1e3))
+    z = torch.where(mask, z, torch.zeros_like(z))
+    smp = RaySamples(origins=torch.zeros(R, 3), dirs=torch.zeros(R, 3), z=z, dt=dt, mask=mask,
+                     ray_fixed_dt=fixed)
+    return smp, sdf, start + fixed * (S + 1)
+
+
+@pytest.mark.parametrize("S,n,jitter,mult", [(64, 16, False, 1.0), (70, 16, True, 2.0),
+                                             (8, 4, True, 1.0), (80, 40, False, 2.0)])
+def test_kernel_E1_source_matches_plain(emulated, S, n, jitter, mult):
+    """Kernel E1 (section alphas, the transmittance and CDF warp scans in
+    double, the upper-bound search) against the plain round on rays with 0,
+    1, 2 and all samples valid, runs spanning lanes, n above a warp: the
+    masks equal, z_imp to 1e-6 (the plain sums in another order)."""
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+
+    rng = np.random.default_rng(S + n)
+    R = 37
+    nr = torch.from_numpy(rng.integers(0, S + 1, R))
+    nr[0], nr[1], nr[2], nr[3] = 0, 1, 2, S
+    smp, sdf, _ = _imp_batch(rng, R, S, nr)
+    mov = 1.0 / (n + 1) / 2.0
+    jit = (torch.from_numpy(rng.uniform(-mov, mov, (R, n)).astype(np.float32))
+           if jitter else None)
+    launches = isp.importance_round_cuda.launches
+    z_k, m_k = isp.importance_round_cuda(smp, sdf, n, jit, mult)
+    z_p, m_p = isp.importance_round_plain(smp, sdf, n, jit, mult)
+    assert isp.importance_round_cuda.launches == launches + 1
+    np.testing.assert_array_equal(m_k.numpy(), m_p.numpy())
+    np.testing.assert_allclose(z_k.numpy(), z_p.numpy(), atol=1e-6, rtol=0)
+    assert torch.equal(m_k, (nr > 0)[:, None].expand(R, n)) and (z_k[0] == 0).all()
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_kernel_E2_source_matches_plain(emulated, carry):
+    """Kernel E2 (the rank merge, then dt) against the plain merge
+    (``torch.argsort(stable=True)``): ties between and within the two sets
+    go in concatenation order, rays with 0, 1 and all samples valid; z, dt,
+    mask and the carried sdf equal."""
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+    from permuto_sdf_tpu_torch.ops.ray_samples import prefix_mask as pm
+
+    rng = np.random.default_rng(9)
+    R, S1, S2 = 41, 40, 16
+    nr1 = torch.from_numpy(rng.integers(0, S1 + 1, R))
+    nr1[0], nr1[1], nr1[2] = 0, 1, S1
+    nr2 = torch.where(nr1 > 0, S2, 0)
+    z1 = torch.sort(torch.from_numpy(rng.integers(0, 30, (R, S1)).astype(np.float32) * 0.01),
+                    dim=1).values
+    z2 = torch.from_numpy(rng.integers(0, 30, (R, S2)).astype(np.float32) * 0.01)  # unsorted, ties
+    z2[3] = z1[3, :S2]  # exact ties across the sets
+    fixed = torch.from_numpy(rng.uniform(0.005, 0.02, R).astype(np.float32))
+    a = RaySamples(origins=torch.zeros(R, 3), dirs=torch.zeros(R, 3), z=z1, dt=torch.zeros(R, S1),
+                   mask=pm(nr1, S1), ray_fixed_dt=fixed)
+    b = RaySamples(origins=torch.zeros(R, 3), dirs=torch.zeros(R, 3), z=z2, dt=torch.zeros(R, S2),
+                   mask=pm(nr2, S2), ray_fixed_dt=fixed)
+    if carry:
+        a = a.with_sdf(torch.from_numpy(rng.normal(size=(R, S1)).astype(np.float32)))
+        b = b.with_sdf(torch.from_numpy(rng.normal(size=(R, S2)).astype(np.float32)))
+    t_exit = torch.from_numpy(rng.uniform(0.0, 0.4, (R, 1)).astype(np.float32))
+    got = isp.merge_samples_cuda(a, b, t_exit)
+    want = vr.combine_uniform_samples_with_imp(a, b, t_exit)
+    for f in ("z", "dt", "mask", "sdf"):
+        g, w = getattr(got, f), getattr(want, f)
+        if not carry and f == "sdf":
+            assert g is None and w is None
+            continue
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=f)
+    assert (want.dt[2] > 0).any() and not want.mask[0].any()
+
+
+def test_kernels_H1_H2_source_match_plain(emulated):
+    """Kernels H1 (take) and H2 (scatter, and its backward through H1)
+    against the plain index ops, exactly: a bucket with fill slots, a
+    bucket that overflows (fewer slots than hits), rows of floats, bools
+    (4-byte and odd row widths) and int64."""
+    rng = np.random.default_rng(4)
+    n = 30
+    arrays = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)),
+              torch.from_numpy(rng.normal(size=(n, 20)).astype(np.float32)),
+              torch.from_numpy(rng.uniform(size=(n, 20)) < 0.5),
+              torch.from_numpy(rng.uniform(size=(n, 7)) < 0.5),
+              torch.from_numpy(rng.integers(0, 5, n)),
+              torch.from_numpy(rng.normal(size=(n, 1)).astype(np.float32))]
+    hit = torch.from_numpy(rng.uniform(size=n) < 0.5)
+    for size in (int(hit.sum()) + 5, int(hit.sum()) - 3):
+        idx, _ = compaction.nonzero_static_plain(hit, size, n)
+        got = compaction.take_rows_cuda(arrays, idx)
+        for g, w in zip(got, compaction.take_rows_plain(arrays, idx)):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        xs = [torch.from_numpy(rng.normal(size=(size,) + s).astype(np.float32))
+              for s in ((3,), (3,), (1,), ())]
+        fills = (0.0, 0.0, 0.0, 1.0)
+        got = compaction.scatter_rows_cuda(xs, idx, n, fills)
+        for g, w in zip(got, compaction.scatter_rows_plain(xs, idx, n, fills)):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        # the autograd function routed to the kernels: backward is H1
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        cots = [torch.from_numpy(rng.normal(size=g.shape).astype(np.float32)) for g in got]
+        launches = (compaction.take_rows_cuda.launches, compaction.scatter_rows_cuda.launches)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+            outs = compaction.scatter_rows(leaves, idx, n, fills)
+            torch.autograd.backward(outs, cots)
+        assert (compaction.take_rows_cuda.launches, compaction.scatter_rows_cuda.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        for leaf, c in zip(leaves, cots):
+            want = torch.cat([c, torch.zeros((1,) + c.shape[1:])])[idx]
+            np.testing.assert_array_equal(leaf.grad.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_importance_stage_through_the_kernel_sources_matches_plain(emulated, monkeypatch, carry):
+    """``importance_sampling_sdf_model`` (two rounds of E1, two merges of
+    E2: four launches) from the kernel sources, with jitter, against the
+    plain stage: the masks equal, z and dt to 1e-6, the carried sdf to 1e-6
+    (an analytic sphere SDF of the samples' positions)."""
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+
+    rng = np.random.default_rng(12)
+    R, S, n = 45, 24, 8
+    nr = torch.from_numpy(rng.integers(0, S + 1, R))
+    nr[0], nr[1] = 0, S
+    smp, _, t_exit = _imp_batch(rng, R, S, nr)
+    dirs = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32)), dim=-1)
+    smp = dataclasses.replace(smp, origins=-0.8 * dirs, dirs=dirs)
+    mov = 1.0 / (n + 1) / 2.0
+    jit = tuple(torch.from_numpy(rng.uniform(-mov, mov, (R, n)).astype(np.float32))
+                for _ in range(2))
+
+    def sphere(p, _m):
+        return torch.linalg.norm(p, dim=-1) - 0.3
+
+    want = isp.importance_sampling_sdf_model(sphere, smp, t_exit, n, jitter=jit, carry_sdf=carry)
+    launches = (isp.importance_round_cuda.launches, isp.merge_samples_cuda.launches)
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    got = isp.importance_sampling_sdf_model(sphere, smp, t_exit, n, jitter=jit, carry_sdf=carry)
+    assert (isp.importance_round_cuda.launches, isp.merge_samples_cuda.launches) == (
+        launches[0] + 2, launches[1] + 2)
+    np.testing.assert_array_equal(got.mask.numpy(), want.mask.numpy())
+    for f in ("z", "dt") + (("sdf",) if carry else ()):
+        np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(), atol=1e-6,
+                                   rtol=0, err_msg=f)
+    assert (got.sdf is None) == (not carry)

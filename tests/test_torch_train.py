@@ -16,12 +16,14 @@ port's sampling stage is held against JAX's separately.
 
 import dataclasses
 import os
+import pickle
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from filelock import FileLock
 
 from permuto_sdf_tpu.datasets import synthetic as jsyn
 from permuto_sdf_tpu.datasets import tensor_reel as jreel
@@ -48,6 +50,34 @@ _STEP = dict(_TINY, nr_iter_sphere_fit=20, sdf_nr_iters_for_c2f=100,
              iter_start_reduce_curv=100, warmup_iters=200,
              forced_variance_finish_iter=400)
 _STEP_ITER = 20 + 150
+# the same step with hit-ray compaction, compacted after sampling (the
+# bucket of 64 rays holds all 32: every hit ray fits, the misses go to
+# fill slots); the SDF's coarse-to-fine window still closes its finest
+# levels, whose gradient the two packages round ~1e-3 apart (ROADMAP
+# Queue 3), which the few samples of this step would not average out
+_HIT_STEP = dict(_STEP, hit_ray_frac=0.5, hit_ray_compact_early=False, sdf_nr_iters_for_c2f=1000)
+
+
+def shared_across_workers(tmp_path_factory, name: str, make):
+    """``make()`` once per test session, its (picklable) result shared by
+    the modules and the pytest-xdist workers through a file under the
+    session's temporary root, the first to take the lock building it
+    (pytest-xdist's documented pattern)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # shared by the workers of this session
+    path = root / f"{name}.pkl"
+    with FileLock(str(path) + ".lock"):
+        if path.is_file():
+            return pickle.loads(path.read_bytes())
+        data = make()
+        path.write_bytes(pickle.dumps(data))
+    return data
+
+
+def jax_numpy(tree):
+    """A JAX pytree with numpy leaves (picklable)."""
+    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def jax_step_draws(key, cfg, reel_j) -> tt.TrainDraws:
@@ -130,8 +160,7 @@ def _assert_tree_close(got, want, rtol, what, level_rtol=None):
         assert err <= rtol * scale + 1e-12, (what, k, err, scale)
 
 
-@pytest.fixture(scope="module")
-def reels():
+def make_reels():
     reel_j = jsyn.make_synthetic_reel(nr_views=3, width=32, height=32)
     reel_t = TensorReel(*(torch.from_numpy(np.array(a)) for a in
                           (reel_j.rgb, reel_j.mask, reel_j.K, reel_j.tf_world_cam)))
@@ -139,8 +168,25 @@ def reels():
 
 
 @pytest.fixture(scope="module")
-def step(reels):
-    """One training step on both sides from the same params, grid and draws."""
+def reels():
+    return make_reels()
+
+
+def shared_step(tmp_path_factory):
+    """One training step on both sides from the same params, grid and draws
+    (and the hit-ray step of ``tests/test_torch_hit_rays.py``), built once
+    per session: the eager JAX steps are the costliest setup of the port's
+    tests."""
+    return shared_across_workers(tmp_path_factory, "torch_train_step",
+                                 lambda: _step(make_reels()))
+
+
+@pytest.fixture(scope="module")
+def step(tmp_path_factory):
+    return shared_step(tmp_path_factory)
+
+
+def _step(reels):
     reel_j, reel_t = reels
     cfg_j = jt.PermutoSDFTrainConfig(**_STEP)
     cfg_t = tt.PermutoSDFTrainConfig(**_STEP)
@@ -155,6 +201,7 @@ def step(reels):
     grid_t = tog.OccupancyGridState(values=torch.zeros(occ.size), occupancy=torch.from_numpy(occ))
     key = jax.random.PRNGKey(11)
     draws = jax_step_draws(key, cfg_j, reel_j)
+    cfg_hj = jt.PermutoSDFTrainConfig(**_HIT_STEP)
     with jax.disable_jit():
         loss_j, aux_j, grads_j = jt.compute_loss_and_grads(
             jax.tree_util.tree_map(jnp.asarray, pj), grid_j, reel_j, key, _STEP_ITER, cfg_j)
@@ -168,18 +215,38 @@ def step(reels):
         st = opt.init(jax.tree_util.tree_map(jnp.asarray, pj))
         new_pj, new_st = jt.apply_updates(jax.tree_util.tree_map(jnp.asarray, pj), st,
                                           grads_j, _STEP_ITER, cfg_j, opt)
+        # the hit-ray step (late compaction) on a grid that only the x < -0.1
+        # slab occupies, so some rays carry no sample (the same shapes as the
+        # dense step: its eager ops are compiled already)
+        slab = np.asarray(tog.lin_idx_to_voxel_center(
+            cfg_t.grid, torch.arange(cfg_t.grid.nr_voxels))[:, 0] < -0.1)
+        slab_j = jog.OccupancyGridState(values=jnp.zeros(slab.size), occupancy=jnp.asarray(slab))
+        loss_hj, aux_hj, grads_hj = jt.compute_loss_and_grads(
+            jax.tree_util.tree_map(jnp.asarray, pj), slab_j, reel_j, key, _STEP_ITER, cfg_hj)
+        samples_hj = jt.run_net(jax.tree_util.tree_map(jnp.asarray, pj), slab_j,
+                                jax.random.split(key, 4)[1], origins, dirs, img, it_anneal,
+                                0.0, 0.3, dataclasses.replace(cfg_hj, hit_ray_frac=None),
+                                jitter=True)[4]
     pt = params_from_jax(pj, "cpu")
-    fg = RaySamples(*(torch.from_numpy(np.array(getattr(samples_j, f))) for f in
-                      ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")))
+    fields = ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")
+    fg = RaySamples(*(torch.from_numpy(np.array(getattr(samples_j, f))) for f in fields))
     loss_t, aux_t, grads_t = tt.compute_loss_and_grads(pt, grid_t, reel_t, draws, _STEP_ITER,
                                                        cfg_t, fg_samples=fg)
     opt_t = tt.make_optimizer(cfg_t)
     st_t = opt_t.init(pt)
     new_pt, new_st_t = tt.apply_updates(pt, st_t, grads_t, _STEP_ITER, cfg_t, opt_t)
-    return dict(cfg_t=cfg_t, cfg_j=cfg_j, pj=pj, grid_j=grid_j, grid_t=grid_t, draws=draws,
-                key=key, loss=(loss_t, loss_j), aux=(aux_t, aux_j), grads=(grads_t, grads_j),
-                samples_j=samples_j, rays_j=(origins, dirs),
-                new_params=(new_pt, new_pj), new_state=(new_st_t, new_st))
+    fg_slab = RaySamples(*(torch.from_numpy(np.array(getattr(samples_hj, f))) for f in fields))
+    slab_t = tog.OccupancyGridState(values=torch.zeros(slab.size),
+                                    occupancy=torch.from_numpy(slab))
+    hit_t = tt.compute_loss_and_grads(params_from_jax(pj, "cpu"), slab_t, reel_t, draws,
+                                      _STEP_ITER, tt.PermutoSDFTrainConfig(**_HIT_STEP),
+                                      fg_samples=fg_slab)  # pt was updated in place
+    return dict(cfg_t=cfg_t, cfg_j=cfg_j, pj=pj, grid_t=grid_t, draws=draws,
+                hit=(hit_t, (float(loss_hj), jax_numpy(aux_hj), jax_numpy(grads_hj))),
+                loss=(loss_t, float(loss_j)), aux=(aux_t, jax_numpy(aux_j)),
+                grads=(grads_t, jax_numpy(grads_j)), samples_j=jax_numpy(samples_j),
+                rays_j=jax_numpy((origins, dirs)),
+                new_params=(new_pt, jax_numpy(new_pj)), new_state=(new_st_t, jax_numpy(new_st)))
 
 
 def test_replayed_draws_give_jax_rays(step, reels):
@@ -203,8 +270,9 @@ def test_sampling_stage_with_jitter_matches_jax(step, reels):
     o, d = (torch.from_numpy(np.array(a)) for a in step["rays_j"])
     _, te, _, tx, _ = tt.BOUND.ray_intersection(o, d)
     pt = params_from_jax(step["pj"], "cpu")
-    got = tt._create_fg_samples(pt, step["grid_t"], o, d, te, tx,
-                                _STEP_ITER - cfg_t.nr_iter_sphere_fit, cfg_t, draws)
+    got, hit = tt._create_fg_samples(pt, step["grid_t"], o, d, te, tx,
+                                     _STEP_ITER - cfg_t.nr_iter_sphere_fit, cfg_t, draws)
+    assert hit is None
     want = step["samples_j"]
     mask = np.asarray(want.mask)
     np.testing.assert_array_equal(got.mask.numpy(), mask)
@@ -369,14 +437,17 @@ def tiny_reel_t():
 
 
 def test_train_smoke(tiny_reel_t):
-    """100 iterations (20 of sphere init, then 80 steps with 10 grid
-    refreshes): finite losses, a falling sphere-init loss and a grid
-    refresh that empties space."""
-    cfg = tt.PermutoSDFTrainConfig(**_SMOKE)
-    params, grid, hist = tt.train(tiny_reel_t, cfg, nr_iters=100, log_every=10,
+    """40 iterations (20 of sphere init, then 20 steps with 5 grid
+    refreshes, the forced variance annealed over the first 20), logged
+    every 2: finite losses, a falling sphere-init loss and grid refreshes
+    that empty space."""
+    cfg = tt.PermutoSDFTrainConfig(**dict(_SMOKE, forced_variance_finish_iter=20,
+                                          grid_update_every=4))
+    params, grid, hist = tt.train(tiny_reel_t, cfg, nr_iters=40, log_every=2,
                                   device="cpu")
     assert all(np.isfinite(h[1]) for h in hist)
-    assert hist[1][1] < hist[0][1]  # sphere init fits
+    sphere_init = [h for h in hist if h[2] is None]
+    assert sphere_init[-1][1] < sphere_init[0][1]  # sphere init fits
     post = [h for h in hist if h[2] is not None]
     assert len(post) >= 8
     assert 0.05 < float(grid.occupancy.float().mean()) < 0.95
@@ -419,8 +490,8 @@ def test_resume_equals_uninterrupted_run(tiny_reel_t, tmp_path):
 
 
 def test_unported_training_knobs_raise(tiny_reel_t):
-    for knob in (dict(table_grad_alternate=True), dict(hit_ray_frac=0.5),
-                 dict(train_lod_top_k=8), dict(use_occupancy_grid=False)):
+    for knob in (dict(table_grad_alternate=True), dict(train_lod_top_k=8),
+                 dict(use_occupancy_grid=False)):
         cfg = tt.PermutoSDFTrainConfig(**dict(_SMOKE, **knob))
         with pytest.raises(NotImplementedError):
             tt.train(tiny_reel_t, cfg, nr_iters=1, device="cpu")
