@@ -69,9 +69,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    TRAIN_STEPS steps of ``train`` with and without ``hit_ray_frac``
    (ms/step, apart before and after the window's rebalancer point, the
    settled fraction, H1/H2 launches per step);
-13. print ``render``, ``train``, ``sphere_traced``, ``lod``,
-   ``hit_ray_train`` and ``kernels`` JSON lines, then as the last line
-   ``{"ok": true, "device": {...}}``.
+13. the recommended training profile (LEVER_PROFILE: the train-time LOD,
+   alternating-level table gradients, the lever gate): kernels L, D2 and
+   D2' against their plain versions on one lever step's samples (the
+   selection exact but for ties under rounding, counted), F and G with
+   parity 0 and 1 against the same kernels without it (frozen levels
+   exactly zero); TRAIN_STEPS steps of ``train`` across the AUTO gate
+   beside the reference profile (the levers off before it and on after,
+   L/D2/D2' once per step from it on, ms/step and launches per step on
+   each side), a sphere-scene window across an explicit gate with hit-ray
+   compaction, and one lever step (parity 1) card against CPU within
+   TOL_LOSS_CROSS and TOL_GRAD_CROSS;
+14. print ``render``, ``train``, ``sphere_traced``, ``lod``,
+   ``hit_ray_train``, ``levers`` and ``kernels`` JSON lines, then as the
+   last line ``{"ok": true, "device": {...}}``.
 
 It needs the CUDA toolkit (``nvcc``) and no network. It imports nothing of
 JAX and nothing of the JAX package.
@@ -298,12 +309,28 @@ def probe_sampler_ops(t_entry, t_exit, mask, P: int) -> int:
     return hit * (23 * P + 8) + int(mask.sum()) * (11 + 3 * steps)
 
 
+# What each kernel's gated error measures (printed as ``err_kind`` beside
+# ``max_err`` in the ``kernels`` line; ``max_abs_err`` there is always the
+# largest absolute difference of the timed case): "abs" the largest absolute
+# difference; "rel" that over the output's largest |plain value|; "rel_level"
+# that per level of a [L, 2, C] table gradient, G's feature cotangent "rel";
+# "rel_floor1" elementwise |diff| / max(|plain|, 1).
+ERR_KIND = {"A": "abs", "B": "rel", "C": "abs", "D": "abs", "F": "rel_level",
+            "G": "rel_level", "D'": "rel", "I": "abs", "J0": "abs", "J1": "abs", "J2": "abs",
+            "H0": "abs", "E1": "abs", "E2": "abs", "H1": "abs", "H2": "abs",
+            "L": "rel_floor1", "D2": "abs", "D2'": "rel"}
+GATED = {}  # kernel -> (largest gated error over its checks, tolerance)
+
+
 def _report(name, err, tol, ms, plain_ms, bound):
     print(f"[kernel {name}] max_err={err:.3e} tol={tol:.1e} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bound[0]:.3g} ({bound[1]}; bytes side "
           f"{bound[2]:.3g} ms, operations side {bound[3]:.3g} ms)", flush=True)
     if not err <= tol:
         fail(f"kernel {name}: error {err:.3e} above tolerance {tol:.1e}")
+    key = name.split()[0].split(":")[0]
+    prev = GATED.get(key, (0.0, tol))
+    GATED[key] = (max(prev[0], err), max(prev[1], tol))
 
 
 def kernel_phases(device, cfg, reps=20, plain_reps=3):
@@ -624,7 +651,9 @@ def counters():
             "J0": (og.chebyshev_field_cuda,), "J1": (st.jump_prepass_cuda,),
             "J2": (st.trace_step_cuda,), "H0": (compaction.nonzero_static_cuda,),
             "E1": (isp.importance_round_cuda,), "E2": (isp.merge_samples_cuda,),
-            "H1": (compaction.take_rows_cuda,), "H2": (compaction.scatter_rows_cuda,)}
+            "H1": (compaction.take_rows_cuda,), "H2": (compaction.scatter_rows_cuda,),
+            "L": (vr.train_lod_select_cuda,), "D2": (vr.neus_render_mixed_cuda,),
+            "D2'": (vr.neus_render_mixed_bwd_cuda,)}
 
 
 RENDER_KERNELS = ("A", "B", "C", "D", "E1", "E2")
@@ -686,7 +715,9 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "J0": "chebyshev_pass_kernel", "J1": "jump_prepass_kernel",
                   "J2": "trace_step_kernel", "H0": "compact_",
                   "E1": "importance_round_kernel", "E2": "merge_samples_kernel",
-                  "H1": "take_rows_kernel", "H2": "scatter_rows_kernel"}
+                  "H1": "take_rows_kernel", "H2": "scatter_rows_kernel",
+                  "L": "train_lod_select_kernel", "D2": "render_mixed_kernel",
+                  "D2'": "render_mixed_bwd_kernel"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -941,11 +972,12 @@ def profile_train_step(device, cfg, params, grid, reel):
     return _profile_summary(prof, wall_ms, "step")
 
 
-def train_cross_check(device, cfg, params, grid, reel):
+def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cross_check"):
     """One full-width training step on the CPU (the plain path) and on the
-    card, with the same draws and the CPU's fg samples: the loss within
-    TOL_LOSS_CROSS and every leaf's gradient within TOL_GRAD_CROSS
-    (relative L2 error); the card's gradients finite."""
+    card, with the same draws and the CPU's fg samples (with the carried
+    sdf the train-time LOD ranks): the loss within TOL_LOSS_CROSS and every
+    leaf's gradient within TOL_GRAD_CROSS (relative L2 error); the card's
+    gradients finite."""
     import torch
 
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
@@ -954,7 +986,8 @@ def train_cross_check(device, cfg, params, grid, reel):
     from permuto_sdf_tpu_torch.train.optimizers import tree_leaves
 
     cpu = lambda t: t.detach().cpu()  # noqa: E731
-    it = cfg.nr_iter_sphere_fit + TRAIN_FROM + 200
+    if it is None:
+        it = cfg.nr_iter_sphere_fit + TRAIN_FROM + 200
     draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], cfg, reel)
     t0 = time.perf_counter()
     loss_c, aux_c, grads_c = tps.compute_loss_and_grads(
@@ -963,7 +996,8 @@ def train_cross_check(device, cfg, params, grid, reel):
     cpu_s = time.perf_counter() - t0
     s = aux_c["samples"]
     smp = RaySamples(*(getattr(s, f).to(device) for f in
-                       ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")))
+                       ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")),
+                     sdf=s.sdf.to(device) if s.sdf is not None else None)
     loss_g, _, grads_g = tps.compute_loss_and_grads(params, grid, reel, draws, it, cfg,
                                                     fg_samples=smp)
     worst, largest, names = {}, {}, []
@@ -983,9 +1017,9 @@ def train_cross_check(device, cfg, params, grid, reel):
         if gc is None and gg is None:
             continue
         if gc is None or gg is None:
-            fail(f"train cross-check: {name} has a gradient on one side only")
+            fail(f"{label}: {name} has a gradient on one side only")
         if not torch.isfinite(gg).all():
-            fail(f"train cross-check: non-finite gradient of {name} on the card")
+            fail(f"{label}: non-finite gradient of {name} on the card")
         diff = gg.cpu() - gc
         norm, scale = gc.norm().item(), gc.abs().max().item()
         worst[name] = diff.norm().item() / norm if norm > 0 else diff.norm().item()
@@ -995,12 +1029,12 @@ def train_cross_check(device, cfg, params, grid, reel):
                "loss_rel_err": loss_err, "tol_loss": TOL_LOSS_CROSS, "tol_grad": TOL_GRAD_CROSS,
                "valid_samples": int(aux_c["nr_samples"]), "cpu_step_s": cpu_s,
                "grad_rel_l2_err": worst, "grad_max_err_rel_to_max": largest}
-    print(json.dumps({"train_cross_check": summary}), flush=True)
+    print(json.dumps({label: summary}), flush=True)
     if not loss_err <= TOL_LOSS_CROSS:
-        fail(f"train cross-check: loss {float(loss_g)} vs {float(loss_c)} on the CPU")
+        fail(f"{label}: loss {float(loss_g)} vs {float(loss_c)} on the CPU")
     bad = {k: v for k, v in worst.items() if not v <= TOL_GRAD_CROSS}
     if bad:
-        fail(f"train cross-check: gradients off by more than {TOL_GRAD_CROSS}: {bad}")
+        fail(f"{label}: gradients off by more than {TOL_GRAD_CROSS}: {bad}")
     return summary
 
 
@@ -1963,6 +1997,344 @@ def hit_ray_train_phase(device, cfg, params, grid, reel):
                 "hit_ray_frac_per_step"][-1], "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# Slice 5: the recommended training profile (train-time LOD, alternating-level
+# table gradients, the lever gate)
+# ---------------------------------------------------------------------------
+
+# bench.py:115-131, the JAX package's recommended training profile
+LEVER_PROFILE = dict(train_lod_top_k=24, train_lod_rand_extra=8, table_grad_alternate=True,
+                     hit_ray_frac=1.0)
+LEVER_GATE_LEAD = 12  # steps of the lever window before the AUTO gate
+LEVER_EXPLICIT_LEAD = 6  # steps before the explicit gate of the sphere-scene window
+TOL_L_COS = 1e-6  # cos_fd: the same float operations, relative to max(|cos|, 1)
+# Kernel L's ranking weights come from a warp-scan product, the plain
+# version's from torch.cumprod on the card (another association): a ray's
+# top-K may differ only by slots whose weights agree to this relative
+# tolerance (a tie under rounding); its extras must then agree exactly
+# whenever its top-K sets do.
+TOL_L_TIE = 1e-6
+# L's function per slot: the fd cos (2), the NeuS alpha (~45, as D) and the
+# scan (~3); per slot and selection (the top-K, then the extras), a linear-time
+# selection's ~4 compares and moves (not the kernel's own O(S^2) rank count).
+OPS_PER_SAMPLE_L = 50
+OPS_PER_SLOT_SELECT = 4
+OPS_PER_FINE_ROW_D2 = 12  # the cos dot product and the weighted sums
+OPS_PER_FINE_ROW_D2B = 20  # the cos dot product, the cotangent terms and outputs
+
+
+def _lever_cfg(cfg, **kw):
+    import dataclasses
+
+    return dataclasses.replace(cfg, **dict(LEVER_PROFILE, **kw))
+
+
+def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
+    """Kernels L, D2 and D2' against their plain versions on one step of the
+    recommended profile past its gate (the trained params and grid, the
+    step's draws: R = nr_rays, S = 96, K + E = 24 + 8; the fine set's sdf,
+    gradient and rgb from the full-width fields, random cotangents), and F
+    and G with alternating-level table gradients (phase 0 and 1 of period
+    2) at the fine set's size against the same kernels without parity:
+    frozen levels exactly zero, active ones within TOL_F / TOL_G per level.
+    Returns ({kernel: numbers}, {"F": ..., "G": ...} of the parity runs)."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import random_rays_from_reel
+    from permuto_sdf_tpu_torch.models.fields import rgb_apply, sdf_with_gradient
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    lcfg = _lever_cfg(cfg, table_grad_alternate=False)
+    it = cfg.nr_iter_sphere_fit + cfg.forced_variance_finish_iter + 100
+    ita = it - cfg.nr_iter_sphere_fit
+    draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], lcfg, reel).to(device)
+    o, d, _, _, _ = random_rays_from_reel(reel, lcfg.nr_rays, indices=draws.ray_indices)
+    _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
+    with torch.no_grad():
+        smp, _ = tps._create_fg_samples(params, grid, o, d, te, tx, ita, lcfg, draws)
+    R, S = smp.mask.shape
+    K, E = tps._train_lod(lcfg)
+    car = tps._map_range_f32(ita, 0.0, cfg.forced_variance_finish_iter, 0.0, 1.0)
+    inv_s = vr.variance_inv_s(params["variance"], tps._map_range_f32(
+        ita, 0.0, cfg.forced_variance_finish_iter, 0.3, cfg.forced_variance_finish))
+    results = {}
+
+    # --- L: fd cos, ranking weights, the top-K and the random extras
+    args = (smp, smp.sdf, inv_s, car, draws.lod_scores, K, E)
+    cos_k, sel_k = vr.train_lod_select_cuda(*args)
+    cos_p, sel_p = vr.train_lod_select_plain(*args)
+    cos_err = ((cos_k - cos_p).abs() / cos_p.abs().clamp(min=1.0)).max().item()
+    if not cos_err <= TOL_L_COS:
+        fail(f"kernel L: cos_fd off by {cos_err:.3e} relative")
+    w = vr.neus_compute_weights_from_cos(smp, smp.sdf, cos_p, inv_s, car)[0]
+    rank = torch.where(smp.mask, w, torch.full_like(w, -1.0))
+    top_k = rank.gather(1, sel_k[:, :K]).sort(dim=1, descending=True).values
+    top_p = rank.gather(1, sel_p[:, :K])
+    diff = (sel_k != sel_p).any(dim=1)
+    tie = diff & torch.isclose(top_k, top_p, rtol=TOL_L_TIE, atol=0.0).all(dim=1)
+    same_top = (sel_k[:, :K].sort(dim=1).values == sel_p[:, :K].sort(dim=1).values).all(dim=1)
+    bad = (diff & ~tie) | (same_top & (sel_k[:, K:] != sel_p[:, K:]).any(dim=1))
+    if bad.any():
+        fail(f"kernel L: the selection differs from the plain version on {int(bad.sum())} rays "
+             f"beyond ties under rounding")
+    n_tie = int(tie.sum())
+    # sel at 4 B an entry: the function's slot ids fit int32 (JAX's top_k)
+    nb = R * S * (4 + 4 + 1 + 4) + R * S * 4 + R * (K + E) * 4
+    ops = R * S * (OPS_PER_SAMPLE_L + OPS_PER_SLOT_SELECT * (2 if E else 1))
+    b = bound_ms(nb, ops)
+    ms = time_ms(lambda: vr.train_lod_select_cuda(*args), reps, device)
+    pms = time_ms(lambda: vr.train_lod_select_plain(*args), plain_reps, device)
+    _report(f"L R={R} S={S} K={K} E={E} ({int(smp.mask.sum())} valid samples; sel exact on "
+            f"{R - int(diff.sum())} rays, a tie under rounding on {n_tie}; cos_fd relative)",
+            cos_err, TOL_L_COS, ms, pms, b)
+    results["L"] = dict(max_abs_err=(cos_k - cos_p).abs().max().item(), ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                        sel_rays_exact=R - int(diff.sum()), sel_rays_tied=n_tie)
+
+    # --- D2 and D2': the mixed chain on the fine set's full-width fields, and
+    # on the same rays with a planted surface (carried and fine sdf uniform in
+    # +-0.01, as D''s check: every alpha away from its clip)
+    fine = (torch.arange(R, device=device)[:, None] * S + sel_p).reshape(-1)
+    pos_c, dirs_c = smp.flat_positions()[fine], smp.flat_dirs()[fine]
+    with torch.no_grad():
+        sdf_c, grads_c, geom_c = sdf_with_gradient(params["sdf"], pos_c, ita, lcfg.sdf_model)
+        rgb_c = rgb_apply(params["rgb"], pos_c, dirs_c, grads_c, geom_c, ita, lcfg.rgb_model)
+    KE = K + E
+    rng = np.random.default_rng(SEED + 6)
+    margs = (smp, smp.sdf, cos_p, sel_p, sdf_c, grads_c, rgb_c, inv_s, car)
+    planted = torch.from_numpy(rng.uniform(-0.01, 0.01, (R, S)).astype(np.float32)).to(device)
+    cos_q, sel_q = vr.train_lod_select_plain(smp, planted, inv_s, car, draws.lod_scores, K, E)
+    fine_q = (torch.arange(R, device=device)[:, None] * S + sel_q).reshape(-1)
+    margs_q = (smp, planted, cos_q, sel_q, planted.reshape(-1)[fine_q][:, None], grads_c, rgb_c,
+               inv_s, car)
+    err = 0.0
+    for a_ in (margs, margs_q):
+        got, want = vr.neus_render_mixed_cuda(*a_), vr.neus_render_mixed_plain(*a_)
+        err = max([err] + [(a - b_.reshape(a.shape)).abs().max().item()
+                           for a, b_ in zip(got, want)])
+    nb_in = R * S * (4 + 4 + 4 + 1) + R * KE * (4 + 4 + 12 + 12) + R * 12
+    nb = nb_in + R * S * 4 + R * (4 + 4 + 12 + 12)
+    b = bound_ms(nb, R * S * OPS_PER_SAMPLE_D + R * KE * OPS_PER_FINE_ROW_D2)
+    ms = time_ms(lambda: vr.neus_render_mixed_cuda(*margs), reps, device)
+    pms = time_ms(lambda: vr.neus_render_mixed_plain(*margs), plain_reps, device)
+    _report(f"D2 R={R} S={S} K+E={KE} (mixed chain; the step's sdf and a planted one)", err,
+            TOL_D, ms, pms, b)
+    results["D2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    cots = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+            for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
+    err = abs_err = 0.0
+    for a_ in (margs, margs_q):
+        got = vr.neus_render_mixed_bwd_cuda(*a_, *cots)
+        want = vr.neus_render_mixed_bwd_plain(*a_, *cots)
+        for a, b_ in zip(got, want):
+            diff = (a - b_.reshape(a.shape)).abs().max().item()
+            scale = b_.abs().max().item()
+            err = max(err, diff / scale if scale > 0 else diff)
+            abs_err = max(abs_err, diff)
+    nb = nb_in + R * S * 4 + R * (4 + 4 + 12 + 12) + R * KE * (4 + 12 + 12)
+    b = bound_ms(nb, R * S * OPS_PER_SAMPLE_DB + R * KE * OPS_PER_FINE_ROW_D2B)
+    ms = time_ms(lambda: vr.neus_render_mixed_bwd_cuda(*margs, *cots), reps, device)
+    pms = time_ms(lambda: vr.neus_render_mixed_bwd_plain(*margs, *cots), plain_reps, device)
+    _report(f"D2' R={R} S={S} K+E={KE} (relative; the step's sdf and a planted one)", err,
+            TOL_DB, ms, pms, b)
+    results["D2'"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                          bound_by=b[1])
+
+    # --- F and G with alternating-level table gradients at the fine set's size
+    L = cfg.nr_levels
+    n = R * KE
+    spec = pe.PermutoEncodingSpec(pos_dim=3, capacity=cfg.capacity, nr_levels=L,
+                                  concat_points_scaling=1e-3)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    prm = pe.init_encoding_params(gen, spec, device)
+    prm["lattice_values"] *= 1e3
+    scales, E_mat, _ = pe.encoding_constants(spec, None, device)
+    pts = torch.from_numpy(rng.uniform(-0.45, 0.45, (n, 3)).astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.normal(size=(n, 2 * L + 3)).astype(np.float32)).to(device)
+    u = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(device)
+    window = torch.ones(L, device=device)
+    base = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E_mat, L)
+    parity = {}
+    for name, tol in (("F", TOL_F), ("G", TOL_G)):
+        def run(lv, name=name, fns=(pe.encode_table_grad_cuda, pe.encode_double_backward_cuda)):
+            if name == "F":
+                return fns[0](*base, g, lv)
+            return fns[1](*base, 1e-3, True, g, u, lv)[0]
+
+        def plain(lv, name=name):
+            return run(lv, name, (pe.encode_table_grad_plain, pe.encode_double_backward_plain))
+
+        full = run((0, 1))
+        err = 0.0
+        for phase in (0, 1):
+            got, want = run((phase, 2)), plain((phase, 2))
+            frozen = [lv for lv in range(L) if lv % 2 != phase]
+            active = [lv for lv in range(L) if lv % 2 == phase]
+            if got[frozen].abs().max().item() != 0.0 or want[frozen].abs().max().item() != 0.0:
+                fail(f"kernel {name} with parity {phase}: a frozen level's gradient is not zero")
+            err = max(err, _level_err(got[active], full[active]),
+                      _level_err(got[active], want[active]))
+        ms_p = time_ms(lambda: run((0, 2)), reps, device)
+        ms_f = time_ms(lambda: run((0, 1)), reps, device)
+        pms = time_ms(lambda: plain((0, 2)), plain_reps, device)
+        per_level = OPS_PER_POINT_LEVEL_F if name == "F" else OPS_PER_POINT_LEVEL_G
+        nb = n * 12 + n * (2 * L + 3) * 4 + (n * 12 if name == "G" else 0) + full.numel() * 4
+        b = bound_ms(nb, per_level * n * L // 2)
+        _report(f"{name} parity N={n} K={L} period 2 (per level, relative; every level: "
+                f"{ms_f:.4f} ms)", err, tol, ms_p, pms, b)
+        parity[name] = dict(max_err_per_level=err, ms=ms_p, ms_every_level=ms_f, plain_ms=pms,
+                            bound_ms=b[0], bound_by=b[1], n=n)
+    return results, parity
+
+
+def _lever_window(device, label, run_cfg, params, grid, reel, start, steps):
+    """``train`` resumed at ``start`` for ``steps`` steps with the launch
+    counts reset before and read after, and read after every step too.
+    Returns (params, the run's summary)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.train import checkpoint as ckpt
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    before = {k: [t.clone() for t in v] for k, v in _param_groups(params).items()}
+    times, per_step = [], []
+    last = {}
+
+    def on_step(i, loss, aux, params_, grid_):
+        torch.cuda.synchronize(device)
+        times.append(time.perf_counter())
+        if not math.isfinite(float(loss)):
+            fail(f"lever train ({label}): non-finite loss at iteration {i}")
+        now = read_counts()
+        per_step.append({"it": i, "lod": aux.get("train_lod_top_k"),
+                         "parity": aux.get("table_grad_parity"),
+                         "hit_ray_frac": aux.get("hit_ray_frac"),
+                         "launches": {k: now[k] - last.get(k, 0) for k in now}})
+        last.update(now)
+
+    optimizer = tps.make_optimizer(run_cfg)
+    with tempfile.TemporaryDirectory() as dd:
+        g = tps.og.OccupancyGridState(values=grid.values.clone(), occupancy=grid.occupancy.clone())
+        tps._save(dd, "chip_smoke", start, params, g, opt_state=optimizer.init(params),
+                  cfg=run_cfg, last_inv_s=INV_S_TRAINED)
+        torch.cuda.synchronize(device)
+        reset_counts()
+        times.append(time.perf_counter())
+        new_params, _, _ = tps.train(reel, run_cfg, nr_iters=start + 1 + steps,
+                                     resume_from=ckpt.models_dir(dd, "chip_smoke", start),
+                                     log_every=1, callbacks=[on_step], device=device)
+        counts = read_counts()
+    for name, old in before.items():
+        new = _param_groups(new_params)[name]
+        if not all(torch.isfinite(t).all() for t in new):
+            fail(f"lever train ({label}): parameter group {name} is not finite")
+        if all(torch.equal(a, b) for a, b in zip(old, new)):
+            fail(f"lever train ({label}): parameter group {name} did not change")
+    ms = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])]
+    for rec, t in zip(per_step, ms):
+        rec["ms"] = t
+    return new_params, {"first_iter": start + 1, "steps": steps, "per_step": per_step,
+                        "launches": counts}
+
+
+LEVER_WINDOW_KERNELS = ("A", "B", "D", "D'", "F", "G", "L", "D2", "D2'", "H1", "H2")
+
+
+def _split_at(run, gate_it, kernels_=LEVER_WINDOW_KERNELS):
+    """ms/step and launches/step of a window before and after ``gate_it``
+    (the first WARMUP_STEPS steps of the window left out of the times)."""
+    out = {}
+    for part, keep in (("before", lambda i: i < gate_it), ("after", lambda i: i >= gate_it)):
+        recs = [r for r in run["per_step"] if keep(r["it"])]
+        if not recs:
+            continue
+        timed = [r["ms"] for r in recs[WARMUP_STEPS if part == "before" else 0:]] or [
+            r["ms"] for r in recs]
+        out[part] = {"steps": len(recs), "ms_per_step_median": statistics.median(timed),
+                     "ms_per_step_min": min(timed), "ms_per_step_max": max(timed),
+                     "launches_per_step": {k: sum(r["launches"][k] for r in recs) / len(recs)
+                                           for k in kernels_}}
+    return out
+
+
+def lever_train_phase(device, cfg, params, grid, reel, sphere_params, sphere_grid, hit_frac):
+    """The recommended profile through ``train``:
+
+    1. on the training scene (the params and grid of the training phase),
+       LEVER_PROFILE with the AUTO gate (forced_variance_finish_iter), resumed
+       LEVER_GATE_LEAD steps before the gate for TRAIN_STEPS steps, beside
+       the reference profile (no levers) over the same iterations, before and
+       after it: ms/step and launches per step; the levers off before the
+       gate and on after it (the step cfg's LOD and parity it % 2); L, D2
+       and D2' once per step from the gate on and never before;
+    2. on the sphere scene (a shell grid that about half the rays miss) with
+       an explicit ``lever_start_iter`` LEVER_EXPLICIT_LEAD steps into the
+       window and hit-ray compaction at ``hit_frac``: the levers switch on at
+       the explicit gate, and L, D2, D2', H1 and H2 launch.
+    Every loss finite and every parameter group moved. Returns a summary."""
+    import dataclasses
+
+    from permuto_sdf_tpu_torch.models.fields import init_colorcal
+
+    gate_it = cfg.nr_iter_sphere_fit + cfg.forced_variance_finish_iter
+    start = gate_it - LEVER_GATE_LEAD - 1
+    lever_cfg = _lever_cfg(cfg)
+    runs = {}
+    for label, run_cfg in (("reference", cfg), ("levers", lever_cfg), ("reference_again", cfg)):
+        _, run = _lever_window(device, label, run_cfg, params, grid, reel, start, TRAIN_STEPS)
+        run["by_gate"] = _split_at(run, gate_it)
+        runs[label] = run
+        parts = "; ".join(f"{k} the gate: {v['steps']} steps, median {v['ms_per_step_median']:.1f}"
+                          f" ms/step, launches/step {v['launches_per_step']}"
+                          for k, v in run["by_gate"].items())
+        print(f"[levers] {label}: {TRAIN_STEPS} steps from {start + 1} (AUTO gate at {gate_it}): "
+              f"{parts}", flush=True)
+    for rec in runs["levers"]["per_step"]:
+        on = rec["it"] >= gate_it
+        want = (LEVER_PROFILE["train_lod_top_k"], rec["it"] % cfg.table_grad_period) if on else (
+            None, None)
+        if (rec["lod"], rec["parity"]) != want:
+            fail(f"lever train: iteration {rec['it']} ran LOD {rec['lod']} parity "
+                 f"{rec['parity']}, expected {want}")
+        per = [rec["launches"][k] for k in ("L", "D2", "D2'")]
+        if per != ([1, 1, 1] if on else [0, 0, 0]):
+            fail(f"lever train: iteration {rec['it']} launched L/D2/D2' {per}")
+    for label in ("reference", "reference_again"):
+        if any(runs[label]["launches"][k] for k in ("L", "D2", "D2'")):
+            fail(f"lever train: the {label} run launched a lever kernel")
+
+    # the sphere scene: an explicit gate and hit-ray compaction
+    sp = {**sphere_params, "colorcal": init_colorcal(reel.nr_images, device)}
+    start_s = cfg.nr_iter_sphere_fit + LOD_TRAIN_FROM
+    explicit = LOD_TRAIN_FROM + 1 + LEVER_EXPLICIT_LEAD
+    hit_cfg = _lever_cfg(cfg, hit_ray_frac=hit_frac, lever_start_iter=explicit)
+    _, run = _lever_window(device, "levers_hit_rays", hit_cfg, sp, sphere_grid, reel, start_s,
+                           TRAIN_STEPS)
+    gate_s = cfg.nr_iter_sphere_fit + explicit
+    run["by_gate"] = _split_at(run, gate_s)
+    run["gate_iter"], run["hit_ray_frac_start"] = gate_s, hit_frac
+    runs["levers_hit_rays"] = run
+    for rec in run["per_step"]:
+        if (rec["lod"] is not None) != (rec["it"] >= gate_s):
+            fail(f"lever train (hit rays): iteration {rec['it']} ran LOD {rec['lod']} with the "
+                 f"gate at {gate_s}")
+    missing = [k for k in ("L", "D2", "D2'", "H1", "H2") if run["launches"][k] <= 0]
+    if missing:
+        fail(f"lever train (hit rays): kernels {missing} were not launched")
+    fracs = sorted({str(r["hit_ray_frac"]) for r in run["per_step"]})
+    print(f"[levers] sphere scene, explicit gate at {gate_s}, hit_ray_frac from {hit_frac} "
+          f"({fracs}): " + "; ".join(
+              f"{k}: {v['steps']} steps, median {v['ms_per_step_median']:.1f} ms/step, "
+              f"launches/step {v['launches_per_step']}" for k, v in run["by_gate"].items()),
+          flush=True)
+    for r in runs.values():
+        r["per_step"] = [dict(rr, launches={k: rr["launches"][k] for k in LEVER_WINDOW_KERNELS})
+                         for rr in r["per_step"]]
+    return {"gate_iter": gate_it, "profile": LEVER_PROFILE, "runs": runs}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -1972,6 +2344,8 @@ def _tree_map(fn, tree):
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2064,7 +2438,21 @@ def main() -> int:
     # 11. hit-ray compaction in training on the sphere scene
     hit_train = hit_ray_train_phase(device, cfg, sphere_params, sphere_grid, reel)
 
-    # 12. summary lines
+    # 12. the recommended training profile: L, D2, D2' and F/G with parity
+    # against their plain versions, the lever windows through train, and
+    # one lever step card against CPU
+    lever_results, lever_parity = lever_kernel_phases(device, cfg, tparams, tgrid, reel)
+    results.update(lever_results)
+    lever_train = lever_train_phase(device, cfg, tparams, tgrid, reel, sphere_params,
+                                    sphere_grid, hit_train["bucket_frac"])
+    gate_it = lever_train["gate_iter"]
+    step_cfg = _lever_cfg(cfg, table_grad_alternate=False, table_grad_parity=0)
+    lever_train["profile"] = profile_train_step(device, step_cfg, tparams, tgrid, reel)
+    lever_cross = train_cross_check(device, dataclasses.replace(step_cfg, table_grad_parity=1),
+                                    tparams, tgrid, reel, it=gate_it + 200,
+                                    label="lever_cross_check")
+
+    # 13. summary lines
     meta = {
         "A": ("permuto_encode_fwd", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
               "permuto_sdf_tpu/ops/permuto_encoding.py:504"),
@@ -2100,6 +2488,12 @@ def main() -> int:
                "permuto_sdf_tpu/train/train_permuto_sdf.py:451"),
         "H2": ("scatter_rays", "permuto_sdf_tpu_torch/kernels/csrc/compaction.cu",
                "permuto_sdf_tpu/train/train_permuto_sdf.py:469"),
+        "L": ("train_lod_select", "permuto_sdf_tpu_torch/kernels/csrc/volume_rendering.cu",
+              "permuto_sdf_tpu/train/train_permuto_sdf.py:536"),
+        "D2": ("neus_render_mixed", "permuto_sdf_tpu_torch/kernels/csrc/volume_rendering.cu",
+               "permuto_sdf_tpu/train/train_permuto_sdf.py:608"),
+        "D2'": ("neus_render_mixed_bwd", "permuto_sdf_tpu_torch/kernels/csrc/volume_rendering.cu",
+                "permuto_sdf_tpu/train/train_permuto_sdf.py:608"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
@@ -2107,10 +2501,12 @@ def main() -> int:
         launches = (sum(c[k] for c in counts.values()) + train_counts[k]
                     + sum(v["launches"][k] for v in st_runs.values())
                     + sum(v["launches"][k] for v in lod_runs.values())
-                    + sum(v["launches"][k] for v in hit_train["runs"].values()))
+                    + sum(v["launches"][k] for v in hit_train["runs"].values())
+                    + sum(v["launches"][k] for v in lever_train["runs"].values()))
         entries.append({"name": f"{k}:{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "max_abs_err": r["max_abs_err"], "max_err": GATED[k][0],
+                        "err_kind": ERR_KIND[k], "tol": GATED[k][1], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     render = {}
@@ -2132,6 +2528,10 @@ def main() -> int:
     print(json.dumps({"lod": {"runs": lod_runs, "profile": lod_profile,
                               "cross_check": lod_cross}, "card": card}), flush=True)
     print(json.dumps({"hit_ray_train": hit_train, "card": card}), flush=True)
+    print(json.dumps({"levers": {"train": lever_train, "parity_kernels": lever_parity,
+                                 "selection": {k: results["L"][k] for k in
+                                               ("sel_rays_exact", "sel_rays_tied")},
+                                 "cross_check": lever_cross}, "card": card}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -54,9 +54,10 @@ SIGNATURES = {
         "psdf_encode_fwd": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _I, _P],
         "psdf_encode_point_grad": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P,
                                    _I, _P, _P],
-        "psdf_encode_table_grad": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+        "psdf_encode_table_grad": [_I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                                   _P, _P],
         "psdf_encode_double_backward": [_I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I,
-                                        _P, _I, _P, _P, _P, _P],
+                                        _P, _I, _P, _I, _I, _P, _P, _P],
     },
     "occupancy_grid": {
         "psdf_probe_sampler": [_I] + [_P] * 6 + [_I] + [_F] * 6 + [_I, _I] + [_P] * 5,
@@ -66,6 +67,9 @@ SIGNATURES = {
     "volume_rendering": {
         "psdf_render_weights": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 6,
         "psdf_render_weights_bwd": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 9,
+        "psdf_train_lod_select": [_I] * 4 + [_P] * 4 + [_F] * 2 + [_P] * 3,
+        "psdf_render_mixed": [_I] * 3 + [_P] * 9 + [_F] * 2 + [_P] * 6,
+        "psdf_render_mixed_bwd": [_I] * 3 + [_P] * 9 + [_F] * 2 + [_P] * 9,
     },
     "sphere_trace": {
         "psdf_chebyshev_field": [_I, _I] + [_P] * 4,

@@ -32,6 +32,13 @@
 // with --fmad=false), so slot ids match them bit for bit. F and G add with
 // atomicAdd in no fixed order, so their sums vary by float rounding from
 // run to run; a later change can aggregate per warp or sort the slots.
+//
+// Alternating-level table gradients (JAX `grad_level_parity`,
+// permuto_encoding.py:561-609, where the frozen levels gather through
+// stop_gradient): F and G take (phase, period) and scatter only into the
+// levels l with l % period == phase (period <= 1: every level). The other
+// levels issue no atomics and their slice of the zeroed output stays zero;
+// G still writes the feature cotangent of every level.
 #include "common.cuh"
 
 namespace {
@@ -128,6 +135,10 @@ __device__ __forceinline__ void find_simplex(const float (&lat)[D],
     }
     s.slot[r] = h & cap_mask;
   }
+}
+
+__device__ __forceinline__ bool level_gets_grad(int l, int phase, int period) {
+  return period <= 1 || l % period == phase;
 }
 
 template <int D>
@@ -247,17 +258,20 @@ __global__ void __launch_bounds__(128) encode_point_grad_kernel(
 
 // Kernel F. d_table [L, 2, C] (zeroed by the caller) += the transpose of
 // kernel A's gather: d table[l, f, slot_r] += bary_r * (window_l *
-// g[n, 2l + f]) for the K computed levels. One thread per (point, level).
+// g[n, 2l + f]) for the K computed levels that get gradients. One thread
+// per (point, level).
 template <int D>
 __global__ void __launch_bounds__(256) encode_table_grad_kernel(
     const float* __restrict__ points, int n_points, int capacity,
     const float* __restrict__ shift, const float* __restrict__ scales,
     const float* __restrict__ window, const float* __restrict__ E, int K,
-    const float* __restrict__ g, int g_stride, float* __restrict__ d_table) {
+    const float* __restrict__ g, int g_stride, int phase, int period,
+    float* __restrict__ d_table) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)n_points * K) return;
   const int n = (int)(idx / K);
   const int l = (int)(idx - (long long)n * K);
+  if (!level_gets_grad(l, phase, period)) return;  // a frozen level
   const float w = (window != nullptr) ? window[l] : 1.0f;
   const float* gn = g + (long long)n * g_stride;
   const float g0 = gn[2 * l] * w;
@@ -284,7 +298,8 @@ __global__ void __launch_bounds__(256) encode_table_grad_kernel(
 // (d+1) and grad_j += sum_i E[i][j] gel_i / sigma_l. Given the cotangent u
 // [N, D] of the point gradient, set c_i = (E u)_i / sigma_l / (d+1) and
 // h_r = sum_i c_i ([lo_i = r] - [hi_i = r]); then
-//   d table[l, f, slot_r] += (h_r w) g_f   (scatter, atomics; d_table
+//   d table[l, f, slot_r] += (h_r w) g_f   (scatter, atomics, at the levels
+//                                          that get gradients; d_table
 //                                          zeroed by the caller),
 //   d g[n, 2l + f] = w sum_r h_r feat_{r,f} (gather, no atomics),
 //   d g[n, 2K + j] = u_j concat_scaling,
@@ -297,8 +312,8 @@ __global__ void __launch_bounds__(128) encode_double_backward_kernel(
     const float* __restrict__ shift, const float* __restrict__ scales,
     const float* __restrict__ window, const float* __restrict__ E, int K,
     float concat_scaling, int concat, const float* __restrict__ g,
-    int g_stride, const float* __restrict__ u, float* __restrict__ d_table,
-    float* __restrict__ d_g) {
+    int g_stride, const float* __restrict__ u, int phase, int period,
+    float* __restrict__ d_table, float* __restrict__ d_g) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_points) return;
   float p[D], un[D];
@@ -357,6 +372,7 @@ __global__ void __launch_bounds__(128) encode_double_backward_kernel(
     }
     dgn[2 * l] = w * dg0;
     dgn[2 * l + 1] = w * dg1;
+    if (!level_gets_grad(l, phase, period)) continue;  // a frozen level
     const float g0 = gn[2 * l];
     const float g1 = gn[2 * l + 1];
     float* d0 = d_table + (long long)l * 2 * capacity;
@@ -432,15 +448,15 @@ extern "C" int psdf_encode_table_grad(int d, const void* points, int n_points,
                                       int capacity, const void* shift,
                                       const void* scales, const void* window,
                                       const void* E, int K, const void* g,
-                                      int g_stride, void* d_table,
-                                      void* stream) {
+                                      int g_stride, int phase, int period,
+                                      void* d_table, void* stream) {
   const int block = 256;
   const int grid = psdf_blocks((long long)n_points * K, block);
   if (grid == 0) return 0;
 #define PSDF_TGRAD_ARGS                                                      \
   (const float*)points, n_points, capacity, (const float*)shift,              \
       (const float*)scales, (const float*)window, (const float*)E, K,         \
-      (const float*)g, g_stride, (float*)d_table
+      (const float*)g, g_stride, phase, period, (float*)d_table
   if (d == 3) {
     PSDF_LAUNCH(encode_table_grad_kernel<3>, grid, block, 0, stream,
                 PSDF_TGRAD_ARGS);
@@ -458,7 +474,8 @@ extern "C" int psdf_encode_double_backward(
     int d, const void* points, int n_points, const void* table, int capacity,
     const void* shift, const void* scales, const void* window, const void* E,
     int K, float concat_scaling, int concat, const void* g, int g_stride,
-    const void* u, void* d_table, void* d_g, void* stream) {
+    const void* u, int phase, int period, void* d_table, void* d_g,
+    void* stream) {
   const int block = 128;
   const int grid = psdf_blocks(n_points, block);
   if (grid == 0) return 0;
@@ -466,7 +483,7 @@ extern "C" int psdf_encode_double_backward(
   (const float*)points, n_points, (const float*)table, capacity,              \
       (const float*)shift, (const float*)scales, (const float*)window,        \
       (const float*)E, K, concat_scaling, concat, (const float*)g, g_stride,  \
-      (const float*)u, (float*)d_table, (float*)d_g
+      (const float*)u, phase, period, (float*)d_table, (float*)d_g
   if (d == 3) {
     PSDF_LAUNCH(encode_double_backward_kernel<3>, grid, block, 0, stream,
                 PSDF_DBWD_ARGS);

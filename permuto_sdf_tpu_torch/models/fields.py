@@ -50,8 +50,10 @@ def _to(layers: list, device) -> list:
 
 @dataclasses.dataclass(frozen=True)
 class SDFConfig:
-    """The JAX ``SDFConfig`` without its XLA lowering and training knobs
-    (gather forms, table-gradient alternation, AD direction)."""
+    """The JAX ``SDFConfig`` without its XLA lowering knobs (gather forms,
+    AD direction). ``grad_level_parity``/``grad_level_period`` select the
+    levels that get table gradients (alternating-level table gradients,
+    :class:`PermutoEncodingSpec`)."""
 
     in_channels: int = 3
     geom_feat_size_out: int = 32
@@ -59,6 +61,8 @@ class SDFConfig:
     capacity: int = 2 ** 18
     nr_levels: int = 24
     sdf_shift: float = 1e-2
+    grad_level_parity: Optional[int] = None
+    grad_level_period: int = 2
     active_levels: Optional[int] = None
 
     @property
@@ -66,7 +70,8 @@ class SDFConfig:
         return PermutoEncodingSpec(
             pos_dim=self.in_channels, capacity=self.capacity,
             nr_levels=self.nr_levels, concat_points=True,
-            concat_points_scaling=1e-3)
+            concat_points_scaling=1e-3, grad_level_parity=self.grad_level_parity,
+            grad_level_period=self.grad_level_period)
 
 
 def init_sdf(generator: torch.Generator, cfg: SDFConfig, device=None) -> dict:
@@ -172,13 +177,16 @@ class RGBConfig:
     capacity: int = 2 ** 18
     nr_levels: int = 24
     sh_degree: int = 5
+    grad_level_parity: Optional[int] = None
+    grad_level_period: int = 2
 
     @property
     def encoding(self) -> PermutoEncodingSpec:
         return PermutoEncodingSpec(
             pos_dim=self.in_channels, capacity=self.capacity,
             nr_levels=self.nr_levels, concat_points=True,
-            concat_points_scaling=1.0)
+            concat_points_scaling=1.0, grad_level_parity=self.grad_level_parity,
+            grad_level_period=self.grad_level_period)
 
     @property
     def mlp_in_channels(self) -> int:
@@ -217,13 +225,16 @@ class NerfHashConfig:
     nr_levels: int = 24
     nr_feat_for_rgb: int = 64
     sh_degree: int = 4
+    grad_level_parity: Optional[int] = None
+    grad_level_period: int = 2
 
     @property
     def encoding(self) -> PermutoEncodingSpec:
         return PermutoEncodingSpec(
             pos_dim=self.in_channels, capacity=self.capacity,
             nr_levels=self.nr_levels, concat_points=True,
-            concat_points_scaling=1.0)
+            concat_points_scaling=1.0, grad_level_parity=self.grad_level_parity,
+            grad_level_period=self.grad_level_period)
 
 
 def init_nerf_hash(generator: torch.Generator, cfg: NerfHashConfig,

@@ -20,7 +20,9 @@ wrap) and the JAX package's bit for bit.
 
 Autograd: :func:`permuto_encode` is kernel A with a backward of F (table)
 and B (points). :func:`permuto_point_grad` is kernel B as a function of
-the table and of the feature cotangent ``g``, with a backward of G. The
+the table and of the feature cotangent ``g``, with a backward of G. Under
+``grad_level_parity`` (alternating-level table gradients) F and G take the
+levels ``(phase, period)`` that get table gradients and skip the others. The
 SDF's normals are built from the two (``models/fields.py``), which is the
 reverse-mode gradient JAX forms, without differentiating a backward pass.
 
@@ -58,6 +60,13 @@ class PermutoEncodingSpec:
     apply_random_shift_per_level: bool = True
     concat_points: bool = True
     concat_points_scaling: float = 1.0
+    # Alternating-level table gradients: with ``grad_level_parity`` set,
+    # only the levels l with ``l % grad_level_period == parity % period``
+    # get table gradients (kernels F and G skip the others, whose gradient
+    # stays exactly zero); the forward and the point gradient are unchanged.
+    # Active when period > 1 and at least ``period`` levels are encoded.
+    grad_level_parity: Optional[int] = None
+    grad_level_period: int = 2
 
     def __post_init__(self):
         if self.capacity & (self.capacity - 1):
@@ -243,6 +252,22 @@ def encode_fwd_plain(points, table, shift, scales, window, E, K: int,
     return out.contiguous()
 
 
+def _grad_levels(spec: PermutoEncodingSpec, K: int) -> tuple:
+    """(phase, period) of the levels that get table gradients when K levels
+    are encoded: period 1 means every level."""
+    period = spec.grad_level_period
+    if spec.grad_level_parity is None or period <= 1 or K < period:
+        return 0, 1
+    return spec.grad_level_parity % period, period
+
+
+def _active_levels(K: int, levels: tuple, device) -> torch.Tensor:
+    """Indices of the levels < K that get table gradients."""
+    phase, period = levels
+    lv = torch.arange(K, device=device)
+    return lv if period <= 1 else lv[lv % period == phase]
+
+
 def encode_point_grad_plain(points, table, shift, scales, window, E, K: int,
                             concat_scaling: float, concat: bool,
                             g: torch.Tensor) -> torch.Tensor:
@@ -282,29 +307,33 @@ def encode_point_grad_plain(points, table, shift, scales, window, E, K: int,
 
 
 def encode_table_grad_plain(points, table, shift, scales, window, E, K: int,
-                            g: torch.Tensor) -> torch.Tensor:
+                            g: torch.Tensor, levels: tuple = (0, 1)) -> torch.Tensor:
     """Plain version of kernel F: d table [L, 2, C] of sum(g * encode)
-    (``index_add_`` of the gather's transpose); levels >= K get zero."""
+    (``index_add_`` of the gather's transpose); levels >= K, and levels
+    outside ``levels = (phase, period)``, get zero."""
     N, d = points.shape
     L, _, C = table.shape
     _, bary, slots = _simplex_plain(_lattice_points(points, shift, scales, K), E, C)
     g_lv = g[:, :2 * K].t().reshape(K, 2, N)
     if window is not None:
         g_lv = g_lv * window[:K, None, None]
+    act = _active_levels(K, levels, points.device)
     out = torch.zeros(L * 2 * C, dtype=torch.float32, device=points.device)
     for f in range(2):
-        base = (torch.arange(K, device=points.device)[:, None] * 2 + f) * C
+        base = (act[:, None] * 2 + f) * C
         for r in range(d + 1):
-            out.index_add_(0, (base + slots[r]).reshape(-1), (bary[r] * g_lv[:, f]).reshape(-1))
+            out.index_add_(0, (base + slots[r][act]).reshape(-1),
+                           (bary[r][act] * g_lv[act, f]).reshape(-1))
     return out.reshape(L, 2, C)
 
 
 def encode_double_backward_plain(points, table, shift, scales, window, E, K: int,
                                  concat_scaling: float, concat: bool,
-                                 g: torch.Tensor, u: torch.Tensor):
+                                 g: torch.Tensor, u: torch.Tensor, levels: tuple = (0, 1)):
     """Plain version of kernel G: the VJP of kernel B's output (the point
-    gradient) with cotangent ``u [N, d]``, with respect to the table and to
-    the feature cotangent ``g``. Returns (d table [L, 2, C], d g)."""
+    gradient) with cotangent ``u [N, d]``, with respect to the table (the
+    levels of ``levels = (phase, period)`` only) and to the feature
+    cotangent ``g`` (every level). Returns (d table [L, 2, C], d g)."""
     N, d = points.shape
     L, _, C = table.shape
     dp1 = float(d + 1)
@@ -337,12 +366,13 @@ def encode_double_backward_plain(points, table, shift, scales, window, E, K: int
     if concat:
         d_g = torch.cat([d_g, u * concat_scaling], dim=-1)
     g_lv = g[:, :2 * K].t().reshape(K, 2, N)
+    act = _active_levels(K, levels, points.device)
     d_table = torch.zeros(L * 2 * C, dtype=torch.float32, device=points.device)
     for f in range(2):
-        base = (torch.arange(K, device=points.device)[:, None] * 2 + f) * C
+        base = (act[:, None] * 2 + f) * C
         for r in range(d + 1):
-            d_table.index_add_(0, (base + slots[r]).reshape(-1),
-                               ((h[r] * w[:, None]) * g_lv[:, f]).reshape(-1))
+            d_table.index_add_(0, (base + slots[r][act]).reshape(-1),
+                               ((h[r][act] * w[act, None]) * g_lv[act, f]).reshape(-1))
     return d_table.reshape(L, 2, C), d_g.contiguous()
 
 
@@ -410,9 +440,10 @@ encode_point_grad_cuda.launches = 0
 
 
 def encode_table_grad_cuda(points, table, shift, scales, window, E, K: int,
-                           g: torch.Tensor) -> torch.Tensor:
-    """Kernel F launch: d table [L, 2, C] (levels >= K zero). Counts
-    launches in ``encode_table_grad_cuda.launches``."""
+                           g: torch.Tensor, levels: tuple = (0, 1)) -> torch.Tensor:
+    """Kernel F launch: d table [L, 2, C] (levels >= K and levels outside
+    ``levels = (phase, period)`` zero). Counts launches in
+    ``encode_table_grad_cuda.launches``."""
     _check_inputs(points, table, shift, scales, window, E, K)
     N, d = points.shape
     _check_cotangent(g, N, 2 * K, points.device)
@@ -421,7 +452,8 @@ def encode_table_grad_cuda(points, table, shift, scales, window, E, K: int,
     err = lib.psdf_encode_table_grad(
         d, kernels.ptr(points), N, table.shape[-1], kernels.ptr(shift), kernels.ptr(scales),
         kernels.ptr(window), kernels.ptr(E), K, kernels.ptr(g), g.shape[1],
-        kernels.ptr(d_table), kernels.current_stream(points.device))
+        int(levels[0]), int(levels[1]), kernels.ptr(d_table),
+        kernels.current_stream(points.device))
     kernels.check(lib, err, "permuto encode table gradient (kernel F)")
     encode_table_grad_cuda.launches += 1
     return d_table
@@ -432,8 +464,9 @@ encode_table_grad_cuda.launches = 0
 
 def encode_double_backward_cuda(points, table, shift, scales, window, E, K: int,
                                 concat_scaling: float, concat: bool,
-                                g: torch.Tensor, u: torch.Tensor):
-    """Kernel G launch: (d table [L, 2, C], d g). Counts launches in
+                                g: torch.Tensor, u: torch.Tensor, levels: tuple = (0, 1)):
+    """Kernel G launch: (d table [L, 2, C] at the levels of ``levels =
+    (phase, period)``, d g). Counts launches in
     ``encode_double_backward_cuda.launches``."""
     _check_inputs(points, table, shift, scales, window, E, K)
     N, d = points.shape
@@ -447,7 +480,8 @@ def encode_double_backward_cuda(points, table, shift, scales, window, E, K: int,
         d, kernels.ptr(points), N, kernels.ptr(table), table.shape[-1],
         kernels.ptr(shift), kernels.ptr(scales), kernels.ptr(window), kernels.ptr(E), K,
         float(concat_scaling), int(concat), kernels.ptr(g), g.shape[1], kernels.ptr(u),
-        kernels.ptr(d_table), kernels.ptr(d_g), kernels.current_stream(points.device))
+        int(levels[0]), int(levels[1]), kernels.ptr(d_table), kernels.ptr(d_g),
+        kernels.current_stream(points.device))
     kernels.check(lib, err, "permuto encode double backward (kernel G)")
     encode_double_backward_cuda.launches += 1
     return d_table, d_g
@@ -471,9 +505,9 @@ class _PermutoEncodeFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points, table, shift, scales, window, E, K, concat_scaling,
-                concat):
+                concat, levels):
         ctx.save_for_backward(points, table, shift, scales, window, E)
-        ctx.args = (K, concat_scaling, concat)
+        ctx.args = (K, concat_scaling, concat, levels)
         fn = kernels.dispatch(points.device, encode_fwd_cuda, encode_fwd_plain)
         return fn(points, table, shift, scales, window, E, K, concat_scaling, concat)
 
@@ -481,7 +515,7 @@ class _PermutoEncodeFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         points, table, shift, scales, window, E = ctx.saved_tensors
-        K, concat_scaling, concat = ctx.args
+        K, concat_scaling, concat, levels = ctx.args
         g = g.contiguous()
         d_points = d_table = None
         if ctx.needs_input_grad[0]:
@@ -490,8 +524,8 @@ class _PermutoEncodeFn(torch.autograd.Function):
                           concat, g)
         if ctx.needs_input_grad[1]:
             fn = kernels.dispatch(points.device, encode_table_grad_cuda, encode_table_grad_plain)
-            d_table = fn(points, table, shift, scales, window, E, K, g)
-        return d_points, d_table, None, None, None, None, None, None, None
+            d_table = fn(points, table, shift, scales, window, E, K, g, levels)
+        return d_points, d_table, None, None, None, None, None, None, None, None
 
 
 class _PointGradFn(torch.autograd.Function):
@@ -502,9 +536,9 @@ class _PointGradFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points, table, g, shift, scales, window, E, K, concat_scaling,
-                concat):
+                concat, levels):
         ctx.save_for_backward(points, table, g, shift, scales, window, E)
-        ctx.args = (K, concat_scaling, concat)
+        ctx.args = (K, concat_scaling, concat, levels)
         fn = kernels.dispatch(points.device, encode_point_grad_cuda, encode_point_grad_plain)
         return fn(points, table, shift, scales, window, E, K, concat_scaling, concat, g)
 
@@ -512,15 +546,15 @@ class _PointGradFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, u):
         points, table, g, shift, scales, window, E = ctx.saved_tensors
-        K, concat_scaling, concat = ctx.args
+        K, concat_scaling, concat, levels = ctx.args
         if not (ctx.needs_input_grad[1] or ctx.needs_input_grad[2]):
-            return (None,) * 10
+            return (None,) * 11
         fn = kernels.dispatch(points.device, encode_double_backward_cuda,
                               encode_double_backward_plain)
         d_table, d_g = fn(points, table, shift, scales, window, E, K, concat_scaling,
-                          concat, g, u.contiguous())
+                          concat, g, u.contiguous(), levels)
         return (None, d_table if ctx.needs_input_grad[1] else None,
-                d_g if ctx.needs_input_grad[2] else None) + (None,) * 7
+                d_g if ctx.needs_input_grad[2] else None) + (None,) * 8
 
 
 def encoding_constants(spec: PermutoEncodingSpec, window, device):
@@ -547,7 +581,7 @@ def _encode_args(params: dict, points: torch.Tensor, spec: PermutoEncodingSpec,
     scales, E, window = encoding_constants(spec, window, points.device)
     return (points.contiguous(), params["lattice_values"].contiguous(),
             params["shift_per_level"].detach().contiguous(), scales, window, E, K,
-            float(spec.concat_points_scaling), bool(spec.concat_points))
+            float(spec.concat_points_scaling), bool(spec.concat_points), _grad_levels(spec, K))
 
 
 def permuto_encode(params: dict, points: torch.Tensor, spec: PermutoEncodingSpec,
@@ -560,9 +594,10 @@ def permuto_encode(params: dict, points: torch.Tensor, spec: PermutoEncodingSpec
     rest unless ``zero_fill=False`` (then the output is ``[N, 2K (+d)]``).
     Differentiable in ``points`` (kernel B on the card) and in the table
     (kernel F); the per-level shifts are fixed, as in the JAX package."""
-    points, table, shift, scales, window, E, K, cs, concat = _encode_args(
+    points, table, shift, scales, window, E, K, cs, concat, levels = _encode_args(
         params, points, spec, window, max_levels)
-    out = _PermutoEncodeFn.apply(points, table, shift, scales, window, E, K, cs, concat)
+    out = _PermutoEncodeFn.apply(points, table, shift, scales, window, E, K, cs, concat,
+                                 levels)
     L_full = spec.nr_levels
     if K < L_full and zero_fill:
         zeros = out.new_zeros((out.shape[0], (L_full - K) * 2))
@@ -579,7 +614,7 @@ def permuto_point_grad(params: dict, points: torch.Tensor, g: torch.Tensor,
     """d/dpoints of ``sum(g * permuto_encode(..., zero_fill=False))`` ->
     ``[N, d]`` (kernel B), differentiable in the table and in ``g`` (kernel
     G). ``g`` has the narrow layout ``[N, 2K (+d)]``."""
-    points, table, shift, scales, window, E, K, cs, concat = _encode_args(
+    points, table, shift, scales, window, E, K, cs, concat, levels = _encode_args(
         params, points, spec, window, max_levels)
     return _PointGradFn.apply(points, table, g.contiguous(), shift, scales, window, E, K,
-                              cs, concat)
+                              cs, concat, levels)

@@ -7,8 +7,12 @@ and gradients per ray are kernel D on the card
 :func:`nerf_render`, autograd functions whose backward is kernel D'.
 Their plain versions compose the functions below, which mirror the JAX
 ones one to one; the plain backward is PyTorch's autograd of the plain
-forward. Every function assumes the prefix-mask invariant of
-:class:`RaySamples`.
+forward. The training step's train-time LOD adds kernel L
+(:func:`train_lod_select`: finite-difference cos, ranking weights, the
+top-K and random extra slots of each ray) and kernel D2 (:func:`neus_render_mixed`:
+the weights of the mixed carried/full-resolution chain and the selected
+slots' integration), whose backward is kernel D2'. Every function assumes
+the prefix-mask invariant of :class:`RaySamples`.
 """
 
 from __future__ import annotations
@@ -105,6 +109,12 @@ def neus_compute_weights_from_cos(samples: RaySamples, sdf, true_cos, inv_s,
     weights_sum = torch.sum(torch.where(mask, weights, torch.zeros_like(weights)),
                             dim=-1, keepdim=True)
     return weights, weights_sum, bg_T
+
+
+def finite_difference_cos(samples: RaySamples, sdf):
+    sdf = sdf.reshape(samples.mask.shape)
+    sdf_next = torch.cat([sdf[:, 1:], sdf[:, -1:]], dim=-1)
+    return (sdf_next - sdf) / torch.clamp(samples.dt, min=1e-6)
 
 
 def neus_compute_weights(samples: RaySamples, sdf, sdf_gradients, inv_s,
@@ -322,6 +332,244 @@ def nerf_render(samples: RaySamples, density, rgb):
     _on_cuda(samples)
     return _RenderWeightsFn.apply(1, density, None, rgb, samples.dirs, samples.dt,
                                   samples.mask, 0.0, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel L: the train-time LOD's selection; kernels D2 and D2': the mixed
+# chain's weights and integration, and their backward
+# ---------------------------------------------------------------------------
+
+def _top_slots(values, n: int):
+    """``lax.top_k``'s slots: the n largest per row, ties by lower index (a
+    stable descending sort)."""
+    return torch.sort(values, dim=1, descending=True, stable=True).indices[:, :n]
+
+
+def train_lod_select_plain(samples: RaySamples, sdf, inv_s: float, cos_anneal_ratio: float,
+                           scores, K: int, E: int):
+    """Plain version of kernel L -> (cos_fd [R, S], sel [R, K+E] int64): the
+    K slots of largest NeuS weight of the carried ``sdf`` with a
+    finite-difference cos (-1 at invalid slots), then the E slots of largest
+    ``scores`` [R, S] among the valid slots outside them."""
+    mask = samples.mask
+    cos_fd = finite_difference_cos(samples, sdf)
+    w_rank = neus_compute_weights_from_cos(samples, sdf, cos_fd, inv_s, cos_anneal_ratio)[0]
+    sel = _top_slots(torch.where(mask, w_rank, -1.0), K)
+    if E > 0:
+        rest = torch.where(mask, scores.scatter(1, sel, -1.0), -1.0)
+        sel = torch.cat([sel, _top_slots(rest, E)], dim=1)
+    return cos_fd, sel
+
+
+def train_lod_select_cuda(samples: RaySamples, sdf, inv_s: float, cos_anneal_ratio: float,
+                          scores, K: int, E: int):
+    """Kernel L launch: same returns as :func:`train_lod_select_plain`.
+    Counts launches in ``train_lod_select_cuda.launches``."""
+    R, S = samples.mask.shape
+    dev = samples.mask.device
+    if not (0 < K <= S and 0 <= E <= S - K):
+        raise ValueError(f"train LOD select: need 0 < K <= S and K + E <= S, got {K}, {E}, {S}")
+    sdf = sdf.reshape(R, S).contiguous()
+    dt = samples.dt.contiguous()
+    mask = samples.mask.contiguous()
+    if E > 0:
+        scores = scores.reshape(R, S).contiguous()
+    else:
+        scores = None
+    _check_render_inputs(dev, (sdf, dt, scores), mask)
+    cos_fd = torch.empty((R, S), dtype=torch.float32, device=dev)
+    sel = torch.empty((R, K + E), dtype=torch.int64, device=dev)
+    lib = kernels.load("volume_rendering")
+    err = lib.psdf_train_lod_select(
+        R, S, K, E, kernels.ptr(sdf), kernels.ptr(dt), kernels.ptr(mask), kernels.ptr(scores),
+        float(inv_s), float(cos_anneal_ratio), kernels.ptr(cos_fd), kernels.ptr(sel),
+        kernels.current_stream(dev))
+    kernels.check(lib, err, "train LOD select (kernel L)")
+    train_lod_select_cuda.launches += 1
+    return cos_fd, sel
+
+
+train_lod_select_cuda.launches = 0
+
+
+def train_lod_select(samples: RaySamples, sdf, inv_s: float, cos_anneal_ratio: float,
+                     scores, K: int, E: int):
+    """The train-time LOD's fine set of each ray (kernel L on the card) ->
+    (cos_fd [R, S], sel [R, K+E] int64 slot ids, unique per ray). ``scores``
+    [R, S] in [0, 1) pick the E extras (None when E is 0)."""
+    if E > 0 and scores is None:
+        raise ValueError("train LOD select: E > 0 random extras need scores")
+    fn = kernels.dispatch(samples.mask.device, train_lod_select_cuda, train_lod_select_plain)
+    return fn(samples, sdf, inv_s, cos_anneal_ratio, scores, K, E)
+
+
+def _fine_ids(samples: RaySamples, sel):
+    """Flat slot ids [R*KE] of the fine set, their validity, and which fine
+    row represents its slot in the chain: the last of the rows that select
+    it (a ray with fewer valid samples than K + E selects slots twice;
+    JAX's scatter keeps the last write, and its gradient)."""
+    R, S = samples.mask.shape
+    KE = sel.shape[1]
+    idx = (torch.arange(R, device=sel.device)[:, None] * S + sel).reshape(-1)
+    later = torch.triu(torch.ones((KE, KE), dtype=torch.bool, device=sel.device), diagonal=1)
+    dup_later = ((sel[:, :, None] == sel[:, None, :]) & later).any(dim=-1).reshape(-1)
+    valid = samples.flat_mask()[idx]
+    return idx, valid, valid & ~dup_later
+
+
+def _into_chain(base, idx, rep, values):
+    """``base`` [M] with ``values`` [R*KE] at the slots of the representative
+    rows ``rep`` (one row per slot, so the write is deterministic)."""
+    return base.index_put((idx[rep],), values[rep])
+
+
+def neus_render_mixed_plain(samples: RaySamples, sdf_carried, cos_fd, sel, sdf_c, grads_c,
+                            rgb_c, inv_s: float, cos_anneal_ratio: float):
+    """Plain version of kernel D2: the NeuS weights of the mixed chain (the
+    fine set's sdf and cos = dir . grad at the selected valid slots, the
+    carried sdf and ``cos_fd`` elsewhere) and the selected valid slots'
+    integration -> (weights [R,S], weights_sum [R,1], bg_T [R], rgb_int
+    [R,3], grad_int [R,3])."""
+    R, S = samples.mask.shape
+    KE = sel.shape[1]
+    idx, vc, rep = _fine_ids(samples, sel)
+    grads_c = grads_c.reshape(-1, 3)
+    d = samples.dirs[:, None, :].expand(R, KE, 3).reshape(-1, 3)
+    cos_sel = (d[:, 0] * grads_c[:, 0] + d[:, 1] * grads_c[:, 1]) + d[:, 2] * grads_c[:, 2]
+    sdf_flat = _into_chain(sdf_carried.reshape(-1), idx, rep, sdf_c.reshape(-1))
+    cos_flat = _into_chain(cos_fd.reshape(-1), idx, rep, cos_sel)
+    w, wsum, bg_T = neus_compute_weights_from_cos(samples, sdf_flat.reshape(R, S),
+                                                  cos_flat.reshape(R, S), inv_s,
+                                                  cos_anneal_ratio)
+    w_sel = torch.where(vc, w.reshape(-1)[idx], 0.0).reshape(R, KE, 1)
+    rgb_int = torch.sum(w_sel * rgb_c.reshape(R, KE, 3), dim=1)
+    grad_int = torch.sum(w_sel * grads_c.reshape(R, KE, 3), dim=1)
+    return w, wsum, bg_T, rgb_int, grad_int
+
+
+def _mixed_inputs(samples, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c):
+    R, S = samples.mask.shape
+    KE = sel.shape[1]
+    ins = dict(sdf_carried=sdf_carried.reshape(R, S).contiguous(),
+               cos_fd=cos_fd.reshape(R, S).contiguous(), sel=sel.contiguous(),
+               sdf_c=sdf_c.reshape(R * KE).contiguous(),
+               grads_c=grads_c.reshape(R * KE, 3).contiguous(),
+               rgb_c=rgb_c.reshape(R * KE, 3).contiguous(), dirs=samples.dirs.contiguous(),
+               dt=samples.dt.contiguous(), mask=samples.mask.contiguous())
+    dev = samples.mask.device
+    _check_render_inputs(dev, [t for k, t in ins.items() if k not in ("sel", "mask")],
+                         ins["mask"])
+    if sel.dtype != torch.int64 or sel.device != dev:
+        raise ValueError("mixed render: sel must be int64 on the mask's device")
+    return R, S, KE, ins
+
+
+def _mixed_ptrs(ins):
+    return [kernels.ptr(ins[k]) for k in ("sdf_carried", "cos_fd", "sel", "sdf_c", "grads_c",
+                                          "rgb_c", "dirs", "dt", "mask")]
+
+
+def neus_render_mixed_cuda(samples: RaySamples, sdf_carried, cos_fd, sel, sdf_c, grads_c,
+                           rgb_c, inv_s: float, cos_anneal_ratio: float):
+    """Kernel D2 launch: same returns as :func:`neus_render_mixed_plain`.
+    Counts launches in ``neus_render_mixed_cuda.launches``."""
+    R, S, KE, ins = _mixed_inputs(samples, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c)
+    dev = samples.mask.device
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
+    lib = kernels.load("volume_rendering")
+    err = lib.psdf_render_mixed(R, S, KE, *_mixed_ptrs(ins), float(inv_s),
+                                float(cos_anneal_ratio), *(kernels.ptr(t) for t in outs),
+                                kernels.current_stream(dev))
+    kernels.check(lib, err, "mixed render (kernel D2)")
+    neus_render_mixed_cuda.launches += 1
+    return tuple(outs)
+
+
+neus_render_mixed_cuda.launches = 0
+
+
+def neus_render_mixed_bwd_plain(samples: RaySamples, sdf_carried, cos_fd, sel, sdf_c, grads_c,
+                                rgb_c, inv_s: float, cos_anneal_ratio: float, g_weights,
+                                g_wsum, g_bg_T, g_rgb, g_grad):
+    """Plain version of kernel D2': autograd of the plain forward. Takes the
+    cotangents of its five outputs and returns (d sdf_c [R*KE], d grads_c
+    [R*KE,3], d rgb_c [R*KE,3])."""
+    with torch.enable_grad():
+        ins = [t.detach().reshape(-1, *shape).requires_grad_(True)
+               for t, shape in ((sdf_c, ()), (grads_c, (3,)), (rgb_c, (3,)))]
+        outs = neus_render_mixed_plain(samples, sdf_carried, cos_fd, sel, *ins, inv_s,
+                                       cos_anneal_ratio)
+        cots = (g_weights, g_wsum, g_bg_T, g_rgb, g_grad)
+        d = torch.autograd.grad(outs, ins, [c.reshape(o.shape) for c, o in zip(cots, outs)],
+                                allow_unused=True)
+    return tuple(torch.zeros_like(x) if y is None else y for x, y in zip(ins, d))
+
+
+def neus_render_mixed_bwd_cuda(samples: RaySamples, sdf_carried, cos_fd, sel, sdf_c, grads_c,
+                               rgb_c, inv_s: float, cos_anneal_ratio: float, g_weights,
+                               g_wsum, g_bg_T, g_rgb, g_grad):
+    """Kernel D2' launch: same returns as :func:`neus_render_mixed_bwd_plain`.
+    Counts launches in ``neus_render_mixed_bwd_cuda.launches``."""
+    R, S, KE, ins = _mixed_inputs(samples, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c)
+    dev = samples.mask.device
+    cots = [g_weights.reshape(R, S).contiguous(), g_wsum.reshape(R).contiguous(),
+            g_bg_T.reshape(R).contiguous(), g_rgb.reshape(R, 3).contiguous(),
+            g_grad.reshape(R, 3).contiguous()]
+    _check_render_inputs(dev, cots, ins["mask"])
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev)
+            for shape in ((R * KE,), (R * KE, 3), (R * KE, 3))]
+    lib = kernels.load("volume_rendering")
+    err = lib.psdf_render_mixed_bwd(R, S, KE, *_mixed_ptrs(ins), float(inv_s),
+                                    float(cos_anneal_ratio), *(kernels.ptr(t) for t in cots),
+                                    *(kernels.ptr(t) for t in outs), kernels.current_stream(dev))
+    kernels.check(lib, err, "mixed render backward (kernel D2')")
+    neus_render_mixed_bwd_cuda.launches += 1
+    return tuple(outs)
+
+
+neus_render_mixed_bwd_cuda.launches = 0
+
+
+class _RenderMixedFn(torch.autograd.Function):
+    """Kernel D2 with a backward of kernel D2' (plain versions on the CPU).
+    Differentiable in the fine set's sdf, gradients and rgb; the carried
+    sdf, ``cos_fd``, the selection and the samples are constants."""
+
+    @staticmethod
+    def forward(ctx, sdf_c, grads_c, rgb_c, sdf_carried, cos_fd, sel, dirs, dt, mask, inv_s,
+                cos_anneal_ratio):
+        ctx.save_for_backward(sdf_c, grads_c, rgb_c, sdf_carried, cos_fd, sel, dirs, dt, mask)
+        ctx.args = (inv_s, cos_anneal_ratio)
+        smp = _weights_view(dirs, dt, mask)
+        fn = neus_render_mixed_cuda if _on_cuda(smp) else neus_render_mixed_plain
+        return tuple(fn(smp, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c, inv_s,
+                        cos_anneal_ratio))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *cots):
+        sdf_c, grads_c, rgb_c, sdf_carried, cos_fd, sel, dirs, dt, mask = ctx.saved_tensors
+        smp = _weights_view(dirs, dt, mask)
+        fn = neus_render_mixed_bwd_cuda if _on_cuda(smp) else neus_render_mixed_bwd_plain
+        d_sdf, d_grads, d_rgb = fn(smp, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c,
+                                   *ctx.args, *(c.contiguous() for c in cots))
+        return (d_sdf.reshape(sdf_c.shape), d_grads.reshape(grads_c.shape),
+                d_rgb.reshape(rgb_c.shape)) + (None,) * 8
+
+
+def neus_render_mixed(samples: RaySamples, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c,
+                      inv_s: float, cos_anneal_ratio: float):
+    """The train-time LOD's render (kernel D2 on the card): the NeuS weights
+    of the mixed chain and the selected slots' integration -> (weights,
+    weights_sum, bg_T, rgb_int, grad_int). ``sel [R, KE]`` are the slots of
+    the fine set whose ``sdf_c [R*KE(,1)]``, ``grads_c`` and ``rgb_c [R*KE,
+    3]`` the fields computed; ``inv_s`` is a python float. Differentiable in
+    sdf_c, grads_c and rgb_c (kernel D2')."""
+    _on_cuda(samples)
+    return _RenderMixedFn.apply(sdf_c, grads_c, rgb_c, sdf_carried.detach(), cos_fd.detach(),
+                                sel, samples.dirs, samples.dt, samples.mask, float(inv_s),
+                                float(cos_anneal_ratio))
 
 
 # ---------------------------------------------------------------------------

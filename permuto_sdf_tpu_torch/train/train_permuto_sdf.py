@@ -8,7 +8,11 @@ Slice 1 of the port serves frames (:func:`render_image`); slice 2 trains
 :func:`train`, with ``resume_from``); slice 3 serves the interactive
 sphere-traced frame (:func:`render_image_sphere_traced_fast`); slice 4 adds
 the hit-ray compaction of the step (``hit_ray_frac``) and the viewer's LOD
-volumetric frame (``render_image(lod=)``). JAX draws its randomness from keys
+volumetric frame (``render_image(lod=)``); slice 5 the rest of the
+recommended training profile: the train-time LOD (``train_lod_top_k``,
+``train_lod_rand_extra``), alternating-level table gradients
+(``table_grad_alternate``) and the gate that holds both back
+(``lever_start_iter``). JAX draws its randomness from keys
 split inside the step; the port takes the same draws as tensors
 (:class:`TrainDraws`), made from a ``torch.Generator`` that :func:`train`
 derives from ``(seed, iteration)``, so a resumed run sees the draws of an
@@ -132,13 +136,17 @@ class PermutoSDFTrainConfig:
         return SDFConfig(in_channels=3, geom_feat_size_out=self.sdf_geom_feat_size,
                          nr_iters_for_c2f=self.sdf_nr_iters_for_c2f,
                          capacity=self.capacity, nr_levels=self.nr_levels,
+                         grad_level_parity=self.table_grad_parity,
+                         grad_level_period=self.table_grad_period,
                          active_levels=self.sdf_active_levels)
 
     @property
     def rgb_model(self) -> RGBConfig:
         return RGBConfig(in_channels=3, geom_feat_size_in=self.sdf_geom_feat_size,
                          nr_iters_for_c2f=self.rgb_nr_iters_for_c2f,
-                         capacity=self.capacity, nr_levels=self.nr_levels)
+                         capacity=self.capacity, nr_levels=self.nr_levels,
+                         grad_level_parity=self.table_grad_parity,
+                         grad_level_period=self.table_grad_period)
 
     @property
     def bg_model(self) -> NerfHashConfig:
@@ -146,7 +154,9 @@ class PermutoSDFTrainConfig:
             in_channels=4, nr_iters_for_c2f=self.background_nr_iters_for_c2f,
             capacity=self.capacity,
             nr_levels=(self.bg_nr_levels if self.bg_nr_levels is not None
-                       else self.nr_levels))
+                       else self.nr_levels),
+            grad_level_parity=self.table_grad_parity,
+            grad_level_period=self.table_grad_period)
 
     @property
     def grid(self) -> og.OccupancyGridConfig:
@@ -232,7 +242,10 @@ class TrainDraws:
     runs the importance stage on the bucket);
     bg_rand [R, S_bg] in [0, 1) -- the background sampler's jitter;
     curv_dirs [Nc, 3] standard normal -- the curvature loss's directions;
-    off_points (phi, cos theta, u), each [1024] -- the offsurface points."""
+    off_points (phi, cos theta, u), each [1024] -- the offsurface points;
+    lod_scores [R, S] in [0, 1) or None -- the train-time LOD's random
+    extras (drawn only when the LOD takes extras; R before hit-ray
+    compaction, so a compacted step selects the dense step's slots)."""
 
     ray_indices: tuple
     fg_start: torch.Tensor
@@ -240,9 +253,14 @@ class TrainDraws:
     bg_rand: torch.Tensor
     curv_dirs: torch.Tensor
     off_points: tuple
+    lod_scores: Optional[torch.Tensor] = None
 
     def to(self, device) -> "TrainDraws":
-        move = lambda t: tuple(x.to(device) for x in t) if isinstance(t, tuple) else t.to(device)  # noqa: E731
+        def move(t):
+            if t is None:
+                return None
+            return tuple(x.to(device) for x in t) if isinstance(t, tuple) else t.to(device)
+
         return TrainDraws(**{f.name: move(getattr(self, f.name))
                              for f in dataclasses.fields(self)})
 
@@ -265,8 +283,22 @@ def _fg_rays(cfg: PermutoSDFTrainConfig) -> int:
     return _hit_ray_budget(cfg.nr_rays, cfg.hit_ray_frac) if _hit_compaction(cfg) else cfg.nr_rays
 
 
+def _train_lod(cfg: PermutoSDFTrainConfig, S: Optional[int] = None):
+    """(K, E) of the train-time LOD for S samples per ray (default: the
+    step's), or None when it is off."""
+    if cfg.train_lod_top_k is None or not cfg.do_importance_sampling:
+        return None
+    S = cfg.samples_per_ray if S is None else S
+    K = min(cfg.train_lod_top_k, S)
+    return K, min(cfg.train_lod_rand_extra, S - K)
+
+
 def _compact_size(cfg: PermutoSDFTrainConfig) -> int:
-    """Samples the fields evaluate per step: R * S, capped at the budget."""
+    """Samples the fields evaluate per step: the LOD's fine set, R * (K +
+    E); else R * S, capped at the budget."""
+    lod = _train_lod(cfg)
+    if lod is not None:
+        return _fg_rays(cfg) * sum(lod)
     M = _fg_rays(cfg) * cfg.samples_per_ray
     return min(M, cfg.render_sample_budget) if cfg.render_sample_budget else M
 
@@ -280,7 +312,7 @@ def draw_train_step(generator: torch.Generator, cfg: PermutoSDFTrainConfig,
     nc = _compact_size(cfg)
     cb = min(cfg.curvature_sample_budget, nc) if cfg.curvature_sample_budget else nc
     rand = lambda *shape: torch.rand(shape, generator=generator)  # noqa: E731
-    return TrainDraws(
+    draws = TrainDraws(
         ray_indices=draw_ray_indices(reel, R, generator),
         fg_start=rand(R, 1),
         imp_jitter=((rand(R_imp, n) * 2.0 - 1.0) * mov, (rand(R_imp, n) * 2.0 - 1.0) * mov),
@@ -289,6 +321,10 @@ def draw_train_step(generator: torch.Generator, cfg: PermutoSDFTrainConfig,
         off_points=(rand(NR_OFFSURFACE_POINTS) * (2 * np.pi),
                     rand(NR_OFFSURFACE_POINTS) * 2.0 - 1.0, rand(NR_OFFSURFACE_POINTS)),
     )
+    lod = _train_lod(cfg)
+    if lod is not None and lod[1] > 0:
+        draws.lod_scores = rand(R, cfg.samples_per_ray)
+    return draws
 
 
 def step_generators(seed: int, it: int):
@@ -304,20 +340,9 @@ def step_generators(seed: int, it: int):
 # ---------------------------------------------------------------------------
 
 def _check_branches(cfg: PermutoSDFTrainConfig):
-    if cfg.train_lod_top_k is not None:
-        raise NotImplementedError("train_lod_top_k: the train-time LOD (ROADMAP Queue 1, "
-                                  "slice 5: a kernel D variant that takes cos) is not "
-                                  "ported yet")
     if not cfg.use_occupancy_grid:
         raise NotImplementedError("use_occupancy_grid=False: compute_samples_fg is not "
                                   "ported yet")
-
-
-def _check_train_cfg(cfg: PermutoSDFTrainConfig):
-    _check_branches(cfg)
-    if cfg.table_grad_alternate or cfg.table_grad_parity is not None:
-        raise NotImplementedError("table_grad_alternate: alternating-level table "
-                                  "gradients are not ported yet")
 
 
 def _pad_one(a, fill=0.0):
@@ -348,18 +373,20 @@ def _take_rays(samples: RaySamples, ray_idx, *extra):
     return (bucket, *(next(outs) if e is not None else None for e in extra))
 
 
-def _hit_bucket(samples: RaySamples, t_exit, img_indices, cfg: PermutoSDFTrainConfig):
+def _hit_bucket(samples: RaySamples, t_exit, img_indices, cfg: PermutoSDFTrainConfig,
+                lod_scores=None):
     """Hit-ray compaction: the rays with a valid sample listed into a
     bucket of ``_hit_ray_budget`` rays (kernel H0) and gathered with their
-    t_exit and image ids (kernel H1). The last hit rays drop for this step
-    when they overflow the bucket. -> (bucket samples, hit) with hit =
-    dict(ray_idx, nr_hit_rays, t_exit, img_indices)."""
+    t_exit, image ids and LOD scores (kernel H1). The last hit rays drop for
+    this step when they overflow the bucket. -> (bucket samples, hit) with
+    hit = dict(ray_idx, nr_hit_rays, t_exit, img_indices, lod_scores)."""
     R0 = samples.nr_rays
     valid_rays = samples.valid_rays()
     ray_idx, _ = _compact_idx(valid_rays, _hit_ray_budget(R0, cfg.hit_ray_frac))
-    bucket, t_exit_b, img_b = _take_rays(samples, ray_idx, t_exit, img_indices)
+    bucket, t_exit_b, img_b, scores_b = _take_rays(samples, ray_idx, t_exit, img_indices,
+                                                   lod_scores)
     return bucket, {"ray_idx": ray_idx, "nr_hit_rays": valid_rays.sum(), "t_exit": t_exit_b,
-                    "img_indices": img_b}
+                    "img_indices": img_b, "lod_scores": scores_b}
 
 
 def _masked_sdf_value(params_sdf, pts_flat, flat_mask, iter_nr, sdf_cfg, budget,
@@ -393,7 +420,8 @@ def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
         start=draws.fg_start if draws is not None else None)
     hit = None
     if _hit_compaction(cfg) and cfg.hit_ray_compact_early:
-        samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg)
+        samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg,
+                                   draws.lod_scores if draws is not None else None)
         t_exit = hit["t_exit"]
     if cfg.do_importance_sampling:
         def sdf_fn(pts, flat_mask):
@@ -404,7 +432,7 @@ def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
         samples = importance_sampling_sdf_model(
             sdf_fn, samples, t_exit, cfg.nr_samples_imp_sampling,
             jitter=draws.imp_jitter if draws is not None else None,
-            carry_sdf=cfg.train_lod_top_k is not None)
+            carry_sdf=_train_lod(cfg) is not None)
     return samples, hit
 
 
@@ -432,21 +460,28 @@ def run_net(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
     out = render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
                          forced_variance, cfg, img_indices=img_indices,
                          bg_rand=draws.bg_rand if draws is not None else None, hit=hit,
-                         rays=(origins, dirs))
+                         rays=(origins, dirs),
+                         lod_scores=draws.lod_scores if draws is not None else None)
     out[3]["does_intersect"] = does_intersect
     return out
 
 
 def render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
                    forced_variance, cfg: PermutoSDFTrainConfig, img_indices=None,
-                   bg_rand=None, hit=None, rays=None):
+                   bg_rand=None, hit=None, rays=None, lod_scores=None):
     """The part of :func:`run_net` after the fg samples are placed: the
     fields, the NeuS weights and the background. Same returns. ``hit`` (from
     :func:`_hit_bucket`) says the samples are an early-compacted bucket of
     the rays ``rays = (origins, dirs)`` (default: the samples' own); else
     with ``hit_ray_frac`` the rays are compacted here (late). Either way the
     bucket's per-ray results go back to every ray (kernel H2) and the
-    background runs on every ray."""
+    background runs on every ray.
+
+    The train-time LOD (``train_lod_top_k`` with samples that carry their
+    proxy sdf) evaluates the fields on each ray's fine set only: kernel L
+    selects it from the carried sdf (``lod_scores`` [R0, S] pick the random
+    extras, taken into the bucket with the rays), kernel D2 renders the
+    mixed chain, and ``compact`` holds the fine set."""
     origins, dirs = rays if rays is not None else (samples.origins, samples.dirs)
     R0 = origins.shape[0]
     img_fg = img_indices
@@ -461,15 +496,26 @@ def render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
         nr_samples_total = samples.mask.sum()
         nr_hit_rays = samples.valid_rays().sum()
         if _hit_compaction(cfg):  # late: after sampling, exact against the dense path
-            samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg)
+            samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg, lod_scores)
     if hit is not None:
         img_fg = hit["img_indices"]
+        lod_scores = hit["lod_scores"]
     R, S = samples.mask.shape
     M = R * S
     budget = min(M, cfg.render_sample_budget) if cfg.render_sample_budget else M
     inv_s = vr.variance_inv_s(params["variance"], forced_variance)
     idx = None
-    if budget < M:
+    lod = _train_lod(cfg, S) if samples.sdf is not None else None
+    if lod is not None:
+        # the fine set: the K slots of largest weight of the carried sdf and
+        # E random others per ray (kernel L)
+        cos_fd, sel = vr.train_lod_select(samples, samples.sdf, inv_s, cos_anneal_ratio,
+                                          lod_scores if lod[1] > 0 else None, *lod)
+        fine = (torch.arange(R, device=sel.device)[:, None] * S + sel).reshape(-1)
+        valid_c = samples.flat_mask()[fine]
+        pos_c = samples.flat_positions()[fine]
+        dirs_c = samples.flat_dirs()[fine]
+    elif budget < M:
         # the first `budget` valid samples; the overflow leaves the batch
         idx, valid_c = _compact_idx(samples.flat_mask(), budget)
         kept = torch.zeros((M + 1,), dtype=torch.bool, device=idx.device)
@@ -486,24 +532,30 @@ def render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
     cc = params.get("colorcal") if img_indices is not None else None
     per_sample_img = None
     if cc is not None:
-        per_sample_img = img_fg[:, None].expand(R, S).reshape(-1)
+        per_ray = sel.shape[1] if lod is not None else S
+        per_sample_img = img_fg[:, None].expand(R, per_ray).reshape(-1)
         if idx is not None:
             per_sample_img = _pad_one(per_sample_img, 0)[idx]
     rgb_c = rgb_apply(params["rgb"], pos_c, dirs_c, grads_c, geom_c, iter_nr_anneal,
                       cfg.rgb_model, colorcal_params=cc, per_sample_img_indices=per_sample_img)
     compact = {"pos": pos_c, "sdf": sdf_c, "grads": grads_c, "valid": valid_c}
-    if idx is not None:
-        vc = valid_c[:, None].to(sdf_c.dtype)
-
-        def scatter(x):
-            return torch.zeros((M + 1, x.shape[1]), dtype=x.dtype,
-                               device=x.device).index_put((idx,), x * vc)[:M]
-
-        sdf, sdf_gradients, rgb_flat = scatter(sdf_c), scatter(grads_c), scatter(rgb_c)
+    if lod is not None:
+        # the mixed chain (kernel D2): the fine set's sdf and analytic cos at
+        # the selected valid slots, the carried sdf and cos_fd elsewhere
+        weights, weights_sum, bg_T, pred_rgb, grad_int = vr.neus_render_mixed(
+            samples, samples.sdf, cos_fd, sel, sdf_c, grads_c, rgb_c, inv_s, cos_anneal_ratio)
     else:
         sdf, sdf_gradients, rgb_flat = sdf_c, grads_c, rgb_c
-    weights, weights_sum, bg_T, pred_rgb, grad_int = vr.neus_render(
-        samples, sdf, sdf_gradients, rgb_flat, inv_s, cos_anneal_ratio)
+        if idx is not None:
+            vc = valid_c[:, None].to(sdf_c.dtype)
+
+            def scatter(x):
+                return torch.zeros((M + 1, x.shape[1]), dtype=x.dtype,
+                                   device=x.device).index_put((idx,), x * vc)[:M]
+
+            sdf, sdf_gradients, rgb_flat = scatter(sdf_c), scatter(grads_c), scatter(rgb_c)
+        weights, weights_sum, bg_T, pred_rgb, grad_int = vr.neus_render(
+            samples, sdf, sdf_gradients, rgb_flat, inv_s, cos_anneal_ratio)
     pred_normals = grad_int / (torch.linalg.norm(grad_int, dim=-1, keepdim=True) + 1e-12)
     if hit is not None:
         # the bucket's per-ray results back to every ray (kernel H2): miss
@@ -567,7 +619,7 @@ def compute_loss_and_grads(params, grid, reel: TensorReel, draws, iter_nr,
     :class:`TrainDraws` or a generator to make one from; ``fg_samples``
     replaces the sampling stage. Returns (loss, aux, grads) with ``grads``
     a tree like ``params`` (None where a leaf gets no gradient)."""
-    _check_train_cfg(cfg)
+    _check_branches(cfg)
     device = params["sdf"]["encoding"]["lattice_values"].device
     if isinstance(draws, torch.Generator):
         draws = draw_train_step(draws, cfg, reel)
@@ -625,7 +677,8 @@ def compute_loss_and_grads(params, grid, reel: TensorReel, draws, iter_nr,
            "nr_samples": ex["nr_samples_total"],
            "nr_samples_rendered": ex["nr_samples_rendered"],
            "nr_hit_rays": ex["nr_hit_rays"], "samples": ex["samples"],
-           "nr_rays": cfg.nr_rays, "hit_ray_frac": cfg.hit_ray_frac}
+           "nr_rays": cfg.nr_rays, "hit_ray_frac": cfg.hit_ray_frac,
+           "train_lod_top_k": cfg.train_lod_top_k, "table_grad_parity": cfg.table_grad_parity}
     return loss.detach(), aux, grads
 
 
@@ -721,12 +774,18 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
     every 50 iterations toward the target of ``nr_rays * samples_per_ray``
     valid samples, and with ``hit_ray_frac`` set it moves the hit-ray
     bucket along :data:`_HIT_FRAC_LADDER` after the measured hit fraction.
-    Single device (None means the GPU); the reel is moved there. Returns
-    (params, grid, history of (it, loss, loss_rgb))."""
+
+    The approximating levers (``train_lod_top_k``, ``table_grad_alternate``)
+    are off until ``lever_start_iter`` (counted after sphere init; None:
+    0 with ``with_mask``, else ``forced_variance_finish_iter``), unless the
+    run starts past it; with ``table_grad_alternate`` each step's cfg gets
+    ``table_grad_parity = it % table_grad_period`` (the grid refresh's does
+    not). Single device (None means the GPU); the reel is moved there.
+    Returns (params, grid, history of (it, loss, loss_rgb))."""
     if data_parallel:
         raise NotImplementedError("data_parallel: data parallelism (Queue 1 item 8) is "
                                   "not ported yet")
-    _check_train_cfg(cfg)
+    _check_branches(cfg)
     device = resolve_device(device)
     reel = reel.to(device)
     nr_iters = nr_iters or cfg.iter_finish_training
@@ -753,6 +812,18 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
         opt_state = optimizer.init(params)
         grid = og.make_occupancy_grid(cfg.grid, device=device)
 
+    # the lever gate: the approximating levers run from lever_start_iter on
+    gate_iter = cfg.lever_start_iter
+    if gate_iter is None:
+        gate_iter = 0 if cfg.with_mask else cfg.forced_variance_finish_iter
+    cfg = dataclasses.replace(cfg, lever_start_iter=gate_iter)
+    gated_levers = None
+    if (cfg.lever_start_iter and start_iter - cfg.nr_iter_sphere_fit < cfg.lever_start_iter
+            and (cfg.train_lod_top_k is not None or cfg.table_grad_alternate)):
+        gated_levers = dict(train_lod_top_k=cfg.train_lod_top_k,
+                            table_grad_alternate=cfg.table_grad_alternate)
+        cfg = dataclasses.replace(cfg, train_lod_top_k=None, table_grad_alternate=False)
+
     history = []
     loss, aux = None, {}
     t0 = time.perf_counter()
@@ -764,6 +835,9 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
             aux = {}
         else:
             it_anneal = it - cfg.nr_iter_sphere_fit
+            if gated_levers is not None and it_anneal >= cfg.lever_start_iter:
+                cfg = dataclasses.replace(cfg, **gated_levers)
+                gated_levers = None
             if cfg.enable_curvature and it_anneal >= cfg.iter_finish_reduce_curv:
                 cfg = dataclasses.replace(cfg, enable_curvature=False)
             if cfg.c2f_level_skip:
@@ -772,8 +846,11 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
                     cfg = dataclasses.replace(cfg, sdf_active_levels=act)
             if it % cfg.grid_update_every == 0:
                 grid = occupancy_update(params, grid, g_grid, it_anneal, last_inv_s, cfg)
+            step_cfg = cfg
+            if cfg.table_grad_alternate:
+                step_cfg = dataclasses.replace(cfg, table_grad_parity=it % cfg.table_grad_period)
             params, opt_state, loss, aux = train_step(params, opt_state, grid, reel, g_step,
-                                                      it, cfg, optimizer)
+                                                      it, step_cfg, optimizer)
             last_inv_s = aux["inv_s"]
             if dynamic_nr_rays and it % 50 == 0:
                 cur = max(float(aux["nr_samples"]), 1.0)

@@ -302,3 +302,87 @@ def test_double_backward_matches_jax_grad(concat, mlp, finest):
                                    err_msg=f"level {lvl}")
     if mlp:
         np.testing.assert_allclose(got_w.numpy(), want_w, atol=2e-3 * np.abs(want_w).max())
+
+
+@pytest.mark.parametrize("period,parity", [(2, 0), (2, 1), (3, 0), (3, 1), (3, 2)])
+def test_grad_level_parity_matches_jax_grad(period, parity):
+    """Alternating-level table gradients (``grad_level_parity``, JAX
+    permuto_encoding.py:561-609; after test_encoding.py:466 and :594) with
+    the same spec on both sides: the forward and the point gradient are
+    bit-identical to the port's without parity; the table gradient (kernel
+    F) and the eikonal pattern's table term (kernel G) equal JAX's at the
+    active levels and are exactly zero at the frozen ones on both sides."""
+    L = 5
+    base = dict(pos_dim=3, capacity=2 ** 10, nr_levels=L, concat_points_scaling=1e-3)
+    par = dict(base, grad_level_parity=parity, grad_level_period=period)
+    spec_j = jpe.PermutoEncodingSpec(**par)
+    spec_t, spec_t0 = tpe.PermutoEncodingSpec(**par), tpe.PermutoEncodingSpec(**base)
+    _, _, params_j, params_t, pts = _unambiguous_points(3, nr_levels=L, table_scale=1e3,
+                                                        spec_j=spec_j)
+    rng = np.random.default_rng(period * 10 + parity)
+    window = jpe.coarse2fine_window(0.9, L)
+    w = rng.normal(size=(pts.shape[0], spec_j.output_dims)).astype(np.float32)
+    w2 = rng.normal(size=(spec_j.output_dims, 1)).astype(np.float32) * 0.5
+    active = [lvl % period == parity for lvl in range(L)]
+    p_t = torch.from_numpy(pts)
+
+    def encode_t(spec, table, points):
+        return tpe.permuto_encode({**params_t, "lattice_values": table}, points, spec,
+                                  np.asarray(window))
+
+    # forward and point gradient: unchanged by the parity
+    for spec in (spec_t, spec_t0):
+        x = p_t.clone().requires_grad_(True)
+        out = encode_t(spec, params_t["lattice_values"], x)
+        (gp,) = torch.autograd.grad((out * torch.from_numpy(w)).sum(), x)
+        if spec is spec_t:
+            out_p, gp_p = out.detach(), gp
+    np.testing.assert_array_equal(out_p.numpy(), out.detach().numpy())
+    np.testing.assert_array_equal(gp_p.numpy(), gp.numpy())
+
+    # table gradient (kernel F)
+    def f(table):
+        out = jpe.permuto_encode({**params_j, "lattice_values": table}, jnp.asarray(pts),
+                                 spec_j, window)
+        return jnp.sum(out * w)
+
+    want = np.asarray(jax.grad(f)(params_j["lattice_values"]))
+    table = params_t["lattice_values"].clone().requires_grad_(True)
+    (got,) = torch.autograd.grad((encode_t(spec_t, table, p_t) * torch.from_numpy(w)).sum(),
+                                 table)
+    got = got.numpy()
+    tol = _table_tol(pts, np.asarray(params_j["shift_per_level"]), spec_j,
+                     np.abs(w[:, :2 * L]).sum())
+    for lvl in range(L):
+        if active[lvl]:
+            assert np.abs(want[lvl]).max() > 0
+            assert np.abs(got[lvl] - want[lvl]).max() <= tol[lvl], lvl
+        else:
+            assert np.all(got[lvl] == 0) and np.all(want[lvl] == 0), lvl
+
+    # the eikonal pattern's table term (kernel G: a linear head makes the
+    # feature cotangent constant)
+    def eik_j(table):
+        g = jax.grad(lambda tb, p: jnp.sum(jpe.permuto_encode(
+            {**params_j, "lattice_values": tb}, p, spec_j, window) @ w2),
+            argnums=1)(table, jnp.asarray(pts))
+        return jnp.mean((jnp.linalg.norm(g, axis=-1) - 1.0) ** 2)
+
+    want = np.asarray(jax.grad(eik_j)(params_j["lattice_values"]))
+    table = params_t["lattice_values"].clone().requires_grad_(True)
+    prm = {**params_t, "lattice_values": table}
+    feats = tpe.permuto_encode(prm, p_t, spec_t, np.asarray(window))
+    sdf = feats @ torch.from_numpy(w2)
+    (g,) = torch.autograd.grad(sdf, feats, torch.ones_like(sdf), create_graph=True)
+    grads = tpe.permuto_point_grad(prm, p_t, g, spec_t, np.asarray(window))
+    loss = torch.mean((torch.linalg.norm(grads, dim=-1) - 1.0) ** 2)
+    (got,) = torch.autograd.grad(loss, table)
+    got = got.numpy()
+    for lvl in range(L):
+        if active[lvl]:
+            scale = np.abs(want[lvl]).max()
+            assert scale > 0
+            np.testing.assert_allclose(got[lvl], want[lvl], atol=2e-3 * scale + 1e-9,
+                                       err_msg=f"level {lvl}")
+        else:
+            assert np.all(got[lvl] == 0) and np.all(want[lvl] == 0), lvl

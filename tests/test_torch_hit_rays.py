@@ -29,7 +29,8 @@ from permuto_sdf_tpu_torch.ops.compaction import scatter_rows
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
 from permuto_sdf_tpu_torch.train import train_permuto_sdf as tt
 from test_torch_render_image import _BASE, _K, _TF, _plant_plane
-from test_torch_train import _assert_tree_close, _level_rtol, shared_step
+from test_torch_train import _assert_tree_close, _level_rtol
+from torch_shared_steps import dense_step
 
 _W = _H = 16
 
@@ -40,8 +41,8 @@ def _t(a, dtype=None):
 
 
 @pytest.fixture(scope="module")
-def step(tmp_path_factory):
-    return shared_step(tmp_path_factory)
+def step(request, tmp_path_factory):
+    return dense_step(request, tmp_path_factory)
 
 
 @pytest.mark.parametrize("group", ["loss", "sdf", "rgb", "bg", "colorcal"])

@@ -532,3 +532,126 @@ def test_importance_stage_through_the_kernel_sources_matches_plain(emulated, mon
         np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(), atol=1e-6,
                                    rtol=0, err_msg=f)
     assert (got.sdf is None) == (not carry)
+
+
+@pytest.mark.parametrize("d,K,levels", [(3, 4, (0, 2)), (3, 4, (1, 2)), (4, 4, (2, 3)),
+                                        (3, 3, (1, 3))])
+def test_kernels_F_G_parity_source_match_plain(emulated, d, K, levels):
+    """Kernels F and G with alternating-level table gradients ``levels =
+    (phase, period)``: the frozen levels of the table gradient are exactly
+    zero, the active ones equal the same kernel without parity (1e-5 of the
+    level's largest |value|: atomics in no fixed order) and the plain
+    version with parity; G's feature cotangent is unchanged at every
+    level."""
+    rng = np.random.default_rng(d * 13 + K + levels[0])
+    spec = pe.PermutoEncodingSpec(pos_dim=d, capacity=2 ** 10, nr_levels=4,
+                                  concat_points_scaling=1e-3)
+    prm = pe.init_encoding_params(torch.Generator().manual_seed(3), spec, "cpu")
+    table = prm["lattice_values"] * 1e3
+    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (200, d)).astype(np.float32))
+    scales, E, _ = pe.encoding_constants(spec, None, "cpu")
+    args = (pts, table, prm["shift_per_level"], scales, torch.tensor([1.0, 0.8, 0.5, 0.2]), E, K)
+    g = torch.from_numpy(rng.normal(size=(200, 2 * K + d)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(200, d)).astype(np.float32))
+    phase, period = levels
+    launches = (pe.encode_table_grad_cuda.launches, pe.encode_double_backward_cuda.launches)
+    got_f = pe.encode_table_grad_cuda(*args, g, levels)
+    all_f = pe.encode_table_grad_cuda(*args, g)
+    plain_f = pe.encode_table_grad_plain(*args, g, levels)
+    got_g, dg = pe.encode_double_backward_cuda(*args, 1e-3, True, g, u, levels)
+    all_g, dg_all = pe.encode_double_backward_cuda(*args, 1e-3, True, g, u)
+    plain_g, dg_plain = pe.encode_double_backward_plain(*args, 1e-3, True, g, u, levels)
+    for got, full, plain in ((got_f, all_f, plain_f), (got_g, all_g, plain_g)):
+        for lvl in range(table.shape[0]):
+            if lvl < K and lvl % period == phase:
+                scale = float(full[lvl].abs().max())
+                assert scale > 0
+                for want in (full, plain):
+                    np.testing.assert_allclose(got[lvl].numpy(), want[lvl].numpy(),
+                                               atol=1e-5 * scale, rtol=0)
+            else:
+                assert float(got[lvl].abs().max()) == 0.0 == float(plain[lvl].abs().max())
+    np.testing.assert_array_equal(dg.numpy(), dg_all.numpy())
+    np.testing.assert_allclose(dg.numpy(), dg_plain.numpy(),
+                               atol=1e-6 * float(dg_plain.abs().max()))
+    assert (pe.encode_table_grad_cuda.launches, pe.encode_double_backward_cuda.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+def _lod_batch(rng, R, S):
+    """A carried-sdf batch for the train-time LOD: prefix masks with empty,
+    full, one-sample and short rays; a ray inside the surface (weights
+    underflow to exact ties at 0); a ray whose scores all tie; carried sdf
+    at the invalid slots as the merge leaves it (arbitrary values)."""
+    nr = torch.from_numpy(rng.integers(0, S + 1, R))
+    nr[0], nr[1], nr[2], nr[3], nr[4] = 0, S, 1, 5, S
+    mask = prefix_mask(nr, S)
+    z = torch.from_numpy(np.sort(rng.uniform(0.5, 1.5, (R, S)), axis=1).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0.002, 0.02, (R, S)).astype(np.float32))
+    dt = torch.where(mask, dt, torch.zeros_like(dt))
+    dt[5, int(nr[5]) - 1] = 0.0 if int(nr[5]) > 0 else dt[5, 0]  # a last sample at t_exit
+    sdf = torch.from_numpy((0.05 - 0.1 * rng.uniform(size=(R, 1)) - (z.numpy() - 1.0) * 0.2
+                            + rng.normal(0, 0.003, (R, S))).astype(np.float32))
+    sdf[4] = -1.0  # inside: alpha 1, the transmittance underflows
+    sdf = torch.where(mask, sdf, torch.from_numpy(rng.uniform(-5, 1e3, (R, S)).astype(np.float32)))
+    scores = torch.from_numpy(rng.uniform(size=(R, S)).astype(np.float32))
+    scores[6] = 0.5
+    dirs = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32)), dim=-1)
+    smp = RaySamples(origins=torch.zeros(R, 3), dirs=dirs, z=z, dt=dt, mask=mask,
+                     ray_fixed_dt=torch.full((R,), 0.01))
+    return smp, sdf, scores
+
+
+@pytest.mark.parametrize("S,K,E", [(70, 24, 8), (40, 40, 0), (37, 6, 3)])
+def test_kernel_L_source_matches_plain(emulated, S, K, E):
+    """Kernel L (fd cos, the ranking weights' warp scan, top-K and the
+    extras by rank) against its plain version: cos_fd bit for bit, sel
+    exactly (ties by the lower index, as ``lax.top_k``), on empty, short,
+    one-sample and full rays, a last sample with dt 0 and exact ties."""
+    rng = np.random.default_rng(S + K)
+    smp, sdf, scores = _lod_batch(rng, 41, S)
+    launches = vr.train_lod_select_cuda.launches
+    cos_k, sel_k = vr.train_lod_select_cuda(smp, sdf, 400.0, 0.6, scores, K, E)
+    cos_p, sel_p = vr.train_lod_select_plain(smp, sdf, 400.0, 0.6, scores, K, E)
+    assert vr.train_lod_select_cuda.launches == launches + 1
+    np.testing.assert_array_equal(cos_k.numpy(), cos_p.numpy())
+    np.testing.assert_array_equal(sel_k.numpy(), sel_p.numpy())
+    assert sel_k.shape == (41, K + E)
+    # a ray with K + E valid samples selects each slot once; a shorter one
+    # repeats slots, as lax.top_k does over the tied -1s
+    nr = smp.mask.sum(1).numpy()
+    for row, n in zip(sel_k.numpy(), nr):
+        assert (len(set(row.tolist())) == K + E) == (n >= K + E or E == 0), (row, n)
+
+
+def test_kernels_D2_source_match_plain(emulated):
+    """Kernel D2 (the mixed chain's weights and the selected slots'
+    integration) and D2' (its VJP in the fine set's sdf, gradient and rgb)
+    against their plain versions (autograd of the plain forward), with
+    random cotangents on every output: to 1e-6, and to 1e-5 of each
+    gradient's largest |value|."""
+    rng = np.random.default_rng(21)
+    R, S, K, E = 41, 70, 12, 4
+    smp, sdf, scores = _lod_batch(rng, R, S)
+    cos_fd, sel = vr.train_lod_select_plain(smp, sdf, 400.0, 0.6, scores, K, E)
+    n = R * (K + E)
+    sdf_c = torch.from_numpy(rng.uniform(-0.05, 0.05, (n, 1)).astype(np.float32))
+    grads_c = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    rgb_c = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32))
+    args = (smp, sdf, cos_fd, sel, sdf_c, grads_c, rgb_c, 400.0, 0.6)
+    got = vr.neus_render_mixed_cuda(*args)
+    want = vr.neus_render_mixed_plain(*args)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.reshape(a.shape).numpy(), atol=1e-6, rtol=0)
+    cots = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
+    got = vr.neus_render_mixed_bwd_cuda(*args, *cots)
+    want = vr.neus_render_mixed_bwd_plain(*args, *cots)
+    valid = smp.flat_mask()[(torch.arange(R)[:, None] * S + sel).reshape(-1)]
+    for a, b in zip(got, want):
+        b = b.reshape(a.shape)
+        assert float(b.abs().max()) > 0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5 * float(b.abs().max()),
+                                   rtol=0)
+        assert float(a[~valid].abs().max()) == 0.0

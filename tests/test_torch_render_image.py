@@ -193,8 +193,7 @@ def test_unported_branches_raise(setup):
         tt.render_image(pt, grid_t, _K, _TF, 16, 12, 20000, cfg_t, mesh=[0, 1], device="cpu")
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3)
-    for knob, match in ((dict(train_lod_top_k=8), "train_lod_top_k"),
-                        (dict(use_occupancy_grid=False), "use_occupancy_grid")):
+    for knob, match in ((dict(use_occupancy_grid=False), "use_occupancy_grid"),):
         with pytest.raises(NotImplementedError, match=match):
             tt.run_net(pt, grid_t, o, d, 0, 1.0, 0.8, dataclasses.replace(cfg_t, **knob))
 

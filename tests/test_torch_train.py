@@ -16,14 +16,12 @@ port's sampling stage is held against JAX's separately.
 
 import dataclasses
 import os
-import pickle
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
-from filelock import FileLock
 
 from permuto_sdf_tpu.datasets import synthetic as jsyn
 from permuto_sdf_tpu.datasets import tensor_reel as jreel
@@ -38,6 +36,7 @@ from permuto_sdf_tpu_torch.ops import occupancy_grid as tog
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
 from permuto_sdf_tpu_torch.train import checkpoint as tckpt
 from permuto_sdf_tpu_torch.train import train_permuto_sdf as tt
+from torch_shared_steps import dense_step
 
 _TINY = dict(capacity=2 ** 10, nr_levels=4, nr_rays=32, grid_nr_voxels_per_dim=16,
              max_nr_samples_per_ray=8, nr_samples_imp_sampling=4, nr_samples_bg=4,
@@ -56,23 +55,6 @@ _STEP_ITER = 20 + 150
 # levels, whose gradient the two packages round ~1e-3 apart (ROADMAP
 # Queue 3), which the few samples of this step would not average out
 _HIT_STEP = dict(_STEP, hit_ray_frac=0.5, hit_ray_compact_early=False, sdf_nr_iters_for_c2f=1000)
-
-
-def shared_across_workers(tmp_path_factory, name: str, make):
-    """``make()`` once per test session, its (picklable) result shared by
-    the modules and the pytest-xdist workers through a file under the
-    session's temporary root, the first to take the lock building it
-    (pytest-xdist's documented pattern)."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent  # shared by the workers of this session
-    path = root / f"{name}.pkl"
-    with FileLock(str(path) + ".lock"):
-        if path.is_file():
-            return pickle.loads(path.read_bytes())
-        data = make()
-        path.write_bytes(pickle.dumps(data))
-    return data
 
 
 def jax_numpy(tree):
@@ -172,18 +154,13 @@ def reels():
     return make_reels()
 
 
-def shared_step(tmp_path_factory):
+@pytest.fixture(scope="module")
+def step(request, tmp_path_factory):
     """One training step on both sides from the same params, grid and draws
     (and the hit-ray step of ``tests/test_torch_hit_rays.py``), built once
-    per session: the eager JAX steps are the costliest setup of the port's
-    tests."""
-    return shared_across_workers(tmp_path_factory, "torch_train_step",
-                                 lambda: _step(make_reels()))
-
-
-@pytest.fixture(scope="module")
-def step(tmp_path_factory):
-    return shared_step(tmp_path_factory)
+    per session (``torch_shared_steps``): the eager JAX steps are the
+    costliest setup of the port's tests."""
+    return dense_step(request, tmp_path_factory)
 
 
 def _step(reels):
@@ -490,8 +467,7 @@ def test_resume_equals_uninterrupted_run(tiny_reel_t, tmp_path):
 
 
 def test_unported_training_knobs_raise(tiny_reel_t):
-    for knob in (dict(table_grad_alternate=True), dict(train_lod_top_k=8),
-                 dict(use_occupancy_grid=False)):
+    for knob in (dict(use_occupancy_grid=False),):
         cfg = tt.PermutoSDFTrainConfig(**dict(_SMOKE, **knob))
         with pytest.raises(NotImplementedError):
             tt.train(tiny_reel_t, cfg, nr_iters=1, device="cpu")

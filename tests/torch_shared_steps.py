@@ -1,0 +1,69 @@
+"""The eager JAX training steps that the port's step tests hold the port
+against, each built once per test session and shared by the modules and
+the pytest-xdist workers through a file under the session's temporary root.
+
+``dense_step`` is the flagship step and the hit-ray step
+(``tests/test_torch_train.py``, ``tests/test_torch_hit_rays.py``);
+``lever_step`` is the recommended profile's step
+(``tests/test_torch_levers.py``). When the session holds tests of both, the
+first process that needs either builds both, one right after the other, so
+that JAX compiles the eager primitives the two steps share once (~72 s for
+the second step instead of ~200 s in a process of its own). A session of
+one side builds only its own step.
+"""
+
+import os
+import pickle
+
+from filelock import FileLock
+
+_DENSE_MODULES = ("test_torch_train", "test_torch_hit_rays")
+_LEVER_MODULES = ("test_torch_levers",)
+
+
+def shared_across_workers(tmp_path_factory, name: str, make):
+    """``make()`` once per test session, its (picklable) result shared by
+    the modules and the pytest-xdist workers through a file under the
+    session's temporary root, the first to take the lock building it
+    (pytest-xdist's documented pattern)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # shared by the workers of this session
+    path = root / f"{name}.pkl"
+    with FileLock(str(path) + ".lock"):
+        if path.is_file():
+            return pickle.loads(path.read_bytes())
+        data = make()
+        path.write_bytes(pickle.dumps(data))
+    return data
+
+
+def _session_runs(request, modules) -> bool:
+    """Whether the session collected a test of one of ``modules`` (every
+    pytest-xdist worker collects the whole session)."""
+    return any(getattr(getattr(item, "module", None), "__name__", None) in modules
+               for item in request.session.items)
+
+
+def dense_step(request, tmp_path_factory):
+    from test_torch_train import _step, make_reels
+
+    def make():
+        data = _step(make_reels())
+        if _session_runs(request, _LEVER_MODULES):
+            _lever_only(tmp_path_factory)
+        return data
+
+    return shared_across_workers(tmp_path_factory, "torch_train_step", make)
+
+
+def lever_step(request, tmp_path_factory):
+    if _session_runs(request, _DENSE_MODULES):
+        dense_step(request, tmp_path_factory)  # builds the lever step right after
+    return _lever_only(tmp_path_factory)
+
+
+def _lever_only(tmp_path_factory):
+    from test_torch_levers import _profile_step
+
+    return shared_across_workers(tmp_path_factory, "torch_lever_step", _profile_step)
