@@ -80,9 +80,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each side), a sphere-scene window across an explicit gate with hit-ray
    compaction, and one lever step (parity 1) card against CPU within
    TOL_LOSS_CROSS and TOL_GRAD_CROSS;
-14. print ``render``, ``train``, ``sphere_traced``, ``lod``,
-   ``hit_ray_train``, ``levers`` and ``kernels`` JSON lines, then as the
-   last line ``{"ok": true, "device": {...}}``.
+14. mesh extraction (kernel M, marching tetrahedra): M1 (triangle counts
+   per cube) and M2 (the emission) against their plain versions on a
+   planted 128^3 grid (exact-level nodes, degenerate faces) and on the
+   sphere scene's 256^3 grid (counts, keys and faces exactly, world
+   vertices within TOL_M_ULP), timed with the weld; kernel A and the whole
+   SDF of one 64^3 block of the grid SDF (row M0);
+15. the SDF-from-mesh slice: ``train_sdf_from_mesh.train`` at full width
+   on the UV sphere for SDF_MESH_STEPS steps (the loss must fall), one step
+   card against CPU (loss within TOL_SDF_MESH_LOSS, every leaf's gradient
+   within TOL_SDF_MESH_GRAD), ``main(["--smoke", "--out_mesh", ...])``, and
+   extraction at 196^3, 256^3 and 512^3 of the trained field and of the
+   sphere scene (ms per mesh split into the grid SDF and M, M the median
+   of MESH_M_REPS calls after the first, V and F, the
+   closed-edge share, Chamfer against the ground-truth sphere mesh; V and
+   F equal to the plain path's at 196^3 and 256^3); launches counted per
+   step over the SDF_MESH_STEPS-step run and per mesh over each
+   extraction's grid SDF and first M call;
+16. print ``render``, ``train``, ``sphere_traced``, ``lod``,
+   ``hit_ray_train``, ``levers``, ``mesh`` and ``kernels`` JSON lines, then
+   as the last line ``{"ok": true, "device": {...}}``.
 
 It needs the CUDA toolkit (``nvcc``) and no network. It imports nothing of
 JAX and nothing of the JAX package.
@@ -314,11 +331,12 @@ def probe_sampler_ops(t_entry, t_exit, mask, P: int) -> int:
 # largest absolute difference of the timed case): "abs" the largest absolute
 # difference; "rel" that over the output's largest |plain value|; "rel_level"
 # that per level of a [L, 2, C] table gradient, G's feature cotangent "rel";
-# "rel_floor1" elementwise |diff| / max(|plain|, 1).
+# "rel_floor1" elementwise |diff| / max(|plain|, 1); "ulp" float32 units in
+# the last place.
 ERR_KIND = {"A": "abs", "B": "rel", "C": "abs", "D": "abs", "F": "rel_level",
             "G": "rel_level", "D'": "rel", "I": "abs", "J0": "abs", "J1": "abs", "J2": "abs",
             "H0": "abs", "E1": "abs", "E2": "abs", "H1": "abs", "H2": "abs",
-            "L": "rel_floor1", "D2": "abs", "D2'": "rel"}
+            "L": "rel_floor1", "D2": "abs", "D2'": "rel", "M1": "abs", "M2": "ulp"}
 GATED = {}  # kernel -> (largest gated error over its checks, tolerance)
 
 
@@ -637,6 +655,7 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
 
 def counters():
     from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
     from permuto_sdf_tpu_torch.ops import importance_sampling as isp
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
@@ -653,7 +672,8 @@ def counters():
             "E1": (isp.importance_round_cuda,), "E2": (isp.merge_samples_cuda,),
             "H1": (compaction.take_rows_cuda,), "H2": (compaction.scatter_rows_cuda,),
             "L": (vr.train_lod_select_cuda,), "D2": (vr.neus_render_mixed_cuda,),
-            "D2'": (vr.neus_render_mixed_bwd_cuda,)}
+            "D2'": (vr.neus_render_mixed_bwd_cuda,), "M1": (mc.mt_count_cuda,),
+            "M2": (mc.mt_emit_cuda,)}
 
 
 RENDER_KERNELS = ("A", "B", "C", "D", "E1", "E2")
@@ -717,7 +737,8 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "E1": "importance_round_kernel", "E2": "merge_samples_kernel",
                   "H1": "take_rows_kernel", "H2": "scatter_rows_kernel",
                   "L": "train_lod_select_kernel", "D2": "render_mixed_kernel",
-                  "D2'": "render_mixed_bwd_kernel"}
+                  "D2'": "render_mixed_bwd_kernel", "M1": "mt_count_kernel",
+                  "M2": "mt_emit_kernel"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -2335,6 +2356,371 @@ def lever_train_phase(device, cfg, params, grid, reel, sphere_params, sphere_gri
     return {"gate_iter": gate_it, "profile": LEVER_PROFILE, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: mesh extraction (kernel M) and the SDF-from-mesh trainer
+# ---------------------------------------------------------------------------
+
+MESH_PLANTED_RES = 128  # the planted grid of the kernel phase
+MESH_SCENE_RES = 256  # the sphere scene's grid of the kernel phase
+MESH_RES = (196, 256, 512)  # extraction resolutions of the slice (196: main's --mc_res)
+MESH_PLAIN_RES = (196, 256)  # V and F held against the plain path on the same grid
+MESH_M_REPS = 3  # timed calls of M on each extraction's grid, after the first
+TOL_M_ULP = 1  # M2's world vertices: fmaf on both sides, so 0 expected; keys and faces exact
+SDF_MESH_STEPS = 300  # full-width train_sdf_from_mesh steps
+SDF_MESH_SHORT_STEPS = 50  # a shorter run with the same set-up, for ms/step
+SDF_MESH_TRAIN_KERNELS = ("A", "B", "F", "G")
+TOL_SDF_MESH_LOSS = 1e-5  # one step card vs CPU: the loss (float32 means over 33,000 points)
+TOL_SDF_MESH_GRAD = 1e-3  # ... and every leaf's gradient, relative L2
+CHAMFER_SAMPLES = 200_000
+# operations of kernel M, counted from its body: M1 compares a cube's 8
+# corners (8) and, for an active cube, forms six tet cases and adds their
+# counts (6 x 6); M2 interpolates an emitted vertex (ids 6, w 4, 3 axes of
+# 4 each; its weld key is the port's own glue, not the function's work)
+OPS_PER_CUBE_M1 = 8
+OPS_PER_ACTIVE_CUBE_M1 = 36
+OPS_PER_VERTEX_M2 = 22
+
+
+def planted_mesh_grid(n, seed=SEED):
+    """[n, n, n] float32: a sphere union a grid-aligned plane whose layer
+    n // 3 holds exactly the level (0), every value within 1/64 of it
+    snapped onto it, eight isolated interior nodes at exactly the level
+    (their faces are all degenerate), and eight nodes at -1e-13 beside a
+    node at the level (the 1e-12 denominator floor)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h = np.float32(1.0 / (n - 1))
+    idx = np.arange(n, dtype=np.float32)
+    x, y, z = np.meshgrid(idx, idx, idx, indexing="ij")
+    c = np.float32(n - 1) * np.float32([0.55, 0.5, 0.45])
+    s = (np.sqrt((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2)
+         - np.float32(0.3 * (n - 1))) * h
+    plane = (y - np.float32(n // 3)) * np.float32(1.0 / 16)
+    v = np.minimum(s, plane).astype(np.float32)
+    v[np.abs(v) < np.float32(1.0 / 64)] = 0.0
+    inner = np.argwhere(v < -0.05)
+    for i, j, k in inner[rng.choice(len(inner), size=min(8, len(inner)), replace=False)]:
+        v[i, j, k] = 0.0
+    zeros = np.argwhere(v == 0.0)
+    for i, j, k in zeros[rng.choice(len(zeros), size=8, replace=False)]:
+        if i + 1 < n:
+            v[i + 1, j, k] = np.float32(-1e-13)
+    return v
+
+
+def _ulps(a, b) -> int:
+    """Largest distance in float32 units in the last place."""
+    import torch
+
+    if a.numel() == 0:
+        return 0
+    return int((a.view(torch.int32).to(torch.int64) - b.view(torch.int32).to(torch.int64))
+               .abs().max())
+
+
+def _closed_edge_share(F) -> float:
+    """Share of the mesh's undirected edges that exactly two faces share."""
+    import torch
+
+    if F.shape[0] == 0:
+        return float("nan")
+    e = torch.cat([F[:, [0, 1]], F[:, [1, 2]], F[:, [2, 0]]]).sort(dim=1).values
+    _, counts = torch.unique(e, dim=0, return_counts=True)
+    return float((counts == 2).float().mean())
+
+
+def mesh_kernel_phases(device, cfg, sphere_params, reps=20, plain_reps=2):
+    """Kernels M1 and M2 against their plain versions on the planted grid
+    (MESH_PLANTED_RES^3) and on the sphere scene's grid (MESH_SCENE_RES^3):
+    M1's counts and block totals and M2's keys and degenerate flags
+    exactly, its world vertices within TOL_M_ULP, the welded V and F equal;
+    ms per launch of M1, M2 and the weld, and of the whole of M (the host
+    reads the triangle total between M1 and M2). Also kernel A and the
+    whole SDF of one 64^3 block of the grid SDF (row M0). Returns
+    ({kernel: numbers}, summary)."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.models.fields import sdf_apply
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    def scene_sdf(pts):
+        return sdf_apply(sphere_params["sdf"], pts, ITER, cfg.sdf_model)[0]
+
+    n_p, n_s = MESH_PLANTED_RES, MESH_SCENE_RES
+    grids = {"planted": (torch.from_numpy(planted_mesh_grid(n_p)).to(device),
+                         (-0.5, -0.5, -0.5), (1.0 / (n_p - 1),) * 3),
+             "sphere_scene": (mc.sdf_grid(scene_sdf, n_s, -0.5, 0.5, device=device),
+                              (-0.5, -0.5, -0.5), (1.0 / (n_s - 1),) * 3)}
+    results, summary = {}, {}
+    for label, (grid, origin, spacing) in grids.items():
+        counts, blocks = mc.mt_count_cuda(grid, 0.0)
+        counts_p, blocks_p = mc.mt_count_plain(grid, 0.0)
+        m1_err = int((counts.to(torch.int32) - counts_p.to(torch.int32)).abs().max()) + int(
+            (blocks - blocks_p).abs().max())
+        offsets, T = mc.mt_offsets(blocks)
+        emitted = mc.mt_emit_cuda(grid, 0.0, counts, offsets, T, origin, spacing)
+        emitted_p = mc.mt_emit_plain(grid, 0.0, origin, spacing)
+        if emitted[1].shape != emitted_p[1].shape or not torch.equal(emitted[1], emitted_p[1]):
+            fail(f"kernel M2:{label}: weld keys differ from the plain version")
+        if not torch.equal(emitted[2], emitted_p[2]):
+            fail(f"kernel M2:{label}: degenerate flags differ from the plain version")
+        ulps = _ulps(emitted[0], emitted_p[0])
+        abs_err = float((emitted[0] - emitted_p[0]).abs().max()) if T else 0.0
+        V, F = mc.weld(*emitted)
+        Vp, Fp = mc.weld(*emitted_p)
+        Vm, Fm = mc.marching_tetrahedra(grid, 0.0, origin, spacing)  # the dispatcher: kernel M
+        if not (torch.equal(F, Fp) and torch.equal(Fm, Fp) and V.shape == Vp.shape
+                and torch.equal(Vm, V)):
+            fail(f"kernel M:{label}: the welded mesh differs from the plain path "
+                 f"(V {V.shape[0]} vs {Vp.shape[0]}, F {F.shape[0]} vs {Fp.shape[0]})")
+        used = torch.zeros(V.shape[0], dtype=torch.bool, device=device)
+        used[F.reshape(-1)] = True
+        active = int((counts > 0).sum())
+        cubes = counts.numel()
+        ms1 = time_ms(lambda: mc.mt_count_cuda(grid, 0.0), reps, device)
+        ms2 = time_ms(lambda: mc.mt_emit_cuda(grid, 0.0, counts, offsets, T, origin, spacing),
+                      reps, device)
+        ms_weld = time_ms(lambda: mc.weld(*emitted), reps, device)
+        ms_m = time_ms(lambda: mc.marching_tetrahedra_cuda(grid, 0.0, origin, spacing), reps,
+                       device)
+        pms1 = time_ms(lambda: mc.mt_count_plain(grid, 0.0), plain_reps, device)
+        pms2 = time_ms(lambda: mc.mt_emit_plain(grid, 0.0, origin, spacing), plain_reps, device)
+        pms = time_ms(lambda: mc.marching_tetrahedra_plain(grid, 0.0, origin, spacing),
+                      plain_reps, device)
+        E = 3 * T
+        b1 = bound_ms(grid.numel() * 4 + cubes + blocks.numel() * 4,
+                      OPS_PER_CUBE_M1 * cubes + OPS_PER_ACTIVE_CUBE_M1 * active)
+        # M2's function: read the counts and the active cubes' corners, yield
+        # the mesh (the weld keys and unwelded copies are the port's glue)
+        b2 = bound_ms(cubes + active * 8 * 4 + V.shape[0] * 12 + F.shape[0] * 24,
+                      OPS_PER_VERTEX_M2 * E)
+        bm = bound_ms(grid.numel() * 4 + V.shape[0] * 12 + F.shape[0] * 24,
+                      OPS_PER_CUBE_M1 * cubes + OPS_PER_ACTIVE_CUBE_M1 * active
+                      + OPS_PER_VERTEX_M2 * E)
+        _report(f"M1:{label} {tuple(grid.shape)} cubes={cubes} active={active}", m1_err, 0,
+                ms1, pms1, b1)
+        _report(f"M2:{label} T={T} (world ulps)", ulps, TOL_M_ULP, ms2, pms2, b2)
+        summary[label] = {
+            "grid": list(grid.shape), "cubes": cubes, "active_cubes": active, "triangles": T,
+            "degenerate": int(emitted[2].sum()), "V": V.shape[0], "F": F.shape[0],
+            "unreferenced_vertices": int((~used).sum()), "world_max_ulps": ulps,
+            "world_max_abs_err": abs_err, "m1_ms": ms1, "m2_ms": ms2, "weld_ms": ms_weld,
+            "m_ms": ms_m, "m1_plain_ms": pms1, "m2_plain_ms": pms2, "m_plain_ms": pms,
+            "m1_bound_ms": b1[0], "m2_bound_ms": b2[0], "m_bound_ms": bm[0],
+            "m_bound_by": bm[1]}
+        print(f"[mesh kernel {label}] {tuple(grid.shape)}: {active} active cubes, T={T} "
+              f"({summary[label]['degenerate']} degenerate), V={V.shape[0]} F={F.shape[0]} "
+              f"({summary[label]['unreferenced_vertices']} unreferenced), world ulps {ulps}; "
+              f"M1 {ms1:.4f} ms, M2 {ms2:.4f}, weld {ms_weld:.4f}, M whole {ms_m:.4f} "
+              f"(bound {bm[0]:.4g}, {bm[1]}), plain {pms:.1f} ms", flush=True)
+        if label == "sphere_scene":
+            results["M1"] = dict(max_abs_err=float(m1_err), ms=ms1, plain_ms=pms1,
+                                 bound_ms=b1[0], bound_by=b1[1])
+            results["M2"] = dict(max_abs_err=abs_err, ms=ms2, plain_ms=pms2, bound_ms=b2[0],
+                                 bound_by=b2[1])
+        if label == "planted" and not (summary[label]["degenerate"] > 0
+                                       and summary[label]["unreferenced_vertices"] > 0):
+            fail("kernel M: the planted grid reached no degenerate face")
+
+    # row M0: one 64^3 block of the grid SDF (kernel A, then the whole SDF)
+    spec = cfg.sdf_model.encoding
+    prm = sphere_params["sdf"]["encoding"]
+    axis = torch.from_numpy(np.linspace(-0.5, 0.5, n_s, dtype=np.float32)).to(device)[:64]
+    pts = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)
+    scales, E_mat, _ = pe.encoding_constants(spec, None, device)
+    L = spec.nr_levels
+    args = (pts, prm["lattice_values"], prm["shift_per_level"], scales,
+            torch.ones(L, device=device), E_mat, L, spec.concat_points_scaling, True)
+    got, want = pe.encode_fwd_cuda(*args), pe.encode_fwd_plain(*args)
+    a_err = float((got - want).abs().max())
+    a_ms = time_ms(lambda: pe.encode_fwd_cuda(*args), reps, device)
+    a_pms = time_ms(lambda: pe.encode_fwd_plain(*args), plain_reps, device)
+    uniq = torch.unique(pe.flat_slot_ids(pts, prm["lattice_values"], prm["shift_per_level"],
+                                         scales, E_mat, L)).numel()
+    a_b = bound_ms(pts.numel() * 4 + uniq * 2 * 4 + got.numel() * 4,
+                   OPS_PER_POINT_LEVEL_A * pts.shape[0] * L)
+    _report(f"A:m0_block N={pts.shape[0]} K={L}", a_err, TOL_A, a_ms, a_pms, a_b)
+    with torch.no_grad():
+        block_ms = time_ms(lambda: scene_sdf(pts), reps, device)
+    summary["m0"] = {"points": pts.shape[0], "a_ms": a_ms, "a_plain_ms": a_pms,
+                     "a_bound_ms": a_b[0], "a_bound_by": a_b[1], "a_max_abs_err": a_err,
+                     "block_sdf_ms": block_ms}
+    print(f"[mesh M0] one 64^3 block ({pts.shape[0]} points): A {a_ms:.4f} ms (bound "
+          f"{a_b[0]:.4g}), the block's SDF (A + MLP) {block_ms:.4f} ms", flush=True)
+    return results, summary
+
+
+def sdf_mesh_phase(device, cfg, sphere_params):
+    """The slice: ``train_sdf_from_mesh.train`` at full width on the UV
+    sphere (SDF_MESH_STEPS steps, after a one-step warm-up), one step card
+    against CPU, ``main(["--smoke", "--out_mesh", ...])`` in process, and
+    extraction at MESH_RES of the trained field and of the flagship sphere
+    scene: ms per mesh split into the grid SDF and M, V and F, the closed
+    edge share and Chamfer against the ground-truth sphere mesh; at
+    MESH_PLAIN_RES V and F equal the plain path's on the same grid. The
+    launches are read in two kinds of window: the SDF_MESH_STEPS-step run
+    (per step; A, B, F and G must launch) and each extraction's grid SDF and
+    first M call (per mesh; A once per 64^3 block, M1 and M2 once).
+    The cross-check step, ``main``, the timing repeats and the plain
+    comparisons fall outside them. Returns (summary, the windows' summed
+    launches)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.mesh_io import load_obj, make_uv_sphere, sample_points_on_mesh
+    from permuto_sdf_tpu_torch.eval.chamfer import point_mesh_chamfer
+    from permuto_sdf_tpu_torch.models.fields import sdf_apply
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+    from permuto_sdf_tpu_torch.ops.ray_primitives import AABB
+    from permuto_sdf_tpu_torch.train import train_sdf_from_mesh as tsm
+    from permuto_sdf_tpu_torch.train.optimizers import tree_leaves
+
+    gt = make_uv_sphere(radius=0.3)
+    tsm.train(gt, nr_iters=1, log_every=1, device=device)  # warm-up (cuBLAS, allocator)
+    # ms/step from two runs that share their set-up (the 300,000-point pool
+    # sampled on the host, the init): the difference of their wall times;
+    # the launches per step from the longer run alone
+    walls = {}
+    for steps in (SDF_MESH_SHORT_STEPS, SDF_MESH_STEPS):
+        torch.cuda.synchronize(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        params, mcfg, hist = tsm.train(gt, nr_iters=steps, log_every=50, seed=SEED,
+                                       device=device)
+        torch.cuda.synchronize(device)
+        walls[steps] = time.perf_counter() - t0
+    train_counts = read_counts()
+    missing = [k for k in SDF_MESH_TRAIN_KERNELS if train_counts[k] <= 0]
+    if missing:
+        fail(f"train_sdf_from_mesh.train launched no kernel {missing}")
+    per_step = {k: train_counts[k] / SDF_MESH_STEPS for k in SDF_MESH_TRAIN_KERNELS}
+    train_s = walls[SDF_MESH_STEPS]
+    ms_step = ((walls[SDF_MESH_STEPS] - walls[SDF_MESH_SHORT_STEPS]) * 1e3
+               / (SDF_MESH_STEPS - SDF_MESH_SHORT_STEPS))
+    pool = sample_points_on_mesh(gt, 300_000, np.random.default_rng(SEED))  # train's pool
+    losses = [v for _, v in hist]
+    print(f"[sdf_from_mesh] {SDF_MESH_STEPS} full-width steps in {train_s:.2f} s, "
+          f"{SDF_MESH_SHORT_STEPS} in {walls[SDF_MESH_SHORT_STEPS]:.2f} s: {ms_step:.2f} "
+          f"ms/step, launches per step {per_step}; losses "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"sdf_from_mesh: the loss did not fall ({losses})")
+
+    # one step card vs CPU from the trained params, on the same draws
+    idx, u = tsm.draw_step(tsm.step_generators(SEED, SDF_MESH_STEPS)[0], 3000, 30000,
+                          300_000)
+    aabb = AABB()
+    lo, hi = torch.tensor(aabb.min_corner), torch.tensor(aabb.max_corner)
+    pts, nrm = (torch.from_numpy(a) for a in pool)
+    loss_g, grads_g = tsm.loss_and_grads(params, idx, u, pts.to(device), nrm.to(device),
+                                         SDF_MESH_STEPS, mcfg, lo.to(device), hi.to(device))
+    t0 = time.perf_counter()
+    loss_c, grads_c = tsm.loss_and_grads(_tree_map(lambda t: t.detach().cpu(), params), idx, u,
+                                         pts, nrm, SDF_MESH_STEPS, mcfg, lo, hi)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    grad_err = {}
+    for i, (gg, gc) in enumerate(zip(tree_leaves(grads_g), tree_leaves(grads_c))):
+        if gg is None and gc is None:
+            continue
+        if gg is None or gc is None or not torch.isfinite(gg).all():
+            fail(f"sdf_from_mesh cross-check: leaf {i} has a missing or non-finite gradient")
+        grad_err[i] = float((gg.cpu() - gc).norm() / gc.norm())
+    cross = {"loss_card": float(loss_g), "loss_cpu": float(loss_c), "loss_rel_err": loss_err,
+             "grad_rel_l2_err": grad_err, "tol_loss": TOL_SDF_MESH_LOSS,
+             "tol_grad": TOL_SDF_MESH_GRAD, "cpu_step_s": cpu_s}
+    print(json.dumps({"sdf_from_mesh_cross_check": cross}), flush=True)
+    if not loss_err <= TOL_SDF_MESH_LOSS:
+        fail(f"sdf_from_mesh cross-check: loss {float(loss_g)} vs {float(loss_c)} on the CPU")
+    if not max(grad_err.values()) <= TOL_SDF_MESH_GRAD:
+        fail(f"sdf_from_mesh cross-check: gradients off by more than {TOL_SDF_MESH_GRAD}: "
+             f"{grad_err}")
+
+    # the module's command line, in process
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "smoke.obj")
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        tsm.main(["--smoke", "--out_mesh", path])
+        smoke_s = time.perf_counter() - t0
+        smoke_mesh = load_obj(path)
+    if not (len(smoke_mesh.F) > 0 and np.isfinite(smoke_mesh.V).all()):
+        fail("sdf_from_mesh main --smoke wrote an empty or non-finite mesh")
+    smoke = {"seconds": smoke_s, "V": len(smoke_mesh.V), "F": len(smoke_mesh.F)}
+    print(f"[sdf_from_mesh] main --smoke --out_mesh: {smoke_s:.2f} s, V={smoke['V']} "
+          f"F={smoke['F']}", flush=True)
+
+    fields = {
+        "trained": lambda p: sdf_apply(params, p, 9_999_999, mcfg)[0],
+        "sphere_scene": lambda p: sdf_apply(sphere_params["sdf"], p, ITER, cfg.sdf_model)[0],
+    }
+    runs, mesh_counts = [], dict.fromkeys(counters(), 0)
+    for name, fn in fields.items():
+        for res in MESH_RES:
+            spacing = (1.0 / (res - 1),) * 3
+            torch.cuda.synchronize(device)
+            reset_counts()  # one mesh: the grid SDF, then M
+            t0 = time.perf_counter()
+            grid = mc.sdf_grid(fn, res, -0.5, 0.5, device=device)
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            V, F = mc.marching_tetrahedra(grid, 0.0, (-0.5,) * 3, spacing)
+            torch.cuda.synchronize(device)
+            t2 = time.perf_counter()
+            c = read_counts()
+            blocks = (-(-res // 64)) ** 3  # sdf_grid's 64^3 blocks
+            if not (c["A"] == blocks and c["M1"] == c["M2"] == 1):
+                fail(f"extraction {name} at {res}: launches A {c['A']} (one per block: "
+                     f"{blocks}), M1 {c['M1']}, M2 {c['M2']} (1 each)")
+            for k in mesh_counts:
+                mesh_counts[k] += c[k]
+            m_runs = []  # M again on the same grid: its first call also allocates
+            for _ in range(MESH_M_REPS):
+                t3 = time.perf_counter()
+                mc.marching_tetrahedra(grid, 0.0, (-0.5,) * 3, spacing)
+                torch.cuda.synchronize(device)
+                m_runs.append((time.perf_counter() - t3) * 1e3)
+            m_ms = statistics.median(m_runs)
+            run = {"field": name, "res": res, "grid_ms": (t1 - t0) * 1e3, "m_ms": m_ms,
+                   "m_first_call_ms": (t2 - t1) * 1e3, "m_ms_all": m_runs,
+                   "mesh_ms": (t1 - t0) * 1e3 + m_ms, "V": V.shape[0],
+                   "F": F.shape[0], "closed_edge_share": _closed_edge_share(F),
+                   "grid_blocks": blocks,
+                   "launches_per_mesh": {k: c[k] for k in ("A", "M1", "M2")}}
+            if not (F.shape[0] > 0 and torch.isfinite(V).all()):
+                fail(f"extraction {name} at {res}: empty or non-finite mesh")
+            if res in MESH_PLAIN_RES:
+                Vp, Fp = mc.marching_tetrahedra_plain(grid, 0.0, (-0.5,) * 3, spacing)
+                run["world_max_ulps_vs_plain"] = _ulps(V, Vp) if V.shape == Vp.shape else None
+                if not (V.shape == Vp.shape and torch.equal(F, Fp)):
+                    fail(f"extraction {name} at {res}: V/F {V.shape[0]}/{F.shape[0]} vs the "
+                         f"plain path's {Vp.shape[0]}/{Fp.shape[0]}")
+            t0 = time.perf_counter()
+            run["chamfer"] = list(point_mesh_chamfer(V.cpu().numpy(), F.cpu().numpy(), gt.V, gt.F,
+                                                     nr_samples=CHAMFER_SAMPLES, seed=SEED))
+            run["chamfer_s"] = time.perf_counter() - t0
+            del grid
+            runs.append(run)
+            print(f"[extract] {name} {res}^3: {run['mesh_ms']:.1f} ms per mesh (grid SDF "
+                  f"{run['grid_ms']:.1f}, M {m_ms:.2f}, median of {MESH_M_REPS}; its first "
+                  f"call {run['m_first_call_ms']:.2f}); launches per mesh "
+                  f"{run['launches_per_mesh']} ({blocks} blocks); V={run['V']} F={run['F']}, "
+                  f"closed edges {run['closed_edge_share']:.5f}, Chamfer vs the sphere "
+                  f"{run['chamfer'][0]:.3e} (pred->gt {run['chamfer'][1]:.3e}, gt->pred "
+                  f"{run['chamfer'][2]:.3e})", flush=True)
+    summary = {"train": {"steps": SDF_MESH_STEPS, "seconds": train_s,
+                         "short_run": [SDF_MESH_SHORT_STEPS, walls[SDF_MESH_SHORT_STEPS]],
+                         "ms_per_step": ms_step, "loss_history": hist,
+                         "launches_per_step": per_step},
+               "cross_check": cross, "main_smoke": smoke, "extraction": runs}
+    return summary, {k: train_counts[k] + mesh_counts[k] for k in mesh_counts}
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -2452,7 +2838,17 @@ def main() -> int:
                                     tparams, tgrid, reel, it=gate_it + 200,
                                     label="lever_cross_check")
 
-    # 13. summary lines
+    # 13. slice 6: kernels M1 and M2 against their plain versions, then the
+    # SDF-from-mesh trainer, its card-vs-CPU step, main --smoke and the
+    # extraction at 196^3-512^3 of the trained field and the sphere scene
+    t0 = time.perf_counter()
+    mesh_results, mesh_kernels = mesh_kernel_phases(device, cfg, sphere_params)
+    results.update(mesh_results)
+    sdf_mesh, mesh_counts = sdf_mesh_phase(device, cfg, sphere_params)
+    mesh_s = time.perf_counter() - t0
+    print(f"[mesh phases] {mesh_s:.1f} s wall for the kernel M phase and the slice", flush=True)
+
+    # 14. summary lines
     meta = {
         "A": ("permuto_encode_fwd", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
               "permuto_sdf_tpu/ops/permuto_encoding.py:504"),
@@ -2494,6 +2890,10 @@ def main() -> int:
                "permuto_sdf_tpu/train/train_permuto_sdf.py:608"),
         "D2'": ("neus_render_mixed_bwd", "permuto_sdf_tpu_torch/kernels/csrc/volume_rendering.cu",
                 "permuto_sdf_tpu/train/train_permuto_sdf.py:608"),
+        "M1": ("marching_tets_count", "permuto_sdf_tpu_torch/kernels/csrc/marching_tets.cu",
+               "permuto_sdf_tpu/native/marching_tets.cpp:88"),
+        "M2": ("marching_tets_emit", "permuto_sdf_tpu_torch/kernels/csrc/marching_tets.cu",
+               "permuto_sdf_tpu/native/marching_tets.cpp:88"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
@@ -2502,7 +2902,8 @@ def main() -> int:
                     + sum(v["launches"][k] for v in st_runs.values())
                     + sum(v["launches"][k] for v in lod_runs.values())
                     + sum(v["launches"][k] for v in hit_train["runs"].values())
-                    + sum(v["launches"][k] for v in lever_train["runs"].values()))
+                    + sum(v["launches"][k] for v in lever_train["runs"].values())
+                    + mesh_counts[k])
         entries.append({"name": f"{k}:{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "max_err": GATED[k][0],
@@ -2532,6 +2933,9 @@ def main() -> int:
                                  "selection": {k: results["L"][k] for k in
                                                ("sel_rays_exact", "sel_rays_tied")},
                                  "cross_check": lever_cross}, "card": card}), flush=True)
+    print(json.dumps({"mesh": {"kernels": mesh_kernels, "sdf_from_mesh": sdf_mesh,
+                               "phases_s": mesh_s},
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 LIBRARIES = ("permuto_encoding", "occupancy_grid", "volume_rendering", "sphere_trace",
-             "compaction", "importance_sampling")
+             "compaction", "importance_sampling", "marching_tets")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -85,6 +85,10 @@ SIGNATURES = {
     "importance_sampling": {
         "psdf_importance_round": [_I] * 3 + [_P] * 6 + [_F] + [_P] * 3,
         "psdf_merge_samples": [_I] * 3 + [_P] * 13,
+    },
+    "marching_tets": {
+        "psdf_mt_count": [_P, _I, _I, _I, _F] + [_P] * 4,
+        "psdf_mt_emit": [_P, _I, _I, _I, _F] + [_P] * 4 + [_F] * 6 + [_P] * 4,
     },
 }
 

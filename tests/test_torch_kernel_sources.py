@@ -1,4 +1,4 @@
-"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1 and E2,
+"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2, L, D2, D2' and M,
 compiled for the CPU with g++ against a small CUDA stand-in
 (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
 own kernel wrappers, against the plain PyTorch versions.
@@ -655,3 +655,38 @@ def test_kernels_D2_source_match_plain(emulated):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5 * float(b.abs().max()),
                                    rtol=0)
         assert float(a[~valid].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("grid", ["planted", "sphere"])
+def test_kernel_M_source_matches_plain(emulated, grid):
+    """Kernel M (M1 counts the triangles per cube and block, M2 emits them
+    at the blocks' offsets) against its plain version on a grid that is not
+    a cube (10 x 11 x 12: cube ids cross block boundaries mid-row): the
+    emitted world positions, weld keys and degenerate flags bit for bit
+    before the welding, the welded mesh after it. The planted grid holds
+    exact-level nodes, degenerate faces and the 1e-12 denominator floor."""
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+    from test_torch_marching_tets import planted_grid, sphere_grid
+
+    v = (planted_grid(13) if grid == "planted" else sphere_grid(13, 0.31))[:10, :11, :12]
+    v = torch.from_numpy(np.ascontiguousarray(v))
+    origin, spacing = (-0.5, -0.4, -0.3), (0.05, 0.04, 1.0 / 23)
+    launches = (mc.mt_count_cuda.launches, mc.mt_emit_cuda.launches)
+    counts, block_tris = mc.mt_count_cuda(v, 0.0)
+    offsets, T = mc.mt_offsets(block_tris)
+    emitted = mc.mt_emit_cuda(v, 0.0, counts, offsets, T, origin, spacing)
+    assert (mc.mt_count_cuda.launches, mc.mt_emit_cuda.launches) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+    want_counts, want_blocks = mc.mt_count_plain(v, 0.0, slab=3)
+    assert torch.equal(counts, want_counts) and torch.equal(block_tris, want_blocks)
+    assert len(block_tris) == 4  # 990 cubes, the last block partial
+    want = mc.mt_emit_plain(v, 0.0, origin, spacing)
+    assert T == want[2].shape[0] > 50
+    for a, b in zip(emitted, want):
+        assert torch.equal(a, b)
+    if grid == "planted":
+        assert emitted[2].sum() > 0
+    Vk, Fk = mc.weld(*emitted)
+    Vp, Fp = mc.marching_tetrahedra_plain(v, 0.0, origin, spacing)
+    assert torch.equal(Vk, Vp) and torch.equal(Fk, Fp)
+    assert torch.equal(mc.marching_tetrahedra_cuda(v, 0.0, origin, spacing)[1], Fp)
