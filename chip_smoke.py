@@ -97,9 +97,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    F equal to the plain path's at 196^3 and 256^3); launches counted per
    step over the SDF_MESH_STEPS-step run and per mesh over each
    extraction's grid SDF and first M call;
-16. print ``render``, ``train``, ``sphere_traced``, ``lod``,
-   ``hit_ray_train``, ``levers``, ``mesh`` and ``kernels`` JSON lines, then
-   as the last line ``{"ok": true, "device": {...}}``.
+16. slice 7, the plain sphere tracers: kernel C3 (the first occupied
+   probe) on every ray of the 400x400 view and J3 (the plain tracers' step
+   on position state) at one PT_CHUNK-ray chunk against their plain
+   versions (has exact, t_first within TOL_C3_ULP; flags exact, positions
+   within TOL_J3); ``render_image_sphere_traced`` (chunk PT_CHUNK,
+   PT_TRACES traces) at 400x400 on both scenes beside the fast tracer's
+   ms/frame, and ``render_rays_sphere_traced_compacted`` on the whole
+   sphere-scene view, with the launch counts read per path (J3 exactly
+   PT_TRACES per chunk); 1024 plain-traced rays card against CPU at the
+   sphere-frame gates of phase 9;
+17. slice 7, sampling without the grid and NeRF: kernels C2 (uniform fg
+   samples) and I2 (the density refresh) against their plain versions at
+   the NeRF step's shapes (exact); ``train_nerf.train`` at
+   ``NerfTrainConfig()`` on the synthetic reel (NERF_STEPS steps, 3 grid
+   refreshes, ms/step from the difference with a NERF_SHORT-step run;
+   rays/s, valid fg samples/s, launches per step), ``render_image`` of one
+   view, one NeRF step card against CPU (TOL_LOSS_CROSS, TOL_GRAD_CROSS),
+   ``main(["--smoke"])`` in process; and TRAIN_STEPS flagship steps with
+   ``use_occupancy_grid=False`` (C2 once per step, C and I never);
+18. print ``render``, ``train``, ``sphere_traced``, ``lod``,
+   ``hit_ray_train``, ``levers``, ``mesh``, ``plain_traced``, ``nerf`` and
+   ``kernels`` JSON lines, then as the last line
+   ``{"ok": true, "device": {...}}``.
 
 It needs the CUDA toolkit (``nvcc``) and no network. It imports nothing of
 JAX and nothing of the JAX package.
@@ -336,7 +356,8 @@ def probe_sampler_ops(t_entry, t_exit, mask, P: int) -> int:
 ERR_KIND = {"A": "abs", "B": "rel", "C": "abs", "D": "abs", "F": "rel_level",
             "G": "rel_level", "D'": "rel", "I": "abs", "J0": "abs", "J1": "abs", "J2": "abs",
             "H0": "abs", "E1": "abs", "E2": "abs", "H1": "abs", "H2": "abs",
-            "L": "rel_floor1", "D2": "abs", "D2'": "rel", "M1": "abs", "M2": "ulp"}
+            "L": "rel_floor1", "D2": "abs", "D2'": "rel", "M1": "abs", "M2": "ulp",
+            "C3": "ulp", "J3": "abs", "C2": "abs", "I2": "abs"}
 GATED = {}  # kernel -> (largest gated error over its checks, tolerance)
 
 
@@ -659,6 +680,7 @@ def counters():
     from permuto_sdf_tpu_torch.ops import importance_sampling as isp
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+    from permuto_sdf_tpu_torch.ops import ray_sampler as rs
     from permuto_sdf_tpu_torch.ops import sphere_trace as st
     from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 
@@ -673,7 +695,9 @@ def counters():
             "H1": (compaction.take_rows_cuda,), "H2": (compaction.scatter_rows_cuda,),
             "L": (vr.train_lod_select_cuda,), "D2": (vr.neus_render_mixed_cuda,),
             "D2'": (vr.neus_render_mixed_bwd_cuda,), "M1": (mc.mt_count_cuda,),
-            "M2": (mc.mt_emit_cuda,)}
+            "M2": (mc.mt_emit_cuda,), "C3": (og.first_occupied_cuda,),
+            "J3": (st.trace_step_pos_cuda,), "C2": (rs.samples_fg_cuda,),
+            "I2": (og.density_update_cuda,)}
 
 
 RENDER_KERNELS = ("A", "B", "C", "D", "E1", "E2")
@@ -2210,7 +2234,7 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     return results, parity
 
 
-def _lever_window(device, label, run_cfg, params, grid, reel, start, steps):
+def _train_window(device, label, run_cfg, params, grid, reel, start, steps):
     """``train`` resumed at ``start`` for ``steps`` steps with the launch
     counts reset before and read after, and read after every step too.
     Returns (params, the run's summary)."""
@@ -2227,9 +2251,10 @@ def _lever_window(device, label, run_cfg, params, grid, reel, start, steps):
         torch.cuda.synchronize(device)
         times.append(time.perf_counter())
         if not math.isfinite(float(loss)):
-            fail(f"lever train ({label}): non-finite loss at iteration {i}")
+            fail(f"train window ({label}): non-finite loss at iteration {i}")
         now = read_counts()
-        per_step.append({"it": i, "lod": aux.get("train_lod_top_k"),
+        per_step.append({"it": i, "nr_samples": float(aux["nr_samples"]),
+                         "lod": aux.get("train_lod_top_k"),
                          "parity": aux.get("table_grad_parity"),
                          "hit_ray_frac": aux.get("hit_ray_frac"),
                          "launches": {k: now[k] - last.get(k, 0) for k in now}})
@@ -2250,9 +2275,9 @@ def _lever_window(device, label, run_cfg, params, grid, reel, start, steps):
     for name, old in before.items():
         new = _param_groups(new_params)[name]
         if not all(torch.isfinite(t).all() for t in new):
-            fail(f"lever train ({label}): parameter group {name} is not finite")
+            fail(f"train window ({label}): parameter group {name} is not finite")
         if all(torch.equal(a, b) for a, b in zip(old, new)):
-            fail(f"lever train ({label}): parameter group {name} did not change")
+            fail(f"train window ({label}): parameter group {name} did not change")
     ms = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])]
     for rec, t in zip(per_step, ms):
         rec["ms"] = t
@@ -2304,7 +2329,7 @@ def lever_train_phase(device, cfg, params, grid, reel, sphere_params, sphere_gri
     lever_cfg = _lever_cfg(cfg)
     runs = {}
     for label, run_cfg in (("reference", cfg), ("levers", lever_cfg), ("reference_again", cfg)):
-        _, run = _lever_window(device, label, run_cfg, params, grid, reel, start, TRAIN_STEPS)
+        _, run = _train_window(device, label, run_cfg, params, grid, reel, start, TRAIN_STEPS)
         run["by_gate"] = _split_at(run, gate_it)
         runs[label] = run
         parts = "; ".join(f"{k} the gate: {v['steps']} steps, median {v['ms_per_step_median']:.1f}"
@@ -2331,7 +2356,7 @@ def lever_train_phase(device, cfg, params, grid, reel, sphere_params, sphere_gri
     start_s = cfg.nr_iter_sphere_fit + LOD_TRAIN_FROM
     explicit = LOD_TRAIN_FROM + 1 + LEVER_EXPLICIT_LEAD
     hit_cfg = _lever_cfg(cfg, hit_ray_frac=hit_frac, lever_start_iter=explicit)
-    _, run = _lever_window(device, "levers_hit_rays", hit_cfg, sp, sphere_grid, reel, start_s,
+    _, run = _train_window(device, "levers_hit_rays", hit_cfg, sp, sphere_grid, reel, start_s,
                            TRAIN_STEPS)
     gate_s = cfg.nr_iter_sphere_fit + explicit
     run["by_gate"] = _split_at(run, gate_s)
@@ -2721,6 +2746,537 @@ def sdf_mesh_phase(device, cfg, sphere_params):
     return summary, {k: train_counts[k] + mesh_counts[k] for k in mesh_counts}
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the plain sphere tracers (C3, J3), sampling without the grid (C2)
+# and the NeRF trainer (I2)
+# ---------------------------------------------------------------------------
+
+PT_CHUNK = 8192  # render_image_sphere_traced's default chunk
+PT_TRACES = 15  # its nr_sphere_traces
+PT_FRAMES = 3  # timed plain-traced frames per scene, after one warm-up frame
+PT_KERNELS = ("C3", "J3", "A", "B")  # J0 only when the scene's field is not cached yet
+PT_COMPACT_KERNELS = ("C3", "J3", "H0", "A", "B")
+TOL_C3_ULP = 1  # t_first: the same float operations; has exact
+TOL_J3 = 1e-6  # positions: the same float operations (--fmad=false); flags exact
+OPS_PER_PROBE = 23  # a probe's t, point and voxel index (as probe_sampler_ops)
+OPS_PER_ROW_J3 = 30  # J3's step, convergence test and the bound sphere's test
+OPS_PER_SAMPLE_C2 = 20  # C2's per-slot count, spacing, z, clip and dt
+OPS_PER_PROBE_I2 = 3  # I2's decay, max and threshold
+NERF_SHORT = 2  # the short run whose time the window's run subtracts
+NERF_STEPS = 24  # the NeRF window: 3 grid refreshes (every 8 iterations)
+NERF_KERNELS = ("A", "C", "D", "D'", "F", "I", "I2")
+GRIDFREE_KERNELS = ("A", "B", "C2", "D", "D'", "E1", "E2", "F", "G")
+
+
+def plain_trace_kernel_phases(device, cfg, params, grid, field, reps=20, plain_reps=3):
+    """Kernels C3 and J3 against their plain versions on the sphere scene:
+    C3 on every ray of the 400x400 view (R = 160,000: the seed of the
+    compacted renderer on the whole frame), J3 at one PT_CHUNK-ray chunk of
+    ``render_image_sphere_traced`` (the full-state form after the seed and
+    the first SDF evaluation; the bucket form, an index list with fill slots,
+    the sdf store and the next positions, checked once). J3 is timed from a
+    restored copy of the state, the restore's own time subtracted. Returns
+    {kernel: numbers}."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    gcfg, P = cfg.grid, 512
+    results = {}
+    K, tf = camera_k(WIDTH, HEIGHT)
+    o, d = rays_from_frame(K, tf, WIDTH, HEIGHT, device=device)
+    _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
+    R = o.shape[0]
+
+    # --- C3: the first occupied probe segment of every ray of the view
+    cargs = (gcfg, grid.occupancy, o, d, te, tx, P)
+    got = og.first_occupied_cuda(*cargs)
+    want = og.first_occupied_plain(*cargs)
+    if not torch.equal(got[1], want[1]):
+        fail(f"kernel C3: has differs on {(got[1] != want[1]).sum().item()} rays")
+    ulp = _ulps(got[0], want[0])
+    ms = time_ms(lambda: og.first_occupied_cuda(*cargs), reps, device)
+    pms = time_ms(lambda: og.first_occupied_plain(*cargs), plain_reps, device)
+    # the work these rays need: the probes up to the first occupied one (all
+    # P without one) of the rays that meet the bound, and the voxels they read
+    occ, seg_len = og._probe_occupancy(gcfg, grid.occupancy, o, d, te, tx, P)
+    meets = (tx > te)[:, 0]
+    first = torch.where(want[1], torch.argmax(occ.to(torch.uint8), dim=-1), P - 1)
+    needed = (torch.arange(P, device=device)[None, :] <= first[:, None]) & meets[:, None]
+    frac = (torch.arange(P, device=device, dtype=torch.float32) + 0.5) / P
+    ts = te + frac[None, :] * (tx - te)
+    lin, _ = og.point_to_lin_idx(gcfg, (o[:, None, :] + ts[..., None] * d[:, None, :])[needed])
+    probes, voxels = int(needed.sum()), int(torch.unique(lin).numel())
+    del occ, ts, lin, needed
+    b = bound_ms(R * 8 * 4 + voxels + R * 5, probes * OPS_PER_PROBE + int(meets.sum()) * 6)
+    _report(f"C3 R={R} P={P} (has {int(want[1].sum())}, {probes} probes needed, {voxels} "
+            f"voxels; t_first {ulp} ulp)", float(ulp), TOL_C3_ULP, ms, pms, b)
+    results["C3"] = dict(max_abs_err=(got[0] - want[0]).abs().max().item(), ms=ms, plain_ms=pms,
+                         bound_ms=b[0], bound_by=b[1])
+
+    # --- J3: one iteration of the full-state loop on one chunk
+    mid = (R // 2 // PT_CHUNK) * PT_CHUNK
+    oc, dc = o[mid:mid + PT_CHUNK].contiguous(), d[mid:mid + PT_CHUNK].contiguous()
+    pos, alive, _ = st._plain_seed(oc, dc, tps.BOUND, gcfg, grid, field)
+    n = oc.shape[0]
+    state0 = {"pos_f": pos.contiguous(), "alive_f": alive.contiguous(),
+              "conv_f": torch.zeros_like(alive)}
+    with torch.no_grad():
+        s_val = tps.sdf_apply(params["sdf"], state0["pos_f"], ITER, cfg.sdf_model)[0].reshape(-1)
+    bound = st._sphere_bound(tps.BOUND)
+    kw = dict(dist_field=field, grid_cfg=gcfg, sdf_multiplier=0.9, sdf_converged_tresh=2e-4,
+              bound=bound)
+    ks, ps = ({k: v.clone() for k, v in state0.items()} for _ in range(2))
+    st.trace_step_pos_cuda(None, s_val, dc, ks["pos_f"], ks["alive_f"], ks["conv_f"], None, **kw)
+    st.trace_step_pos_plain(None, s_val, dc, ps["pos_f"], ps["alive_f"], ps["conv_f"], None, **kw)
+    for k in ("alive_f", "conv_f"):
+        if not torch.equal(ks[k], ps[k]):
+            fail(f"kernel J3: {k} differs on {(ks[k] != ps[k]).sum().item()} rows")
+    err = (ks["pos_f"] - ps["pos_f"]).abs().max().item()
+    # the bucket form (the compacted tracer's round): rows of the alive
+    # list, fill slots, the sdf store and the next positions
+    idx, _ = compaction.nonzero_static_plain(state0["alive_f"], n, n)
+    bs = [{"pos_f": st._padded(state0["pos_f"]), "alive_f": st._padded(state0["alive_f"], False),
+           "conv_f": st._padded(state0["conv_f"], False),
+           "sdf_f": torch.zeros(n + 1, device=device)} for _ in range(2)]
+    s_b = st._padded(s_val)[idx]
+    outs = [fn(idx, s_b, st._padded(dc), b_["pos_f"], b_["alive_f"], b_["conv_f"], b_["sdf_f"], **kw,
+               pos_out=True) for fn, b_ in ((st.trace_step_pos_cuda, bs[0]),
+                                            (st.trace_step_pos_plain, bs[1]))]
+    for k in ("alive_f", "conv_f"):
+        if not torch.equal(bs[0][k], bs[1][k]):
+            fail(f"kernel J3 (bucket form): {k} differs")
+    err = max(err, (bs[0]["pos_f"] - bs[1]["pos_f"]).abs().max().item(),
+              (bs[0]["sdf_f"] - bs[1]["sdf_f"]).abs().max().item(),
+              (outs[0] - outs[1]).abs().max().item())
+    work = {k: v.clone() for k, v in state0.items()}
+
+    def restore():
+        for k, v in work.items():
+            v.copy_(state0[k])
+
+    def run_j3(fn):
+        restore()
+        fn(None, s_val, dc, work["pos_f"], work["alive_f"], work["conv_f"], None, **kw)
+
+    restore_ms = time_ms(restore, reps, device)
+    ms = time_ms(lambda: run_j3(st.trace_step_pos_cuda), reps, device) - restore_ms
+    pms = time_ms(lambda: run_j3(st.trace_step_pos_plain), plain_reps, device) - restore_ms
+    act = state0["alive_f"] & (s_val.abs() >= 2e-4)
+    moved = ps["pos_f"][act & (s_val > gcfg.voxel_size)]
+    lookups = int(moved.shape[0])
+    lin, _ = og.point_to_lin_idx(gcfg, moved)
+    voxels = int(torch.unique(lin).numel())
+    b = bound_ms(n * (4 + 12 + 12 + 12 + 1 + 1 + 1 + 1) + voxels,
+                 n * OPS_PER_ROW_J3 + lookups * OPS_PER_LOOKUP)
+    _report(f"J3 rows={n} (alive {int(state0['alive_f'].sum())}, converged "
+            f"{int(ps['conv_f'].sum())}, {lookups} jumps of {voxels} voxels; the bucket form "
+            f"too)", err, TOL_J3, ms, pms, b)
+    results["J3"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    return results
+
+
+def plain_trace_render_phase(device, cfg, scenes, fast_runs):
+    """``render_image_sphere_traced`` (PT_CHUNK, PT_TRACES) at 400x400 on
+    both scenes, one warm-up frame and PT_FRAMES timed ones, beside the fast
+    tracer's ms/frame of the same run; then the compacted renderer
+    (``render_rays_sphere_traced_compacted``, its defaults) on the whole
+    sphere-scene view in one call, warm-up and PT_FRAMES timed. Launch
+    counts reset before each warm-up and read after the last frame."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    K, tf = camera_k(WIDTH, HEIGHT)
+    out = {}
+    for scene, (params, grid) in scenes.items():
+        reset_counts()
+        times = []
+        for _ in range(PT_FRAMES + 1):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            img = tps.render_image_sphere_traced(params, grid, K, tf, WIDTH, HEIGHT, ITER, cfg,
+                                                 chunk=PT_CHUNK, nr_sphere_traces=PT_TRACES,
+                                                 device=device)
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        missing = [k for k in PT_KERNELS if counts[k] <= 0]
+        if missing:
+            fail(f"plain sphere-traced frame ({scene}): no launch of kernel {missing}")
+        if not all(torch.isfinite(t).all() for t in img):
+            fail(f"plain sphere-traced frame ({scene}): non-finite values")
+        lit = int((img[2] > 0).sum())
+        if lit <= 0:
+            fail(f"plain sphere-traced frame ({scene}): nothing lit")
+        timed = times[1:]
+        med = statistics.median(timed)
+        fast = fast_runs.get(f"{scene}_400", {}).get("ms_per_frame_median")
+        chunks = -(-WIDTH * HEIGHT // PT_CHUNK)
+        out[f"{scene}_plain"] = {
+            "ms_per_frame_median": med, "ms_per_frame_min": min(timed),
+            "ms_per_frame_max": max(timed), "ms_per_frame_all": timed, "warmup_frame_ms": times[0],
+            "fast_tracer_ms_per_frame_median": fast, "lit": lit, "chunks_per_frame": chunks,
+            "launches_per_frame": {k: counts[k] / (PT_FRAMES + 1) for k in PT_KERNELS},
+            "launches": counts}
+        print(f"[plain_traced] {scene} {WIDTH}x{HEIGHT} chunk {PT_CHUNK}, {PT_TRACES} traces, "
+              f"{PT_FRAMES} frames: median {med:.1f} ms/frame (min {min(timed):.1f}, max "
+              f"{max(timed):.1f}), warm-up {times[0]:.1f}; fast tracer {fast} ms/frame; lit "
+              f"{lit}; launches/frame "
+              f"{ {k: round(v, 2) for k, v in out[f'{scene}_plain']['launches_per_frame'].items()} }",
+              flush=True)
+        # J3 once per trace per chunk: the full-state loop runs every iteration
+        if counts["J3"] != PT_TRACES * chunks * (PT_FRAMES + 1):
+            fail(f"plain sphere-traced frame ({scene}): J3 launches {counts['J3']}, expected "
+                 f"{PT_TRACES * chunks * (PT_FRAMES + 1)}")
+    params, grid = scenes["sphere"]
+    o, d = rays_from_frame(K, tf, WIDTH, HEIGHT, device=device)
+    field = tps._cached_dist_field(cfg.grid, grid)
+    reset_counts()
+    times = []
+    for _ in range(PT_FRAMES + 1):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        rgb, nrm, w = tps.render_rays_sphere_traced_compacted(params, grid, o, d, ITER, cfg,
+                                                              dist_field=field)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    missing = [k for k in PT_COMPACT_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"compacted sphere-traced frame: no launch of kernel {missing}")
+    if not (torch.isfinite(rgb).all() and torch.isfinite(nrm).all()) or not w.sum() > 0:
+        fail("compacted sphere-traced frame: non-finite values or nothing shaded")
+    timed = times[1:]
+    med = statistics.median(timed)
+    out["sphere_compacted"] = {
+        "rays": o.shape[0], "first_bucket": max(256, o.shape[0] // 4),
+        "ms_per_frame_median": med, "ms_per_frame_min": min(timed),
+        "ms_per_frame_max": max(timed), "ms_per_frame_all": timed, "warmup_frame_ms": times[0],
+        "shaded": int(w.sum()),
+        "launches_per_frame": {k: counts[k] / (PT_FRAMES + 1) for k in PT_COMPACT_KERNELS},
+        "launches": counts}
+    print(f"[plain_traced] compacted renderer, whole {WIDTH}x{HEIGHT} sphere view in one call: "
+          f"median "
+          f"{med:.1f} ms (min {min(timed):.1f}, max {max(timed):.1f}), shaded {int(w.sum())}; "
+          f"launches/frame "
+          f"{ {k: round(v, 2) for k, v in out['sphere_compacted']['launches_per_frame'].items()} }",
+          flush=True)
+    return out
+
+
+def plain_trace_cross_check(device, cfg, params, grid, field):
+    """CROSS_RAYS rays (a strided subsample of the whole 400x400 view) of
+    the sphere scene through ``render_rays_sphere_traced`` on the card and
+    on the CPU (plain versions; the CPU takes the card's distance field),
+    at the sphere-frame gates: the lit masks agree on ST_CROSS_LIT_AGREE of
+    the rays; the CPU's final positions shaded on the card give its rgb and
+    normals within TOL_ST_CROSS; on the whole path a ray lit in both differs
+    by more only where its final position differs from the CPU's by at most
+    ST_CROSS_MAX_POS_GAP, on at most ST_CROSS_MAX_OFF_SHARE of those rays."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    side = int(CROSS_RAYS ** 0.5)
+    K, tf = _strided_camera(WIDTH, HEIGHT, side)
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    params_cpu = _tree_map(cpu, params)
+    grid_cpu = og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy))
+    o, d = rays_from_frame(K, tf, side, side, device="cpu")
+    t0 = time.perf_counter()
+    ref = tps.render_rays_sphere_traced(params_cpu, grid_cpu, o, d, ITER, cfg,
+                                        dist_field=cpu(field))
+    cpu_s = time.perf_counter() - t0
+    card = tps.render_rays_sphere_traced(params, grid, o.to(device), d.to(device), ITER, cfg,
+                                         dist_field=field)
+    lit_c, lit_p = card[2].cpu()[:, 0] > 0, ref[2][:, 0] > 0
+    both = lit_c & lit_p
+    agree = (lit_c == lit_p).float().mean().item()
+    err = {k: (card[i].cpu() - ref[i]).abs().amax(dim=-1) for i, k in ((0, "rgb"),
+                                                                      (1, "normals"))}
+    with torch.no_grad():
+        sdf_fn = lambda p_: lambda x: tps.sdf_apply(p_["sdf"], x, ITER, cfg.sdf_model)[0]  # noqa: E731
+        pos_c = st.sphere_trace(sdf_fn(params), o.to(device), d.to(device), tps.BOUND,
+                                PT_TRACES, grid_cfg=cfg.grid, grid=grid, dist_field=field,
+                                final_sdf=False)[0]
+        pos_p = st.sphere_trace(sdf_fn(params_cpu), o, d, tps.BOUND, PT_TRACES,
+                                grid_cfg=cfg.grid, grid=grid_cpu, dist_field=cpu(field),
+                                final_sdf=False)[0]
+        same = tps._shade(params, pos_p.to(device), d.to(device), ITER, cfg)
+        want = tps._shade(params_cpu, pos_p, d, ITER, cfg)
+    shade_err = max((a.cpu() - b).abs().amax(dim=-1)[lit_p].max().item() if lit_p.any() else 0.0
+                    for a, b in zip(same, want))
+    gap = (pos_c.cpu() - pos_p).abs().amax(dim=-1)
+    off = both & ((err["rgb"] > TOL_ST_CROSS) | (err["normals"] > TOL_ST_CROSS))
+    unexcused = off & ~((gap > 0) & (gap <= ST_CROSS_MAX_POS_GAP))
+    n_meet = int(tps.BOUND.ray_intersection(o, d)[4].sum())
+    summary = {"rays": o.shape[0], "stride": WIDTH // side, "miss_the_bound": o.shape[0] - n_meet,
+               "lit_card": int(lit_c.sum()), "lit_cpu": int(lit_p.sum()),
+               "lit_agreement": agree, "rays_lit_differently": int((lit_c != lit_p).sum()),
+               "same_positions_max_err": shade_err,
+               "whole_path_rgb_max_err": err["rgb"][both].max().item() if both.any() else 0.0,
+               "whole_path_normals_max_err": (err["normals"][both].max().item()
+                                              if both.any() else 0.0),
+               "whole_path_rays_off": int(off.sum()),
+               "rays_with_other_positions": int((gap > 0).sum()),
+               "max_position_gap": gap.max().item(), "off_rays_unexcused": int(unexcused.sum()),
+               "tol": TOL_ST_CROSS, "cpu_s": cpu_s}
+    print(json.dumps({"plain_trace_cross_check": summary}), flush=True)
+    if not (summary["miss_the_bound"] and lit_p.any() and not lit_p.all()):
+        fail(f"plain-trace cross-check: the sample lacks misses or lit rays ({summary})")
+    if not agree >= ST_CROSS_LIT_AGREE:
+        fail(f"plain-trace cross-check: lit masks agree on {agree:.4f} of the rays")
+    if not shade_err <= TOL_ST_CROSS:
+        fail(f"plain-trace cross-check: the CPU's positions shaded on the card differ by "
+             f"{shade_err:.3e}")
+    if summary["off_rays_unexcused"]:
+        fail(f"plain-trace cross-check: {summary['off_rays_unexcused']} rays differ by more "
+             f"than {TOL_ST_CROSS:.4f} at a final position the same as the CPU's or more than "
+             f"{ST_CROSS_MAX_POS_GAP:g} from it")
+    if not summary["whole_path_rays_off"] <= ST_CROSS_MAX_OFF_SHARE * int(both.sum()):
+        fail(f"plain-trace cross-check: {summary['whole_path_rays_off']} of {int(both.sum())} "
+             f"rays lit in both differ by more than {TOL_ST_CROSS:.4f}")
+    return summary
+
+
+def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
+    """Kernels C2 and I2 against their plain versions at the NeRF step's
+    shapes (``NerfTrainConfig()``): C2 on one step's rays (R = 512, S = 64,
+    the jitter on), I2 on one refresh's probes (n = 65,536 of the 64^3
+    grid, the density of the initial field). Both exact. I2 is timed from a
+    restored copy of the grid, the restore's own time subtracted. Returns
+    {kernel: numbers}."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import random_rays_from_reel
+    from permuto_sdf_tpu_torch.models.fields import nerf_hash_density
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import ray_sampler as rs
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    results = {}
+    draws = tn.draw_train_step(tps.step_generators(SEED, 0)[0], ncfg, reel).to(device)
+    o, d, _, _, _ = random_rays_from_reel(reel, ncfg.nr_rays, indices=draws.ray_indices,
+                                          apply_mask=False)
+    _, te, _, tx, _ = tn.BOUND.ray_intersection(o, d)
+    R, S = o.shape[0], ncfg.max_nr_samples_per_ray
+    cargs = (te, tx, ncfg.min_dist_between_samples, S, draws.fg_start)
+    got = rs.samples_fg_cuda(*cargs)
+    want = rs.samples_fg_plain(*cargs)
+    if not torch.equal(got[2], want[2]):
+        fail(f"kernel C2: masks differ in {(got[2] != want[2]).sum().item()} slots")
+    err = max((got[i] - want[i]).abs().max().item() for i in (0, 1, 3))
+    ms = time_ms(lambda: rs.samples_fg_cuda(*cargs), reps, device)
+    pms = time_ms(lambda: rs.samples_fg_plain(*cargs), plain_reps, device)
+    b = bound_ms(R * 12 + R * S * 9 + R * 4, R * S * OPS_PER_SAMPLE_C2)
+    _report(f"C2 R={R} S={S} (valid {int(want[2].sum())})", err, 0.0, ms, pms, b)
+    results["C2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+
+    gcfg, n = ncfg.grid, ncfg.grid_nr_random_samples
+    jitter = (torch.rand((n, 3), generator=torch.Generator().manual_seed(SEED)) - 0.5).to(device)
+    centers, lin = og.compute_stratified_sample_of_grid_points(gcfg, n, 2, jitter, device)
+    with torch.no_grad():
+        density = nerf_hash_density(params["model"], centers, 16, ncfg.fg_model)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    vals0 = (torch.rand(gcfg.nr_voxels, generator=gen) * 2 * ncfg.grid_occupancy_thresh).to(device)
+    grid0 = og.OccupancyGridState(values=vals0, occupancy=vals0 > ncfg.grid_occupancy_thresh)
+    grids = [og.OccupancyGridState(grid0.values.clone(), grid0.occupancy.clone()) for _ in range(2)]
+    og.density_update_cuda(gcfg, grids[0], lin, density, ncfg.grid_decay, ncfg.grid_occupancy_thresh)
+    og.density_update_plain(gcfg, grids[1], lin, density, ncfg.grid_decay,
+                            ncfg.grid_occupancy_thresh)
+    if not torch.equal(grids[0].occupancy, grids[1].occupancy):
+        fail("kernel I2: occupancy differs from the plain version")
+    err = (grids[0].values - grids[1].values).abs().max().item()
+    work = og.OccupancyGridState(grid0.values.clone(), grid0.occupancy.clone())
+
+    def restore():
+        work.values.copy_(grid0.values)
+        work.occupancy.copy_(grid0.occupancy)
+
+    def run_i2(fn):
+        restore()
+        fn(gcfg, work, lin, density, ncfg.grid_decay, ncfg.grid_occupancy_thresh)
+
+    restore_ms = time_ms(restore, reps, device)
+    ms = time_ms(lambda: run_i2(og.density_update_cuda), reps, device) - restore_ms
+    pms = time_ms(lambda: run_i2(og.density_update_plain), plain_reps, device) - restore_ms
+    b = bound_ms(n * (4 + 4 + 4 + 4 + 1), n * OPS_PER_PROBE_I2)
+    flips = int((grids[1].occupancy != grid0.occupancy).sum())
+    _report(f"I2 n={n} grid={gcfg.nr_voxels_per_dim}^3 ({flips} voxels flipped)", err, 0.0,
+            ms, pms, b)
+    results["I2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    return results
+
+
+def nerf_phase(device, reel, ncfg):
+    """The NeRF trainer at ``NerfTrainConfig()`` (capacity 2^18, 24 levels,
+    512 rays, 64 fg + 32 bg samples, a 64^3 grid refreshed from 65,536
+    probes every 8 iterations) on the synthetic reel: ``train`` from
+    scratch for NERF_SHORT and for NERF_SHORT + NERF_STEPS iterations (the
+    same first iterations), ms/step and launches per step from their
+    difference (3 refreshes in it); the loss falls; the valid fg samples of
+    one batch at the window's end; ``render_image`` of one view (one
+    warm-up, one timed); one step card against CPU (loss within
+    TOL_LOSS_CROSS, every leaf's gradient within TOL_GRAD_CROSS relative
+    L2); ``main(["--smoke"])`` in process. Returns (summary, counts of the
+    window's run and the render, the trained params)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import random_rays_from_reel
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    runs = {}
+    for label, iters in (("short", NERF_SHORT), ("window", NERF_SHORT + NERF_STEPS)):
+        torch.cuda.synchronize(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        params, grid, hist = tn.train(reel, ncfg, nr_iters=iters, seed=SEED, log_every=1,
+                                      device=device)
+        torch.cuda.synchronize(device)
+        runs[label] = (time.perf_counter() - t0, read_counts(), hist)
+    (t_s, c_s, _), (t_w, c_w, hist) = runs["short"], runs["window"]
+    ms = (t_w - t_s) * 1e3 / NERF_STEPS
+    per_step = {k: (c_w[k] - c_s[k]) / NERF_STEPS for k in NERF_KERNELS}
+    losses = [h[1] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"nerf train: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    missing = [k for k in NERF_KERNELS if per_step[k] <= 0]
+    if missing:
+        fail(f"nerf train: the window launched no kernel {missing}")
+    it_end = NERF_SHORT + NERF_STEPS
+    draws = tn.draw_train_step(tps.step_generators(SEED, it_end)[0], ncfg, reel).to(device)
+    o, d, _, _, _ = random_rays_from_reel(reel, ncfg.nr_rays, indices=draws.ray_indices,
+                                          apply_mask=False)
+    _, te, _, tx, _ = tn.BOUND.ray_intersection(o, d)
+    smp = og.compute_samples_in_occupied_regions(ncfg.grid, grid, o, d, te, tx,
+                                                 ncfg.min_dist_between_samples,
+                                                 ncfg.max_nr_samples_per_ray,
+                                                 start=draws.fg_start)
+    valid = int(smp.mask.sum())
+    tn.render_image(params, grid, reel, 0, it_end, ncfg, device=device)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    rgb, alpha = tn.render_image(params, grid, reel, 0, it_end, ncfg, device=device)
+    torch.cuda.synchronize(device)
+    render_ms = (time.perf_counter() - t0) * 1e3
+    render_counts = read_counts()
+    if not (torch.isfinite(rgb).all() and torch.isfinite(alpha).all()):
+        fail("nerf render_image: non-finite values")
+    psnr = _psnr(rgb, reel.rgb[0])
+    cross = _nerf_cross_check(device, ncfg, params, grid, reel, it_end)
+    t0 = time.perf_counter()
+    tn.main(["--smoke"])
+    smoke_s = time.perf_counter() - t0
+    summary = {
+        "config": "NerfTrainConfig()", "steps": NERF_STEPS, "ms_per_step": ms,
+        "rays_per_s": ncfg.nr_rays / ms * 1e3, "valid_fg_samples_per_step": valid,
+        "valid_fg_samples_per_s": valid / ms * 1e3, "launches_per_step": per_step,
+        "first_loss": losses[0], "final_loss": losses[-1],
+        "occupied_share": float(grid.occupancy.float().mean()),
+        "render_image_ms": render_ms, "render_image_psnr_vs_view": psnr,
+        "render_launches": {k: render_counts[k] for k in ("A", "C", "D")},
+        "cross_check": cross, "main_smoke_s": smoke_s}
+    print(f"[nerf] {NERF_STEPS} steps: {ms:.1f} ms/step, {summary['rays_per_s']:.0f} rays/s, "
+          f"{summary['valid_fg_samples_per_s']:.0f} valid fg samples/s ({valid} per step), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, occupied {summary['occupied_share']:.3f}, "
+          f"launches/step { {k: round(v, 2) for k, v in per_step.items()} }; render_image "
+          f"{reel.width}x{reel.height} {render_ms:.1f} ms (PSNR {psnr:.2f} dB vs the view); "
+          f"main --smoke {smoke_s:.1f} s", flush=True)
+    counts = {k: c_w[k] + render_counts[k] for k in c_w}
+    return summary, counts, params
+
+
+def _nerf_cross_check(device, ncfg, params, grid, reel, it):
+    """One full-width NeRF step on the CPU (plain versions) and on the card
+    with the same draws: the loss within TOL_LOSS_CROSS relative and every
+    leaf's gradient within TOL_GRAD_CROSS relative L2."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+    from permuto_sdf_tpu_torch.train.optimizers import tree_leaves
+
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    draws = tn.draw_train_step(tps.step_generators(SEED, it + 1)[0], ncfg, reel)
+    loss_c, _, g_c = tn.compute_loss_and_grads(params, grid, reel, draws, it, ncfg)
+    t0 = time.perf_counter()
+    loss_p, _, g_p = tn.compute_loss_and_grads(
+        _tree_map(cpu, params), og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy)),
+        reel.to("cpu"), draws, it, ncfg)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss_c) - float(loss_p)) / max(abs(float(loss_p)), 1e-30)
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_c), tree_leaves(g_p)):
+        if a is None or b is None or not b.abs().max() > 0:
+            continue
+        worst = max(worst, (torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)).item())
+    summary = {"loss_rel_err": loss_err, "grad_max_rel_l2": worst, "cpu_s": cpu_s,
+               "tol_loss": TOL_LOSS_CROSS, "tol_grad": TOL_GRAD_CROSS}
+    print(json.dumps({"nerf_cross_check": summary}), flush=True)
+    if not loss_err <= TOL_LOSS_CROSS:
+        fail(f"nerf cross-check: loss differs by {loss_err:.3e} relative")
+    if not worst <= TOL_GRAD_CROSS:
+        fail(f"nerf cross-check: a gradient differs by {worst:.3e} relative L2")
+    return summary
+
+
+def gridfree_phase(device, cfg, params, grid, reel):
+    """The flagship with ``use_occupancy_grid=False``: ``train`` resumed at
+    the training phase's state for TRAIN_STEPS steps (no refresh, no
+    offsurface loss, the fg samples from C2), right after a window of the
+    same steps with the grid (the host's speed drifts over the script, so
+    the two are compared within this phase): ms/step, rays/s, valid
+    samples/s and launches per step; C2 once per step, C and I never.
+    Returns (summary, counts of the grid-free window)."""
+    import dataclasses
+
+    start = cfg.nr_iter_sphere_fit + TRAIN_FROM
+    out = {}
+    for label, run_cfg in (("grid", cfg),
+                           ("gridfree", dataclasses.replace(cfg, use_occupancy_grid=False))):
+        _, run = _train_window(device, label, run_cfg, params, grid, reel, start, TRAIN_STEPS)
+        timed = [r["ms"] for r in run["per_step"][WARMUP_STEPS:]]
+        med = statistics.median(timed)
+        samples = statistics.mean(r["nr_samples"] for r in run["per_step"])
+        out[label] = {"first_iter": start + 1, "steps": TRAIN_STEPS, "ms_per_step_median": med,
+                      "ms_per_step_min": min(timed), "ms_per_step_max": max(timed),
+                      "ms_per_step_all": timed, "rays_per_s_median": cfg.nr_rays / med * 1e3,
+                      "valid_samples_per_step_mean": samples,
+                      "valid_samples_per_s_median": samples / med * 1e3,
+                      "launches_per_step": {k: run["launches"][k] / TRAIN_STEPS
+                                            for k in GRIDFREE_KERNELS + ("C", "I")}}
+        print(f"[gridfree] {label}: {TRAIN_STEPS} steps from iteration {start + 1}: median "
+              f"{med:.1f} ms/step (min {min(timed):.1f}, max {max(timed):.1f}), "
+              f"{out[label]['rays_per_s_median']:.0f} rays/s, "
+              f"{out[label]['valid_samples_per_s_median']:.0f} valid samples/s, launches/step "
+              f"{ {k: round(v, 2) for k, v in out[label]['launches_per_step'].items()} }",
+              flush=True)
+    counts = run["launches"]
+    if counts["C"] or counts["I"] or counts["C2"] != TRAIN_STEPS:
+        fail(f"grid-free train: launches C {counts['C']}, I {counts['I']}, C2 {counts['C2']} "
+             f"(expected 0, 0, {TRAIN_STEPS})")
+    missing = [k for k in GRIDFREE_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"grid-free train: no launch of kernel {missing}")
+    out["gridfree_over_grid"] = (out["gridfree"]["ms_per_step_median"]
+                                 / out["grid"]["ms_per_step_median"])
+    return out, counts
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -2848,7 +3404,27 @@ def main() -> int:
     mesh_s = time.perf_counter() - t0
     print(f"[mesh phases] {mesh_s:.1f} s wall for the kernel M phase and the slice", flush=True)
 
-    # 14. summary lines
+    # 14. slice 7: C3 and J3 against their plain versions, the plain
+    # sphere-traced frames on both scenes and the compacted renderer on the
+    # whole view, 1024 plain-traced rays card vs CPU; C2 and I2 against their
+    # plain versions, the NeRF trainer (window, render, card vs CPU, main
+    # --smoke) and a grid-free flagship window
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+
+    t0 = time.perf_counter()
+    results.update(plain_trace_kernel_phases(device, cfg, sphere_params, sphere_grid, field))
+    plain_runs = plain_trace_render_phase(device, cfg, scenes, st_runs)
+    plain_cross = plain_trace_cross_check(device, cfg, sphere_params, sphere_grid, field)
+    ncfg = tn.NerfTrainConfig()
+    results.update(nerf_kernel_phases(device, ncfg, tn.init_params(SEED, ncfg, reel.nr_images,
+                                                                    device), reel))
+    nerf_summary, nerf_counts, _ = nerf_phase(device, reel, ncfg)
+    gridfree, gridfree_counts = gridfree_phase(device, cfg, tparams, tgrid, reel)
+    slice7_s = time.perf_counter() - t0
+    print(f"[slice 7 phases] {slice7_s:.1f} s wall for C3, J3, C2 and I2, the plain-traced "
+          f"frames, the NeRF trainer and the grid-free window", flush=True)
+
+    # 15. summary lines
     meta = {
         "A": ("permuto_encode_fwd", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
               "permuto_sdf_tpu/ops/permuto_encoding.py:504"),
@@ -2894,6 +3470,15 @@ def main() -> int:
                "permuto_sdf_tpu/native/marching_tets.cpp:88"),
         "M2": ("marching_tets_emit", "permuto_sdf_tpu_torch/kernels/csrc/marching_tets.cu",
                "permuto_sdf_tpu/native/marching_tets.cpp:88"),
+        "C3": ("first_occupied_probe", "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
+               "permuto_sdf_tpu/ops/occupancy_grid.py:367"),
+        "J3": ("plain_sphere_trace_step", "permuto_sdf_tpu_torch/kernels/csrc/sphere_trace.cu",
+               "permuto_sdf_tpu/ops/sphere_trace.py:88"),
+        "C2": ("samples_fg", "permuto_sdf_tpu_torch/kernels/csrc/ray_sampler.cu",
+               "permuto_sdf_tpu/ops/ray_sampler.py:29"),
+        "I2": ("occupancy_density_refresh",
+               "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
+               "permuto_sdf_tpu/ops/occupancy_grid.py:193"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
@@ -2903,7 +3488,8 @@ def main() -> int:
                     + sum(v["launches"][k] for v in lod_runs.values())
                     + sum(v["launches"][k] for v in hit_train["runs"].values())
                     + sum(v["launches"][k] for v in lever_train["runs"].values())
-                    + mesh_counts[k])
+                    + mesh_counts[k] + sum(v["launches"][k] for v in plain_runs.values())
+                    + nerf_counts[k] + gridfree_counts[k])
         entries.append({"name": f"{k}:{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "max_err": GATED[k][0],
@@ -2936,6 +3522,12 @@ def main() -> int:
     print(json.dumps({"mesh": {"kernels": mesh_kernels, "sdf_from_mesh": sdf_mesh,
                                "phases_s": mesh_s},
                       "card": card}), flush=True)
+    print(json.dumps({"plain_traced": {"runs": {k: {x: y for x, y in v.items() if x != "launches"}
+                                                 for k, v in plain_runs.items()},
+                                        "cross_check": plain_cross, "phases_s": slice7_s},
+                      "card": card}), flush=True)
+    print(json.dumps({"nerf": nerf_summary, "gridfree_train": gridfree, "card": card}),
+          flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

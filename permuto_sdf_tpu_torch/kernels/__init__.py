@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 LIBRARIES = ("permuto_encoding", "occupancy_grid", "volume_rendering", "sphere_trace",
-             "compaction", "importance_sampling", "marching_tets")
+             "compaction", "importance_sampling", "marching_tets", "ray_sampler")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -63,6 +63,8 @@ SIGNATURES = {
         "psdf_probe_sampler": [_I] + [_P] * 6 + [_I] + [_F] * 6 + [_I, _I] + [_P] * 5,
         "psdf_grid_points": [_I, _U, _I] + [_F] * 5 + [_P] * 4,
         "psdf_grid_update": [_I, _P, _P] + [_F] * 3 + [_P] * 3,
+        "psdf_first_occupied": [_I] + [_P] * 5 + [_I] + [_F] * 5 + [_I] + [_P] * 3,
+        "psdf_density_update": [_I, _P, _P, _F, _F] + [_P] * 3,
     },
     "volume_rendering": {
         "psdf_render_weights": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 6,
@@ -76,6 +78,8 @@ SIGNATURES = {
         "psdf_jump_prepass": [_I, _I, _P, _I] + [_F] * 5 + [_I] + [_P] * 5 + [_I, _P, _P],
         "psdf_trace_step": [_I, _I] + [_P] * 10 + [_I] + [_F] * 5 + [_I] + [_F] * 3
                            + [_I] + [_P] * 3,
+        "psdf_trace_step_pos": [_I, _I] + [_P] * 8 + [_I] + [_F] * 5 + [_I] + [_F] * 7
+                               + [_P] * 2,
     },
     "compaction": {
         "psdf_compact": [_I, _P, _I, _L] + [_P] * 4,
@@ -89,6 +93,9 @@ SIGNATURES = {
     "marching_tets": {
         "psdf_mt_count": [_P, _I, _I, _I, _F] + [_P] * 4,
         "psdf_mt_emit": [_P, _I, _I, _I, _F] + [_P] * 4 + [_F] * 6 + [_P] * 4,
+    },
+    "ray_sampler": {
+        "psdf_samples_fg": [_I, _I, _P, _P, _P, _F] + [_P] * 5,
     },
 }
 

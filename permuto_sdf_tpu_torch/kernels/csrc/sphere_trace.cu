@@ -1,12 +1,15 @@
 // Kernel J0: the Chebyshev empty-space distance field of the occupancy grid.
 // Kernel J1: the jump-only prepass of the sphere tracer.
 // Kernel J2: one trace iteration of a bucket of rays, after its SDF values.
+// Kernel J3: one trace iteration of the plain tracers, on position state.
 //
 // Replaces: permuto_sdf_tpu/ops/occupancy_grid.py:315
 // `chebyshev_empty_distance` (J0), permuto_sdf_tpu/ops/sphere_trace.py:394
-// `_jump_prepass_impl` (J1) and the body of one iteration of :308
-// `_trace_rounds_impl` after the SDF evaluation, lines 337-375 (J2). The JAX
-// package leaves them to XLA.
+// `_jump_prepass_impl` (J1), the body of one iteration of :308
+// `_trace_rounds_impl` after the SDF evaluation, lines 337-375 (J2), and
+// the body of `sphere_trace`'s loop after its SDF evaluation, :88-113, which
+// is also the inner iteration of `sphere_trace_compacted`, :225-253 (J3).
+// The JAX package leaves them to XLA.
 //
 // What bounds them on an H100: bytes and memory latency. J0 reads the
 // 16.8 MB bool grid and writes the 16.8 MB uint8 field (three passes move
@@ -37,6 +40,19 @@
 // converged rays with a ballot and adds them with one atomic each: every
 // active ray of the frame is in the bucket, so these are the round's
 // counts (the hits before the round are added on the host).
+//
+// Design of J3: one thread per row of an index list (or every row when the
+// list is null: the full-state loop of `sphere_trace`), in place on the
+// full-size state padded by a fill row R, as J2. Where J2 keeps the
+// distance t, J3 keeps the position, as the JAX tracers do, and follows
+// their order: the activity (not converged, alive) is taken before the
+// step, the step is pos + d (s mult), the convergence test |s| < thresh
+// comes after it, one Chebyshev jump is gated on s > one voxel, and a ray
+// dies when its new position leaves the bound sphere (unless converged).
+// With `sdf_f` the active rows store s (the compacted round). With
+// `pos_out` the slot's new position is written there too, so the next SDF
+// evaluation of a bucket needs no gather; fill slots write the fill row's
+// position and change nothing.
 #include "common.cuh"
 
 namespace {
@@ -194,6 +210,59 @@ __global__ void __launch_bounds__(256) trace_step_kernel(
   }
 }
 
+// J3: for slot j and row r = idx[j] (or j without idx), with s[j] the SDF
+// at the row's position: the plain tracers' step, in place.
+__global__ void __launch_bounds__(256) trace_step_pos_kernel(
+    int B, long long R, const long long* __restrict__ idx,
+    const float* __restrict__ s_in, const float* __restrict__ dirs,
+    float* __restrict__ pos_f, uint8_t* __restrict__ alive_f,
+    uint8_t* __restrict__ conv_f, float* __restrict__ sdf_f,
+    const uint8_t* __restrict__ field, GridArgs g, float mult, float thr,
+    float gate, float cx, float cy, float cz, float r2,
+    float* __restrict__ pos_out) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= B) return;
+  const long long r = idx != nullptr ? idx[j] : j;
+  if (r >= R) {  // a fill slot: the fill row stays as it is
+    if (pos_out != nullptr)
+      for (int c = 0; c < 3; ++c) pos_out[j * 3 + c] = pos_f[R * 3 + c];
+    return;
+  }
+  const float dx = dirs[r * 3 + 0], dy = dirs[r * 3 + 1], dz = dirs[r * 3 + 2];
+  float px = pos_f[r * 3 + 0], py = pos_f[r * 3 + 1], pz = pos_f[r * 3 + 2];
+  bool alive = alive_f[r] != 0;
+  bool conv = conv_f[r] != 0;
+  const float s = s_in[j];
+  if (!conv && alive) {
+    if (sdf_f != nullptr) sdf_f[r] = s;
+    const float m = s * mult;
+    px = px + dx * m;
+    py = py + dy * m;
+    pz = pz + dz * m;
+  }
+  conv = conv || (fabsf(s) < thr && alive);
+  if (field != nullptr && !conv && alive && s > gate) {
+    const int k = field_at(field, g, px, py, pz);
+    const float jump = (float)max(k - 1, 0) * g.voxel_size;
+    px = px + jump * dx;
+    py = py + jump * dy;
+    pz = pz + jump * dz;
+  }
+  const float ex = px - cx, ey = py - cy, ez = pz - cz;
+  const bool inside = (ex * ex + ey * ey) + ez * ez < r2;
+  alive = alive && (conv || inside);
+  pos_f[r * 3 + 0] = px;
+  pos_f[r * 3 + 1] = py;
+  pos_f[r * 3 + 2] = pz;
+  alive_f[r] = alive ? 1 : 0;
+  conv_f[r] = conv ? 1 : 0;
+  if (pos_out != nullptr) {
+    pos_out[j * 3 + 0] = px;
+    pos_out[j * 3 + 1] = py;
+    pos_out[j * 3 + 2] = pz;
+  }
+}
+
 GridArgs grid_args(int V, float half_extent, float tx, float ty, float tz,
                    float voxel_size, int cap) {
   GridArgs g;
@@ -268,5 +337,25 @@ extern "C" int psdf_trace_step(int B, int R, const void* idx, const void* s,
               (const uint8_t*)field,
               grid_args(V, half_extent, tx, ty, tz, voxel_size, cap), mult,
               thr, gate, substeps, (float*)pos_out, (int*)counts);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int psdf_trace_step_pos(int B, int R, const void* idx, const void* s,
+                                   const void* dirs, void* pos, void* alive,
+                                   void* conv, void* sdf, const void* field,
+                                   int V, float half_extent, float tx, float ty,
+                                   float tz, float voxel_size, int cap,
+                                   float mult, float thr, float gate, float cx,
+                                   float cy, float cz, float r2, void* pos_out,
+                                   void* stream) {
+  const int block = 256;
+  const int grid = psdf_blocks(B, block);
+  if (grid == 0) return 0;
+  PSDF_LAUNCH(trace_step_pos_kernel, grid, block, 0, stream, B, (long long)R,
+              (const long long*)idx, (const float*)s, (const float*)dirs,
+              (float*)pos, (uint8_t*)alive, (uint8_t*)conv, (float*)sdf,
+              (const uint8_t*)field,
+              grid_args(V, half_extent, tx, ty, tz, voxel_size, cap), mult,
+              thr, gate, cx, cy, cz, r2, (float*)pos_out);
   return (int)cudaGetLastError();
 }

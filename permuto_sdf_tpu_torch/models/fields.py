@@ -266,6 +266,14 @@ def nerf_hash_apply(params, samples_pos, samples_dirs, iter_nr, cfg: NerfHashCon
     return torch.sigmoid(rgb), density
 
 
+def nerf_hash_density(params, samples_pos, iter_nr, cfg: NerfHashConfig):
+    """The density alone, softplus [N, 1] (the NeRF grid refresh's field)."""
+    window = coarse2fine_window(_c2f_t(iter_nr, cfg.nr_iters_for_c2f), cfg.nr_levels)
+    feats = permuto_encode(params["encoding"], samples_pos, cfg.encoding, window)
+    fd = mlp_apply(params["mlp_feat_and_density"], feats)
+    return torch.nn.functional.softplus(fd[:, 0:1])
+
+
 def init_colorcal(nr_cams: int, device=None) -> dict:
     return {"weight_delta": torch.zeros((nr_cams, 3), device=device),
             "bias": torch.zeros((nr_cams, 3), device=device)}

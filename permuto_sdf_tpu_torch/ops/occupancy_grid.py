@@ -3,11 +3,16 @@ and the empty-space distance field (counterpart of
 ``permuto_sdf_tpu/ops/occupancy_grid.py``).
 
 The sampler ``compute_samples_in_occupied_regions`` is kernel C on the card
-(``kernels/csrc/occupancy_grid.cu``); ``compute_stratified_sample_of_grid_points``
+(``kernels/csrc/occupancy_grid.cu``), the plain sphere tracers' seed
+``compute_first_sample_start_of_occupied_regions`` kernel C3 (the same
+file, the same probes); ``compute_stratified_sample_of_grid_points``
 and ``update_with_sdf_random_sample`` are the two entry points of kernel
-I; ``chebyshev_empty_distance`` is kernel J0 (``kernels/csrc/sphere_trace.cu``).
+I, ``update_with_density_random_sample`` (NeRF's refresh) is kernel I2;
+``chebyshev_empty_distance`` is kernel J0 (``kernels/csrc/sphere_trace.cu``).
 Their plain PyTorch versions below are the CPU path and the kernels'
-reference. Kernel C and its plain version keep the occupied-probe counts
+reference. ``compute_random_sample_of_grid_points``, ``mip_config``,
+``downsample_occupancy`` and ``advance_sample_to_next_occupied_voxel`` are
+plain PyTorch only: no tracer or trainer calls them. Kernel C and its plain version keep the occupied-probe counts
 as integers and form the cumulative occupied length as ``count * seg_len``
 with one rounding (the JAX op takes an f32 cumsum of ``occ * seg_len``
 instead, which can move a sample that lands exactly on a probe boundary
@@ -91,21 +96,31 @@ def lin_idx_to_voxel_center(cfg: OccupancyGridConfig, lin: torch.Tensor) -> torc
     return ((ijk + 0.5) * cfg.voxel_size - cfg.grid_extent / 2.0) + t
 
 
+def _probe_occupancy(cfg: OccupancyGridConfig, occupancy, origins, dirs, t_entry,
+                     t_exit, P: int):
+    """Occupancy at the P probe midpoints ``t_entry + ((i + 0.5) / P)
+    (t_exit - t_entry)`` of each ray -> (occ [R, P] bool, seg_len [R])."""
+    R = origins.shape[0]
+    t_entry = t_entry.reshape(-1, 1)
+    t_exit = t_exit.reshape(-1, 1)
+    frac = (torch.arange(P, device=origins.device, dtype=torch.float32) + 0.5) / float(P)
+    ts = t_entry + frac[None, :] * (t_exit - t_entry)  # [R, P]
+    pts = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
+    occ = check_occupancy(cfg, OccupancyGridState(None, occupancy),
+                          pts.reshape(-1, 3)).reshape(R, P)
+    return occ, (t_exit - t_entry)[:, 0] / float(P)
+
+
 def probe_sampler_plain(cfg: OccupancyGridConfig, occupancy, origins, dirs,
                         t_entry, t_exit, min_dist: float, S: int, P: int, start=None):
     """Plain version of kernel C. ``start [R]`` is the per-ray jitter of the
     first sample in [0, 1) (None: 0.5). Returns (z, dt, mask, ray_fixed_dt)."""
     R = origins.shape[0]
     dev = origins.device
+    occ, seg_len = _probe_occupancy(cfg, occupancy, origins, dirs, t_entry, t_exit, P)
     t_entry = t_entry.reshape(-1, 1)
     t_exit = t_exit.reshape(-1, 1)
-    frac = (torch.arange(P, device=dev, dtype=torch.float32) + 0.5) / float(P)
-    ts = t_entry + frac[None, :] * (t_exit - t_entry)  # [R, P]
-    pts = origins[:, None, :] + ts[..., None] * dirs[:, None, :]
-    occ = check_occupancy(cfg, OccupancyGridState(None, occupancy),
-                          pts.reshape(-1, 3)).reshape(R, P)
     counts = torch.cumsum(occ.to(torch.int32), dim=-1)  # [R, P] exact
-    seg_len = (t_exit - t_entry)[:, 0] / float(P)
     occupied_dist = counts[:, -1].to(torch.float32) * seg_len
 
     nr = torch.floor(occupied_dist / torch.tensor(min_dist, dtype=torch.float32)
@@ -187,6 +202,58 @@ def compute_samples_in_occupied_regions(
                             nr_probes, start)
     return RaySamples(origins=origins, dirs=dirs, z=z, dt=dt, mask=mask,
                       ray_fixed_dt=fixed)
+
+
+# ---------------------------------------------------------------------------
+# Kernel C3: the first occupied probe segment (the plain tracers' seed)
+# ---------------------------------------------------------------------------
+
+def first_occupied_plain(cfg: OccupancyGridConfig, occupancy, origins, dirs, t_entry,
+                         t_exit, P: int):
+    """Plain version of kernel C3 -> (t_first [R], has [R] bool)."""
+    occ, seg_len = _probe_occupancy(cfg, occupancy, origins, dirs, t_entry, t_exit, P)
+    has = torch.any(occ, dim=-1)
+    first = torch.argmax(occ.to(torch.uint8), dim=-1)  # the first True
+    t_first = t_entry.reshape(-1) + first.to(torch.float32) * seg_len
+    return torch.where(has, t_first, t_exit.reshape(-1)), has
+
+
+def first_occupied_cuda(cfg: OccupancyGridConfig, occupancy, origins, dirs, t_entry,
+                        t_exit, P: int):
+    """Kernel C3 launch. Counts launches in ``first_occupied_cuda.launches``."""
+    R = origins.shape[0]
+    dev = origins.device
+    if occupancy.dtype != torch.bool or occupancy.numel() != cfg.nr_voxels:
+        raise ValueError("first occupied probe: occupancy must be a bool [V^3] tensor")
+    args = [t.contiguous() for t in (origins, dirs, t_entry.reshape(-1), t_exit.reshape(-1))]
+    for t in args + [occupancy]:
+        if t.device != dev or (t is not occupancy and t.dtype != torch.float32):
+            raise ValueError("first occupied probe: float32 rays and the grid on one device")
+    t_first = torch.empty((R,), dtype=torch.float32, device=dev)
+    has = torch.empty((R,), dtype=torch.bool, device=dev)
+    lib = kernels.load("occupancy_grid")
+    tx, ty, tz = (float(v) for v in cfg.grid_translation)
+    err = lib.psdf_first_occupied(
+        R, *(kernels.ptr(a) for a in args), kernels.ptr(occupancy.contiguous()),
+        cfg.nr_voxels_per_dim, cfg.grid_extent / 2.0, tx, ty, tz, cfg.voxel_size, int(P),
+        kernels.ptr(t_first), kernels.ptr(has), kernels.current_stream(dev))
+    kernels.check(lib, err, "first occupied probe (kernel C3)")
+    first_occupied_cuda.launches += 1
+    return t_first, has
+
+
+first_occupied_cuda.launches = 0
+
+
+def compute_first_sample_start_of_occupied_regions(cfg: OccupancyGridConfig,
+                                                   grid: OccupancyGridState, origins, dirs,
+                                                   t_entry, t_exit, nr_probes: int = 512):
+    """The plain tracers' seed: per ray, the start ``t_entry + first *
+    seg_len`` of the first of ``nr_probes`` probe segments whose midpoint
+    lies in an occupied voxel, or ``t_exit`` without one -> (t_first [R],
+    has_occupied [R] bool)."""
+    fn = kernels.dispatch(origins.device, first_occupied_cuda, first_occupied_plain)
+    return fn(cfg, grid.occupancy, origins, dirs, t_entry, t_exit, nr_probes)
 
 
 # ---------------------------------------------------------------------------
@@ -303,6 +370,60 @@ def update_with_sdf_random_sample(cfg: OccupancyGridConfig, grid: OccupancyGridS
 
 
 # ---------------------------------------------------------------------------
+# Kernel I2: the grid refresh from density probes (NeRF)
+# ---------------------------------------------------------------------------
+
+def density_update_plain(cfg: OccupancyGridConfig, grid: OccupancyGridState, lin, density,
+                         decay: float, occupancy_thresh: float):
+    """Plain version of kernel I2 (in place): the gather of the old values,
+    then the scatter of the new ones."""
+    density = density.reshape(-1)
+    lin = lin.to(torch.int64)
+    updated = torch.maximum(density, grid.values[lin] * decay)
+    grid.values[lin] = updated
+    grid.occupancy[lin] = updated > occupancy_thresh
+    return grid
+
+
+def density_update_cuda(cfg: OccupancyGridConfig, grid: OccupancyGridState, lin, density,
+                        decay: float, occupancy_thresh: float):
+    """Kernel I2 launch (in place; ``lin`` distinct, as the stratified probes
+    of one refresh are). Counts launches in ``density_update_cuda.launches``."""
+    density = density.reshape(-1).contiguous()
+    n = density.shape[0]
+    dev = density.device
+    if (lin.shape != (n,) or lin.dtype != torch.int32 or density.dtype != torch.float32
+            or lin.device != dev or grid.values.device != dev
+            or grid.occupancy.dtype != torch.bool or not grid.values.is_contiguous()
+            or not grid.occupancy.is_contiguous()):
+        raise ValueError("density update: int32 ids, float32 density and the grid on one "
+                         "device")
+    lib = kernels.load("occupancy_grid")
+    err = lib.psdf_density_update(
+        n, kernels.ptr(lin.contiguous()), kernels.ptr(density), float(decay),
+        float(occupancy_thresh), kernels.ptr(grid.values), kernels.ptr(grid.occupancy),
+        kernels.current_stream(dev))
+    kernels.check(lib, err, "occupancy density update (kernel I2)")
+    density_update_cuda.launches += 1
+    for t in (grid.values, grid.occupancy):
+        torch.autograd.graph.increment_version(t)
+    return grid
+
+
+density_update_cuda.launches = 0
+
+
+def update_with_density_random_sample(cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                                      lin_indices, density, decay: float = 0.7,
+                                      occupancy_thresh: float = 1e-3) -> OccupancyGridState:
+    """value = max(density, old * decay) and occupied = value > thresh at
+    the probed voxels (distinct within one call). Updates ``grid`` in place
+    and returns it."""
+    fn = kernels.dispatch(grid.values.device, density_update_cuda, density_update_plain)
+    return fn(cfg, grid, lin_indices, density, decay, occupancy_thresh)
+
+
+# ---------------------------------------------------------------------------
 # Kernel J0: the Chebyshev empty-space distance field
 # ---------------------------------------------------------------------------
 
@@ -355,3 +476,59 @@ def empty_distance_at(cfg: OccupancyGridConfig, dist_field: torch.Tensor,
     """[N] int32 voxel distances at world points (out-of-grid -> max_dist)."""
     lin, in_bounds = point_to_lin_idx(cfg, points)
     return torch.where(in_bounds, dist_field[lin].to(torch.int32), max_dist)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch only: no tracer or trainer of the JAX package calls these
+# ---------------------------------------------------------------------------
+
+def compute_random_sample_of_grid_points(cfg: OccupancyGridConfig, nr_points: int,
+                                         generator=None, jitter: bool = True, draws=None,
+                                         device=None):
+    """Random voxel centres, moved within their voxel with ``jitter`` ->
+    (centers [n, 3], lin [n] int64). ``draws = (lin [n], mov [n, 3])``
+    (JAX's ``randint(k_idx, (n,), 0, V^3)`` and ``uniform(k_jit, (n, 3),
+    -0.5, 0.5)``), else drawn from ``generator`` on the CPU."""
+    if draws is None:
+        draws = (torch.randint(0, cfg.nr_voxels, (nr_points,), generator=generator),
+                 torch.rand((nr_points, 3), generator=generator) - 0.5)
+    lin, mov = (t.to(device) for t in draws)
+    centers = lin_idx_to_voxel_center(cfg, lin.to(torch.int64))
+    if jitter:
+        centers = centers + mov * cfg.voxel_size
+    return centers, lin
+
+
+def mip_config(cfg: OccupancyGridConfig, factor: int) -> OccupancyGridConfig:
+    """The config of the ``factor``x downsampled grid (same extent and
+    translation)."""
+    if cfg.nr_voxels_per_dim % factor:
+        raise ValueError("mip_config: the factor must divide the grid size")
+    return dataclasses.replace(cfg, nr_voxels_per_dim=cfg.nr_voxels_per_dim // factor)
+
+
+def downsample_occupancy(cfg: OccupancyGridConfig, occupancy: torch.Tensor,
+                         factor: int) -> torch.Tensor:
+    """Conservative occupancy mip: a coarse voxel is occupied iff any of its
+    factor^3 fine voxels is. Row-major [V^3] -> [(V/f)^3]."""
+    c = cfg.nr_voxels_per_dim // factor
+    occ = occupancy.reshape(c, factor, c, factor, c, factor)
+    return occ.any(dim=5).any(dim=3).any(dim=1).reshape(-1)
+
+
+def advance_sample_to_next_occupied_voxel(cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                                          dirs, pos, max_steps: int = 48):
+    """From ``pos`` along ``dirs``, probe ``max_steps`` points half a voxel
+    apart (the first at ``pos``) and move to the first occupied one; without
+    one, past the probed span -> (new_pos [N, 3], is_within_grid_bounds [N]:
+    an occupied probe was found or the span's far end is in the grid)."""
+    step = cfg.voxel_size * 0.5
+    ts = torch.arange(max_steps, dtype=torch.float32, device=pos.device) * step
+    probes = (pos[:, None, :] + ts[None, :, None] * dirs[:, None, :]).reshape(-1, 3)
+    occ = check_occupancy(cfg, grid, probes).reshape(pos.shape[0], max_steps)
+    _, in_bounds = point_to_lin_idx(cfg, probes)
+    in_bounds = in_bounds.reshape(pos.shape[0], max_steps)
+    found = torch.any(occ, dim=-1)
+    t_jump = ts[torch.argmax(occ.to(torch.uint8), dim=-1)]
+    t_adv = torch.where(found, t_jump, ts[-1] + step)
+    return pos + t_adv[:, None] * dirs, found | in_bounds[:, -1]

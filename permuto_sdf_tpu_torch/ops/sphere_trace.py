@@ -1,6 +1,8 @@
-"""Host-adaptive sphere tracing, the interactive render's tracer
-(counterpart of ``permuto_sdf_tpu/ops/sphere_trace.py``:
-``sphere_trace_adaptive`` and its helpers, on one device).
+"""Sphere tracing (counterpart of ``permuto_sdf_tpu/ops/sphere_trace.py``
+on one device): the host-adaptive tracer of the interactive render,
+``sphere_trace_adaptive`` and its helpers, and the plain tracers
+``sphere_trace`` and ``sphere_trace_compacted`` with
+``filter_unconverged_points``.
 
 Every ray keeps its state in full-size tensors padded by one row (index R,
 never alive) that the bucket's fill slots point at: the distance ``t``
@@ -14,6 +16,19 @@ field (kernel J0, ``ops/occupancy_grid.py``) and the death past the bound.
 Kernel J1 is the jump-only prepass before round 0. The host fetches two
 counts per round and nothing else. The plain PyTorch versions of J1 and J2
 below are the CPU path and the kernels' reference.
+
+The plain tracers keep the JAX tracers' position state (``pos``, ``alive``,
+``conv``, and in the compacted tracer the last ``sdf``): they are seeded at
+the bound's entry or, with a grid, half a voxel past the start of the first
+occupied probe segment (kernel C3, ``ops/occupancy_grid.py``), and each
+iteration after the SDF is kernel J3, which steps, tests convergence, takes
+one Chebyshev jump gated on ``sdf > voxel_size`` and kills rays that leave
+the bound sphere. ``sphere_trace`` runs all ``nr_sphere_traces`` iterations
+on every ray: JAX's loop stops early once no ray is active, and every
+iteration after that leaves the state as it is, so the result is the same
+without a host read per iteration. ``sphere_trace_compacted`` lists its
+active rays into buckets of the JAX op's static sizes (kernel H0) and
+launches J3 on the bucket, in place on the padded full-size state.
 """
 
 from __future__ import annotations
@@ -25,6 +40,7 @@ import torch
 from permuto_sdf_tpu_torch import kernels
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops.compaction import nonzero_static
+from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 
 # The distance field's cap: also the largest empty-space jump, in voxels.
 _EMPTY_DIST_CAP = 63
@@ -188,6 +204,195 @@ def trace_step_cuda(idx, s, origins_f, dirs_f, texit_f, t_f, alive_f, conv_f, sd
 
 
 trace_step_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel J3: one iteration of the plain tracers, on position state
+# ---------------------------------------------------------------------------
+
+def _sphere_bound(prim):
+    """(center, radius^2) of the bound sphere J3's death test reads."""
+    if not isinstance(prim, Sphere):
+        raise NotImplementedError("the plain sphere tracers take a Sphere bound (kernel J3 "
+                                  "kills a ray when it leaves the sphere)")
+    return tuple(float(c) for c in prim.center), float(prim.radius) ** 2
+
+
+def trace_step_pos_plain(idx, s, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field, grid_cfg,
+                         sdf_multiplier: float, sdf_converged_tresh: float, bound,
+                         pos_out: bool = False):
+    """Plain version of kernel J3. With the index list ``idx [B]`` (fill
+    slots point at the last row of the state, which is never alive) the
+    rows ``idx``, else the B = len(s) rows of the state, take one iteration
+    with ``s [B]``, the SDF at their positions, in place; ``sdf_f`` (or
+    None) stores s where the row was active. -> the slots' new positions
+    [B, 3] with ``pos_out``, else None."""
+    R = pos_f.shape[0] - 1 if idx is not None else pos_f.shape[0]
+    rows = idx if idx is not None else torch.arange(R, device=pos_f.device)
+    d, pos = dirs_f[rows], pos_f[rows]
+    alive, conv = alive_f[rows] & (rows < R), conv_f[rows]
+    act = ~conv & alive
+    new = torch.where(act[:, None], pos + d * (s * sdf_multiplier)[:, None], pos)
+    conv = conv | ((torch.abs(s) < sdf_converged_tresh) & alive)
+    if dist_field is not None:
+        k = og.empty_distance_at(grid_cfg, dist_field, new, _EMPTY_DIST_CAP)
+        jump = torch.clamp(k - 1, min=0).to(new.dtype) * grid_cfg.voxel_size
+        move = ~conv & alive & (s > grid_cfg.voxel_size)
+        new = torch.where(move[:, None], new + jump[:, None] * d, new)
+    center, r2 = bound
+    # the squared norm summed in the kernel's order, which torch.sum's
+    # reduction on the card need not keep
+    e = new - torch.tensor(center, dtype=new.dtype, device=new.device)
+    inside = (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2] < r2
+    alive = alive & (conv | inside)
+    # fill slots write the fill row's own values back
+    pos_f[rows], alive_f[rows], conv_f[rows] = new, alive, conv
+    if sdf_f is not None:
+        sdf_f[rows] = torch.where(act, s, sdf_f[rows])
+    return new if pos_out else None
+
+
+def trace_step_pos_cuda(idx, s, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field, grid_cfg,
+                        sdf_multiplier: float, sdf_converged_tresh: float, bound,
+                        pos_out: bool = False):
+    """Kernel J3 launch. Counts launches in ``trace_step_pos_cuda.launches``."""
+    dev = pos_f.device
+    B = s.shape[0]
+    s = s.contiguous()
+    _check_state("plain trace step", dev, (s, dirs_f, pos_f) + ((sdf_f,) if sdf_f is not None
+                                                                else ()), (alive_f, conv_f))
+    R = pos_f.shape[0] - 1 if idx is not None else pos_f.shape[0]
+    if idx is not None and (idx.dtype != torch.int64 or idx.device != dev
+                            or idx.shape != (B,)):
+        raise ValueError("plain trace step: int64 [B] row ids on the state's device")
+    if idx is None and B != R:
+        raise ValueError("plain trace step: without row ids, one sdf value per row")
+    if dist_field is not None and (dist_field.dtype != torch.uint8 or dist_field.device != dev):
+        raise ValueError("plain trace step: the distance field must be uint8 on the state's "
+                         "device")
+    out = torch.empty((B, 3), dtype=torch.float32, device=dev) if pos_out else None
+    (cx, cy, cz), r2 = bound
+    lib = kernels.load("sphere_trace")
+    err = lib.psdf_trace_step_pos(
+        B, R, kernels.ptr(idx.contiguous() if idx is not None else None), kernels.ptr(s),
+        kernels.ptr(dirs_f), kernels.ptr(pos_f), kernels.ptr(alive_f), kernels.ptr(conv_f),
+        kernels.ptr(sdf_f),
+        kernels.ptr(dist_field.contiguous() if dist_field is not None else None),
+        *_grid_scalars(grid_cfg if dist_field is not None else None), _EMPTY_DIST_CAP,
+        float(sdf_multiplier), float(sdf_converged_tresh),
+        float(grid_cfg.voxel_size) if dist_field is not None else 0.0, cx, cy, cz, r2,
+        kernels.ptr(out), kernels.current_stream(dev))
+    kernels.check(lib, err, "plain sphere-trace step (kernel J3)")
+    trace_step_pos_cuda.launches += 1
+    return out
+
+
+trace_step_pos_cuda.launches = 0
+
+
+def _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg, grid, dist_field):
+    """The plain tracers' start: the bound's entry, or with a grid half a
+    voxel past the start of the first occupied probe segment (kernel C3)
+    -> (pos [R, 3], alive [R], dist_field or None)."""
+    p_entry, t_entry, _, t_exit, hit = boundary_primitive.ray_intersection(ray_origins,
+                                                                           ray_dirs)
+    if grid is None or grid_cfg is None:
+        return p_entry, hit[:, 0], None
+    t_first, has_occ = og.compute_first_sample_start_of_occupied_regions(
+        grid_cfg, grid, ray_origins, ray_dirs, t_entry, t_exit)
+    pos = ray_origins + t_first[:, None] * ray_dirs
+    pos = pos + ray_dirs * grid_cfg.voxel_size * 0.5  # half a voxel inside
+    if dist_field is None:
+        dist_field = _grid_distance_field(grid_cfg, grid)
+    return pos, has_occ & hit[:, 0], dist_field
+
+
+def sphere_trace(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
+                 nr_sphere_traces: int = 15, sdf_multiplier: float = 0.9,
+                 sdf_converged_tresh: float = 2e-4,
+                 grid_cfg: Optional[og.OccupancyGridConfig] = None,
+                 grid: Optional[og.OccupancyGridState] = None,
+                 time_val: Optional[float] = None, dist_field=None,
+                 final_sdf: bool = True):
+    """Masked sphere tracing of every ray for ``nr_sphere_traces``
+    iterations (``sdf_fn`` maps [N, 3] to [N] sdf values), with the grid's
+    empty-space jumps when ``grid`` is given (its distance field built here
+    unless ``dist_field`` is). Returns (pos [R, 3], sdf [R] at the final
+    positions (None with ``final_sdf=False``), converged [R],
+    within_bounds [R])."""
+    _check_time(time_val)
+    bound = _sphere_bound(boundary_primitive)
+    pos, alive, dist_field = _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg,
+                                         grid, dist_field)
+    pos_f = pos.contiguous()
+    dirs_f = ray_dirs.contiguous()
+    alive_f = alive.contiguous()
+    conv_f = torch.zeros_like(alive_f)
+    step = kernels.dispatch(pos_f.device, trace_step_pos_cuda, trace_step_pos_plain)
+    for _ in range(nr_sphere_traces):
+        s = sdf_fn(pos_f).reshape(-1)
+        step(None, s, dirs_f, pos_f, alive_f, conv_f, None, dist_field, grid_cfg,
+             sdf_multiplier, sdf_converged_tresh, bound)
+    sdf = sdf_fn(pos_f).reshape(-1) if final_sdf else None
+    return pos_f, sdf, conv_f, alive_f
+
+
+def filter_unconverged_points(points, sdf, sdf_gradients, sdf_converged_tresh: float = 0.01):
+    """Zero the points (and gradients) whose sdf is not below the threshold
+    -> (points, gradients or None, ok [N, 1] as points' dtype)."""
+    ok = (sdf.reshape(-1, 1) < sdf_converged_tresh).to(points.dtype)
+    grads = sdf_gradients * ok if sdf_gradients is not None else None
+    return points * ok, grads, ok
+
+
+def sphere_trace_compacted(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
+                           nr_rounds: int = 5, iters_per_round: int = 3,
+                           sdf_multiplier: float = 0.9, sdf_converged_tresh: float = 2e-4,
+                           grid_cfg: Optional[og.OccupancyGridConfig] = None,
+                           grid: Optional[og.OccupancyGridState] = None,
+                           time_val: Optional[float] = None,
+                           first_bucket_fraction: float = 0.25, dist_field=None,
+                           final_sdf: bool = True):
+    """Sphere tracing in ``nr_rounds`` rounds of ``iters_per_round``
+    iterations, each round on a bucket of the active rays of a static size:
+    max(256, R * first_bucket_fraction) (at most R), halved every round.
+    Active rays that overflow a bucket wait for the next round. A final
+    bucket of that first size re-evaluates the sdf of the converged alive
+    rays. Returns (pos [R, 3], sdf [R] (None with ``final_sdf=False``),
+    converged & alive [R], within_bounds [R])."""
+    _check_time(time_val)
+    bound = _sphere_bound(boundary_primitive)
+    R = ray_origins.shape[0]
+    pos, alive, dist_field = _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg,
+                                         grid, dist_field)
+    # full-size state padded by one fill row (never alive) for the buckets'
+    # unused slots
+    pos_f = _padded(pos.contiguous())
+    dirs_f = _padded(ray_dirs.contiguous())
+    alive_f = _padded(alive, False)
+    conv_f = torch.zeros_like(alive_f)
+    sdf_f = torch.zeros((R + 1,), dtype=pos_f.dtype, device=pos_f.device)
+    step = kernels.dispatch(pos_f.device, trace_step_pos_cuda, trace_step_pos_plain)
+    first_bucket = max(256, int(R * first_bucket_fraction))
+    bucket = first_bucket
+    for _ in range(nr_rounds):
+        bucket = min(bucket, R)
+        idx, _ = nonzero_static(alive_f[:R] & ~conv_f[:R], bucket, fill_value=R)
+        sub_pos = pos_f[idx]
+        for _ in range(iters_per_round):
+            s = sdf_fn(sub_pos).reshape(-1)
+            sub_pos = step(idx, s, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field,
+                           grid_cfg, sdf_multiplier, sdf_converged_tresh, bound, pos_out=True)
+        bucket = bucket // 2
+    sdf = None
+    if final_sdf:
+        # the final sdf of the converged rays that fit one first-size bucket
+        # (the rest keep their last evaluated sdf, as in the JAX op)
+        idx, _ = nonzero_static((conv_f & alive_f)[:R], min(first_bucket, R), fill_value=R)
+        s = sdf_fn(pos_f[idx]).reshape(-1)
+        sdf_f[idx] = torch.where(idx < R, s, sdf_f[idx])
+        sdf = sdf_f[:R]
+    return pos_f[:R], sdf, (conv_f & alive_f)[:R], alive_f[:R]
 
 
 # ---------------------------------------------------------------------------

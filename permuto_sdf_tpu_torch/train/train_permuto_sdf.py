@@ -12,7 +12,11 @@ volumetric frame (``render_image(lod=)``); slice 5 the rest of the
 recommended training profile: the train-time LOD (``train_lod_top_k``,
 ``train_lod_rand_extra``), alternating-level table gradients
 (``table_grad_alternate``) and the gate that holds both back
-(``lever_start_iter``). JAX draws its randomness from keys
+(``lever_start_iter``); slice 7 the plain sphere-traced frame
+(:func:`render_image_sphere_traced` and the compacted ray renderer) and
+training and rendering without the occupancy grid
+(``use_occupancy_grid=False``: the uniform fg sampler, no grid refresh and
+no offsurface loss). JAX draws its randomness from keys
 split inside the step; the port takes the same draws as tensors
 (:class:`TrainDraws`), made from a ``torch.Generator`` that :func:`train`
 derives from ``(seed, iteration)``, so a resumed run sees the draws of an
@@ -46,10 +50,11 @@ from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 from permuto_sdf_tpu_torch.ops.compaction import nonzero_static, scatter_rows, take_rows
 from permuto_sdf_tpu_torch.ops.importance_sampling import importance_sampling_sdf_model
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
-from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg
+from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg, compute_samples_fg
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
 from permuto_sdf_tpu_torch.ops.sphere_trace import (
-    _grid_distance_field, pow2_bucket, sphere_trace_adaptive,
+    _grid_distance_field, pow2_bucket, sphere_trace, sphere_trace_adaptive,
+    sphere_trace_compacted,
 )
 from permuto_sdf_tpu_torch.train import checkpoint as ckpt
 from permuto_sdf_tpu_torch.train.optimizers import ManualAdam, tree_leaves, tree_map
@@ -236,7 +241,8 @@ class TrainDraws:
     own part of the step's key):
 
     ray_indices (image ids [R], pixel ids [R]) -- ``random_rays_from_reel``;
-    fg_start [R, 1] in [0, 1) -- the occupancy sampler's first-sample jitter;
+    fg_start [R, 1] in [0, 1) -- the fg sampler's first-sample jitter (the
+occupancy sampler's, or without the grid the uniform sampler's);
     imp_jitter (u1, u2), each [R, n] in +-1/(2(n+1)) -- importance sampling
     (R is the hit-ray bucket's size with early hit-ray compaction, which
     runs the importance stage on the bucket);
@@ -339,12 +345,6 @@ def step_generators(seed: int, it: int):
 # Rendering a ray batch (run_net)
 # ---------------------------------------------------------------------------
 
-def _check_branches(cfg: PermutoSDFTrainConfig):
-    if not cfg.use_occupancy_grid:
-        raise NotImplementedError("use_occupancy_grid=False: compute_samples_fg is not "
-                                  "ported yet")
-
-
 def _pad_one(a, fill=0.0):
     return torch.cat([a, torch.full((1,) + a.shape[1:], fill, dtype=a.dtype,
                                     device=a.device)], 0)
@@ -408,16 +408,23 @@ def _masked_sdf_value(params_sdf, pts_flat, flat_mask, iter_nr, sdf_cfg, budget,
 def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
                        iter_nr_anneal, cfg: PermutoSDFTrainConfig, draws=None,
                        img_indices=None):
-    """Occupancy sampling + importance sampling (constants for the losses,
-    as JAX's stop_gradient makes them). ``draws`` None: no jitter. Returns
+    """Occupancy sampling (kernel C; without the grid, or with
+    ``use_occupancy_grid=False``, uniform sampling, kernel C2) + importance
+    sampling (constants for the losses, as JAX's stop_gradient makes them).
+    ``draws`` None: no jitter. Returns
     (samples, hit): with early hit-ray compaction (``hit_ray_frac`` < 1 and
     ``hit_ray_compact_early``) the rays are compacted after the occupancy
     sampler, the importance stage runs on the bucket, and ``hit`` is the
     dict of :func:`_hit_bucket`; else ``hit`` is None."""
-    samples = og.compute_samples_in_occupied_regions(
-        cfg.grid, grid, origins, dirs, t_entry, t_exit,
-        cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray,
-        start=draws.fg_start if draws is not None else None)
+    start = draws.fg_start if draws is not None else None
+    if cfg.use_occupancy_grid and grid is not None:
+        samples = og.compute_samples_in_occupied_regions(
+            cfg.grid, grid, origins, dirs, t_entry, t_exit,
+            cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray, start=start)
+    else:
+        samples = compute_samples_fg(origins, dirs, t_entry, t_exit,
+                                     cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray,
+                                     start=start)
     hit = None
     if _hit_compaction(cfg) and cfg.hit_ray_compact_early:
         samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg,
@@ -448,10 +455,8 @@ def run_net(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
     ``img_indices [R]`` switch on the colour calibration; ``fg_samples``
     replaces the sampling stage with given samples (with ``hit_ray_frac``
     they are then compacted late, after sampling). With ``hit_ray_frac`` the
-    fg samples and ``compact`` are the hit-ray bucket's."""
-    _check_branches(cfg)
-    if grid is None:
-        raise NotImplementedError("sampling without the occupancy grid is not ported yet")
+    fg samples and ``compact`` are the hit-ray bucket's. ``grid`` None (or
+    ``use_occupancy_grid=False``) samples without the grid."""
     _, t_entry, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
     samples, hit = fg_samples, None
     if samples is None:
@@ -619,7 +624,6 @@ def compute_loss_and_grads(params, grid, reel: TensorReel, draws, iter_nr,
     :class:`TrainDraws` or a generator to make one from; ``fg_samples``
     replaces the sampling stage. Returns (loss, aux, grads) with ``grads``
     a tree like ``params`` (None where a leaf gets no gradient)."""
-    _check_branches(cfg)
     device = params["sdf"]["encoding"]["lattice_values"].device
     if isinstance(draws, torch.Generator):
         draws = draw_train_step(draws, cfg, reel)
@@ -780,12 +784,13 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
     0 with ``with_mask``, else ``forced_variance_finish_iter``), unless the
     run starts past it; with ``table_grad_alternate`` each step's cfg gets
     ``table_grad_parity = it % table_grad_period`` (the grid refresh's does
-    not). Single device (None means the GPU); the reel is moved there.
-    Returns (params, grid, history of (it, loss, loss_rgb))."""
+    not). With ``use_occupancy_grid=False`` there is no grid (None), no
+    refresh and no offsurface loss. Single device (None means the GPU); the
+    reel is moved there. Returns (params, grid, history of (it, loss,
+    loss_rgb))."""
     if data_parallel:
         raise NotImplementedError("data_parallel: data parallelism (Queue 1 item 8) is "
                                   "not ported yet")
-    _check_branches(cfg)
     device = resolve_device(device)
     reel = reel.to(device)
     nr_iters = nr_iters or cfg.iter_finish_training
@@ -810,7 +815,8 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
     else:
         params = init_params(seed, cfg, reel.nr_images, device)
         opt_state = optimizer.init(params)
-        grid = og.make_occupancy_grid(cfg.grid, device=device)
+        grid = (og.make_occupancy_grid(cfg.grid, device=device) if cfg.use_occupancy_grid
+                else None)
 
     # the lever gate: the approximating levers run from lever_start_iter on
     gate_iter = cfg.lever_start_iter
@@ -844,7 +850,7 @@ def train(reel: TensorReel, cfg: PermutoSDFTrainConfig, nr_iters: Optional[int] 
                 act = _c2f_active_levels(it_anneal, cfg)
                 if act != cfg.sdf_active_levels:
                     cfg = dataclasses.replace(cfg, sdf_active_levels=act)
-            if it % cfg.grid_update_every == 0:
+            if cfg.use_occupancy_grid and it % cfg.grid_update_every == 0:
                 grid = occupancy_update(params, grid, g_grid, it_anneal, last_inv_s, cfg)
             step_cfg = cfg
             if cfg.table_grad_alternate:
@@ -904,6 +910,13 @@ def _save(checkpoint_path, experiment_name, it, params, grid, opt_state=None, cf
 # ---------------------------------------------------------------------------
 # Eval rendering
 # ---------------------------------------------------------------------------
+
+def _check_on(params, grid, device, what: str):
+    table = params["sdf"]["encoding"]["lattice_values"]
+    if table.device.type != device.type or (grid is not None
+                                           and grid.occupancy.device.type != device.type):
+        raise ValueError(f"{what}: params and grid must be on {device}")
+
 
 def _eval_cfg(cfg: PermutoSDFTrainConfig) -> PermutoSDFTrainConfig:
     """The eval render strips the training-batch contracts (sample budget,
@@ -1014,13 +1027,12 @@ def render_image(params, grid, K, tf_world_cam, width, height, iter_nr_anneal,
     ``(coarse_levels, top_k) = (12, 32)``, the interactive viewer's
     volumetric mode. Both renders strip the training-batch contracts
     (:func:`_eval_cfg`). A failing LOD render raises (JAX's fallback to the
-    exact render works around an XLA:TPU compiler crash)."""
+    exact render works around an XLA:TPU compiler crash). ``grid`` None (or
+    ``use_occupancy_grid=False``) samples without the grid."""
     if mesh is not None:
         raise NotImplementedError("multi-device rendering is not ported yet")
     device = resolve_device(device)
-    table = params["sdf"]["encoding"]["lattice_values"]
-    if table.device.type != device.type or grid.occupancy.device.type != device.type:
-        raise ValueError(f"render_image: params and grid must be on {device}")
+    _check_on(params, grid, device, "render_image")
     origins, dirs = rays_from_frame(K, tf_world_cam, width, height, device=device)
     n = origins.shape[0]
     pad = (-n) % chunk
@@ -1086,6 +1098,96 @@ def _lit_and_state(pos, converged, alive, grid, grid_cfg, cfg, bucket=None):
     return alive & in_bounds
 
 
+def _grid_cfg(cfg: PermutoSDFTrainConfig, grid):
+    return cfg.grid if (cfg.use_occupancy_grid and grid is not None) else None
+
+
+def _sdf_fn(params, iter_nr_anneal, cfg: PermutoSDFTrainConfig):
+    return lambda p: sdf_apply(params["sdf"], p, iter_nr_anneal, cfg.sdf_model)[0]
+
+
+def _shade(params, pos, dirs, iter_nr_anneal, cfg: PermutoSDFTrainConfig, sdf_cfg=None):
+    """The SDF gradient (of ``sdf_cfg``, default the full-resolution
+    ``cfg.sdf_model``) and the RGB model at ``pos`` -> (rgb, unit normals)."""
+    _, grads, geom = sdf_with_gradient(params["sdf"], pos, iter_nr_anneal,
+                                       sdf_cfg or cfg.sdf_model)
+    rgb = rgb_apply(params["rgb"], pos, dirs, grads, geom, iter_nr_anneal, cfg.rgb_model)
+    return rgb, grads / (torch.linalg.norm(grads, dim=-1, keepdim=True) + 1e-12)
+
+
+def _scatter_shaded(idx, R: int, *subs):
+    """Bucket rows ``subs`` [B, 3] back to [R, 3] rows at ``idx`` (fill
+    slots, == R, land on a dropped pad row)."""
+    valid = (idx < R)[:, None].to(torch.float32)
+    return tuple(torch.zeros((R + 1, 3), dtype=x.dtype, device=x.device)
+                 .index_put((idx,), x * valid)[:R] for x in subs)
+
+
+@torch.no_grad()
+def render_rays_sphere_traced(params, grid, origins, dirs, iter_nr_anneal,
+                              cfg: PermutoSDFTrainConfig, nr_sphere_traces: int = 15,
+                              sdf_multiplier: float = 0.9, sdf_converged_tresh: float = 2e-4,
+                              dist_field=None):
+    """Sphere trace every ray to the surface (:func:`~permuto_sdf_tpu_torch.
+    ops.sphere_trace.sphere_trace`, kernels C3 and J3 with the grid's jumps),
+    then shade one sample per ray with the RGB model; the weight is 1 where
+    the ray is alive and its end lies inside the bound (and in occupied
+    space), convergence not required -> (rgb [R,3], normals [R,3],
+    weights [R,1])."""
+    grid_cfg = _grid_cfg(cfg, grid)
+    pos, _, converged, alive = sphere_trace(
+        _sdf_fn(params, iter_nr_anneal, cfg), origins, dirs, BOUND, nr_sphere_traces,
+        sdf_multiplier, sdf_converged_tresh, grid_cfg=grid_cfg, grid=grid,
+        dist_field=dist_field, final_sdf=False)  # the shading re-evaluates the sdf
+    weights = _lit_and_state(pos, converged, alive, grid, grid_cfg, cfg).to(torch.float32)[:, None]
+    rgb, normals = _shade(params, pos, dirs, iter_nr_anneal, cfg)
+    return rgb * weights, normals * weights, weights
+
+
+@torch.no_grad()
+def render_rays_sphere_traced_compacted(params, grid, origins, dirs, iter_nr_anneal,
+                                        cfg: PermutoSDFTrainConfig, nr_rounds: int = 5,
+                                        iters_per_round: int = 3, sdf_multiplier: float = 0.9,
+                                        sdf_converged_tresh: float = 2e-4,
+                                        first_bucket_fraction: float = 0.25, dist_field=None):
+    """The trace in static buckets (:func:`~permuto_sdf_tpu_torch.ops.
+    sphere_trace.sphere_trace_compacted`), then the lit rays shaded in one
+    bucket of max(256, R * first_bucket_fraction) rays (kernel H0). The
+    weights are clamped to the rays actually shaded: lit rays that overflow
+    the bucket render as background -> (rgb, normals, weights)."""
+    grid_cfg = _grid_cfg(cfg, grid)
+    pos, _, converged, alive = sphere_trace_compacted(
+        _sdf_fn(params, iter_nr_anneal, cfg), origins, dirs, BOUND, nr_rounds,
+        iters_per_round, sdf_multiplier, sdf_converged_tresh, grid_cfg=grid_cfg, grid=grid,
+        first_bucket_fraction=first_bucket_fraction, dist_field=dist_field, final_sdf=False)
+    lit = _lit_and_state(pos, converged, alive, grid, grid_cfg, cfg)
+    R = origins.shape[0]
+    idx, _ = nonzero_static(lit, min(R, max(256, int(R * first_bucket_fraction))),
+                            fill_value=R)
+    pad_dir = torch.tensor([[0.0, 0.0, 1.0]], dtype=dirs.dtype, device=dirs.device)
+    sub_rgb, sub_normals = _shade(params, _pad_one(pos)[idx], torch.cat([dirs, pad_dir])[idx],
+                                  iter_nr_anneal, cfg)
+    rgb, normals = _scatter_shaded(idx, R, sub_rgb, sub_normals)
+    shaded = torch.zeros((R + 1,), dtype=torch.bool, device=lit.device)
+    shaded[idx] = idx < R
+    weights = (lit & shaded[:R]).to(torch.float32)[:, None]
+    return rgb * weights, normals * weights, weights
+
+
+@torch.no_grad()
+def _shade_hits(params, pos, dirs, lit, iter_nr_anneal, cfg: PermutoSDFTrainConfig,
+                bucket: int):
+    """Shade exactly the lit rays, listed into a host-sized bucket (kernel
+    H0) -> (rgb [R,3], normals [R,3], weights [R,1] = lit)."""
+    R = pos.shape[0]
+    idx, _ = nonzero_static(lit, bucket, fill_value=R)
+    sub_rgb, sub_normals = _shade(params, _pad_one(pos)[idx], _pad_one(dirs)[idx],
+                                  iter_nr_anneal, cfg)
+    rgb, normals = _scatter_shaded(idx, R, sub_rgb, sub_normals)
+    weights = lit.to(torch.float32)[:, None]
+    return rgb * weights, normals * weights, weights
+
+
 _DIST_FIELD_CACHE: dict = {}
 
 
@@ -1118,15 +1220,11 @@ def _shade_hits_compact(params, pos, dirs, lit, iter_nr_anneal, cfg: PermutoSDFT
     gradient on the coarsest K levels only."""
     R = pos.shape[0]
     idx, _ = nonzero_static(lit, bucket, fill_value=R)
-    sub_pos = _pad_one(pos)[idx]
-    sub_dirs = _pad_one(dirs)[idx]
-    sdf_cfg = cfg.sdf_model
+    sdf_cfg = None
     if shade_sdf_levels is not None:
-        sdf_cfg = dataclasses.replace(sdf_cfg, active_levels=shade_sdf_levels)
-    _, grads_end, geom_end = sdf_with_gradient(params["sdf"], sub_pos, iter_nr_anneal, sdf_cfg)
-    sub_rgb = rgb_apply(params["rgb"], sub_pos, sub_dirs, grads_end, geom_end, iter_nr_anneal,
-                        cfg.rgb_model)
-    sub_normals = grads_end / (torch.linalg.norm(grads_end, dim=-1, keepdim=True) + 1e-12)
+        sdf_cfg = dataclasses.replace(cfg.sdf_model, active_levels=shade_sdf_levels)
+    sub_rgb, sub_normals = _shade(params, _pad_one(pos)[idx], _pad_one(dirs)[idx],
+                                  iter_nr_anneal, cfg, sdf_cfg)
     return idx, _quantize(sub_rgb), _quantize(sub_normals * 0.5 + 0.5), lit
 
 
@@ -1161,10 +1259,7 @@ def render_image_sphere_traced_fast(
         raise NotImplementedError("sphere-traced rendering over several devices (ROADMAP "
                                   "Queue 1 item 8) is not ported yet")
     device = resolve_device(device)
-    table = params["sdf"]["encoding"]["lattice_values"]
-    if table.device.type != device.type or (grid is not None
-                                           and grid.occupancy.device.type != device.type):
-        raise ValueError(f"render_image_sphere_traced_fast: params and grid must be on {device}")
+    _check_on(params, grid, device, "render_image_sphere_traced_fast")
     origins, dirs = rays_from_frame(K, tf_world_cam, width, height, device=device)
     n = origins.shape[0]
     # clamp the chunk to the frame's ray count (bucket-ladder granularity)
@@ -1178,7 +1273,7 @@ def render_image_sphere_traced_fast(
     ctx = (params["sdf"], iter_nr_anneal)
     march_eval, refine_eval, refine_ctx, round_evals = _make_trace_lod_evals(
         cfg, ctx, lod_levels, lod_schedule)
-    grid_cfg = cfg.grid if (cfg.use_occupancy_grid and grid is not None) else None
+    grid_cfg = _grid_cfg(cfg, grid)
     if grid_cfg is not None and dist_field is None:
         dist_field = _cached_dist_field(grid_cfg, grid)
     rgbs, normals, alphas = [], [], []
@@ -1210,6 +1305,32 @@ def render_image_sphere_traced_fast(
         normals.append(nrm[:R] * w)
         alphas.append(w)
     rgb, nrm, alpha = (torch.cat(parts, 0)[:n] for parts in (rgbs, normals, alphas))
+    return (rgb.reshape(height, width, 3), nrm.reshape(height, width, 3),
+            alpha.reshape(height, width, 1))
+
+
+@torch.no_grad()
+def render_image_sphere_traced(params, grid, K, tf_world_cam, width, height, iter_nr_anneal,
+                               cfg: PermutoSDFTrainConfig, chunk: int = 8192, device=None,
+                               **trace_kwargs):
+    """The plain sphere-traced frame: :func:`render_rays_sphere_traced` on
+    ``chunk`` rays at a time (``trace_kwargs`` go to it), the grid's distance
+    field built once per grid state -> (rgb [H,W,3], normals [H,W,3], alpha
+    [H,W,1]) on ``device`` (None means the GPU; params and grid must live
+    there)."""
+    device = resolve_device(device)
+    _check_on(params, grid, device, "render_image_sphere_traced")
+    if _grid_cfg(cfg, grid) is not None and "dist_field" not in trace_kwargs:
+        trace_kwargs["dist_field"] = _cached_dist_field(cfg.grid, grid)
+    origins, dirs = rays_from_frame(K, tf_world_cam, width, height, device=device)
+    n = origins.shape[0]
+    pad = (-n) % chunk
+    origins = torch.cat([origins, torch.zeros((pad, 3), device=device)], 0)
+    dirs = torch.cat([dirs, torch.tensor([[0.0, 0.0, 1.0]], device=device).expand(pad, 3)], 0)
+    outs = [render_rays_sphere_traced(params, grid, origins[i:i + chunk], dirs[i:i + chunk],
+                                      iter_nr_anneal, cfg, **trace_kwargs)
+            for i in range(0, n + pad, chunk)]
+    rgb, nrm, alpha = (torch.cat(parts, 0)[:n] for parts in zip(*outs))
     return (rgb.reshape(height, width, 3), nrm.reshape(height, width, 3),
             alpha.reshape(height, width, 1))
 

@@ -1,4 +1,5 @@
-"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2, L, D2, D2' and M,
+"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2, L, D2, D2', M,
+C3, J3, C2 and I2,
 compiled for the CPU with g++ against a small CUDA stand-in
 (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
 own kernel wrappers, against the plain PyTorch versions.
@@ -27,6 +28,7 @@ from permuto_sdf_tpu_torch import kernels
 from permuto_sdf_tpu_torch.ops import compaction
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+from permuto_sdf_tpu_torch.ops import ray_sampler as rs
 from permuto_sdf_tpu_torch.ops import sphere_trace as st
 from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
@@ -690,3 +692,140 @@ def test_kernel_M_source_matches_plain(emulated, grid):
     Vp, Fp = mc.marching_tetrahedra_plain(v, 0.0, origin, spacing)
     assert torch.equal(Vk, Vp) and torch.equal(Fk, Fp)
     assert torch.equal(mc.marching_tetrahedra_cuda(v, 0.0, origin, spacing)[1], Fp)
+
+
+@pytest.mark.parametrize("P,kind", [(512, "shell"), (100, "shell"), (64, "empty")])
+def test_kernel_C3_source_matches_plain(emulated, P, kind):
+    """Kernel C3 (a warp per ray, rounds of 32 probes, a ballot) against
+    its plain version: ``has`` and ``t_first`` exactly, with rays that miss
+    the bound, rays with no occupied probe (t_exit), a probe count that is
+    not a multiple of 32, and a ray count that is not a multiple of the 4
+    rays per block."""
+    cfg, _, _, state = _trace_state(V=16, n=301, seed=2)
+    occ = _shell(16) if kind == "shell" else torch.zeros(16 ** 3, dtype=torch.bool)
+    o, d = state["origins_f"][:-1], state["dirs_f"][:-1]
+    _, te, _, tx, _ = Sphere().ray_intersection(o, d)
+    launches = og.first_occupied_cuda.launches
+    got = og.first_occupied_cuda(cfg, occ, o, d, te, tx, P)
+    assert og.first_occupied_cuda.launches == launches + 1
+    want = og.first_occupied_plain(cfg, occ, o, d, te, tx, P)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    has = want[1]
+    assert (0 < int(has.sum()) < has.numel()) if kind == "shell" else not has.any()
+
+
+def test_kernel_J3_source_matches_plain(emulated):
+    """Kernel J3 against its plain version on cloned position state: the
+    full-state form (no index list) with and without the field, and the
+    bucket form (an index list with fill slots, the sdf store and the next
+    positions), with rays that converge and rays that leave the sphere:
+    positions, flags, sdf and the slots' positions equal."""
+    cfg, _, field, s0 = _trace_state(V=32, n=300)
+    R = s0["t_f"].shape[0] - 1
+    pos0 = s0["origins_f"] + s0["t_f"][:, None] * s0["dirs_f"]
+    bound = st._sphere_bound(Sphere())
+    rng = np.random.default_rng(4)
+
+    def state():
+        return dict(dirs_f=s0["dirs_f"].clone(), pos_f=pos0.clone(),
+                    alive_f=s0["alive_f"].clone(), conv_f=torch.zeros(R + 1, dtype=torch.bool),
+                    sdf_f=torch.zeros(R + 1))
+
+    ks, ps = state(), state()
+    idx, _ = compaction.nonzero_static_plain(s0["alive_f"][:R], 320, R)  # fill slots at the end
+    assert int((idx == R).sum()) > 0
+    for it, (rows, fld, store) in enumerate(((None, field, False), (None, None, False),
+                                             (idx, field, True), (idx, field, True))):
+        B = R if rows is None else rows.shape[0]
+        sdf = torch.from_numpy(rng.uniform(-0.02, 0.25, B).astype(np.float32))
+        sdf[::9] = 1e-5  # converge some rays
+        outs = []
+        for fn, s in ((st.trace_step_pos_cuda, ks), (st.trace_step_pos_plain, ps)):
+            st_in = (s["pos_f"] if rows is not None else s["pos_f"][:R].contiguous(),
+                     s["alive_f"] if rows is not None else s["alive_f"][:R].contiguous(),
+                     s["conv_f"] if rows is not None else s["conv_f"][:R].contiguous())
+            d = s["dirs_f"] if rows is not None else s["dirs_f"][:R].contiguous()
+            outs.append((fn(rows, sdf, d, *st_in, s["sdf_f"] if store else None, fld, cfg,
+                            0.9, 2e-4, bound, pos_out=rows is not None), st_in))
+            if rows is None:  # write the row views back into the padded state
+                s["pos_f"][:R], s["alive_f"][:R], s["conv_f"][:R] = st_in
+        (out_k, _), (out_p, _) = outs
+        if rows is not None:
+            np.testing.assert_array_equal(out_k.numpy(), out_p.numpy())
+        for k in ks:
+            np.testing.assert_array_equal(ks[k].numpy(), ps[k].numpy(), err_msg=f"{it} {k}")
+    r = ps["pos_f"][:R].norm(dim=-1)
+    died = s0["alive_f"][:R] & ~ps["alive_f"][:R]
+    assert int(ps["conv_f"].sum()) > 0 and int(died.sum()) > 0 and bool((r[died] >= 0.5).all())
+
+
+@pytest.mark.parametrize("jitter", [False, True])
+def test_kernel_C2_source_matches_plain(emulated, jitter):
+    """Kernel C2 (a thread per sample slot) against its plain version:
+    z, dt, mask and ray_fixed_dt exactly, on rays planted with 0, 1, 2 and
+    S samples (and one at exactly 3), random ranges and misses."""
+    S, md = 16, 0.05
+    rng = np.random.default_rng(7 + jitter)
+    R = 70
+    te = rng.uniform(0.0, 0.4, R).astype(np.float32)
+    dist = rng.uniform(0.0, 1.2, R).astype(np.float32)
+    dist[:6] = [0.0, 0.04, 0.07, 0.12, 0.151, 2.0]  # nr 0, 0, 1, 2, 3, S
+    te[6] = 0.0  # a miss: t_entry = t_exit = 0
+    dist[6] = 0.0
+    tx = (te + dist).astype(np.float32)
+    te_t, tx_t = torch.from_numpy(te)[:, None], torch.from_numpy(tx)[:, None]
+    start = torch.from_numpy(rng.uniform(size=(R, 1)).astype(np.float32)) if jitter else None
+    launches = rs.samples_fg_cuda.launches
+    got = rs.samples_fg_cuda(te_t, tx_t, md, S, start)
+    assert rs.samples_fg_cuda.launches == launches + 1
+    want = rs.samples_fg_plain(te_t, tx_t, md, S, start)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    counts = want[2].sum(dim=1)
+    assert counts[:6].tolist() == [0, 0, 0, 0, 3, S]
+    assert int((counts == S).sum()) > 10
+
+
+def test_kernel_I2_source_matches_plain(emulated):
+    """Kernel I2 on the stratified probes of one update (distinct voxels):
+    values and occupancy exactly, with voxels that empty and that fill."""
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    rng = np.random.default_rng(8)
+    _, lin = og.grid_points_plain(cfg, 1500, 3, None, "cpu")
+    density = torch.from_numpy(rng.exponential(2e-3, (1500, 1)).astype(np.float32))
+    vals0 = torch.from_numpy(rng.uniform(0, 4e-3, 16 ** 3).astype(np.float32))
+    occ0 = vals0 > 1e-3
+    grids = [og.OccupancyGridState(values=vals0.clone(), occupancy=occ0.clone()) for _ in range(2)]
+    launches = og.density_update_cuda.launches
+    og.density_update_cuda(cfg, grids[0], lin, density, 0.7, 1e-3)
+    assert og.density_update_cuda.launches == launches + 1
+    og.density_update_plain(cfg, grids[1], lin, density, 0.7, 1e-3)
+    np.testing.assert_array_equal(grids[0].values.numpy(), grids[1].values.numpy())
+    np.testing.assert_array_equal(grids[0].occupancy.numpy(), grids[1].occupancy.numpy())
+    flips = grids[1].occupancy != occ0
+    assert int((flips & occ0).sum()) > 10 and int((flips & ~occ0).sum()) > 10
+
+
+def test_plain_tracers_through_the_kernel_sources_match_plain(emulated, monkeypatch):
+    """``sphere_trace`` and ``sphere_trace_compacted`` with C3, J0, J3 and
+    H0 all taken from the kernel sources (on CPU tensors) give the plain
+    path's trace exactly."""
+    cfg, occ, _, s0 = _trace_state(n=200)
+    o, d = s0["origins_f"][:-1], s0["dirs_f"][:-1]
+    grid = og.OccupancyGridState(values=torch.zeros(cfg.nr_voxels), occupancy=occ)
+
+    def sdf(p):
+        return torch.sqrt(p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1] + p[:, 2] * p[:, 2]) - 0.25
+
+    runs = {}
+    for route in ("plain", "kernel"):
+        if route == "kernel":
+            monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+        runs[route] = (st.sphere_trace(sdf, o, d, Sphere(), 8, grid_cfg=cfg, grid=grid),
+                       st.sphere_trace_compacted(sdf, o, d, Sphere(), 3, 3, grid_cfg=cfg,
+                                                 grid=grid, first_bucket_fraction=1.0))
+    for got, want in zip(runs["kernel"], runs["plain"]):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert int(runs["plain"][0][2].sum()) > 20

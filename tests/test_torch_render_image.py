@@ -24,6 +24,7 @@ from permuto_sdf_tpu.ops import occupancy_grid as jog
 from permuto_sdf_tpu.train import train_permuto_sdf as jt
 from permuto_sdf_tpu_torch.convert import params_from_jax
 from permuto_sdf_tpu_torch.ops import occupancy_grid as tog
+from permuto_sdf_tpu_torch.ops import sphere_trace as tst
 from permuto_sdf_tpu_torch.train import train_permuto_sdf as tt
 
 _BASE = dict(capacity=2 ** 10, nr_levels=4, grid_nr_voxels_per_dim=16,
@@ -184,7 +185,8 @@ def test_render_image_default_device_needs_cuda(setup, monkeypatch):
 
 def test_unported_branches_raise(setup):
     """The branches that wait for a later slice raise, naming what they
-    wait for."""
+    wait for: several devices (Queue 1 item 8) and the plain tracers' 4D
+    time sweep (Queue 1 item 5)."""
     import dataclasses
 
     _, cfg_t, _, pt, _ = setup
@@ -193,9 +195,14 @@ def test_unported_branches_raise(setup):
         tt.render_image(pt, grid_t, _K, _TF, 16, 12, 20000, cfg_t, mesh=[0, 1], device="cpu")
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3)
-    for knob, match in ((dict(use_occupancy_grid=False), "use_occupancy_grid"),):
-        with pytest.raises(NotImplementedError, match=match):
-            tt.run_net(pt, grid_t, o, d, 0, 1.0, 0.8, dataclasses.replace(cfg_t, **knob))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tst.sphere_trace(lambda p: p[:, 0], o, d, tt.BOUND, time_val=0.5)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tst.sphere_trace_compacted(lambda p: p[:, 0], o, d, tt.BOUND, time_val=0.5)
+    # sampling without the grid is ported: run_net renders with it off
+    rgb = tt.run_net(pt, grid_t, o, d, 0, 1.0, 0.8,
+                     dataclasses.replace(cfg_t, use_occupancy_grid=False))[0]
+    assert rgb.shape == (4, 3) and torch.isfinite(rgb).all()
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -467,10 +467,11 @@ def test_resume_equals_uninterrupted_run(tiny_reel_t, tmp_path):
 
 
 def test_unported_training_knobs_raise(tiny_reel_t):
-    for knob in (dict(use_occupancy_grid=False),):
-        cfg = tt.PermutoSDFTrainConfig(**dict(_SMOKE, **knob))
-        with pytest.raises(NotImplementedError):
-            tt.train(tiny_reel_t, cfg, nr_iters=1, device="cpu")
+    """``data_parallel`` waits for Queue 1 item 8 and raises;
+    ``use_occupancy_grid=False`` is ported and trains without a grid."""
+    cfg = tt.PermutoSDFTrainConfig(**dict(_SMOKE, use_occupancy_grid=False))
+    _, grid, hist = tt.train(tiny_reel_t, cfg, nr_iters=1, device="cpu")
+    assert grid is None and np.isfinite(hist[-1][1])
     with pytest.raises(NotImplementedError, match="data_parallel"):
         tt.train(tiny_reel_t, tt.PermutoSDFTrainConfig(**_SMOKE), nr_iters=1, device="cpu",
                  data_parallel=True)

@@ -5,11 +5,13 @@ the pytest-xdist workers through a file under the session's temporary root.
 ``dense_step`` is the flagship step and the hit-ray step
 (``tests/test_torch_train.py``, ``tests/test_torch_hit_rays.py``);
 ``lever_step`` is the recommended profile's step
-(``tests/test_torch_levers.py``). When the session holds tests of both, the
-first process that needs either builds both, one right after the other, so
-that JAX compiles the eager primitives the two steps share once (~72 s for
-the second step instead of ~200 s in a process of its own). A session of
-one side builds only its own step.
+(``tests/test_torch_levers.py``); ``nerf_steps`` are the NeRF trainer's
+and the flagship's grid-free results (``tests/test_torch_nerf.py``). When
+the session holds tests of several, the first process that needs any
+builds all of them, one right after the other, so that JAX compiles the
+eager primitives the steps share once (~72 s for the lever step instead
+of ~200 s in a process of its own). A session of one side builds only its
+own.
 """
 
 import os
@@ -19,6 +21,7 @@ from filelock import FileLock
 
 _DENSE_MODULES = ("test_torch_train", "test_torch_hit_rays")
 _LEVER_MODULES = ("test_torch_levers",)
+_NERF_MODULES = ("test_torch_nerf",)
 
 
 def shared_across_workers(tmp_path_factory, name: str, make):
@@ -52,6 +55,8 @@ def dense_step(request, tmp_path_factory):
         data = _step(make_reels())
         if _session_runs(request, _LEVER_MODULES):
             _lever_only(tmp_path_factory)
+        if _session_runs(request, _NERF_MODULES):
+            _nerf_only(tmp_path_factory)
         return data
 
     return shared_across_workers(tmp_path_factory, "torch_train_step", make)
@@ -67,3 +72,15 @@ def _lever_only(tmp_path_factory):
     from test_torch_levers import _profile_step
 
     return shared_across_workers(tmp_path_factory, "torch_lever_step", _profile_step)
+
+
+def nerf_steps(request, tmp_path_factory):
+    if _session_runs(request, _DENSE_MODULES):
+        dense_step(request, tmp_path_factory)  # builds the NeRF steps right after
+    return _nerf_only(tmp_path_factory)
+
+
+def _nerf_only(tmp_path_factory):
+    from test_torch_nerf import _nerf_steps
+
+    return shared_across_workers(tmp_path_factory, "torch_nerf_steps", _nerf_steps)
