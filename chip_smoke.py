@@ -10,13 +10,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``nvcc`` per source, in parallel) and print the build seconds;
 2. hold each kernel against its plain PyTorch version on the card, with the
    tolerance stated, and time both (CUDA events): A-D at the shapes of one
-   2048-ray chunk of the flagship eval render, F, G, D' and I at the shapes
-   of the flagship training step;
+   2048-ray chunk of the flagship eval render (A and B on uniformly random
+   points and on the frame's centre chunk in ray order, 96 samples per ray
+   between the bound sphere's entry and exit), F, G, D' and I at the shapes
+   of the flagship training step; time the interleaved [L, C, 2] copy of
+   one table that A and B read;
 3. render 400x400 frames of the full-width flagship model (random weights
    from a seed, plus a planted plane SDF so the frame has a surface) with
    ``render_image`` on a fully occupied grid and on a sparse shell grid,
    N_FRAMES timed frames each after a warm-up (median and spread), with
-   every kernel's launch count reset just before and read just after;
+   every kernel's launch count and the interleaved-table copies reset just
+   before and read just after (at most one copy per hash table);
 4. render 1024 of those rays again on the CPU (the plain path) and compare:
    the CPU's samples rendered on the card must agree within TOL_CROSS,
    and the card's whole path may differ by more only on rays whose
@@ -27,7 +31,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    level open, curvature on, the lr past warm-up), then ``train`` resumed
    from it for TRAIN_STEPS steps (3 occupancy refreshes), with the launch
    counts reset before and read after; ms/step, rays/s, launches per step,
-   every parameter group changed and finite; one more step profiled;
+   at most one interleaved-table copy per hash table per step, every
+   parameter group changed and finite; one more step profiled;
 6. one full-width training step on the card and on the CPU with the same
    draws and the CPU's fg samples: the loss and every leaf's gradient
    within TOL_GRAD_CROSS;
@@ -96,7 +101,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    closed-edge share, Chamfer against the ground-truth sphere mesh; V and
    F equal to the plain path's at 196^3 and 256^3); launches counted per
    step over the SDF_MESH_STEPS-step run and per mesh over each
-   extraction's grid SDF and first M call;
+   extraction's grid SDF and first M call (at most one interleaved-table
+   copy per mesh);
 16. slice 7, the plain sphere tracers: kernel C3 (the first occupied
    probe) on every ray of the 400x400 view and J3 (the plain tracers' step
    on position state) at one PT_CHUNK-ray chunk against their plain
@@ -333,6 +339,64 @@ def camera():
     return K, look_at_cam_to_world((0.35, 0.55, 1.1)).astype(np.float32)
 
 
+def centre_chunk_rays(device):
+    """The CHUNK rays through the frame's centre and their entry and exit
+    of the bound sphere: (origins, dirs, t_entry, t_exit)."""
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
+
+    K_cam, tf = camera()
+    origins, dirs = rays_from_frame(K_cam, tf, WIDTH, HEIGHT, device=device)
+    mid = (origins.shape[0] // 2 // CHUNK) * CHUNK
+    o, dr = origins[mid:mid + CHUNK].contiguous(), dirs[mid:mid + CHUNK].contiguous()
+    _, te, _, tx, _ = Sphere().ray_intersection(o, dr)
+    return o, dr, te, tx
+
+
+def ray_ordered_points(device, per_ray: int):
+    """``per_ray`` points along each centre-chunk ray at the midpoints of
+    equal steps between the bound sphere's entry and exit, in ray order
+    (ray major, as the eval render's chunk lays its samples out)."""
+    import torch
+
+    o, dr, te, tx = centre_chunk_rays(device)
+    te, tx = te.reshape(-1, 1), tx.reshape(-1, 1)
+    frac = (torch.arange(per_ray, device=device, dtype=torch.float32) + 0.5) / per_ray
+    t = te + frac[None, :] * (tx - te).clamp_min(0.0)
+    return (o[:, None, :] + t[..., None] * dr[:, None, :]).reshape(-1, 3).contiguous()
+
+
+def grid_block_points(device, res: int = None):
+    """The first 64^3 block of ``sdf_grid``'s points on a res^3 grid over
+    [-0.5, 0.5]^3, in grid order (row M0)."""
+    import numpy as np
+    import torch
+
+    res = MESH_SCENE_RES if res is None else res
+    axis = torch.from_numpy(np.linspace(-0.5, 0.5, res, dtype=np.float32)).to(device)[:64]
+    return torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)
+
+
+def encoding_tables(params) -> int:
+    """The number of distinct hash tables (``lattice_values``) in a
+    parameter tree: the interleaved copies a table state may cost."""
+    found = set()
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if k == "lattice_values":
+                    found.add(v.data_ptr())
+                else:
+                    walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+
+    walk(params)
+    return len(found)
+
+
 def probe_sampler_ops(t_entry, t_exit, mask, P: int) -> int:
     """Float operations kernel C's body does for these rays: per probe of a
     ray that meets the bound (t_exit > t_entry; the others have nothing to
@@ -381,7 +445,6 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
     from permuto_sdf_tpu_torch.ops import volume_rendering as vr
-    from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
     from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
 
     rng = np.random.default_rng(SEED)
@@ -394,16 +457,19 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
     def rand_points(n, d):
         return torch.from_numpy(rng.uniform(-0.45, 0.45, (n, d)).astype(np.float32)).to(device)
 
-    # --- A: encode forward (SDF/RGB d=3 full, proxy K=12, background d=4)
-    errs, timing = [], None
+    # --- A: encode forward (SDF/RGB d=3 full, proxy K=12, background d=4 on
+    # uniformly random points; the SDF's d=3 full on the centre chunk's
+    # samples in ray order)
+    errs, timing, b_cases = [], None, []
     for label, d, n, K, scaling in (
             ("d3_full", 3, R * S_fg, L, 1e-3),
             ("d3_K12", 3, R * cfg.max_nr_samples_per_ray, cfg.imp_sampling_max_levels, 1e-3),
-            ("d4_bg", 4, R * cfg.nr_samples_bg, L, 1.0)):
+            ("d4_bg", 4, R * cfg.nr_samples_bg, L, 1.0),
+            ("d3_rays", 3, R * S_fg, L, 1e-3)):
         spec = pe.PermutoEncodingSpec(pos_dim=d, capacity=cfg.capacity, nr_levels=L,
                                       concat_points_scaling=scaling)
         prm = pe.init_encoding_params(gen, spec, device)
-        pts = rand_points(n, d)
+        pts = ray_ordered_points(device, S_fg) if label == "d3_rays" else rand_points(n, d)
         scales, E, _ = pe.encoding_constants(spec, None, device)
         window = torch.ones(L, device=device)
         args = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E,
@@ -418,36 +484,52 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
                                              scales, E, K)).numel()
         nbytes = pts.numel() * 4 + uniq * 2 * 4 + got.numel() * 4
         b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_A * n * K)
-        _report(f"A:{label} N={n} K={K}", err, TOL_A, ms, pms, b)
+        _report(f"A:{label} N={pts.shape[0]} K={K}", err, TOL_A, ms, pms, b)
         if label == "d3_full":
             timing = (ms, pms, b)
-            b_inputs = (args, uniq)
+            # the port's interleaved [L, C, 2] copy A and B read, once per
+            # table state: the cache is emptied before each call, so each
+            # call copies
+            tbl = prm["lattice_values"]
+
+            def fresh_copy():
+                pe._INTERLEAVED.clear()
+                return pe.interleaved_table(tbl)
+
+            copy_ms = time_ms(fresh_copy, reps, device)
+            cb = bound_ms(2 * tbl.numel() * 4, 0)
+            results["interleave_copy"] = dict(ms=copy_ms, bound_ms=cb[0],
+                                              mib=tbl.numel() * 4 / 2 ** 20)
+            print(f"[interleave copy] one table [{L}, 2, {cfg.capacity}] -> [L, C, 2] "
+                  f"({tbl.numel() * 4 / 2 ** 20:.0f} MiB): {copy_ms:.4f} ms (bound "
+                  f"{cb[0]:.3g}, bytes)", flush=True)
+        if label in ("d3_full", "d3_rays"):
+            b_cases.append((label, args, uniq))
     results["A"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1],
                         bound_ms=timing[2][0], bound_by=timing[2][1])
 
-    # --- B: point gradient of the SDF encoding (d=3, full width)
-    args, uniq = b_inputs
-    pts = args[0]
-    g = torch.from_numpy(rng.normal(size=(pts.shape[0], 2 * L + 3)).astype(np.float32)).to(device)
-    got = pe.encode_point_grad_cuda(*args, g)
-    want = pe.encode_point_grad_plain(*args, g)
-    err = ((got - want).abs().max() / want.abs().max()).item()
-    ms = time_ms(lambda: pe.encode_point_grad_cuda(*args, g), reps, device)
-    pms = time_ms(lambda: pe.encode_point_grad_plain(*args, g), plain_reps, device)
-    nbytes = pts.numel() * 4 + g.numel() * 4 + uniq * 2 * 4 + got.numel() * 4
-    b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_B * pts.shape[0] * L)
-    _report(f"B N={pts.shape[0]} (relative)", err, TOL_B, ms, pms, b)
-    results["B"] = dict(max_abs_err=(got - want).abs().max().item(), ms=ms, plain_ms=pms,
-                        bound_ms=b[0], bound_by=b[1])
+    # --- B: point gradient of the SDF encoding (d=3, full width) on the
+    # random and the ray-ordered points
+    errs, timing = [], None
+    for label, args, uniq in b_cases:
+        pts = args[0]
+        g = torch.from_numpy(rng.normal(size=(pts.shape[0], 2 * L + 3)).astype(np.float32)).to(device)
+        got = pe.encode_point_grad_cuda(*args, g)
+        want = pe.encode_point_grad_plain(*args, g)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        ms = time_ms(lambda: pe.encode_point_grad_cuda(*args, g), reps, device)
+        pms = time_ms(lambda: pe.encode_point_grad_plain(*args, g), plain_reps, device)
+        nbytes = pts.numel() * 4 + g.numel() * 4 + uniq * 2 * 4 + got.numel() * 4
+        b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_B * pts.shape[0] * L)
+        _report(f"B:{label} N={pts.shape[0]} (relative)", err, TOL_B, ms, pms, b)
+        errs.append((got - want).abs().max().item())
+        if label == "d3_full":
+            timing = (ms, pms, b)
+    results["B"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1],
+                        bound_ms=timing[2][0], bound_by=timing[2][1])
 
     # --- C: probe sampler on the chunk of rays through the frame's center
-    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
-
-    K_cam, tf = camera()
-    origins, dirs = rays_from_frame(K_cam, tf, WIDTH, HEIGHT, device=device)
-    mid = (origins.shape[0] // 2 // R) * R
-    o, dr = origins[mid:mid + R].contiguous(), dirs[mid:mid + R].contiguous()
-    _, te, _, tx, _ = Sphere().ray_intersection(o, dr)
+    o, dr, te, tx = centre_chunk_rays(device)
     gcfg = cfg.grid
     P, S = 512, cfg.max_nr_samples_per_ray
     errs, timing = [], None
@@ -706,13 +788,22 @@ SPHERE_KERNELS = ("J0", "J1", "J2", "H0", "A", "B")
 
 
 def reset_counts():
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
     for fns in counters().values():
         for fn in fns:
             fn.launches = 0
+    pe.interleaved_table.copies = 0
 
 
 def read_counts():
-    return {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
+    """Launches per kernel, and under "copies" the interleaved [L, C, 2]
+    table copies that A and B read (at most one per table state)."""
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    counts = {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
+    counts["copies"] = pe.interleaved_table.copies
+    return counts
 
 
 def slice_phase(device, cfg, params, grids, width, height, chunk, frames=N_FRAMES):
@@ -968,6 +1059,7 @@ def train_phase(device, cfg):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"train: the training path launched no kernel {missing}")
+    _check_copies("train", counts, params, len(times) - 1)
     after = _param_groups(params)
     for name, old in before.items():
         new = after[name]
@@ -985,6 +1077,7 @@ def train_phase(device, cfg):
         "valid_samples_per_step_mean": samples,
         "valid_samples_per_s_median": samples / med * 1e3,
         "launches_per_step": {k: counts[k] / TRAIN_STEPS for k in TRAIN_KERNELS},
+        "interleave_copies_per_step": counts["copies"] / TRAIN_STEPS,
         "sphere_init_losses": losses, "final_loss": hist[-1][1],
         "occupied_share": float(grid.occupancy.float().mean()),
     }
@@ -994,6 +1087,16 @@ def train_phase(device, cfg):
           f"{summary['valid_samples_per_s_median']:.0f} valid samples/s, "
           f"launches/step {summary['launches_per_step']}", flush=True)
     return params, grid, reel, counts, summary
+
+
+def _check_copies(label, counts, params, steps):
+    """A training window's interleaved-table copies: each step's update
+    changes every table once, so at most one copy per table per step, plus
+    one per table for the state the window starts from."""
+    allowed = encoding_tables(params) * (steps + 1)
+    if not counts["copies"] <= allowed:
+        fail(f"{label}: {counts['copies']} interleaved-table copies in {steps} steps "
+             f"(at most {allowed})")
 
 
 def profile_train_step(device, cfg, params, grid, reel):
@@ -1997,6 +2100,7 @@ def hit_ray_train_phase(device, cfg, params, grid, reel):
                       resume_from=ckpt.models_dir(d, "chip_smoke", it), log_every=1,
                       callbacks=[on_step], device=device)
             counts = read_counts()
+        _check_copies(f"hit-ray train ({label})", counts, params, len(times) - 1)
         steps = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])][WARMUP_STEPS:]
         med = statistics.median(steps)
         # the steps up to the rebalancer point ran at the starting fraction
@@ -2279,6 +2383,7 @@ def _train_window(device, label, run_cfg, params, grid, reel, start, steps):
         if all(torch.equal(a, b) for a, b in zip(old, new)):
             fail(f"train window ({label}): parameter group {name} did not change")
     ms = [(b - a) * 1e3 for a, b in zip(times[:-1], times[1:])]
+    _check_copies(f"train window ({label})", counts, new_params, len(ms))
     for rec, t in zip(per_step, ms):
         rec["ms"] = t
     return new_params, {"first_iter": start + 1, "steps": steps, "per_step": per_step,
@@ -2553,8 +2658,7 @@ def mesh_kernel_phases(device, cfg, sphere_params, reps=20, plain_reps=2):
     # row M0: one 64^3 block of the grid SDF (kernel A, then the whole SDF)
     spec = cfg.sdf_model.encoding
     prm = sphere_params["sdf"]["encoding"]
-    axis = torch.from_numpy(np.linspace(-0.5, 0.5, n_s, dtype=np.float32)).to(device)[:64]
-    pts = torch.stack(torch.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)
+    pts = grid_block_points(device, n_s)
     scales, E_mat, _ = pe.encoding_constants(spec, None, device)
     L = spec.nr_levels
     args = (pts, prm["lattice_values"], prm["shift_per_level"], scales,
@@ -2623,6 +2727,7 @@ def sdf_mesh_phase(device, cfg, sphere_params):
     missing = [k for k in SDF_MESH_TRAIN_KERNELS if train_counts[k] <= 0]
     if missing:
         fail(f"train_sdf_from_mesh.train launched no kernel {missing}")
+    _check_copies("train_sdf_from_mesh.train", train_counts, params, SDF_MESH_STEPS)
     per_step = {k: train_counts[k] / SDF_MESH_STEPS for k in SDF_MESH_TRAIN_KERNELS}
     train_s = walls[SDF_MESH_STEPS]
     ms_step = ((walls[SDF_MESH_STEPS] - walls[SDF_MESH_SHORT_STEPS]) * 1e3
@@ -2699,9 +2804,10 @@ def sdf_mesh_phase(device, cfg, sphere_params):
             t2 = time.perf_counter()
             c = read_counts()
             blocks = (-(-res // 64)) ** 3  # sdf_grid's 64^3 blocks
-            if not (c["A"] == blocks and c["M1"] == c["M2"] == 1):
+            if not (c["A"] == blocks and c["M1"] == c["M2"] == 1 and c["copies"] <= 1):
                 fail(f"extraction {name} at {res}: launches A {c['A']} (one per block: "
-                     f"{blocks}), M1 {c['M1']}, M2 {c['M2']} (1 each)")
+                     f"{blocks}), M1 {c['M1']}, M2 {c['M2']} (1 each), interleaved-table "
+                     f"copies {c['copies']} (at most 1)")
             for k in mesh_counts:
                 mesh_counts[k] += c[k]
             m_runs = []  # M again on the same grid: its first call also allocates
@@ -2716,7 +2822,7 @@ def sdf_mesh_phase(device, cfg, sphere_params):
                    "mesh_ms": (t1 - t0) * 1e3 + m_ms, "V": V.shape[0],
                    "F": F.shape[0], "closed_edge_share": _closed_edge_share(F),
                    "grid_blocks": blocks,
-                   "launches_per_mesh": {k: c[k] for k in ("A", "M1", "M2")}}
+                   "launches_per_mesh": {k: c[k] for k in ("A", "M1", "M2", "copies")}}
             if not (F.shape[0] > 0 and torch.isfinite(V).all()):
                 fail(f"extraction {name} at {res}: empty or non-finite mesh")
             if res in MESH_PLAIN_RES:
@@ -3147,6 +3253,7 @@ def nerf_phase(device, reel, ncfg):
         torch.cuda.synchronize(device)
         runs[label] = (time.perf_counter() - t0, read_counts(), hist)
     (t_s, c_s, _), (t_w, c_w, hist) = runs["short"], runs["window"]
+    _check_copies("nerf train", c_w, params, NERF_SHORT + NERF_STEPS)
     ms = (t_w - t_s) * 1e3 / NERF_STEPS
     per_step = {k: (c_w[k] - c_s[k]) / NERF_STEPS for k in NERF_KERNELS}
     losses = [h[1] for h in hist]
@@ -3338,6 +3445,10 @@ def main() -> int:
         if not c["E1"] == c["E2"] == 2 * chunks * N_FRAMES:
             fail(f"render on the {name} grid: E1/E2 launches {c['E1']}/{c['E2']}, expected "
                  f"{2 * chunks * N_FRAMES} each")
+        # one table state over the frames: at most one copy per hash table
+        if not c["copies"] <= encoding_tables(params):
+            fail(f"render on the {name} grid: {c['copies']} interleaved-table copies for "
+                 f"{encoding_tables(params)} tables")
 
     # where the frame's device time goes (one extra profiled frame)
     profile_phase(device, cfg, params, grids["full"], WIDTH, HEIGHT, CHUNK)
@@ -3507,7 +3618,8 @@ def main() -> int:
                      "chunks_per_frame": chunks,
                      "e_launches_per_chunk": (counts[k]["E1"] + counts[k]["E2"])
                      / (chunks * N_FRAMES)}
-    print(json.dumps({"render": render, "card": card}), flush=True)
+    print(json.dumps({"render": render, "interleave_copy": results["interleave_copy"],
+                      "card": card}), flush=True)
     print(json.dumps({"train": train_summary, "card": card}), flush=True)
     print(json.dumps({"sphere_traced": {"operating_point": ST_KW, "scene": scene_summary,
                                         "runs": st_runs, "cross_check": st_cross,

@@ -13,25 +13,50 @@
 // Pallas kernel exists: a TPU v5e cannot express a gather over 2^18-slot
 // tables).
 //
-// What bounds them on an H100: bytes. Each (point, level) does ~150 flops
-// of lattice math but gathers (d+1) vertices x 2 features of 4 bytes from
-// a 2 MiB level table at random slots; each gather costs a 32-byte sector,
-// so the kernels are bound by L2/HBM sector traffic of the gathers, with
-// the 50 MB full table just about fitting the 50 MB L2. F and G scatter
-// into a zeroed [L, 2, C] gradient table with float atomics: at the
-// coarsest levels (sigma ~ 1) most points of a batch hit a handful of
-// slots, so those atomics serialize on a few addresses.
+// What bounds A and B on an H100: the gathers' sectors. Each (point,
+// level) does ~110-150 flops of lattice math and gathers d+1 vertices x 2
+// features from a 2 MiB level table at hashed slots. At N = 196,608 and
+// K = 24 that is 4.72 M (point, level) pairs and 18.9 M vertex loads, each
+// pulling a 32-byte sector (0.6 GB) that mostly misses L2 at the fine
+// levels: the 48 MiB table of 24 levels x 2^18 slots fills the 50 MB L2,
+// and a fine level's vertices are distinct per point. The coarse levels
+// hit a handful of slots. The lattice math is not the bound (~0.04 ms of
+// instructions at that N). Their bounds over HBM bytes (each distinct slot read
+// once) are ~0.02 ms; A takes 0.19-0.29 ms there and B 0.13-0.19 ms.
 //
-// Design: kernels A and F run one thread per (point, level), level minor,
-// so a warp shares the point's loads. Kernels B and G run one thread per
-// point looping over the levels, so the per-point sums stay in registers.
-// The table stays in the parameter layout [L, F=2, C]: a vertex costs two
-// 4-byte loads C apart (two sectors). A [L, C, 2] copy would make it one
-// 8-byte load; that is left for a later change. All kernels compute the
-// lattice in exactly the float order of the plain PyTorch versions (built
-// with --fmad=false), so slot ids match them bit for bit. F and G add with
-// atomicAdd in no fixed order, so their sums vary by float rounding from
-// run to run; a later change can aggregate per warp or sort the slots.
+// Design kept for A and B (measured on an H100 against the alternatives
+// below, on random points, on one eval chunk's samples in ray order and on
+// one 64^3 mesh block in grid order; PERF.md keeps their times):
+// - They read an interleaved [L, C, 2] copy of the table, so a vertex is
+//   one 8-byte float2 load, one sector, where the parameter layout [L, 2,
+//   C] cost two 4-byte loads C slots apart. The copy is made once per
+//   table state by the caller (ops/permuto_encoding.py::interleaved_table);
+//   F and G keep the parameter layout.
+// - One block per tile of points x all K levels, the warps taking the
+//   levels: A 16 points per tile, B 32. A stages the tile's rows in shared
+//   memory and stores them as one contiguous span; B stages the tile's
+//   cotangent rows, writes each (point, level) term to shared memory and
+//   sums them per point in level order, with no atomics.
+// - Measured and not kept: a level-major grid for A (the blocks in
+//   flight reading one level table, to keep it in L2) was 1.1-2.4x slower:
+//   each pass writes 8 bytes of every 204-byte output row, so the output
+//   leaves as partial sectors 24 times. With four levels per block it beat
+//   the tiles on the d = 4 background case only (0.117 against 0.143 ms at
+//   N = 65,536) and lost on every d = 3 case. One thread per point looping
+//   over the levels (every warp on the same few tables at once) was
+//   1.1-1.8x slower for A and B; B level major through a [K, N, 3] scratch
+//   1.3-2.0x. A's tiles of 8-64 points in blocks of 64-256 threads were
+//   within 7% of each other; B's 64-point tile was 1.2-1.3x slower than its
+//   32- and 16-point ones.
+//
+// The lattice is computed in exactly the float order of the plain PyTorch
+// versions (built with --fmad=false), so slot ids match them bit for bit.
+// F and G scatter into a zeroed [L, 2, C] gradient table with float
+// atomics in no fixed order, so their sums vary by float rounding from run
+// to run; at the coarsest levels (sigma ~ 1) most points of a batch hit a
+// handful of slots, so those atomics serialize on a few addresses. F runs
+// one thread per (point, level), level minor; G one thread per point
+// looping over the levels.
 //
 // Alternating-level table gradients (JAX `grad_level_parity`,
 // permuto_encoding.py:561-609, where the frozen levels gather through
@@ -152,45 +177,69 @@ __device__ __forceinline__ void lattice_point(const float* __restrict__ p,
 
 // Kernel A. out [N, out_stride]: K levels x 2 features (level major,
 // feature minor), then the d point columns x concat_scaling if concat.
-template <int D>
-__global__ void __launch_bounds__(256) encode_fwd_kernel(
+// One block per tile of P points x all K levels; the warps take the
+// levels (pair q: level q / P, point q % P), so each block has several
+// level tables in flight and a warp's gathers hit one or two of them. Each
+// vertex is one 8-byte load of the interleaved [L, C, 2] table. The tile's
+// rows are staged in shared memory (row stride padded to odd: the level
+// writes of a warp hit distinct banks) and leave as one contiguous span
+// of P * out_stride floats, so the stores are coalesced whatever the row's
+// alignment (a row is 4 (2K + d) bytes: 204 for d = 3).
+constexpr int kFwdBlock = 256;
+constexpr int kFwdTile = 16;
+
+template <int D, int P>
+__global__ void __launch_bounds__(kFwdBlock) encode_fwd_kernel(
     const float* __restrict__ points, int n_points,
-    const float* __restrict__ table, int capacity,
+    const float2* __restrict__ table, int capacity,
     const float* __restrict__ shift, const float* __restrict__ scales,
     const float* __restrict__ window, const float* __restrict__ E, int K,
     float concat_scaling, int concat, float* __restrict__ out,
     int out_stride) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n_points * K) return;
-  const int n = (int)(idx / K);
-  const int l = (int)(idx - (long long)n * K);
-  float p[D];
+  const int srow = out_stride | 1;
+  float* o_tile = psdf_dynamic_smem<float>();  // [P][srow]
+  const int n0 = blockIdx.x * P;
+  const int rows = min(P, n_points - n0);
+  for (int q = threadIdx.x; q < K * P; q += blockDim.x) {
+    const int l = q / P;
+    const int pi = q - l * P;
+    if (pi >= rows) continue;
+    float p[D];
 #pragma unroll
-  for (int j = 0; j < D; ++j) p[j] = points[(long long)n * D + j];
-  float lat[D];
-  lattice_point<D>(p, shift, scales, l, lat);
-  Simplex<D> s;
-  find_simplex<D>(lat, E, (uint32_t)(capacity - 1), s);
-
-  const float* t0 = table + (long long)l * 2 * capacity;
-  const float* t1 = t0 + capacity;
-  float f0 = s.bary[0] * __ldg(t0 + s.slot[0]);
-  float f1 = s.bary[0] * __ldg(t1 + s.slot[0]);
+    for (int j = 0; j < D; ++j) p[j] = points[(long long)(n0 + pi) * D + j];
+    float lat[D];
+    lattice_point<D>(p, shift, scales, l, lat);
+    Simplex<D> s;
+    find_simplex<D>(lat, E, (uint32_t)(capacity - 1), s);
+    const float2* t = table + (long long)l * capacity;
+    float2 v = __ldg(t + s.slot[0]);
+    float f0 = s.bary[0] * v.x;
+    float f1 = s.bary[0] * v.y;
 #pragma unroll
-  for (int r = 1; r <= D; ++r) {
-    f0 = f0 + s.bary[r] * __ldg(t0 + s.slot[r]);
-    f1 = f1 + s.bary[r] * __ldg(t1 + s.slot[r]);
+    for (int r = 1; r <= D; ++r) {
+      v = __ldg(t + s.slot[r]);
+      f0 = f0 + s.bary[r] * v.x;
+      f1 = f1 + s.bary[r] * v.y;
+    }
+    if (window != nullptr) {
+      f0 = f0 * window[l];
+      f1 = f1 * window[l];
+    }
+    o_tile[pi * srow + 2 * l] = f0;
+    o_tile[pi * srow + 2 * l + 1] = f1;
   }
-  if (window != nullptr) {
-    f0 = f0 * window[l];
-    f1 = f1 * window[l];
+  if (concat) {
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+      const int pi = i / D;
+      o_tile[pi * srow + 2 * K + (i - pi * D)] =
+          points[(long long)n0 * D + i] * concat_scaling;
+    }
   }
-  float* o = out + (long long)n * out_stride;
-  o[2 * l] = f0;
-  o[2 * l + 1] = f1;
-  if (concat && l == 0) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) o[2 * K + j] = p[j] * concat_scaling;
+  __syncthreads();
+  float* dst = out + (long long)n0 * out_stride;
+  for (int i = threadIdx.x; i < rows * out_stride; i += blockDim.x) {
+    const int r = i / out_stride;
+    dst[i] = o_tile[r * srow + (i - r * out_stride)];
   }
 }
 
@@ -199,40 +248,59 @@ __global__ void __launch_bounds__(256) encode_fwd_kernel(
 // constant), then E^T and 1/sigma_l, plus concat_scaling * g on the point
 // columns. d bary_k / d elevated_i = ([d - rank_i == k] -
 // [d + 1 - rank_i == k]) / (d + 1), the k = d + 1 term folded into k = 0.
-template <int D>
-__global__ void __launch_bounds__(128) encode_point_grad_kernel(
+// One block per tile of P points x all K levels, the warps taking the
+// levels as in kernel A. The tile's points and cotangent rows (one
+// contiguous span each) are staged in shared memory with coalesced loads;
+// each (point, level) writes its term gl / sigma_l to shared memory as
+// [K][P][D]; then one thread per point sums the terms in level order from
+// 0.f and adds the concat term last: the plain version's order, with no
+// atomics, so the result does not depend on the schedule.
+constexpr int kGradBlock = 256;
+constexpr int kGradTile = 32;
+
+template <int D, int P>
+__global__ void __launch_bounds__(kGradBlock) encode_point_grad_kernel(
     const float* __restrict__ points, int n_points,
-    const float* __restrict__ table, int capacity,
+    const float2* __restrict__ table, int capacity,
     const float* __restrict__ shift, const float* __restrict__ scales,
     const float* __restrict__ window, const float* __restrict__ E, int K,
     float concat_scaling, int concat, const float* __restrict__ g,
     int g_stride, float* __restrict__ grad_points) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_points) return;
-  float p[D];
-#pragma unroll
-  for (int j = 0; j < D; ++j) p[j] = points[(long long)n * D + j];
-  const float* gn = g + (long long)n * g_stride;
-  const float dp1 = (float)(D + 1);
-  float acc[D];
-#pragma unroll
-  for (int j = 0; j < D; ++j) acc[j] = 0.f;
+  float* pts = psdf_dynamic_smem<float>();  // [P][D]
+  float* g_tile = pts + P * D;              // [P][g_stride]
+  float* terms = g_tile + P * g_stride;     // [K][P][D]
+  const int n0 = blockIdx.x * P;
+  const int rows = min(P, n_points - n0);
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x)
+    pts[i] = points[(long long)n0 * D + i];
+  const float* g_src = g + (long long)n0 * g_stride;
+  for (int i = threadIdx.x; i < rows * g_stride; i += blockDim.x) g_tile[i] = g_src[i];
+  __syncthreads();
 
-  for (int l = 0; l < K; ++l) {
+  const float dp1 = (float)(D + 1);
+  for (int q = threadIdx.x; q < K * P; q += blockDim.x) {
+    const int l = q / P;
+    const int pi = q - l * P;
+    if (pi >= rows) continue;
+    float p[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) p[j] = pts[pi * D + j];
     float lat[D];
     lattice_point<D>(p, shift, scales, l, lat);
     Simplex<D> s;
     find_simplex<D>(lat, E, (uint32_t)(capacity - 1), s);
     const float w = (window != nullptr) ? window[l] : 1.0f;
+    const float* gn = g_tile + pi * g_stride;
     const float g0 = gn[2 * l] * w;
     const float g1 = gn[2 * l + 1] * w;
-    const float* t0 = table + (long long)l * 2 * capacity;
-    const float* t1 = t0 + capacity;
+    const float2* t = table + (long long)l * capacity;
     // cotangent of each barycentric weight: sum_f g_f * feat_{r,f}
     float gb[D + 1];
 #pragma unroll
-    for (int r = 0; r <= D; ++r)
-      gb[r] = g0 * __ldg(t0 + s.slot[r]) + g1 * __ldg(t1 + s.slot[r]);
+    for (int r = 0; r <= D; ++r) {
+      const float2 v = __ldg(t + s.slot[r]);
+      gb[r] = g0 * v.x + g1 * v.y;
+    }
     float gel[D + 1];
 #pragma unroll
     for (int i = 0; i <= D; ++i) {
@@ -240,19 +308,31 @@ __global__ void __launch_bounds__(128) encode_point_grad_kernel(
       const int hi = (D + 1 - s.rank[i]) % (D + 1);
       gel[i] = (gb[lo] - gb[hi]) / dp1;
     }
+    float* term = terms + (l * P + pi) * D;
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       float gl = E[j] * gel[0];
 #pragma unroll
       for (int i = 1; i <= D; ++i) gl = gl + E[i * D + j] * gel[i];
-      acc[j] = acc[j] + gl / scales[l];
+      term[j] = gl / scales[l];
     }
+  }
+  __syncthreads();
+
+  const int pi = threadIdx.x;
+  if (pi >= rows) return;
+  float acc[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) acc[j] = 0.f;
+  for (int l = 0; l < K; ++l) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) acc[j] = acc[j] + terms[(l * P + pi) * D + j];
   }
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     float v = acc[j];
-    if (concat) v = v + gn[2 * K + j] * concat_scaling;
-    grad_points[(long long)n * D + j] = v;
+    if (concat) v = v + g_tile[pi * g_stride + 2 * K + j] * concat_scaling;
+    grad_points[(long long)(n0 + pi) * D + j] = v;
   }
 }
 
@@ -392,27 +472,54 @@ __global__ void __launch_bounds__(128) encode_double_backward_kernel(
 
 }  // namespace
 
+// Kernels A and B read ``table`` as the interleaved [L, C, 2] copy of the
+// parameter table (ops/permuto_encoding.py::interleaved_table).
+template <int D>
+static int launch_fwd(void* stream, const float* points, int n_points,
+                      const float2* table, int capacity, const float* shift,
+                      const float* scales, const float* window, const float* E,
+                      int K, float concat_scaling, int concat, float* out,
+                      int out_stride) {
+  const int grid = psdf_blocks(n_points, kFwdTile);
+  if (grid == 0) return 0;
+  const size_t smem = sizeof(float) * kFwdTile * (out_stride | 1);
+  const auto kernel = encode_fwd_kernel<D, kFwdTile>;
+  PSDF_LAUNCH(kernel, grid, kFwdBlock, smem, stream,
+              points, n_points, table, capacity, shift, scales, window, E, K,
+              concat_scaling, concat, out, out_stride);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int psdf_encode_fwd(int d, const void* points, int n_points,
                                const void* table, int capacity,
                                const void* shift, const void* scales,
                                const void* window, const void* E, int K,
                                float concat_scaling, int concat, void* out,
                                int out_stride, void* stream) {
-  const int block = 256;
-  const int grid = psdf_blocks((long long)n_points * K, block);
-  if (grid == 0) return 0;
 #define PSDF_ENC_ARGS                                                        \
-  (const float*)points, n_points, (const float*)table, capacity,              \
+  stream, (const float*)points, n_points, (const float2*)table, capacity,     \
       (const float*)shift, (const float*)scales, (const float*)window,        \
       (const float*)E, K, concat_scaling, concat, (float*)out, out_stride
-  if (d == 3) {
-    PSDF_LAUNCH(encode_fwd_kernel<3>, grid, block, 0, stream, PSDF_ENC_ARGS);
-  } else if (d == 4) {
-    PSDF_LAUNCH(encode_fwd_kernel<4>, grid, block, 0, stream, PSDF_ENC_ARGS);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (d == 3) return launch_fwd<3>(PSDF_ENC_ARGS);
+  if (d == 4) return launch_fwd<4>(PSDF_ENC_ARGS);
 #undef PSDF_ENC_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+static int launch_point_grad(void* stream, const float* points, int n_points,
+                             const float2* table, int capacity,
+                             const float* shift, const float* scales,
+                             const float* window, const float* E, int K,
+                             float concat_scaling, int concat, const float* g,
+                             int g_stride, float* grad_points) {
+  const int grid = psdf_blocks(n_points, kGradTile);
+  if (grid == 0) return 0;
+  const size_t smem = sizeof(float) * kGradTile * (D + g_stride + (size_t)K * D);
+  const auto kernel = encode_point_grad_kernel<D, kGradTile>;
+  PSDF_LAUNCH(kernel, grid, kGradBlock, smem, stream, points, n_points, table,
+              capacity, shift, scales, window, E, K, concat_scaling, concat, g,
+              g_stride, grad_points);
   return (int)cudaGetLastError();
 }
 
@@ -423,25 +530,15 @@ extern "C" int psdf_encode_point_grad(int d, const void* points, int n_points,
                                       float concat_scaling, int concat,
                                       const void* g, int g_stride,
                                       void* grad_points, void* stream) {
-  const int block = 128;
-  const int grid = psdf_blocks(n_points, block);
-  if (grid == 0) return 0;
 #define PSDF_GRAD_ARGS                                                       \
-  (const float*)points, n_points, (const float*)table, capacity,              \
+  stream, (const float*)points, n_points, (const float2*)table, capacity,     \
       (const float*)shift, (const float*)scales, (const float*)window,        \
       (const float*)E, K, concat_scaling, concat, (const float*)g, g_stride,  \
       (float*)grad_points
-  if (d == 3) {
-    PSDF_LAUNCH(encode_point_grad_kernel<3>, grid, block, 0, stream,
-                PSDF_GRAD_ARGS);
-  } else if (d == 4) {
-    PSDF_LAUNCH(encode_point_grad_kernel<4>, grid, block, 0, stream,
-                PSDF_GRAD_ARGS);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (d == 3) return launch_point_grad<3>(PSDF_GRAD_ARGS);
+  if (d == 4) return launch_point_grad<4>(PSDF_GRAD_ARGS);
 #undef PSDF_GRAD_ARGS
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int psdf_encode_table_grad(int d, const void* points, int n_points,

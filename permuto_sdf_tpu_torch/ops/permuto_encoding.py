@@ -26,12 +26,15 @@ levels ``(phase, period)`` that get table gradients and skip the others. The
 SDF's normals are built from the two (``models/fields.py``), which is the
 reverse-mode gradient JAX forms, without differentiating a backward pass.
 
-The table keeps the JAX parameter layout ``[L, F, C]``.
+The table keeps the JAX parameter layout ``[L, F, C]``; kernels A and B
+read an interleaved ``[L, C, F]`` copy of it (:func:`interleaved_table`),
+made once per table state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -394,6 +397,47 @@ def _check_inputs(points, table, shift, scales, window, E, K):
                              "and on the points' device")
 
 
+_INTERLEAVED: dict = {}
+
+
+def interleaved_table(table: torch.Tensor) -> torch.Tensor:
+    """The table ``[L, 2, C]`` as ``[L, C, 2]``, where each vertex's two
+    features are one 8-byte load (kernels A and B gather one float2 where
+    the parameter layout costs two 4-byte loads ``C`` slots apart).
+
+    The copy is cached per table state: keyed on the device and
+    ``data_ptr()``, and valid while a weak reference to the table's storage
+    still resolves to it and the table's ``_version`` is the one copied.
+    Detached aliases (the trainers' leaves that record gradients) share
+    both, so they reuse the copy. An in-place update (``ManualAdam.update``'s
+    ``p.sub_``) bumps ``_version`` and a loaded checkpoint is a new storage,
+    so either makes a fresh copy at the next call; the copy is dropped with
+    the storage. Writes through ``.data`` bypass ``_version`` and would go
+    unseen: the port makes none. Costs 4 L C 2 bytes per live table (48 MiB
+    at 24 levels of 2^18 slots), not two: the stale copy is released before
+    the fresh one is made. Counts copies in
+    ``interleaved_table.copies``."""
+    storage = table.untyped_storage()
+    key = (table.device, table.data_ptr())
+    hit = _INTERLEAVED.get(key)
+    if (hit is not None and hit[0]() is storage and hit[1] == table._version
+            and hit[2].shape == (table.shape[0], table.shape[2], table.shape[1])):
+        return hit[2]
+
+    def drop(ref, key=key):
+        if _INTERLEAVED.get(key, (None,))[0] is ref:
+            del _INTERLEAVED[key]
+
+    _INTERLEAVED.pop(key, None)  # a stale copy goes before the new one is made
+    copy = table.detach().transpose(1, 2).contiguous()
+    _INTERLEAVED[key] = (weakref.ref(storage, drop), table._version, copy)
+    interleaved_table.copies += 1
+    return copy
+
+
+interleaved_table.copies = 0
+
+
 def encode_fwd_cuda(points, table, shift, scales, window, E, K: int,
                     concat_scaling: float, concat: bool) -> torch.Tensor:
     """Kernel A launch. Counts launches in ``encode_fwd_cuda.launches``."""
@@ -403,7 +447,7 @@ def encode_fwd_cuda(points, table, shift, scales, window, E, K: int,
     out = torch.empty((N, stride), dtype=torch.float32, device=points.device)
     lib = kernels.load("permuto_encoding")
     err = lib.psdf_encode_fwd(
-        d, kernels.ptr(points), N, kernels.ptr(table), table.shape[-1],
+        d, kernels.ptr(points), N, kernels.ptr(interleaved_table(table)), table.shape[-1],
         kernels.ptr(shift), kernels.ptr(scales), kernels.ptr(window), kernels.ptr(E), K,
         float(concat_scaling), int(concat), kernels.ptr(out), stride,
         kernels.current_stream(points.device))
@@ -427,7 +471,7 @@ def encode_point_grad_cuda(points, table, shift, scales, window, E, K: int,
     grad = torch.empty((N, d), dtype=torch.float32, device=points.device)
     lib = kernels.load("permuto_encoding")
     err = lib.psdf_encode_point_grad(
-        d, kernels.ptr(points), N, kernels.ptr(table), table.shape[-1],
+        d, kernels.ptr(points), N, kernels.ptr(interleaved_table(table)), table.shape[-1],
         kernels.ptr(shift), kernels.ptr(scales), kernels.ptr(window), kernels.ptr(E), K,
         float(concat_scaling), int(concat), kernels.ptr(g), g.shape[1], kernels.ptr(grad),
         kernels.current_stream(points.device))

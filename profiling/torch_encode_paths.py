@@ -1,0 +1,308 @@
+#!/usr/bin/env python3
+"""Time the main paths that kernels A and B run, for the port of one tree.
+
+    python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
+    python3 profiling/torch_encode_paths.py --summarize FILE.json ...
+
+Imports ``permuto_sdf_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
+the checkout that holds this script), so the same measurements run on two
+trees, for example a parent unpacked with ``git archive`` beside the change.
+Run the trees in alternating processes on one GPU and compare only within
+that session: frame and step times move with the host's load.
+
+Per tree, on the card (CUDA, one GPU), with the parameters made from a seed:
+- host: the wall µs per call of ``encode_fwd_cuda`` on 256 points (the
+  launch and wrapper cost, the device idle) and, where the tree has it, of
+  a cache hit of ``interleaved_table``;
+- frame: ``render_image`` at 400² (chip_smoke's exact frame on the full
+  grid), ``--frames`` frames, then one under torch.profiler;
+- train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in)
+  and one flagship step under torch.profiler;
+- sdf_from_mesh: ``train_sdf_from_mesh.train`` for 50 and 300 steps
+  (ms/step from the difference), one step under torch.profiler, then the
+  trained field's 512³ mesh three times (grid SDF and marching tetrahedra);
+- nerf: ``train_nerf.train`` at ``NerfTrainConfig()`` for 2 and 26 steps
+  (ms/step from the difference) and one step under torch.profiler.
+
+Each path also records the peak of ``torch.cuda.max_memory_allocated``.
+Prints the profiles as chip_smoke does and, last, one JSON line of the
+results (also written to ``--out``). ``--summarize`` reads such files and
+prints, for each number and each ``--label``, the median over the runs and
+the range (no GPU needed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+SDF_SHORT, SDF_STEPS = 50, 300
+NERF_SHORT, NERF_STEPS = 2, 26
+MESH_RES, MESH_REPS = 512, 3
+HOST_CALLS = 2000
+
+
+def _profiled(cs, device, what, fn):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    s = cs._profile_summary(prof, wall_ms, what)
+    if s is None:
+        return None
+    return {"wall_ms": wall_ms, "device_busy_ms": s["device_busy_ms"],
+            "device_idle_share": s["device_idle_share"],
+            "A_ms": s["kernels_ms"]["A"], "B_ms": s["kernels_ms"]["B"]}
+
+
+def _peak_mib(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 2 ** 20
+
+
+def host_costs(device, cfg):
+    """Wall µs per call of A's wrapper on a tiny input, and of a cache hit
+    of the interleaved table where the tree has one."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    spec = pe.PermutoEncodingSpec(pos_dim=3, capacity=cfg.capacity, nr_levels=24,
+                                  concat_points_scaling=1e-3)
+    prm = pe.init_encoding_params(torch.Generator().manual_seed(0), spec, device)
+    scales, E, _ = pe.encoding_constants(spec, None, device)
+    pts = torch.rand(256, 3, generator=torch.Generator().manual_seed(1)).to(device) - 0.5
+    args = (pts, prm["lattice_values"], prm["shift_per_level"], scales,
+            torch.ones(24, device=device), E, 24, 1.0, True)
+    out = {}
+    calls = {"encode_fwd_cuda": lambda: pe.encode_fwd_cuda(*args)}
+    if hasattr(pe, "interleaved_table"):
+        calls["interleaved_table_hit"] = lambda: pe.interleaved_table(prm["lattice_values"])
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        torch.cuda.synchronize(device)
+        out[name + "_us"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    return out
+
+
+def frame_path(cs, device, cfg, frames):
+    import torch
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    params = cs.plant_plane_sdf(tps.init_params(cs.SEED, cfg, device=device))
+    grid = tps.og.make_occupancy_grid(cfg.grid, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _, _, times = cs.slice_phase(device, cfg, params, {"full": grid}, cs.WIDTH, cs.HEIGHT,
+                                 cs.CHUNK, frames=frames)
+    peak = _peak_mib(device)
+    prof = _profiled(cs, device, "frame", lambda: tps.render_image(
+        params, grid, *cs.camera(), cs.WIDTH, cs.HEIGHT, cs.ITER, cfg, chunk=cs.CHUNK,
+        device=device))
+    t = times["full"]
+    return {"ms_all": t, "ms_median": statistics.median(t), "peak_mib": peak, "profile": prof}
+
+
+def train_path(cs, device, cfg):
+    import torch
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    torch.cuda.reset_peak_memory_stats(device)
+    params, grid, reel, _, summary = cs.train_phase(device, cfg)
+    peak = _peak_mib(device)
+    optimizer = tps.make_optimizer(cfg)
+    opt_state = optimizer.init(params)
+    it = cfg.nr_iter_sphere_fit + cs.TRAIN_FROM + 100
+    draws = tps.draw_train_step(tps.step_generators(cs.SEED, it)[0], cfg, reel)
+    tps.train_step(params, opt_state, grid, reel, draws, it, cfg, optimizer)  # warm-up
+    prof = _profiled(cs, device, "step", lambda: tps.train_step(
+        params, opt_state, grid, reel, draws, it + 1, cfg, optimizer))
+    return reel, {"ms_all": summary["ms_per_step_all"],
+                  "ms_median": summary["ms_per_step_median"], "peak_mib": peak,
+                  "profile": prof}
+
+
+def sdf_from_mesh_path(cs, device):
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.mesh_io import make_uv_sphere, sample_points_on_mesh
+    from permuto_sdf_tpu_torch.models.fields import sdf_apply
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+    from permuto_sdf_tpu_torch.ops.ray_primitives import AABB
+    from permuto_sdf_tpu_torch.train import train_sdf_from_mesh as tsm
+
+    gt = make_uv_sphere(radius=0.3)
+    tsm.train(gt, nr_iters=1, log_every=1, device=device)  # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    walls = {}
+    for steps in (SDF_SHORT, SDF_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, mcfg, _ = tsm.train(gt, nr_iters=steps, log_every=100, seed=cs.SEED,
+                                    device=device)
+        torch.cuda.synchronize(device)
+        walls[steps] = time.perf_counter() - t0
+    peak = _peak_mib(device)
+    ms_step = (walls[SDF_STEPS] - walls[SDF_SHORT]) * 1e3 / (SDF_STEPS - SDF_SHORT)
+
+    pts, nrm = (torch.from_numpy(a).to(device) for a in
+                sample_points_on_mesh(gt, 300_000, np.random.default_rng(cs.SEED)))
+    aabb = AABB()
+    lo = torch.tensor(aabb.min_corner, device=device)
+    hi = torch.tensor(aabb.max_corner, device=device)
+    optimizer = tsm.make_optimizer()
+    opt_state = optimizer.init(params)
+
+    def step(it):
+        idx, u = tsm.draw_step(tsm.step_generators(cs.SEED, it)[0], 3000, 30000, 300_000)
+        tsm.train_step(params, opt_state, idx, u, pts, nrm, it, mcfg, optimizer, lo, hi)
+
+    step(SDF_STEPS)  # warm-up
+    prof = _profiled(cs, device, "sdf_from_mesh_step", lambda: step(SDF_STEPS + 1))
+
+    fn = lambda p: sdf_apply(params, p, 9_999_999, mcfg)[0]  # noqa: E731
+    spacing = (1.0 / (MESH_RES - 1),) * 3
+    meshes = []
+    for _ in range(MESH_REPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        grid = mc.sdf_grid(fn, MESH_RES, -0.5, 0.5, device=device)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        mc.marching_tetrahedra(grid, 0.0, (-0.5,) * 3, spacing)
+        torch.cuda.synchronize(device)
+        meshes.append({"grid_ms": (t1 - t0) * 1e3, "mesh_ms": (time.perf_counter() - t0) * 1e3})
+        del grid
+    return {"ms_per_step": ms_step, "peak_mib": peak, "profile": prof,
+            "mesh_512": meshes}
+
+
+def nerf_path(cs, device, reel):
+    import torch
+
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    ncfg = tn.NerfTrainConfig()
+    tn.train(reel, ncfg, nr_iters=1, seed=cs.SEED, device=device)  # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    walls = {}
+    for steps in (NERF_SHORT, NERF_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, grid, _ = tn.train(reel, ncfg, nr_iters=steps, seed=cs.SEED, log_every=100,
+                                   device=device)
+        torch.cuda.synchronize(device)
+        walls[steps] = time.perf_counter() - t0
+    peak = _peak_mib(device)
+    ms_step = (walls[NERF_STEPS] - walls[NERF_SHORT]) * 1e3 / (NERF_STEPS - NERF_SHORT)
+    optimizer = tn.make_optimizer(ncfg)
+    opt_state = optimizer.init(params)
+
+    def step(it):
+        tn.train_step(params, opt_state, grid, reel, tps.step_generators(cs.SEED, it)[0], it,
+                      ncfg, optimizer)
+
+    step(NERF_STEPS)  # warm-up
+    prof = _profiled(cs, device, "nerf_step", lambda: step(NERF_STEPS + 1))
+    return {"ms_per_step": ms_step, "peak_mib": peak, "profile": prof}
+
+
+def _numbers(res, prefix=""):
+    """The result's scalar numbers by dotted key; a list of frame or step
+    times counts as its median."""
+    out = {}
+    for k, v in res.items():
+        key = prefix + k
+        if isinstance(v, dict):
+            out.update(_numbers(v, key + "."))
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[key] = v
+        elif k == "mesh_512":
+            for name in ("grid_ms", "mesh_ms"):
+                out[f"{key}.{name}"] = statistics.median(m[name] for m in v)
+    return out
+
+
+def summarize(files):
+    """One line per number: for each label, the median over its runs and
+    the range."""
+    runs = {}
+    for f in files:
+        with open(f) as fh:
+            res = json.loads(fh.read())["encode_paths"]
+        runs.setdefault(res["tree"], []).append(_numbers(res))
+    print("runs: " + ", ".join(f"{label} {len(rs)}" for label, rs in runs.items()))
+    for k in sorted(set().union(*(r for rs in runs.values() for r in rs))):
+        cells = []
+        for label, rs in runs.items():
+            v = [r[k] for r in rs if k in r]
+            cells.append(f"{label} {statistics.median(v):.6g} [{min(v):.6g}, {max(v):.6g}]"
+                         if v else f"{label} -")
+        print(f"{k}: " + "; ".join(cells))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--summarize", nargs="+", metavar="FILE", default=None)
+    args = ap.parse_args(argv)
+    if args.summarize:
+        summarize(args.summarize)
+        return 0
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_encode_paths: needs a GPU", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from permuto_sdf_tpu_torch import kernels
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    if not os.path.dirname(os.path.abspath(cs.__file__)) == root:
+        print(f"torch_encode_paths: chip_smoke not found under {root}", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build()
+    device = torch.device("cuda")
+    cfg = tps.PermutoSDFTrainConfig()
+    res = {"tree": args.label or root, "card": cs.card_line(),
+           "host": host_costs(device, cfg),
+           "frame": frame_path(cs, device, cfg, args.frames)}
+    reel, res["train"] = train_path(cs, device, cfg)
+    res["sdf_from_mesh"] = sdf_from_mesh_path(cs, device)
+    res["nerf"] = nerf_path(cs, device, reel)
+    line = json.dumps({"encode_paths": res})
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

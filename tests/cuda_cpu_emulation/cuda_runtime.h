@@ -6,8 +6,9 @@
 // shuffles and ballots exchange values
 // through a per-warp slot array between two barriers, __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
-// psdf_dynamic_smem are redefined for that. It checks the kernels' logic,
-// not their speed or the GPU's own float rounding.
+// psdf_dynamic_smem are redefined for that (float2 is a plain pair). It
+// checks the kernels' logic, not their speed or the GPU's own float
+// rounding.
 #include <algorithm>
 #include <atomic>
 #include <barrier>
@@ -22,6 +23,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+struct float2 { float x, y; };
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 #define __global__
 #define __device__

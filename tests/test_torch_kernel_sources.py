@@ -66,23 +66,80 @@ def emulated(cpu_kernels, monkeypatch):
     monkeypatch.setattr(kernels, "current_stream", lambda device: ctypes.c_void_p(None))
 
 
-@pytest.mark.parametrize("d,K,window", [(3, 4, False), (3, 3, True), (4, 4, True)])
-def test_kernels_A_B_source_matches_plain(emulated, d, K, window):
+@pytest.mark.parametrize("d,K,window,N,concat", [
+    (3, 4, False, 300, True), (3, 3, True, 300, True), (4, 4, True, 300, True),
+    (3, 4, False, 257, True),  # N not a multiple of A's or B's point tile
+    (3, 2, False, 300, False),  # K < L, concat off
+    (4, 3, True, 257, True),  # d = 4 with a window, K < L, a ragged tile
+    (4, 4, True, 300, False)])
+def test_kernels_A_B_source_matches_plain(emulated, d, K, window, N, concat):
     rng = np.random.default_rng(d * 10 + K)
     spec = pe.PermutoEncodingSpec(pos_dim=d, capacity=2 ** 18, nr_levels=4,
                                   concat_points_scaling=1e-3)
     prm = pe.init_encoding_params(torch.Generator().manual_seed(1), spec, "cpu")
-    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (300, d)).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (N, d)).astype(np.float32))
     scales, E, _ = pe.encoding_constants(spec, None, "cpu")
     win = torch.tensor([1.0, 0.7, 0.3, 0.0]) if window else None
-    args = (pts, prm["lattice_values"], prm["shift_per_level"], scales, win, E, K, 1e-3, True)
+    args = (pts, prm["lattice_values"], prm["shift_per_level"], scales, win, E, K, 1e-3,
+            concat)
     launches = pe.encode_fwd_cuda.launches
     got = pe.encode_fwd_cuda(*args)
     assert pe.encode_fwd_cuda.launches == launches + 1
+    assert got.shape == (N, 2 * K + (d if concat else 0))
     np.testing.assert_array_equal(got.numpy(), pe.encode_fwd_plain(*args).numpy())
     g = torch.from_numpy(rng.normal(size=got.shape).astype(np.float32))
     np.testing.assert_array_equal(pe.encode_point_grad_cuda(*args, g).numpy(),
                                   pe.encode_point_grad_plain(*args, g).numpy())
+
+
+def test_kernels_A_B_interleaved_table_follows_the_table(emulated):
+    """A and B read the table as the cached [L, C, 2] copy: made once per
+    table state (a detached alias, as the trainers pass, reuses it), made
+    again after an in-place Adam update and for a freshly loaded table, and
+    A's output equals the plain version's after each."""
+    import io
+    import weakref
+
+    from permuto_sdf_tpu_torch.train.optimizers import ManualAdam
+
+    rng = np.random.default_rng(5)
+    spec = pe.PermutoEncodingSpec(pos_dim=3, capacity=2 ** 10, nr_levels=4,
+                                  concat_points_scaling=1e-3)
+    params = pe.init_encoding_params(torch.Generator().manual_seed(3), spec, "cpu")
+    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (100, 3)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(100, 11)).astype(np.float32))
+    scales, E, _ = pe.encoding_constants(spec, None, "cpu")
+
+    def check(copies_made, table=None):
+        copies = pe.interleaved_table.copies
+        table = params["lattice_values"] if table is None else table
+        args = (pts, table, params["shift_per_level"], scales, None, E, 4, 1e-3, True)
+        with torch.no_grad():
+            np.testing.assert_array_equal(pe.encode_fwd_cuda(*args).numpy(),
+                                          pe.encode_fwd_plain(*args).numpy())
+            np.testing.assert_array_equal(pe.encode_point_grad_cuda(*args, g).numpy(),
+                                          pe.encode_point_grad_plain(*args, g).numpy())
+        assert pe.interleaved_table.copies == copies + copies_made
+
+    check(1)
+    check(0)  # the same table state: the cached copy
+    check(0, params["lattice_values"].detach().requires_grad_(True))
+    adam = ManualAdam()
+    grads = {"lattice_values": torch.from_numpy(rng.normal(size=(4, 2, 2 ** 10)).astype(
+        np.float32)), "shift_per_level": None}
+    before = params["lattice_values"].clone()
+    adam.update(grads, adam.init(params), params, 1e-3)
+    assert not torch.equal(before, params["lattice_values"])
+    check(1)
+    check(0, params["lattice_values"].detach().requires_grad_(True))
+    buf = io.BytesIO()
+    torch.save(params["lattice_values"] * 2.0, buf)
+    buf.seek(0)
+    old = weakref.ref(params["lattice_values"])
+    params["lattice_values"] = torch.load(buf)
+    check(1)
+    assert old() is None  # the replaced table is gone, and its copy with it
+    assert all(ref() is not None for ref, _, _ in pe._INTERLEAVED.values())
 
 
 @pytest.mark.parametrize("S,P,min_dist", [(64, 512, 1e-4), (40, 64, 0.02)])
