@@ -277,6 +277,42 @@ def time_ms(fn, reps: int, device) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def _dev_us(e):
+    v = getattr(e, "self_device_time_total", None)
+    return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+
+def _kernel_events(prof, kernel):
+    """The profiler's kernel records (device_type CUDA) of ``kernel``'s
+    symbols (KERNEL_SYMBOLS)."""
+    sym = KERNEL_SYMBOLS[kernel]
+    sym = sym if isinstance(sym, tuple) else (sym,)
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and any(x in e.key for x in sym)]
+
+
+def device_ms(fn, kernel: str, device, reps: int = 10):
+    """The card's ms per call of ``fn`` in ``kernel``'s own symbols
+    (torch.profiler over ``reps`` calls after one warm-up call; launches of
+    other kernels in ``fn`` are left out); None if three profiled runs
+    recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(3):  # the profiler now and then delivers no device records: try again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        us = sum(_dev_us(e) for e in _kernel_events(prof, kernel))
+        if us > 0:
+            return us / 1e3 / reps
+    return None
+
+
 def bound_ms(nbytes: float, ops: float):
     """(least ms, which side bounds it, ms of the bytes side, ms of the
     operations side)."""
@@ -486,6 +522,7 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
         b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_A * n * K)
         _report(f"A:{label} N={pts.shape[0]} K={K}", err, TOL_A, ms, pms, b)
         if label == "d3_full":
+            dms = device_ms(lambda: pe.encode_fwd_cuda(*args), "A", device)
             timing = (ms, pms, b)
             # the port's interleaved [L, C, 2] copy A and B read, once per
             # table state: the cache is emptied before each call, so each
@@ -506,7 +543,7 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
         if label in ("d3_full", "d3_rays"):
             b_cases.append((label, args, uniq))
     results["A"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1])
+                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
     # --- B: point gradient of the SDF encoding (d=3, full width) on the
     # random and the ray-ordered points
@@ -524,9 +561,10 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
         _report(f"B:{label} N={pts.shape[0]} (relative)", err, TOL_B, ms, pms, b)
         errs.append((got - want).abs().max().item())
         if label == "d3_full":
+            dms = device_ms(lambda: pe.encode_point_grad_cuda(*args, g), "B", device)
             timing = (ms, pms, b)
     results["B"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1])
+                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
     # --- C: probe sampler on the chunk of rays through the frame's center
     o, dr, te, tx = centre_chunk_rays(device)
@@ -553,9 +591,10 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
         b = bound_ms(nbytes, probe_sampler_ops(te, tx, want[2], P))
         _report(f"C:{label} R={R} valid={int(want[2].sum())}", err, TOL_C, ms, pms, b)
         if label == "full":
+            dms = device_ms(lambda: og.probe_sampler_cuda(*cargs), "C", device)
             timing = (ms, pms, b)
     results["C"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1])
+                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
     # --- D: NeuS mode (fg, S=96) and NeRF mode (bg, S=32)
     errs, timing = [], None
@@ -585,9 +624,10 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
         b = bound_ms(nbytes, OPS_PER_SAMPLE_D * R * S)
         _report(f"D:{label} R={R} S={S}", err, TOL_D, ms, pms, b)
         if label == "neus":
+            dms = device_ms(run_k, "D", device)
             timing = (ms, pms, b)
     results["D"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1])
+                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
     return results
 
 
@@ -652,9 +692,10 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
         b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_F * n * L)
         _report(f"F:{label} N={n} d={d} K={L} (per level, relative)", err, TOL_F, ms, pms, b)
         if label == "sdf":
+            dms = device_ms(lambda: pe.encode_table_grad_cuda(*args), "F", device)
             timing = (ms, pms, b, (got - want).abs().max().item())
     results["F"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1])
+                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
     # --- G: the double backward of the SDF encoding (fg, curvature, sphere init)
     timing = None
@@ -677,9 +718,10 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
         b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_G * n * L)
         _report(f"G:{label} N={n} K={L} (per level / relative)", err, TOL_G, ms, pms, b)
         if label == "sdf":
+            dms = device_ms(lambda: pe.encode_double_backward_cuda(*args), "G", device)
             timing = (ms, pms, b, max((tk - tp).abs().max().item(), (gk - gp).abs().max().item()))
     results["G"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1])
+                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
     # --- D': the backward of kernel D, NeuS (fg) and NeRF (bg) mode
     timing = None
@@ -712,10 +754,11 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
         _report(f"D':{'neus' if mode == 0 else 'nerf'} R={R} S={S} (relative)", err, TOL_DB,
                 ms, pms, b)
         if mode == 0:
+            dms = device_ms(lambda: vr.render_weights_bwd_cuda(*args), "D'", device)
             timing = (ms, pms, b, max((a - b_.reshape(a.shape)).abs().max().item()
                                       for a, b_ in zip(got, want) if b_ is not None))
     results["D'"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
-                         bound_ms=timing[2][0], bound_by=timing[2][1])
+                         bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
     # --- I: the occupancy refresh (probe ids and centers; the grid update)
     gcfg = cfg.grid
@@ -752,7 +795,9 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
     b = bound_ms(nbytes, OPS_PER_PROBE_I * n)
     _report(f"I n={n} grid={gcfg.nr_voxels_per_dim}^3 (both entries; "
             f"{int((~grids[0].occupancy).sum())} voxels emptied)", err, TOL_I, ms, pms, b)
-    results["I"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(run_k, "I", device)
+    results["I"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                        device_ms=dms)
     return results
 
 
@@ -853,7 +898,9 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "H1": "take_rows_kernel", "H2": "scatter_rows_kernel",
                   "L": "train_lod_select_kernel", "D2": "render_mixed_kernel",
                   "D2'": "render_mixed_bwd_kernel", "M1": "mt_count_kernel",
-                  "M2": "mt_emit_kernel"}
+                  "M2": "mt_emit_kernel", "C3": "first_occupied_kernel",
+                  "J3": "trace_step_pos_kernel", "C2": "samples_fg_kernel",
+                  "I2": "density_update_kernel"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -879,32 +926,30 @@ def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
 
 
 def _profile_summary(prof, wall_ms, what, top=12):
-    """Device time by kernel name, the share of the port's kernels and the
-    device's busy share of the profiled wall time; prints a ``profile``
-    JSON line."""
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
-
+    """Device time and launches by kernel name, the share of the port's
+    kernels and the device's busy share of the profiled wall time; prints a
+    ``profile`` JSON line."""
     # kernel records only (device_type CUDA): operator records carry the
     # device time of the kernels they launched as well
     events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
-    total_ms = sum(dev_us(e) for e in events) / 1e3
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0]
+    total_ms = sum(_dev_us(e) for e in events) / 1e3
     if total_ms <= 0:
         print(json.dumps({"profile": "not measured: the profiler recorded no device time"}))
         return None
-    events.sort(key=dev_us, reverse=True)
-    by_kernel = {k: sum(dev_us(e) for e in events
-                        if any(x in e.key for x in (sym if isinstance(sym, tuple) else (sym,))))
-                 / 1e3 for k, sym in KERNEL_SYMBOLS.items()}
+    events.sort(key=_dev_us, reverse=True)
+    mine = {k: _kernel_events(prof, k) for k in KERNEL_SYMBOLS}
+    by_kernel = {k: sum(_dev_us(e) for e in ev) / 1e3 for k, ev in mine.items()}
+    launches = {k: sum(e.count for e in ev) for k, ev in mine.items()}
     summary = {
         f"{what}_wall_ms_profiled": wall_ms,
         "device_busy_ms": total_ms,
         "device_idle_share": max(0.0, 1.0 - total_ms / wall_ms),
         "kernels_ms": by_kernel,
+        "kernels_launches": launches,
+        "kernels_us_per_launch": {k: by_kernel[k] / n * 1e3 for k, n in launches.items() if n},
         "kernels_share_of_device": sum(by_kernel.values()) / total_ms,
-        "top": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3, "count": e.count}
+        "top": [{"name": e.key[:80], "device_ms": _dev_us(e) / 1e3, "count": e.count}
                 for e in events[:top]],
     }
     print(json.dumps({"profile": {what: summary}}), flush=True)
@@ -1059,6 +1104,10 @@ def train_phase(device, cfg):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"train: the training path launched no kernel {missing}")
+    # the importance stage of the reference profile: E1, then E2 in form c
+    if not counts["E1"] == counts["E2"] == len(times) - 1:
+        fail(f"train: E1/E2 launches {counts['E1']}/{counts['E2']} in {len(times) - 1} steps, "
+             f"expected one each a step")
     _check_copies("train", counts, params, len(times) - 1)
     after = _param_groups(params)
     for name, old in before.items():
@@ -1302,7 +1351,9 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
     hist = torch.bincount(want.to(torch.int64), minlength=cap + 1)
     _report(f"J0 V={gcfg.nr_voxels_per_dim} cap={cap} (occupied {int(hist[0])}, "
             f"at the cap {int(hist[cap])})", err, 0.0, ms, pms, b)
-    results["J0"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(lambda: og.chebyshev_field_cuda(gcfg, grid.occupancy, cap), "J0", device)
+    results["J0"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         device_ms=dms)
     field = got
 
     # --- the padded state of one 400x400 chunk
@@ -1353,7 +1404,9 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
     b = bound_ms((R + 1) * (12 + 12 + 4 + 4 + 1 + 4 + 1) + voxels + 4, lookups * OPS_PER_LOOKUP)
     _report(f"J1 R={R} jumps={jumps} (alive {int(state0['alive_f'].sum())} -> {int(n_p)}, "
             f"{lookups} lookups of {voxels} voxels)", err, TOL_J, ms, pms, b)
-    results["J1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(lambda: run_j1(st.jump_prepass_cuda), "J1", device)
+    results["J1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         device_ms=dms)
 
     # --- H0: the round-0 bucket of the parked rays; below, at and above the count
     state1 = ps  # after the prepass
@@ -1372,8 +1425,9 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
     b = bound_ms(R + 8 * bucket + 4, 2 * R)
     _report(f"H0 n={R} count={count} bucket={bucket} (library torch.nonzero {lib_ms:.4f} ms)",
             0.0, 0.0, ms, pms, b)
+    dms = device_ms(lambda: compaction.nonzero_static_cuda(mask, bucket, R), "H0", device)
     results["H0"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-                         library_ms=lib_ms)
+                         library_ms=lib_ms, device_ms=dms)
 
     # --- J2: one iteration of round 0 (LOD 6) on that bucket, 4 chained jumps
     idx, _ = compaction.nonzero_static_plain(mask, bucket, R)
@@ -1414,7 +1468,9 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
                  + lookups * OPS_PER_LOOKUP)
     _report(f"J2 R={R} bucket={bucket} substeps=4 (counts {out_p[1].tolist()}, {lookups} "
             f"lookups of {voxels} voxels)", err, TOL_J, ms, pms, b)
-    results["J2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(lambda: run_j2(st.trace_step_cuda), "J2", device)
+    results["J2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         device_ms=dms)
     return results, field
 
 
@@ -1635,14 +1691,25 @@ def sphere_cross_check(device, cfg, params, grid, field):
 # H2), the LOD volumetric frame and the hit-ray training step
 # ---------------------------------------------------------------------------
 
-def importance_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
+def importance_kernel_phases(device, cfg, params, grid, frame_profile=None, reps=20,
+                             plain_reps=3):
     """Kernels E1 and E2 against their plain versions on the samples of one
     chunk of the exact frame (R = CHUNK rays through the frame's center,
     kernel C's uniform samples, the proxy sdf on the imp_sampling_max_levels
-    coarsest levels; round 1 at S = 64, round 2 at S = 80, no jitter) and of
-    the training step (the first nr_rays of them, jitter on). Masks and a
-    carried sdf must be exact, z and dt within TOL_E. Returns {kernel:
-    numbers} timed at the chunk's round-1 and first-merge shapes."""
+    coarsest levels, no jitter) and of the training step (the first nr_rays
+    of them, jitter on): E1's round 1 (S = 64); E2 in its three forms on
+    round 1's samples and draws (64 + 16 with sdf): (a) the merge, (b) the
+    merge and round 2, (c) the merge, round 2 and the draws merged in; (a)
+    again on (b)'s merged set and draws with their sdf (80 + 16, the
+    train-time LOD's last merge); and the three forms on an unsorted batch
+    (the draws in reverse order), which takes E2's count branch. The merged
+    sets of (a) and (b) must equal the plain merge bit for bit (z, dt, mask,
+    sdf); the draws of (b) and z and dt of (c) are within TOL_E, their masks
+    exact. Prints the share of the chunk's rays whose two sets are both
+    ascending (E2's merge branch) and, from ``frame_profile`` (the exact
+    frame's ``_profile_summary``), the device µs per launch beside the
+    timings. Returns {kernel: numbers} timed at the chunk's shapes (E2 in
+    each form; its row is form c, the one the exact frame launches)."""
     import dataclasses
 
     import numpy as np
@@ -1668,15 +1735,22 @@ def importance_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
                                          max_levels=cfg.imp_sampling_max_levels
                                          ).reshape(smp.mask.shape)
 
+    def ascending(smp):
+        key = torch.where(smp.mask, smp.z, torch.full_like(smp.z, float("inf")))
+        return (key[:, 1:] >= key[:, :-1]).all(dim=1)
+
     errs = {"E1": [0.0, 0], "E2": [0.0, 0]}
+    fields = lambda r: {f: getattr(r, f) for f in ("z", "dt", "mask", "sdf")}  # noqa: E731
 
     def check(name, what, got, want, exact=("mask",), close=("z",)):
         for f in exact:
             a, b = got[f], want[f]
             if a is None and b is None:
                 continue
-            if not torch.equal(a, b):
-                fail(f"kernel {name} ({what}): {f} differs in {int((a != b).sum())} slots")
+            if a is None or b is None or not torch.equal(a, b):
+                bad = "one side has none" if a is None or b is None else (
+                    f"differs in {int((a != b).sum())} slots")
+                fail(f"kernel {name} ({what}): {f} {bad}")
         for f in close:
             d = (got[f] - want[f]).abs()
             errs[name][0] = max(errs[name][0], d.max().item())
@@ -1695,7 +1769,8 @@ def importance_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
                if jittered else None for _ in range(2)]
         sdf = proxy_sdf(smp)
         smp = smp.with_sdf(sdf)
-        # round 1, the first merge (carrying sdf), round 2, the last merge
+        # round 1 (E1), then E2's three forms on its draws as the path gives
+        # them (ascending) and reversed (the count branch)
         a1 = (smp, sdf, n, jit[0], 1.0)
         zk, mk = isp.importance_round_cuda(*a1)
         zp, mp = isp.importance_round_plain(*a1)
@@ -1703,43 +1778,100 @@ def importance_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
               {"z": zp, "mask": mp})
         imp = isp.importance_round(smp, sdf, n, jit[0], 1.0)
         imp = imp.with_sdf(proxy_sdf(imp))
-        m_args = (smp, imp, tx)
-        gk, gp = isp.merge_samples_cuda(*m_args), vr.combine_uniform_samples_with_imp(*m_args)
-        fields = lambda r: {f: getattr(r, f) for f in ("z", "dt", "mask", "sdf")}  # noqa: E731
-        check("E2", f"{label} merge 1 S={gp.max_samples} with sdf", fields(gk), fields(gp),
-              exact=("mask", "sdf"), close=("z", "dt"))
-        a2 = (gp, gp.sdf, n, jit[1], 2.0)
-        zk2, mk2 = isp.importance_round_cuda(*a2)
-        zp2, mp2 = isp.importance_round_plain(*a2)
-        check("E1", f"{label} round 2 S={gp.max_samples}", {"z": zk2, "mask": mk2},
-              {"z": zp2, "mask": mp2})
-        imp2 = isp.importance_round(gp, gp.sdf, n, jit[1], 2.0)
-        m2 = (dataclasses.replace(gp, sdf=None), imp2, tx)
-        check("E2", f"{label} merge 2 S={gp.max_samples + n}", fields(isp.merge_samples_cuda(*m2)),
-              fields(vr.combine_uniform_samples_with_imp(*m2)), close=("z", "dt"))
+        share = (ascending(smp) & ascending(imp)).float().mean().item()
+        print(f"[kernel E2] {label}: share of the rays whose two sets are both ascending (the "
+              f"merge branch): {share:.6f}", flush=True)
+        if label == "chunk":
+            branch_share = share
+        rev = dataclasses.replace(imp, z=imp.z.flip(1), sdf=imp.sdf.flip(1))
+        if label == "chunk" and (ascending(smp) & ascending(rev)).all():
+            fail("kernel E2: the reversed draws are still ascending on every ray")
+        for order, b in (("ascending", imp), ("reversed", rev)):
+            m_args = (smp, b, tx)
+            what = f"{label} {order} S={smp.max_samples}+{n}"
+            gp = vr.combine_uniform_samples_with_imp(*m_args)
+            check("E2", f"{what} (a) with sdf", fields(isp.merge_samples_cuda(*m_args)),
+                  fields(gp), exact=("z", "dt", "mask", "sdf"), close=())
+            b_args = m_args + (n, jit[1])
+            mk_, dk_ = isp.merge_samples_cuda(*b_args)
+            mp_, dp_ = isp.merge_samples_plain(*b_args)
+            check("E2", f"{what} (b) merged", fields(mk_), fields(mp_),
+                  exact=("z", "dt", "mask", "sdf"), close=())
+            check("E2", f"{what} (b) draws", {"z": dk_.z, "mask": dk_.mask},
+                  {"z": dp_.z, "mask": dp_.mask})
+            check("E2", f"{what} (c)", fields(isp.merge_samples_cuda(*b_args, merge_draws=True)),
+                  fields(isp.merge_samples_plain(*b_args, merge_draws=True)),
+                  exact=("mask", "sdf"), close=("z", "dt"))
+            if order == "ascending":
+                # the train-time LOD's last merge: (b)'s set and draws with sdf
+                m2 = (mk_, dk_.with_sdf(proxy_sdf(dk_)), tx)
+                check("E2", f"{label} (a) S={mk_.max_samples}+{n} with sdf",
+                      fields(isp.merge_samples_cuda(*m2)),
+                      fields(vr.combine_uniform_samples_with_imp(*m2)),
+                      exact=("z", "dt", "mask", "sdf"), close=())
+                c_args, a_args = b_args, m_args
+                inf = float("inf")
+                sort_keys = torch.cat([torch.where(mk_.mask, mk_.z, inf),
+                                       torch.where(dk_.mask, dk_.z, inf)], dim=1)
         valid = int(smp.mask.sum())
         print(f"[kernel E] {label}: R={R} n={n} jitter={jittered} valid uniform samples "
               f"{valid}; E1 max z err {errs['E1'][0]:.3e} ({errs['E1'][1]} above 1e-6), "
-              f"E2 max z/dt err {errs['E2'][0]:.3e} ({errs['E2'][1]} above 1e-6)", flush=True)
+              f"E2 max z/dt err {errs['E2'][0]:.3e} ({errs['E2'][1]} above 1e-6); E2's merged "
+              f"sets equal the plain merge", flush=True)
         if label != "chunk":
             continue
         S = smp.max_samples
+        S2 = S + n
         timing["E1"] = (time_ms(lambda: isp.importance_round_cuda(*a1), reps, device),
                         time_ms(lambda: isp.importance_round_plain(*a1), plain_reps, device),
                         bound_ms(R * S * (4 + 4 + 4 + 1) + R * 4 + R * n * (4 + 1),
-                                 R * S * OPS_PER_SAMPLE_E1 + R * n * OPS_PER_DRAW_E1))
-        S2 = S + n
-        timing["E2"] = (time_ms(lambda: isp.merge_samples_cuda(*m_args), reps, device),
-                        time_ms(lambda: vr.combine_uniform_samples_with_imp(*m_args), plain_reps,
-                                device),
-                        bound_ms(R * S2 * (4 + 1 + 4) + R * 8 + R * S2 * (4 + 4 + 1 + 4),
-                                 R * S2 * (math.ceil(math.log2(S2)) + OPS_PER_SLOT_E2)))
-    for name in ("E1", "E2"):
-        ms, pms, b = timing[name]
-        what = "round 1, S=64" if name == "E1" else "merge 1, 64+16 with sdf"
-        _report(f"{name} R={CHUNK} ({what})", errs[name][0], TOL_E, ms, pms, b)
-        results[name] = dict(max_abs_err=errs[name][0], ms=ms, plain_ms=pms, bound_ms=b[0],
-                             bound_by=b[1], count_above_1e6=errs[name][1])
+                                 R * S * OPS_PER_SAMPLE_E1 + R * n * OPS_PER_DRAW_E1),
+                        device_ms(lambda: isp.importance_round_cuda(*a1), "E1", device))
+        # each form's own bytes: its inputs once, its outputs once
+        read = R * S2 * (4 + 1 + 4) + R * 8
+        merge_ops = R * S2 * (math.ceil(math.log2(S2)) + OPS_PER_SLOT_E2)
+        draw_ops = R * S2 * OPS_PER_SAMPLE_E1 + R * n * OPS_PER_DRAW_E1
+        T = S2 + n
+        forms = {"a": (lambda: isp.merge_samples_cuda(*a_args),
+                       lambda: vr.combine_uniform_samples_with_imp(*a_args),
+                       bound_ms(read + R * S2 * (4 + 4 + 1 + 4), merge_ops)),
+                 "b": (lambda: isp.merge_samples_cuda(*c_args),
+                       lambda: isp.merge_samples_plain(*c_args),
+                       bound_ms(read + R * S2 * (4 + 4 + 1 + 4) + R * n * (4 + 1),
+                                merge_ops + draw_ops)),
+                 "c": (lambda: isp.merge_samples_cuda(*c_args, merge_draws=True),
+                       lambda: isp.merge_samples_plain(*c_args, merge_draws=True),
+                       bound_ms(read + R * T * (4 + 4 + 1), merge_ops + draw_ops
+                                + R * T * (math.ceil(math.log2(T)) + OPS_PER_SLOT_E2)))}
+        for form, (run_k, run_p, b) in forms.items():
+            timing["E2" + form] = (time_ms(run_k, reps, device),
+                                   time_ms(run_p, plain_reps, device), b,
+                                   device_ms(run_k, "E2", device))
+        sort_ms = time_ms(lambda: torch.sort(sort_keys, dim=1, stable=True), reps, device)
+        sort_shape = list(sort_keys.shape)
+    prof = {}
+    if frame_profile is not None:
+        for k in ("E1", "E2"):
+            nl = frame_profile["kernels_launches"].get(k, 0)
+            prof[k] = frame_profile["kernels_ms"][k] / nl * 1e3 if nl else None
+    for name, what in (("E1", "round 1, S=64"), ("E2:a", "merge 64+16 with sdf"),
+                       ("E2:b", "merge 64+16, round 2"),
+                       ("E2:c", "merge 64+16, round 2, merge 80+16")):
+        ms, pms, b, dms = timing[name.replace(":", "")]
+        kernel = name[:2]
+        dev_us = prof.get(kernel)
+        _report(f"{name} R={CHUNK} ({what}; device "
+                f"{dms * 1e3 if dms is not None else float('nan'):.2f} us a call here, "
+                f"{dev_us if dev_us is not None else float('nan'):.2f} a launch in the exact "
+                f"frame's profile)", errs[kernel][0], TOL_E, ms, pms, b)
+        results[name] = dict(max_abs_err=errs[kernel][0], ms=ms, plain_ms=pms, bound_ms=b[0],
+                             bound_by=b[1], device_ms=dms, count_above_1e6=errs[kernel][1],
+                             frame_profile_us_per_launch=dev_us)
+    print(f"[kernel E2] torch.sort(keys, stable=True) at {sort_shape}: "
+          f"{sort_ms:.4f} ms (the cost of the order alone)", flush=True)
+    forms = {f: results.pop("E2:" + f) for f in "abc"}
+    results["E2"] = dict(forms["c"], forms=forms, sort_ms=sort_ms,
+                         merge_branch_share=branch_share)
     return results
 
 
@@ -1794,9 +1926,12 @@ def hit_ray_kernel_phases(device, cfg, reps=20, plain_reps=3):
     _report(f"H1 R={R} S={S} bucket={B} hits={hits} (8 arrays)", 0.0, 0.0, *t1)
     _report(f"H2 R={R} bucket={B} (4 arrays; backward = H1, exact)", 0.0, 0.0, *t2)
     return {"H1": dict(max_abs_err=0.0, ms=t1[0], plain_ms=t1[1], bound_ms=t1[2][0],
-                       bound_by=t1[2][1]),
+                       bound_by=t1[2][1], device_ms=device_ms(
+                           lambda: compaction.take_rows_cuda(arrays, idx), "H1", device)),
             "H2": dict(max_abs_err=0.0, ms=t2[0], plain_ms=t2[1], bound_ms=t2[2][0],
-                       bound_by=t2[2][1])}
+                       bound_by=t2[2][1], device_ms=device_ms(
+                           lambda: compaction.scatter_rows_cuda(xs, idx, R, fills), "H2",
+                           device))}
 
 
 LOD = (12, 32)  # the interactive viewer's volumetric mode (interactive.py:127-134)
@@ -1838,6 +1973,11 @@ def lod_render_phase(device, cfg, scenes, exact, frames=N_FRAMES):
         missing = [k for k in RENDER_KERNELS if counts[k] <= 0]
         if missing:
             fail(f"LOD render on the {name} scene launched no kernel {missing}")
+        # stage 1's importance stage: E1 and one E2 (form c) per chunk
+        expected = -(-WIDTH * HEIGHT // CHUNK) * frames
+        if not counts["E1"] == counts["E2"] == expected:
+            fail(f"LOD render on the {name} scene: E1/E2 launches {counts['E1']}/"
+                 f"{counts['E2']}, expected {expected} each")
         for t in img:
             if not torch.isfinite(t).all():
                 fail(f"LOD render on the {name} scene produced non-finite values")
@@ -2239,8 +2379,9 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     _report(f"L R={R} S={S} K={K} E={E} ({int(smp.mask.sum())} valid samples; sel exact on "
             f"{R - int(diff.sum())} rays, a tie under rounding on {n_tie}; cos_fd relative)",
             cos_err, TOL_L_COS, ms, pms, b)
+    dms = device_ms(lambda: vr.train_lod_select_cuda(*args), "L", device)
     results["L"] = dict(max_abs_err=(cos_k - cos_p).abs().max().item(), ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-                        sel_rays_exact=R - int(diff.sum()), sel_rays_tied=n_tie)
+                        sel_rays_exact=R - int(diff.sum()), sel_rays_tied=n_tie, device_ms=dms)
 
     # --- D2 and D2': the mixed chain on the fine set's full-width fields, and
     # on the same rays with a planted surface (carried and fine sdf uniform in
@@ -2270,7 +2411,9 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     pms = time_ms(lambda: vr.neus_render_mixed_plain(*margs), plain_reps, device)
     _report(f"D2 R={R} S={S} K+E={KE} (mixed chain; the step's sdf and a planted one)", err,
             TOL_D, ms, pms, b)
-    results["D2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(lambda: vr.neus_render_mixed_cuda(*margs), "D2", device)
+    results["D2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         device_ms=dms)
     cots = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
             for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
     err = abs_err = 0.0
@@ -2288,8 +2431,9 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     pms = time_ms(lambda: vr.neus_render_mixed_bwd_plain(*margs, *cots), plain_reps, device)
     _report(f"D2' R={R} S={S} K+E={KE} (relative; the step's sdf and a planted one)", err,
             TOL_DB, ms, pms, b)
+    dms = device_ms(lambda: vr.neus_render_mixed_bwd_cuda(*margs, *cots), "D2'", device)
     results["D2'"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=pms, bound_ms=b[0],
-                          bound_by=b[1])
+                          bound_by=b[1], device_ms=dms)
 
     # --- F and G with alternating-level table gradients at the fine set's size
     L = cfg.nr_levels
@@ -2390,7 +2534,20 @@ def _train_window(device, label, run_cfg, params, grid, reel, start, steps):
                         "launches": counts}
 
 
-LEVER_WINDOW_KERNELS = ("A", "B", "D", "D'", "F", "G", "L", "D2", "D2'", "H1", "H2")
+LEVER_WINDOW_KERNELS = ("A", "B", "D", "D'", "E1", "E2", "F", "G", "L", "D2", "D2'", "H1",
+                        "H2")
+
+
+def _check_importance_launches(label, run):
+    """Each step of a ``_train_window`` run: the importance stage is E1 and
+    one E2 (form c), or with the train-time LOD, which carries the second
+    round's sdf, E1 and two E2 (forms b and a)."""
+    for rec in run["per_step"]:
+        got = (rec["launches"]["E1"], rec["launches"]["E2"])
+        want = (1, 2 if rec["lod"] is not None else 1)
+        if got != want:
+            fail(f"train window ({label}): iteration {rec['it']} launched E1/E2 {got}, "
+                 f"expected {want}")
 
 
 def _split_at(run, gate_it, kernels_=LEVER_WINDOW_KERNELS):
@@ -2435,6 +2592,7 @@ def lever_train_phase(device, cfg, params, grid, reel, sphere_params, sphere_gri
     runs = {}
     for label, run_cfg in (("reference", cfg), ("levers", lever_cfg), ("reference_again", cfg)):
         _, run = _train_window(device, label, run_cfg, params, grid, reel, start, TRAIN_STEPS)
+        _check_importance_launches(label, run)
         run["by_gate"] = _split_at(run, gate_it)
         runs[label] = run
         parts = "; ".join(f"{k} the gate: {v['steps']} steps, median {v['ms_per_step_median']:.1f}"
@@ -2463,6 +2621,7 @@ def lever_train_phase(device, cfg, params, grid, reel, sphere_params, sphere_gri
     hit_cfg = _lever_cfg(cfg, hit_ray_frac=hit_frac, lever_start_iter=explicit)
     _, run = _train_window(device, "levers_hit_rays", hit_cfg, sp, sphere_grid, reel, start_s,
                            TRAIN_STEPS)
+    _check_importance_launches("levers_hit_rays", run)
     gate_s = cfg.nr_iter_sphere_fit + explicit
     run["by_gate"] = _split_at(run, gate_s)
     run["gate_iter"], run["hit_ray_frac_start"] = gate_s, hit_frac
@@ -2648,9 +2807,13 @@ def mesh_kernel_phases(device, cfg, sphere_params, reps=20, plain_reps=2):
               f"(bound {bm[0]:.4g}, {bm[1]}), plain {pms:.1f} ms", flush=True)
         if label == "sphere_scene":
             results["M1"] = dict(max_abs_err=float(m1_err), ms=ms1, plain_ms=pms1,
-                                 bound_ms=b1[0], bound_by=b1[1])
+                                 bound_ms=b1[0], bound_by=b1[1],
+                                 device_ms=device_ms(lambda: mc.mt_count_cuda(grid, 0.0), "M1",
+                                                     device))
             results["M2"] = dict(max_abs_err=abs_err, ms=ms2, plain_ms=pms2, bound_ms=b2[0],
-                                 bound_by=b2[1])
+                                 bound_by=b2[1], device_ms=device_ms(
+                                     lambda: mc.mt_emit_cuda(grid, 0.0, counts, offsets, T,
+                                                             origin, spacing), "M2", device))
         if label == "planted" and not (summary[label]["degenerate"] > 0
                                        and summary[label]["unreferenced_vertices"] > 0):
             fail("kernel M: the planted grid reached no degenerate face")
@@ -2921,8 +3084,9 @@ def plain_trace_kernel_phases(device, cfg, params, grid, field, reps=20, plain_r
     b = bound_ms(R * 8 * 4 + voxels + R * 5, probes * OPS_PER_PROBE + int(meets.sum()) * 6)
     _report(f"C3 R={R} P={P} (has {int(want[1].sum())}, {probes} probes needed, {voxels} "
             f"voxels; t_first {ulp} ulp)", float(ulp), TOL_C3_ULP, ms, pms, b)
+    dms = device_ms(lambda: og.first_occupied_cuda(*cargs), "C3", device)
     results["C3"] = dict(max_abs_err=(got[0] - want[0]).abs().max().item(), ms=ms, plain_ms=pms,
-                         bound_ms=b[0], bound_by=b[1])
+                         bound_ms=b[0], bound_by=b[1], device_ms=dms)
 
     # --- J3: one iteration of the full-state loop on one chunk
     mid = (R // 2 // PT_CHUNK) * PT_CHUNK
@@ -2982,7 +3146,9 @@ def plain_trace_kernel_phases(device, cfg, params, grid, field, reps=20, plain_r
     _report(f"J3 rows={n} (alive {int(state0['alive_f'].sum())}, converged "
             f"{int(ps['conv_f'].sum())}, {lookups} jumps of {voxels} voxels; the bucket form "
             f"too)", err, TOL_J3, ms, pms, b)
-    results["J3"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(lambda: run_j3(st.trace_step_pos_cuda), "J3", device)
+    results["J3"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         device_ms=dms)
     return results
 
 
@@ -3186,7 +3352,9 @@ def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
     pms = time_ms(lambda: rs.samples_fg_plain(*cargs), plain_reps, device)
     b = bound_ms(R * 12 + R * S * 9 + R * 4, R * S * OPS_PER_SAMPLE_C2)
     _report(f"C2 R={R} S={S} (valid {int(want[2].sum())})", err, 0.0, ms, pms, b)
-    results["C2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(lambda: rs.samples_fg_cuda(*cargs), "C2", device)
+    results["C2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         device_ms=dms)
 
     gcfg, n = ncfg.grid, ncfg.grid_nr_random_samples
     jitter = (torch.rand((n, 3), generator=torch.Generator().manual_seed(SEED)) - 0.5).to(device)
@@ -3220,7 +3388,9 @@ def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
     flips = int((grids[1].occupancy != grid0.occupancy).sum())
     _report(f"I2 n={n} grid={gcfg.nr_voxels_per_dim}^3 ({flips} voxels flipped)", err, 0.0,
             ms, pms, b)
-    results["I2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1])
+    dms = device_ms(lambda: run_i2(og.density_update_cuda), "I2", device)
+    results["I2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                         device_ms=dms)
     return results
 
 
@@ -3356,6 +3526,7 @@ def gridfree_phase(device, cfg, params, grid, reel):
     for label, run_cfg in (("grid", cfg),
                            ("gridfree", dataclasses.replace(cfg, use_occupancy_grid=False))):
         _, run = _train_window(device, label, run_cfg, params, grid, reel, start, TRAIN_STEPS)
+        _check_importance_launches(label, run)
         timed = [r["ms"] for r in run["per_step"][WARMUP_STEPS:]]
         med = statistics.median(timed)
         samples = statistics.mean(r["nr_samples"] for r in run["per_step"])
@@ -3441,19 +3612,25 @@ def main() -> int:
         missing = [k for k in RENDER_KERNELS if c[k] <= 0]
         if missing:
             fail(f"render on the {name} grid launched no kernel {missing}")
-        # the importance stage: two rounds (E1) and two merges (E2) per chunk
-        if not c["E1"] == c["E2"] == 2 * chunks * N_FRAMES:
+        # the importance stage: round 1 (E1), then the merges and round 2 in
+        # one launch of E2 (form c) per chunk
+        if not c["E1"] == c["E2"] == chunks * N_FRAMES:
             fail(f"render on the {name} grid: E1/E2 launches {c['E1']}/{c['E2']}, expected "
-                 f"{2 * chunks * N_FRAMES} each")
+                 f"{chunks * N_FRAMES} each")
         # one table state over the frames: at most one copy per hash table
         if not c["copies"] <= encoding_tables(params):
             fail(f"render on the {name} grid: {c['copies']} interleaved-table copies for "
                  f"{encoding_tables(params)} tables")
 
     # where the frame's device time goes (one extra profiled frame)
-    profile_phase(device, cfg, params, grids["full"], WIDTH, HEIGHT, CHUNK)
-    # E1 and E2 against their plain versions at one chunk's and one step's shapes
-    results.update(importance_kernel_phases(device, cfg, params, grids["full"]))
+    frame_profile = profile_phase(device, cfg, params, grids["full"], WIDTH, HEIGHT, CHUNK)
+    if frame_profile is not None:
+        print("[device per launch] exact frame's profile, us: " + ", ".join(
+            f"{k} {v:.2f} ({frame_profile['kernels_launches'][k]} launches)"
+            for k, v in frame_profile["kernels_us_per_launch"].items()), flush=True)
+    # E1 and E2 (its three forms) against their plain versions at one
+    # chunk's and one step's shapes
+    results.update(importance_kernel_phases(device, cfg, params, grids["full"], frame_profile))
 
     # 4. the card against the CPU on the same rays
     cross_check(device, cfg, params, grids["full"], images["full"], WIDTH, HEIGHT)
@@ -3606,7 +3783,12 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "max_err": GATED[k][0],
                         "err_kind": ERR_KIND[k], "tol": GATED[k][1], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                        "device_ms": r.get("device_ms")})
+    print("[device ms per call] at the kernel phases' shapes (torch.profiler, the kernel's own "
+          "symbols): " + ", ".join(
+              f"{e['name'].split(':')[0]} {e['device_ms']:.5f}" if e["device_ms"] is not None
+              else f"{e['name'].split(':')[0]} not measured" for e in entries), flush=True)
     render = {}
     for k, v in times.items():
         med = statistics.median(v)
@@ -3619,7 +3801,8 @@ def main() -> int:
                      "e_launches_per_chunk": (counts[k]["E1"] + counts[k]["E2"])
                      / (chunks * N_FRAMES)}
     print(json.dumps({"render": render, "interleave_copy": results["interleave_copy"],
-                      "card": card}), flush=True)
+                      "frame_device_us_per_launch": (frame_profile or {}).get(
+                          "kernels_us_per_launch"), "card": card}), flush=True)
     print(json.dumps({"train": train_summary, "card": card}), flush=True)
     print(json.dumps({"sphere_traced": {"operating_point": ST_KW, "scene": scene_summary,
                                         "runs": st_runs, "cross_check": st_cross,

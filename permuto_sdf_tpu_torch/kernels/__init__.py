@@ -88,7 +88,7 @@ SIGNATURES = {
     },
     "importance_sampling": {
         "psdf_importance_round": [_I] * 3 + [_P] * 6 + [_F] + [_P] * 3,
-        "psdf_merge_samples": [_I] * 3 + [_P] * 13,
+        "psdf_merge_samples": [_I] * 4 + [_P] * 9 + [_F, _I] + [_P] * 7,
     },
     "marching_tets": {
         "psdf_mt_count": [_P, _I, _I, _I, _F] + [_P] * 4,
@@ -209,7 +209,12 @@ def dispatch(device, cuda_fn, plain_fn):
 
 
 def current_stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The raw handle of ``device``'s current CUDA stream. Read through
+    ``torch._C._cuda_getCurrentRawStream`` (as PyTorch's own generated
+    kernels read it): ``torch.cuda.current_stream`` builds a Stream object
+    per call, ~12 us of host time on an H100 host against ~0.2."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -26,6 +26,75 @@ __device__ __forceinline__ T* psdf_dynamic_smem() {
 
 #define PSDF_FULL_MASK 0xffffffffu
 
+// Copies nbytes from src to dst with the calling warp's lanes, in 16-, 4-
+// or 1-byte units: the widest that both addresses and nbytes allow (a row
+// stored from shared memory in whole vectors).
+__device__ __forceinline__ void psdf_warp_copy(void* dst, const void* src, int nbytes) {
+  const int lane = threadIdx.x & 31;
+  const uintptr_t a = (uintptr_t)dst | (uintptr_t)src | (uintptr_t)nbytes;
+  if ((a & 15) == 0) {
+    for (int i = lane; i < nbytes / 16; i += 32)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+  } else if ((a & 3) == 0) {
+    for (int i = lane; i < nbytes / 4; i += 32)
+      reinterpret_cast<uint32_t*>(dst)[i] = reinterpret_cast<const uint32_t*>(src)[i];
+  } else {
+    for (int i = lane; i < nbytes; i += 32)
+      reinterpret_cast<uint8_t*>(dst)[i] = reinterpret_cast<const uint8_t*>(src)[i];
+  }
+}
+
+// Asynchronous copies from global to shared memory (cp.async, sm_80+):
+// every copy a warp starts is in flight at once, and psdf_stage_wait()
+// waits for all of them. The CPU emulation of the tests defines its own,
+// synchronous ones.
+#ifndef PSDF_CP_ASYNC
+__device__ __forceinline__ void psdf_cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void psdf_cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void psdf_cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+#endif
+
+// Stages nbytes from global memory src into shared memory dst with the
+// calling warp's lanes: asynchronous 16- or 4-byte copies where both
+// addresses and nbytes allow, else plain byte copies. Start every row of
+// a ray this way, then psdf_stage_wait() once: the rows' loads overlap.
+__device__ __forceinline__ void psdf_warp_stage(void* dst, const void* src, int nbytes) {
+  const int lane = threadIdx.x & 31;
+  const uintptr_t a = (uintptr_t)dst | (uintptr_t)src | (uintptr_t)nbytes;
+  if ((a & 15) == 0) {
+    for (int i = lane; i < nbytes / 16; i += 32)
+      psdf_cp_async16(static_cast<uint8_t*>(dst) + 16 * i,
+                      static_cast<const uint8_t*>(src) + 16 * i);
+  } else if ((a & 3) == 0) {
+    for (int i = lane; i < nbytes / 4; i += 32)
+      psdf_cp_async4(static_cast<uint8_t*>(dst) + 4 * i,
+                     static_cast<const uint8_t*>(src) + 4 * i);
+  } else {
+    for (int i = lane; i < nbytes; i += 32)
+      static_cast<uint8_t*>(dst)[i] = static_cast<const uint8_t*>(src)[i];
+  }
+}
+
+// Waits for the calling warp's staged rows and makes them visible to all
+// its lanes.
+__device__ __forceinline__ void psdf_stage_wait() {
+  psdf_cp_async_wait();
+  __syncwarp();
+}
+
+// n floats (or n bytes) rounded up to 16 bytes, so that shared-memory
+// slices laid out one after another all start 16-byte aligned.
+__host__ __device__ __forceinline__ int psdf_pad4(int n) { return (n + 3) & ~3; }
+__host__ __device__ __forceinline__ int psdf_pad16(int n) { return (n + 15) & ~15; }
+
 static inline int psdf_blocks(long long work, int per_block) {
   return (int)((work + per_block - 1) / per_block);
 }

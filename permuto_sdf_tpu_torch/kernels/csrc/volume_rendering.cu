@@ -9,18 +9,28 @@
 // in the training step -- kernel D'. The JAX package leaves these to XLA.
 //
 // What bounds them on an H100: bytes. Per sample D reads sdf (or density),
-// dt, the mask, rgb and (NeuS) the gradient, ~30 bytes, and writes the
+// dt, the mask, rgb and (NeuS) the gradient, ~33 bytes, and writes the
 // 4-byte weight; D' reads the same plus the weight cotangent and writes
 // the sdf, gradient and rgb cotangents (~32 bytes); the math is a few
-// dozen flops.
+// dozen flops. At the exact frame's 2048 rays D moves ~7 MB: ~2 us at
+// 3.35 TB/s, so a launch is mostly the latency of one warp's ray.
 //
-// Design: one warp per ray. Lanes take 32 consecutive samples at a time,
-// so every load is coalesced; the exclusive product of (1 - alpha + 1e-7)
-// is a warp scan carried across the 32-sample chunks; the weighted sums
-// are warp reductions. Results differ from a serial cumprod by the
-// association of the product (~1e-6 relative). D' recomputes the forward
-// into shared memory (alpha, T and the total weight cotangent per sample),
-// then walks the ray backwards: the cotangent of each factor
+// Design of D: one warp per ray, four rays per block (2048 rays are 2048
+// warps, all resident on the 132 SMs at once with any block size, so what
+// a ray waits for is its own loads). The warp stages the ray's rows --
+// val, dt, the mask and the contiguous 12 S-byte rgb and gradient rows --
+// in shared memory with asynchronous copies (cp.async), 16 bytes each
+// where the rows are aligned (S a multiple of 4), all in flight at once;
+// the mask is read once. Each lane owns a contiguous run of ceil(S / 32) samples: their
+// alphas and the product of their factors (1 - alpha + 1e-7), one warp
+// scan of the runs' products, then each sample's weight and the run's
+// seven weighted sums, reduced together at the end (a reduce-scatter over
+// the lanes: 9 shuffles for the seven). The weights go back from
+// shared memory in 16-byte stores. Results differ from a serial cumprod
+// by the association of the product (~1e-7 absolute on a weight).
+//
+// D' recomputes the forward into shared memory (alpha, T and the total
+// weight cotangent per sample), then walks the ray backwards: the cotangent of each factor
 // tau_j = 1 - alpha_j + 1e-7 is T_j S_j with the reverse linear recurrence
 // S_j = Gw_{j+1} alpha_{j+1} + tau_{j+1} S_{j+1} (plus the bg_T cotangent at
 // the last valid sample), done as a reverse warp scan of affine maps per
@@ -85,8 +95,41 @@ __device__ __forceinline__ float reverse_affine_chunk(const float* s_alpha,
   return Sj;
 }
 
+// The warp's totals of eight per-lane values a[0..7], in 9 shuffles (a
+// reduce-scatter) instead of 8 x 5: lane l returns the total of value
+// (l >> 2) & 7 (so lane 4 v holds value v). a is overwritten.
+__device__ __forceinline__ float transpose_reduce8(float* a, int lane) {
+  bool up = (lane & 16) != 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float send = up ? a[j] : a[j + 4];
+    const float keep = up ? a[j + 4] : a[j];
+    a[j] = keep + __shfl_xor_sync(PSDF_FULL_MASK, send, 16);
+  }
+  up = (lane & 8) != 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float send = up ? a[j] : a[j + 2];
+    const float keep = up ? a[j + 2] : a[j];
+    a[j] = keep + __shfl_xor_sync(PSDF_FULL_MASK, send, 8);
+  }
+  up = (lane & 4) != 0;
+  const float send = up ? a[0] : a[1];
+  float v = (up ? a[1] : a[0]) + __shfl_xor_sync(PSDF_FULL_MASK, send, 4);
+  v += __shfl_xor_sync(PSDF_FULL_MASK, v, 2);
+  v += __shfl_xor_sync(PSDF_FULL_MASK, v, 1);
+  return v;
+}
+
+// Kernel D's shared memory per ray, in floats: val, dt and the weights at
+// S slots, rgb [S, 3], grads [S, 3] (mode 0 only) and the mask bytes.
+__host__ __device__ inline int render_weights_warp_floats(int mode, int S) {
+  return 3 * psdf_pad4(S) + (mode == 0 ? 2 : 1) * psdf_pad4(3 * S) + psdf_pad16(S) / 4;
+}
+
 // mode 0: NeuS (val = sdf, grads [R,S,3] and dirs [R,3] used);
-// mode 1: NeRF (val = density).
+// mode 1: NeRF (val = density). One warp per ray, blockDim.x / 32 rays
+// per block.
 __global__ void __launch_bounds__(128) render_weights_kernel(
     int mode, int R, int S, const float* __restrict__ val,
     const float* __restrict__ grads, const float* __restrict__ dirs,
@@ -96,41 +139,49 @@ __global__ void __launch_bounds__(128) render_weights_kernel(
     float* __restrict__ bg_T, float* __restrict__ rgb_int,
     float* __restrict__ grad_int) {
   const int lane = threadIdx.x & 31;
-  const long long ray =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (ray >= R) return;  // whole warps leave together
-  const long long base_rs = ray * S;
+  const int warp = threadIdx.x >> 5;
+  const long long ray = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (ray >= R) return;  // whole warps leave together; no block barrier below
+  float* sv = psdf_dynamic_smem<float>() +
+              (size_t)warp * render_weights_warp_floats(mode, S);
+  float* sd = sv + psdf_pad4(S);
+  float* sw = sd + psdf_pad4(S);  // alpha, then the weight
+  float* sc = sw + psdf_pad4(S);  // rgb
+  float* sg = sc + psdf_pad4(3 * S);  // grads (mode 0)
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      sg + (mode == 0 ? psdf_pad4(3 * S) : 0));
+  const long long row = ray * S;
 
-  int nr = 0;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool valid = i < S && mask[base_rs + i] != 0;
-    nr += __popc(__ballot_sync(PSDF_FULL_MASK, valid));
-  }
-
+  // the ray's rows, all in flight at once (cp.async)
+  psdf_warp_stage(sv, val + row, S * 4);
+  psdf_warp_stage(sd, dt + row, S * 4);
+  psdf_warp_stage(sm, mask + row, S);
+  psdf_warp_stage(sc, rgb + row * 3, S * 12);
   float d0 = 0.f, d1 = 0.f, d2 = 0.f;
   if (mode == 0) {
+    psdf_warp_stage(sg, grads + row * 3, S * 12);
     d0 = dirs[ray * 3 + 0];
     d1 = dirs[ray * 3 + 1];
     d2 = dirs[ray * 3 + 2];
   }
-  float carry = 1.0f;
-  float wsum = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, n0 = 0.f, n1 = 0.f,
-        n2 = 0.f;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool in_row = i < S;
-    const bool valid = in_row && mask[base_rs + i] != 0;
+  psdf_stage_wait();
+
+  // this lane's run of samples [i0, i1): the alphas, the valid count and
+  // the product of the run's transmittance factors
+  const int per = (S + 31) / 32;
+  const int i0 = min(lane * per, S), i1 = min(i0 + per, S);
+  int cnt = 0;
+  float prod = 1.0f;
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {  // unrolled: the run's alphas overlap
+    const bool valid = sm[i] != 0;
     float alpha = 0.f;
-    float gx = 0.f, gy = 0.f, gz = 0.f;
     if (valid) {
-      const float v = val[base_rs + i];
-      const float dist = dt[base_rs + i];
+      const float v = sv[i];
+      const float dist = sd[i];
       if (mode == 0) {
-        gx = grads[(base_rs + i) * 3 + 0];
-        gy = grads[(base_rs + i) * 3 + 1];
-        gz = grads[(base_rs + i) * 3 + 2];
-        const float true_cos = (d0 * gx + d1 * gy) + d2 * gz;
+        const float true_cos =
+            (d0 * sg[3 * i] + d1 * sg[3 * i + 1]) + d2 * sg[3 * i + 2];
         const float iter_cos =
             -(fmaxf(-true_cos * 0.5f + 0.5f, 0.f) * (1.0f - cos_anneal_ratio) +
               fmaxf(-true_cos, 0.f) * cos_anneal_ratio);
@@ -143,44 +194,60 @@ __global__ void __launch_bounds__(128) render_weights_kernel(
       } else {
         alpha = 1.0f - expf(-v * dist);
       }
+      prod = prod * (1.0f - alpha + 1e-7f);
     }
-    const float x = valid ? (1.0f - alpha + 1e-7f) : 1.0f;
-    const float T_shifted = transmittance_chunk(x, lane, carry);
-    const float T = valid ? T_shifted : 0.f;
-    const float w = alpha * T;
-    if (in_row) weights[base_rs + i] = w;
-    if (valid && i == nr - 1) bg_T[ray] = T_shifted;
+    sw[i] = alpha;
+    cnt += valid;
+  }
+  const int nr = (int)__reduce_add_sync(PSDF_FULL_MASK, (unsigned)cnt);
+
+  // one exclusive scan of the runs' products, then the weights
+  float incl = prod;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(PSDF_FULL_MASK, incl, off);
+    if (lane >= off) incl = y * incl;
+  }
+  float T = __shfl_up_sync(PSDF_FULL_MASK, incl, 1);
+  if (lane == 0) T = 1.0f;
+  float wsum = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, n0 = 0.f, n1 = 0.f,
+        n2 = 0.f;
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
+    const bool valid = sm[i] != 0;
+    if (i == nr - 1) bg_T[ray] = T;
+    const float alpha = sw[i];
+    const float w = alpha * (valid ? T : 0.f);
+    sw[i] = w;
     if (valid) {
       wsum += w;
-      const float* c = rgb + (base_rs + i) * 3;
-      c0 += w * c[0];
-      c1 += w * c[1];
-      c2 += w * c[2];
-      n0 += w * gx;
-      n1 += w * gy;
-      n2 += w * gz;
+      c0 += w * sc[3 * i];
+      c1 += w * sc[3 * i + 1];
+      c2 += w * sc[3 * i + 2];
+      if (mode == 0) {
+        n0 += w * sg[3 * i];
+        n1 += w * sg[3 * i + 1];
+        n2 += w * sg[3 * i + 2];
+      }
+      T = T * (1.0f - alpha + 1e-7f);
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    wsum += __shfl_xor_sync(PSDF_FULL_MASK, wsum, off);
-    c0 += __shfl_xor_sync(PSDF_FULL_MASK, c0, off);
-    c1 += __shfl_xor_sync(PSDF_FULL_MASK, c1, off);
-    c2 += __shfl_xor_sync(PSDF_FULL_MASK, c2, off);
-    n0 += __shfl_xor_sync(PSDF_FULL_MASK, n0, off);
-    n1 += __shfl_xor_sync(PSDF_FULL_MASK, n1, off);
-    n2 += __shfl_xor_sync(PSDF_FULL_MASK, n2, off);
-  }
-  if (lane == 0) {
-    weights_sum[ray] = wsum;
-    if (nr == 0) bg_T[ray] = 1.0f;
-    rgb_int[ray * 3 + 0] = c0;
-    rgb_int[ray * 3 + 1] = c1;
-    rgb_int[ray * 3 + 2] = c2;
-    if (grad_int != nullptr) {
-      grad_int[ray * 3 + 0] = n0;
-      grad_int[ray * 3 + 1] = n1;
-      grad_int[ray * 3 + 2] = n2;
+  __syncwarp();
+  psdf_warp_copy(weights + row, sw, S * 4);
+
+  // the seven sums, reduced over the lanes at once: lane 4 v ends with the
+  // total of sum v (wsum, rgb, gradient)
+  float a[8] = {wsum, c0, c1, c2, n0, n1, n2, 0.f};
+  float v = transpose_reduce8(a, lane);
+  if ((lane & 3) == 0 && lane < 28) {
+    const int k = lane >> 2;
+    if (k == 0) {
+      weights_sum[ray] = v;
+      if (nr == 0) bg_T[ray] = 1.0f;
+    } else if (k <= 3) {
+      rgb_int[ray * 3 + k - 1] = v;
+    } else if (grad_int != nullptr) {
+      grad_int[ray * 3 + k - 4] = v;
     }
   }
 }
@@ -735,14 +802,25 @@ extern "C" int psdf_render_weights(int mode, int R, int S, const void* val,
                                    void* weights_sum, void* bg_T,
                                    void* rgb_int, void* grad_int,
                                    void* stream) {
-  const int block = 128;  // 4 rays per block
-  const int grid = psdf_blocks((long long)R * 32, block);
-  if (grid == 0) return 0;
-  PSDF_LAUNCH(render_weights_kernel, grid, block, 0, stream, mode, R, S,
-              (const float*)val, (const float*)grads, (const float*)dirs,
-              (const float*)dt, (const uint8_t*)mask, (const float*)rgb,
-              inv_s, cos_anneal_ratio, (float*)weights, (float*)weights_sum,
-              (float*)bg_T, (float*)rgb_int, (float*)grad_int);
+  if (R <= 0) return 0;
+  // four rays per block, fewer where a block's rows would not fit
+  const size_t per_ray =
+      (size_t)render_weights_warp_floats(mode, S) * sizeof(float);
+  int rays = 4;
+  while (rays > 1 && rays * per_ray > 232448) rays >>= 1;
+  const size_t smem = rays * per_ray;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        render_weights_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  PSDF_LAUNCH(render_weights_kernel, psdf_blocks(R, rays), 32 * rays, smem,
+              stream, mode, R, S, (const float*)val, (const float*)grads,
+              (const float*)dirs, (const float*)dt, (const uint8_t*)mask,
+              (const float*)rgb, inv_s, cos_anneal_ratio, (float*)weights,
+              (float*)weights_sum, (float*)bg_T, (float*)rgb_int,
+              (float*)grad_int);
   return (int)cudaGetLastError();
 }
 

@@ -177,22 +177,27 @@ def render_weights_cuda(mode: int, samples: RaySamples, val, grads, rgb,
                         inv_s: float, cos_anneal_ratio: float):
     """Kernel D launch (mode 0 NeuS, 1 NeRF). Counts launches in
     ``render_weights_cuda.launches``."""
-    R, S = samples.mask.shape
-    dev = samples.mask.device
-    val = val.reshape(R, S).contiguous()
-    rgb = rgb.reshape(R, S, 3).contiguous()
-    dt = samples.dt.contiguous()
     mask = samples.mask.contiguous()
-    dirs = samples.dirs.contiguous()
-    if grads is not None:
-        grads = grads.reshape(R, S, 3).contiguous()
+    R, S = mask.shape
+    dev = mask.device
+    val, rgb, dt, dirs = (val.contiguous(), rgb.contiguous(), samples.dt.contiguous(),
+                          samples.dirs.contiguous())
+    shapes = [(val, R * S), (rgb, R * S * 3), (dt, R * S), (dirs, R * 3)]
+    if mode == 0:
+        grads = grads.contiguous()
+        shapes.append((grads, R * S * 3))
+    else:
+        grads = None
+    for t, numel in shapes:
+        if t.numel() != numel:
+            raise ValueError(f"render weights: an input of shape {tuple(t.shape)} for {R} rays "
+                             f"of {S} samples")
     _check_render_inputs(dev, (val, rgb, dt, dirs, grads), mask)
     weights = torch.empty((R, S), dtype=torch.float32, device=dev)
     wsum = torch.empty((R, 1), dtype=torch.float32, device=dev)
     bg_T = torch.empty((R,), dtype=torch.float32, device=dev)
     rgb_int = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    grad_int = (torch.empty((R, 3), dtype=torch.float32, device=dev)
-                if mode == 0 else None)
+    grad_int = torch.empty((R, 3), dtype=torch.float32, device=dev) if mode == 0 else None
     lib = kernels.load("volume_rendering")
     err = lib.psdf_render_weights(
         mode, R, S, kernels.ptr(val), kernels.ptr(grads), kernels.ptr(dirs), kernels.ptr(dt),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the main paths that kernels A and B run, for the port of one tree.
+"""Time the main paths that kernels A, B, D, E1 and E2 run, for the port of one tree.
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
     python3 profiling/torch_encode_paths.py --summarize FILE.json ...
@@ -11,9 +11,14 @@ Run the trees in alternating processes on one GPU and compare only within
 that session: frame and step times move with the host's load.
 
 Per tree, on the card (CUDA, one GPU), with the parameters made from a seed:
+- events: CUDA-event ms and device ms per call of the E1, E2 and D
+  wrappers at R = 2048 (E2 in each form the tree has);
 - host: the wall µs per call of ``encode_fwd_cuda`` on 256 points (the
-  launch and wrapper cost, the device idle) and, where the tree has it, of
-  a cache hit of ``interleaved_table``;
+  launch and wrapper cost, the device idle), of a cache hit of
+  ``interleaved_table``, of ``importance_round_cuda`` (E1),
+  ``merge_samples_cuda`` (E2: the merge, and where the tree has them the
+  merge that draws round 2 and the one that also merges the draws in) and
+  of ``neus_render`` (kernel D through its autograd function) on 32 rays;
 - frame: ``render_image`` at 400² (chip_smoke's exact frame on the full
   grid), ``--frames`` frames, then one under torch.profiler;
 - train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in)
@@ -24,7 +29,9 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed:
 - nerf: ``train_nerf.train`` at ``NerfTrainConfig()`` for 2 and 26 steps
   (ms/step from the difference) and one step under torch.profiler.
 
-Each path also records the peak of ``torch.cuda.max_memory_allocated``.
+Each profile gives the device ms and the launches of kernels A, B, D, E1
+and E2 (the device µs per launch is their ratio). Each path also records
+the peak of ``torch.cuda.max_memory_allocated``.
 Prints the profiles as chip_smoke does and, last, one JSON line of the
 results (also written to ``--out``). ``--summarize`` reads such files and
 prints, for each number and each ``--label``, the median over the runs and
@@ -44,6 +51,7 @@ SDF_SHORT, SDF_STEPS = 50, 300
 NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
+PROFILED = ("A", "B", "D", "E1", "E2")
 
 
 def _profiled(cs, device, what, fn):
@@ -59,9 +67,26 @@ def _profiled(cs, device, what, fn):
     s = cs._profile_summary(prof, wall_ms, what)
     if s is None:
         return None
-    return {"wall_ms": wall_ms, "device_busy_ms": s["device_busy_ms"],
-            "device_idle_share": s["device_idle_share"],
-            "A_ms": s["kernels_ms"]["A"], "B_ms": s["kernels_ms"]["B"]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": s["device_busy_ms"],
+           "device_idle_share": s["device_idle_share"]}
+    out.update(_kernel_stats(cs, prof))
+    return out
+
+
+def _kernel_stats(cs, prof):
+    """Device ms and launches of each profiled kernel, by chip_smoke's
+    kernel symbols."""
+    out = {}
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    for k in PROFILED:
+        sym = cs.KERNEL_SYMBOLS[k]
+        hits = [e for e in events if sym in e.key]
+        dev_us = sum(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0) for e in hits)
+        out[f"{k}_ms"] = dev_us / 1e3
+        out[f"{k}_launches"] = sum(e.count for e in hits)
+    return out
 
 
 def _peak_mib(device):
@@ -70,12 +95,42 @@ def _peak_mib(device):
     return torch.cuda.max_memory_allocated(device) / 2 ** 20
 
 
-def host_costs(device, cfg):
-    """Wall µs per call of A's wrapper on a tiny input, and of a cache hit
-    of the interleaved table where the tree has one."""
+def _tiny_samples(device, R=32, S1=64, n=16):
+    """A prefix-masked uniform sample set with its sdf, sorted draws with
+    theirs, and t_exit: one small importance stage's inputs."""
     import torch
 
+    from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
+
+    g = torch.Generator().manual_seed(2)
+    fixed = torch.full((R,), 0.01)
+    z = 0.2 + fixed[:, None] * torch.arange(S1, dtype=torch.float32)[None, :]
+    nr = torch.randint(S1 // 2, S1 + 1, (R,), generator=g)
+    mask = prefix_mask(nr, S1)
+    dirs = torch.nn.functional.normalize(torch.randn(R, 3, generator=g), dim=-1)
+    smp = RaySamples(origins=torch.zeros(R, 3), dirs=dirs, z=torch.where(mask, z, 0.0),
+                     dt=torch.where(mask, fixed[:, None], 0.0), mask=mask, ray_fixed_dt=fixed,
+                     sdf=0.3 - z + 0.01 * torch.randn(R, S1, generator=g))
+    zi = torch.sort(0.2 + 0.6 * torch.rand(R, n, generator=g), dim=1).values
+    imp = RaySamples(origins=smp.origins, dirs=dirs, z=zi, dt=torch.zeros(R, n),
+                     mask=torch.ones(R, n, dtype=torch.bool), ray_fixed_dt=fixed, sdf=0.3 - zi)
+    t_exit = torch.full((R, 1), 0.2 + 0.01 * S1)
+    to = lambda x: x.to(device) if x is not None else None  # noqa: E731
+    smp = RaySamples(**{f: to(getattr(smp, f)) for f in smp.__dataclass_fields__})
+    imp = RaySamples(**{f: to(getattr(imp, f)) for f in imp.__dataclass_fields__})
+    return smp, imp, to(t_exit)
+
+
+def host_costs(device, cfg):
+    """Wall µs per call of the wrappers of A, E1, E2 and D on tiny inputs,
+    and of a cache hit of the interleaved table where the tree has one."""
+    import inspect
+
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 
     spec = pe.PermutoEncodingSpec(pos_dim=3, capacity=cfg.capacity, nr_levels=24,
                                   concat_points_scaling=1e-3)
@@ -84,8 +139,25 @@ def host_costs(device, cfg):
     pts = torch.rand(256, 3, generator=torch.Generator().manual_seed(1)).to(device) - 0.5
     args = (pts, prm["lattice_values"], prm["shift_per_level"], scales,
             torch.ones(24, device=device), E, 24, 1.0, True)
+    smp, imp, t_exit = _tiny_samples(device)
+    n = imp.max_samples
+    merged = isp.merge_samples_cuda(smp, imp, t_exit)
+    R, S = merged.mask.shape
+    grads = torch.nn.functional.normalize(torch.randn(R * S, 3, device=device), dim=-1)
+    rgb = torch.rand(R * S, 3, device=device)
     out = {}
-    calls = {"encode_fwd_cuda": lambda: pe.encode_fwd_cuda(*args)}
+    calls = {"encode_fwd_cuda": lambda: pe.encode_fwd_cuda(*args),
+             "importance_round_cuda": lambda: isp.importance_round_cuda(smp, smp.sdf, n, None,
+                                                                        1.0),
+             "merge_samples_cuda": lambda: isp.merge_samples_cuda(smp, imp, t_exit),
+             "render_weights_cuda": lambda: vr.render_weights_cuda(0, merged, merged.sdf, grads,
+                                                                   rgb, 2981.0, 1.0),
+             "neus_render": lambda: vr.neus_render(merged, merged.sdf, grads, rgb, 2981.0, 1.0)}
+    if "nr_draws" in inspect.signature(isp.merge_samples_cuda).parameters:
+        calls["merge_samples_cuda_draw"] = lambda: isp.merge_samples_cuda(
+            smp, imp, t_exit, nr_draws=n)
+        calls["merge_samples_cuda_draw_merge"] = lambda: isp.merge_samples_cuda(
+            smp, imp, t_exit, nr_draws=n, merge_draws=True)
     if hasattr(pe, "interleaved_table"):
         calls["interleaved_table_hit"] = lambda: pe.interleaved_table(prm["lattice_values"])
     for name, fn in calls.items():
@@ -96,6 +168,51 @@ def host_costs(device, cfg):
             fn()
         torch.cuda.synchronize(device)
         out[name + "_us"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    return out
+
+
+def event_costs(cs, device):
+    """CUDA-event ms per wrapper call (chip_smoke's ``time_ms``) and device
+    ms per call in the kernel's own symbols (torch.profiler) of E1 (round
+    1, S = 64), E2 (the merge 64 + 16 with sdf; where the tree has them
+    also the merge that draws round 2 and the one that merges the draws
+    in) and D (NeuS, S = 96), all at R = 2048."""
+    import inspect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+
+    smp, imp, t_exit = _tiny_samples(device, R=2048)
+    big, big_imp, big_te = _tiny_samples(device, R=2048, S1=80)
+    merged = isp.merge_samples_cuda(big, big_imp, big_te)
+    R, S = merged.mask.shape
+    n = imp.max_samples
+    grads = torch.nn.functional.normalize(torch.randn(R * S, 3, device=device), dim=-1)
+    rgb = torch.rand(R * S, 3, device=device)
+    calls = {"E1": ("E1", lambda: isp.importance_round_cuda(smp, smp.sdf, n, None, 1.0)),
+             "E2_merge": ("E2", lambda: isp.merge_samples_cuda(smp, imp, t_exit)),
+             "D_neus": ("D", lambda: vr.render_weights_cuda(0, merged, merged.sdf, grads, rgb,
+                                                            2981.0, 1.0))}
+    if "nr_draws" in inspect.signature(isp.merge_samples_cuda).parameters:
+        calls["E2_merge_draw"] = ("E2", lambda: isp.merge_samples_cuda(smp, imp, t_exit, n))
+        calls["E2_merge_draw_merge"] = ("E2", lambda: isp.merge_samples_cuda(
+            smp, imp, t_exit, n, merge_draws=True))
+    out = {}
+    for name, (kernel, fn) in calls.items():
+        out[name + "_ms"] = cs.time_ms(fn, 20, device)
+        out[name + "_device_ms"] = None
+        for _ in range(3):  # the profiler now and then delivers no device records
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize(device)
+            total_ms = _kernel_stats(cs, prof)[f"{kernel}_ms"]
+            if total_ms > 0:
+                out[name + "_device_ms"] = total_ms / 20
+                break
     return out
 
 
@@ -290,7 +407,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     cfg = tps.PermutoSDFTrainConfig()
     res = {"tree": args.label or root, "card": cs.card_line(),
-           "host": host_costs(device, cfg),
+           "host": host_costs(device, cfg), "events": event_costs(cs, device),
            "frame": frame_path(cs, device, cfg, args.frames)}
     reel, res["train"] = train_path(cs, device, cfg)
     res["sdf_from_mesh"] = sdf_from_mesh_path(cs, device)

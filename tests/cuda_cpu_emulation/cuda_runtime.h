@@ -3,12 +3,14 @@
 // (permuto_sdf_tpu_torch/kernels/csrc), so `g++ -std=c++20` can compile
 // the .cu sources and run them on the CPU in tests: each block runs its
 // threads as std::threads, atomicAdd is a std::atomic_ref add, the warp
-// shuffles and ballots exchange values
+// shuffles, ballots and __reduce_add_sync exchange values
 // through a per-warp slot array between two barriers, __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
-// psdf_dynamic_smem are redefined for that (float2 is a plain pair). It
-// checks the kernels' logic, not their speed or the GPU's own float
-// rounding.
+// psdf_dynamic_smem are redefined for that (float2 is a plain pair, uint4
+// four plain words, so a 16-byte vector load is a struct copy; cp.async
+// is a synchronous memcpy; cudaFuncSetAttribute accepts any shared-memory
+// size). It checks the
+// kernels' logic, not their speed or the GPU's own float rounding.
 #include <algorithm>
 #include <atomic>
 #include <barrier>
@@ -22,8 +24,11 @@ using std::min; using std::max;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+template <class F> int cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 struct float2 { float x, y; };
+struct uint4 { unsigned x, y, z, w; };
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 #define __global__
 #define __device__
@@ -55,6 +60,11 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   unsigned r = 0; for (int i = 0; i < 32; ++i) if (emu_warp->slot[i]) r |= 1u << i;
   emu_warp->bar->arrive_and_wait(); return r;
 }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  emu_warp->slot[emu_lane()] = v; emu_warp->bar->arrive_and_wait();
+  unsigned r = 0; for (int i = 0; i < 32; ++i) r += (unsigned)emu_warp->slot[i];
+  emu_warp->bar->arrive_and_wait(); return r;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncwarp() { emu_warp->bar->arrive_and_wait(); }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
@@ -83,3 +93,7 @@ template <class F> void emu_launch(int grid, int block, size_t smem, F&& body) {
   emu_launch((grid), (block), (smem), [&] { kernel(__VA_ARGS__); })
 #define PSDF_DYNAMIC_SMEM
 template <typename T> T* psdf_dynamic_smem() { return reinterpret_cast<T*>(emu_smem); }
+#define PSDF_CP_ASYNC
+inline void psdf_cp_async16(void* s, const void* g) { std::memcpy(s, g, 16); }
+inline void psdf_cp_async4(void* s, const void* g) { std::memcpy(s, g, 4); }
+inline void psdf_cp_async_wait() {}

@@ -1,5 +1,5 @@
-"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2, L, D2, D2', M,
-C3, J3, C2 and I2,
+"""The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2 (its three
+forms), L, D2, D2', M, C3, J3, C2 and I2,
 compiled for the CPU with g++ against a small CUDA stand-in
 (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
 own kernel wrappers, against the plain PyTorch versions.
@@ -183,6 +183,50 @@ def test_kernel_D_source_matches_plain(emulated):
     want = vr.nerf_render_plain(smp, dens, rgb)
     for a, b in zip(got[:4], want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("S", [20, 32, 45])
+def test_kernel_D_run_lengths_match_plain(emulated, monkeypatch, S):
+    """Kernel D's lane runs at S below a warp (runs of 1, some lanes idle),
+    at S = 32 and at S not a multiple of the run length (45: runs of 2,
+    the last one short; 16-, 4- and 1-byte staging), both modes through
+    the autograd functions, forward within 1e-6 of the plain version and
+    the backward (kernel D') within 1e-5 of each gradient's largest
+    |value|."""
+    rng = np.random.default_rng(S)
+    R = 40
+    nr = torch.from_numpy(rng.integers(0, S + 1, R))
+    nr[0], nr[1], nr[2] = 0, S, 1
+    dirs = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32)), dim=-1)
+    smp = RaySamples(origins=torch.zeros(R, 3), dirs=dirs, z=torch.zeros((R, S)),
+                     dt=torch.from_numpy(rng.uniform(0, 0.02, (R, S)).astype(np.float32)),
+                     mask=prefix_mask(nr, S), ray_fixed_dt=torch.zeros(R))
+    sdf = torch.from_numpy(rng.uniform(-0.05, 0.05, (R, S)).astype(np.float32))
+    dens = torch.from_numpy(rng.uniform(0, 50, (R, S)).astype(np.float32))
+    grads = torch.from_numpy(rng.normal(size=(R * S, 3)).astype(np.float32))
+    rgb = torch.from_numpy(rng.uniform(size=(R * S, 3)).astype(np.float32))
+
+    def run(on_card):
+        monkeypatch.setattr(vr, "_on_cuda", lambda samples: on_card)
+        leaves = [t.clone().requires_grad_(True) for t in (sdf, grads, rgb, dens)]
+        outs = vr.neus_render(smp, leaves[0], leaves[1], leaves[2], 400.0, 0.7)
+        outs = outs + vr.nerf_render(smp, leaves[3], leaves[2])
+        cots = [torch.from_numpy(np.random.default_rng(1).normal(size=o.shape).astype(
+            np.float32)) for o in outs]
+        torch.autograd.backward(outs, cots)
+        return [o.detach() for o in outs], [leaf.grad for leaf in leaves]
+
+    launches = (vr.render_weights_cuda.launches, vr.render_weights_bwd_cuda.launches)
+    got, got_g = run(True)
+    assert (vr.render_weights_cuda.launches, vr.render_weights_bwd_cuda.launches) == (
+        launches[0] + 2, launches[1] + 2)
+    want, want_g = run(False)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
+    for a, b in zip(got_g, want_g):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5 * float(b.abs().max()),
+                                   rtol=0)
 
 
 @pytest.mark.parametrize("d,K,window", [(3, 4, True), (4, 3, False)])
@@ -517,6 +561,90 @@ def test_kernel_E2_source_matches_plain(emulated, carry):
     assert (want.dt[2] > 0).any() and not want.mask[0].any()
 
 
+@pytest.mark.parametrize("carry", [False, True])
+def test_kernel_E2_sorted_sets_merge_matches_plain(emulated, carry):
+    """Kernel E2 on two ascending sets (the binary-search merge): ties
+    within each set and across the two, rays with 0, 1 and all samples of
+    either set valid; z, dt, mask and the carried sdf equal the plain
+    merge's bit for bit."""
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+    from permuto_sdf_tpu_torch.ops.ray_samples import prefix_mask as pm
+
+    rng = np.random.default_rng(21)
+    R, S1, S2 = 41, 36, 12
+    nr1 = torch.from_numpy(rng.integers(0, S1 + 1, R))
+    nr2 = torch.from_numpy(rng.integers(0, S2 + 1, R))
+    nr1[:6] = torch.tensor([0, 1, S1, 0, S1, 1])
+    nr2[:6] = torch.tensor([0, 1, S2, S2, 0, 1])
+
+    def ascending(width):  # steps of 0.01 with repeats: ties within the set
+        steps = rng.integers(0, 3, (R, width)).astype(np.float32) * 0.01
+        return torch.from_numpy(np.cumsum(steps, axis=1) + 0.1)
+
+    z1, z2 = ascending(S1), ascending(S2)
+    z2[6] = z1[6, :S2]  # every key of set 2 also in set 1
+    fixed = torch.from_numpy(rng.uniform(0.005, 0.02, R).astype(np.float32))
+    sets = []
+    for z, nr in ((z1, nr1), (z2, nr2)):
+        mask = pm(nr, z.shape[1])
+        sets.append(RaySamples(origins=torch.zeros(R, 3), dirs=torch.zeros(R, 3),
+                               z=torch.where(mask, z, 0.0), dt=torch.zeros_like(z), mask=mask,
+                               ray_fixed_dt=fixed))
+    if carry:
+        sets = [s.with_sdf(torch.from_numpy(rng.normal(size=s.z.shape).astype(np.float32)))
+                for s in sets]
+    t_exit = torch.from_numpy(rng.uniform(0.0, 0.5, (R, 1)).astype(np.float32))
+    got = isp.merge_samples_cuda(*sets, t_exit)
+    want = vr.combine_uniform_samples_with_imp(*sets, t_exit)
+    for f in ("z", "dt", "mask") + (("sdf",) if carry else ()):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), getattr(want, f).numpy(),
+                                      err_msg=f)
+    assert (got.sdf is None) == (not carry)
+    assert not want.mask[0].any() and want.mask[2].all()
+
+
+@pytest.mark.parametrize("jitter", [False, True])
+def test_kernel_E2_draw_forms_match_plain(emulated, jitter):
+    """Kernel E2's forms (b) (the merge, then round 2 on the merged ray)
+    and (c) (the draws merged in too) against the plain composition: the
+    merged set of (b) bit for bit, the masks equal, the draws and (c)'s z
+    and dt within E1's 1e-6; (b)'s draws bit-equal to kernel E1 run on
+    (b)'s merged set."""
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+
+    rng = np.random.default_rng(33 + jitter)
+    R, S, n = 37, 40, 12
+    nr = torch.from_numpy(rng.integers(0, S + 1, R))
+    nr[0], nr[1], nr[2] = 0, 1, S
+    smp, sdf, t_exit = _imp_batch(rng, R, S, nr)
+    smp = smp.with_sdf(sdf)
+    z_i, m_i = isp.importance_round_plain(smp, sdf, n, None, 1.0)
+    imp = RaySamples(origins=smp.origins, dirs=smp.dirs, z=z_i, dt=torch.zeros_like(z_i),
+                     mask=m_i, ray_fixed_dt=smp.ray_fixed_dt,
+                     sdf=torch.from_numpy(rng.normal(0, 0.02, (R, n)).astype(np.float32)))
+    mov = 1.0 / (n + 1) / 2.0
+    jit = (torch.from_numpy(rng.uniform(-mov, mov, (R, n)).astype(np.float32))
+           if jitter else None)
+    launches = isp.merge_samples_cuda.launches
+    merged, draws = isp.merge_samples_cuda(smp, imp, t_exit, n, jit)
+    want_m, want_d = isp.merge_samples_plain(smp, imp, t_exit, n, jit)
+    for f in ("z", "dt", "mask", "sdf"):
+        np.testing.assert_array_equal(getattr(merged, f).numpy(), getattr(want_m, f).numpy(),
+                                      err_msg=f)
+    np.testing.assert_array_equal(draws.mask.numpy(), want_d.mask.numpy())
+    np.testing.assert_allclose(draws.z.numpy(), want_d.z.numpy(), atol=1e-6, rtol=0)
+    z_e1, _ = isp.importance_round_cuda(merged, merged.sdf, n, jit, 2.0)
+    np.testing.assert_array_equal(draws.z.numpy(), z_e1.numpy())
+    got = isp.merge_samples_cuda(smp, imp, t_exit, n, jit, merge_draws=True)
+    want = isp.merge_samples_plain(smp, imp, t_exit, n, jit, merge_draws=True)
+    assert got.sdf is None and want.sdf is None and got.z.shape == (R, S + 2 * n)
+    np.testing.assert_array_equal(got.mask.numpy(), want.mask.numpy())
+    for f in ("z", "dt"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(), atol=1e-6,
+                                   rtol=0, err_msg=f)
+    assert isp.merge_samples_cuda.launches == launches + 2
+
+
 def test_kernels_H1_H2_source_match_plain(emulated):
     """Kernels H1 (take) and H2 (scatter, and its backward through H1)
     against the plain index ops, exactly: a bucket with fill slots, a
@@ -559,8 +687,8 @@ def test_kernels_H1_H2_source_match_plain(emulated):
 
 @pytest.mark.parametrize("carry", [False, True])
 def test_importance_stage_through_the_kernel_sources_matches_plain(emulated, monkeypatch, carry):
-    """``importance_sampling_sdf_model`` (two rounds of E1, two merges of
-    E2: four launches) from the kernel sources, with jitter, against the
+    """``importance_sampling_sdf_model`` (E1, then E2 in form c, or in form
+    b and a with ``carry_sdf``) from the kernel sources, with jitter, against the
     plain stage: the masks equal, z and dt to 1e-6, the carried sdf to 1e-6
     (an analytic sphere SDF of the samples' positions)."""
     from permuto_sdf_tpu_torch.ops import importance_sampling as isp
@@ -584,8 +712,10 @@ def test_importance_stage_through_the_kernel_sources_matches_plain(emulated, mon
     launches = (isp.importance_round_cuda.launches, isp.merge_samples_cuda.launches)
     monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
     got = isp.importance_sampling_sdf_model(sphere, smp, t_exit, n, jitter=jit, carry_sdf=carry)
+    # E1 for round 1; E2 merges, draws round 2 and merges its draws in one
+    # launch, or, to carry their sdf, merges and draws, then merges again
     assert (isp.importance_round_cuda.launches, isp.merge_samples_cuda.launches) == (
-        launches[0] + 2, launches[1] + 2)
+        launches[0] + 1, launches[1] + (2 if carry else 1))
     np.testing.assert_array_equal(got.mask.numpy(), want.mask.numpy())
     for f in ("z", "dt") + (("sdf",) if carry else ()):
         np.testing.assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(), atol=1e-6,
