@@ -13,8 +13,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    2048-ray chunk of the flagship eval render (A and B on uniformly random
    points and on the frame's centre chunk in ray order, 96 samples per ray
    between the bound sphere's entry and exit), F, G, D' and I at the shapes
-   of the flagship training step; time the interleaved [L, C, 2] copy of
-   one table that A and B read;
+   of the flagship training step (F and G at its fg and background counts
+   on three point sets, random, ray-ordered and clustered, each with every
+   level and with parity, device ms and bound for each); time the
+   interleaved [L, C, 2] copy of one table that A, B and G read;
 3. render 400x400 frames of the full-width flagship model (random weights
    from a seed, plus a planted plane SDF so the frame has a surface) with
    ``render_image`` on a fully occupied grid and on a sparse shell grid,
@@ -35,7 +37,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    parameter group changed and finite; one more step profiled;
 6. one full-width training step on the card and on the CPU with the same
    draws and the CPU's fg samples: the loss and every leaf's gradient
-   within TOL_GRAD_CROSS;
+   within TOL_GRAD_CROSS (and the colour loss's L1 residuals of opposite
+   sign on the two sides counted);
 7. the sphere scene (the full-width model after SPHERE_INIT_STEPS
    ``sphere_init_step`` s, its grid refreshed over every voxel) and the
    planted-plane scene on a full grid; kernels J0, J1, J2 and H0 against
@@ -122,7 +125,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    view, one NeRF step card against CPU (TOL_LOSS_CROSS, TOL_GRAD_CROSS),
    ``main(["--smoke"])`` in process; and TRAIN_STEPS flagship steps with
    ``use_occupancy_grid=False`` (C2 once per step, C and I never);
-18. print ``render``, ``train``, ``sphere_traced``, ``lod``,
+18. print ``render``, ``fg_sets``, ``train``, ``sphere_traced``, ``lod``,
    ``hit_ray_train``, ``levers``, ``mesh``, ``plain_traced``, ``nerf`` and
    ``kernels`` JSON lines, then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -180,6 +183,9 @@ WARMUP_STEPS = 2
 # another); the largest entry's error is printed beside.
 TOL_GRAD_CROSS = 1e-2
 TOL_LOSS_CROSS = 1e-3
+# The colour loss's L1 ties in that comparison: |gt - pred| within L1_TIE
+# on both sides with opposite signs (counted by train_cross_check).
+L1_TIE = 1e-6
 
 # E1 and E2 vs their plain versions: the CDF's sums and products run in
 # another order (E1 accumulates in double, the plain CUDA scans in float),
@@ -402,6 +408,47 @@ def ray_ordered_points(device, per_ray: int):
     return (o[:, None, :] + t[..., None] * dr[:, None, :]).reshape(-1, 3).contiguous()
 
 
+FG_CLUSTER_SIDE = 0.01
+
+
+def fg_point_sets(device, n: int, d: int, per_ray: int, seed: int) -> dict:
+    """The point sets kernels F and G are held and timed on, n points of d
+    dimensions each: "random", uniform in [-0.45, 0.45]^d; "rays", n //
+    per_ray rays through random pixels of ``camera()`` that hit the bound
+    sphere, ray major as a training step lays out its samples (d = 3:
+    per_ray points at the midpoints of equal steps between the sphere's
+    entry and exit, the fg samples; d = 4: the background's per_ray NeRF++
+    samples beyond the exit, ``compute_samples_bg``); "clustered", uniform
+    in a cube of side FG_CLUSTER_SIDE, where every level coarser than the
+    cube gives all points the same few slots (the worst contention)."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
+    from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg
+
+    rng = np.random.default_rng(seed)
+    bound = Sphere()
+    origins, dirs = rays_from_frame(*camera(), WIDTH, HEIGHT, device=device)
+    hits = torch.nonzero(bound.ray_intersection(origins, dirs)[4].reshape(-1)).reshape(-1)
+    pick = hits[torch.from_numpy(rng.choice(hits.numel(), n // per_ray, replace=False)).to(
+        device)]
+    o, dr = origins[pick], dirs[pick]
+    _, te, _, tx, _ = bound.ray_intersection(o, dr)
+    if d == 3:
+        frac = (torch.arange(per_ray, device=device, dtype=torch.float32) + 0.5) / per_ray
+        t = te + frac[None, :] * (tx - te)
+        rays = o[:, None, :] + t[..., None] * dr[:, None, :]
+    else:
+        rays = compute_samples_bg(o, dr, tx, per_ray, bound.radius, bound.center).pos_4d
+    corner = rng.uniform(-0.4, 0.4 - FG_CLUSTER_SIDE, d)
+    sets = {"random": rng.uniform(-0.45, 0.45, (n, d)), "rays": rays.reshape(n, d),
+            "clustered": corner + rng.uniform(0.0, FG_CLUSTER_SIDE, (n, d))}
+    return {k: torch.as_tensor(np.asarray(v, dtype=np.float32) if isinstance(v, np.ndarray)
+                               else v, device=device).contiguous() for k, v in sets.items()}
+
+
 def grid_block_points(device, res: int = None):
     """The first 64^3 block of ``sdf_grid``'s points on a res^3 grid over
     [-0.5, 0.5]^3, in grid order (row M0)."""
@@ -524,7 +571,7 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
         if label == "d3_full":
             dms = device_ms(lambda: pe.encode_fwd_cuda(*args), "A", device)
             timing = (ms, pms, b)
-            # the port's interleaved [L, C, 2] copy A and B read, once per
+            # the port's interleaved [L, C, 2] copy A, B and G read, once per
             # table state: the cache is emptied before each call, so each
             # call copies
             tbl = prm["lattice_values"]
@@ -644,6 +691,62 @@ def _level_err(got, want):
     return err
 
 
+def _fg_case(name, label, base, g, u, levels, uniq, reps, plain_reps, device,
+             with_device_ms=True):
+    """Kernel F or G on one point set against its plain version: the table
+    gradient per level within TOL_F / TOL_G of the level's largest |value|
+    (G's feature cotangent relative to its largest |value|), the levels
+    outside ``levels`` exactly zero; CUDA-event ms, device ms, the bound
+    (bytes: the points, the cotangents, G's distinct table slots and the
+    dense [L, 2, C] output; operations: OPS_PER_POINT_LEVEL_F / _G per
+    point and level, halved with parity as the lever phase counts them)."""
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    pts = base[0]
+    n, d = pts.shape
+    L = base[6]
+    phase, period = levels
+    if name == "F":
+        def run():
+            return pe.encode_table_grad_cuda(*base, g, levels)
+
+        def plain():
+            return pe.encode_table_grad_plain(*base, g, levels)
+    else:
+        def run():
+            return pe.encode_double_backward_cuda(*base, 1e-3 if d == 3 else 1.0, True, g, u,
+                                                  levels)
+
+        def plain():
+            return pe.encode_double_backward_plain(*base, 1e-3 if d == 3 else 1.0, True, g, u,
+                                                   levels)
+    got, want = run(), plain()
+    tk, tp = (got, want) if name == "F" else (got[0], want[0])
+    frozen = [lv for lv in range(tk.shape[0]) if lv >= L or (period > 1 and lv % period != phase)]
+    if frozen and (tk[frozen].abs().max().item() != 0.0 or tp[frozen].abs().max().item() != 0.0):
+        fail(f"kernel {name} levels {levels}: a level without gradient is not zero")
+    err = _level_err(tk, tp)
+    abs_err = (tk - tp).abs().max().item()
+    if name == "G":
+        err = max(err, ((got[1] - want[1]).abs().max() / want[1].abs().max()).item())
+        abs_err = max(abs_err, (got[1] - want[1]).abs().max().item())
+    ms = time_ms(run, reps, device)
+    pms = time_ms(plain, plain_reps, device)
+    share = 2 if period > 1 else 1
+    if name == "F":
+        nbytes = pts.numel() * 4 + n * 2 * L * 4 + tk.numel() * 4
+        b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_F * n * L // share)
+    else:
+        nbytes = (pts.numel() + u.numel() + 2 * g.numel()) * 4 + uniq * 2 * 4 + tk.numel() * 4
+        b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_G * n * L // share)
+    dms = device_ms(run, name, device, reps=max(reps // 2, 1)) if with_device_ms else None
+    _report(f"{name}:{label} N={n} d={d} K={L} levels={levels} (per level / relative; device "
+            f"ms {'not measured' if dms is None else f'{dms:.4f}'})", err, TOL_F if name == "F"
+            else TOL_G, ms, pms, b)
+    return dict(max_abs_err=abs_err, max_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                bound_by=b[1], device_ms=dms, n=n)
+
+
 def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
     """Kernels F, G, D' and I against their plain versions at the shapes of
     the flagship training step. Returns {kernel: dict of numbers}."""
@@ -674,54 +777,49 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
         scales, E, _ = pe.encoding_constants(spec, None, device)
         return prm, scales, E
 
-    # --- F: the table gradient, for every encode of the step
-    timing = None
-    for label, d, n, scaling in (("sdf", 3, M, 1e-3), ("bg", 4, R * cfg.nr_samples_bg, 1.0),
-                                 ("sphere_init", 3, cfg.sphere_init_points, 1e-3),
-                                 ("offsurface", 3, 1024, 1e-3)):
+    # --- F and G on the three point sets (FG_SETS) at the step's fg (d = 3,
+    # the SDF encoding) and background (d = 4) sample counts, every level
+    # and alternating levels (phase 1 of period 2)
+    fg = {}
+    for d, n, per_ray, scaling in ((3, M, S_fg, 1e-3),
+                                   (4, R * cfg.nr_samples_bg, cfg.nr_samples_bg, 1.0)):
         prm, scales, E = encoding(d, scaling)
-        pts = tensor(rng.uniform(-0.45, 0.45, (n, d)))
         window = torch.ones(L, device=device)
         g = tensor(rng.normal(size=(n, 2 * L + d)))
-        args = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E, L, g)
-        got, want = pe.encode_table_grad_cuda(*args), pe.encode_table_grad_plain(*args)
-        err = _level_err(got, want)
-        ms = time_ms(lambda: pe.encode_table_grad_cuda(*args), reps, device)
-        pms = time_ms(lambda: pe.encode_table_grad_plain(*args), plain_reps, device)
-        nbytes = pts.numel() * 4 + n * 2 * L * 4 + got.numel() * 4
-        b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_F * n * L)
-        _report(f"F:{label} N={n} d={d} K={L} (per level, relative)", err, TOL_F, ms, pms, b)
-        if label == "sdf":
-            dms = device_ms(lambda: pe.encode_table_grad_cuda(*args), "F", device)
-            timing = (ms, pms, b, (got - want).abs().max().item())
-    results["F"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
+        u = tensor(rng.normal(size=(n, d)))
+        for set_name, pts in fg_point_sets(device, n, d, per_ray, SEED + 7).items():
+            base = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E, L)
+            uniq = torch.unique(pe.flat_slot_ids(pts, prm["lattice_values"],
+                                                 prm["shift_per_level"], scales, E, L)).numel()
+            for levels in ((0, 1), (1, 2)):
+                label = f"d{d}_{set_name}" + ("_parity" if levels[1] > 1 else "")
+                for name in ("F", "G"):
+                    row = label == "d3_random"
+                    fg.setdefault(name, {})[label] = _fg_case(
+                        name, label, base, g, u, levels, uniq,
+                        reps if row else max(reps // 2, 1), plain_reps if row else 1, device)
+    for name in ("F", "G"):
+        r = fg[name]["d3_random"]  # the row: the step's fg count on random points
+        results[name] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                             device_ms=r["device_ms"])
+    results["fg_sets"] = fg
 
-    # --- G: the double backward of the SDF encoding (fg, curvature, sphere init)
-    timing = None
+    # --- F and G at the step's other encodes' counts (random points)
     prm, scales, E = encoding(3, 1e-3)
-    for label, n in (("sdf", M), ("curvature", min(cfg.curvature_sample_budget, M)),
-                     ("sphere_init", cfg.sphere_init_points)):
+    for name, label, n in (("F", "sphere_init", cfg.sphere_init_points),
+                           ("F", "offsurface", 1024),
+                           ("G", "curvature", min(cfg.curvature_sample_budget, M)),
+                           ("G", "sphere_init", cfg.sphere_init_points)):
         pts = tensor(rng.uniform(-0.45, 0.45, (n, 3)))
-        window = torch.ones(L, device=device)
+        base = (pts, prm["lattice_values"], prm["shift_per_level"], scales,
+                torch.ones(L, device=device), E, L)
         g = tensor(rng.normal(size=(n, 2 * L + 3)))
         u = tensor(rng.normal(size=(n, 3)))
-        args = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E, L, 1e-3,
-                True, g, u)
-        (tk, gk), (tp, gp) = pe.encode_double_backward_cuda(*args), pe.encode_double_backward_plain(*args)
-        err = max(_level_err(tk, tp), ((gk - gp).abs().max() / gp.abs().max()).item())
-        ms = time_ms(lambda: pe.encode_double_backward_cuda(*args), reps, device)
-        pms = time_ms(lambda: pe.encode_double_backward_plain(*args), plain_reps, device)
         uniq = torch.unique(pe.flat_slot_ids(pts, prm["lattice_values"], prm["shift_per_level"],
                                              scales, E, L)).numel()
-        nbytes = (pts.numel() + u.numel() + 2 * g.numel()) * 4 + uniq * 2 * 4 + tk.numel() * 4
-        b = bound_ms(nbytes, OPS_PER_POINT_LEVEL_G * n * L)
-        _report(f"G:{label} N={n} K={L} (per level / relative)", err, TOL_G, ms, pms, b)
-        if label == "sdf":
-            dms = device_ms(lambda: pe.encode_double_backward_cuda(*args), "G", device)
-            timing = (ms, pms, b, max((tk - tp).abs().max().item(), (gk - gp).abs().max().item()))
-    results["G"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
-                        bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
+        _fg_case(name, label, base, g, u, (0, 1), uniq, reps, plain_reps, device,
+                 with_device_ms=False)
 
     # --- D': the backward of kernel D, NeuS (fg) and NeRF (bg) mode
     timing = None
@@ -843,7 +941,7 @@ def reset_counts():
 
 def read_counts():
     """Launches per kernel, and under "copies" the interleaved [L, C, 2]
-    table copies that A and B read (at most one per table state)."""
+    table copies that A, B and G read (at most one per table state)."""
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
 
     counts = {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
@@ -1169,14 +1267,23 @@ def profile_train_step(device, cfg, params, grid, reel):
     return _profile_summary(prof, wall_ms, "step")
 
 
-def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cross_check"):
+def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cross_check",
+                      gate=True):
     """One full-width training step on the CPU (the plain path) and on the
     card, with the same draws and the CPU's fg samples (with the carried
     sdf the train-time LOD ranks): the loss within TOL_LOSS_CROSS and every
     leaf's gradient within TOL_GRAD_CROSS (relative L2 error); the card's
-    gradients finite."""
+    gradients finite.
+
+    The colour loss is L1, whose subgradient is the residual's sign: the
+    entries whose residual has opposite signs on the two sides are counted
+    (``l1_sign_flips``; within L1_TIE on both sides: a tie under rounding),
+    and so are the rays that hit the bound sphere on one side only
+    (``ray_hit_flips``), so a failing check shows whether either came
+    with it."""
     import torch
 
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import random_rays_from_reel
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
     from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
@@ -1186,17 +1293,37 @@ def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cro
     if it is None:
         it = cfg.nr_iter_sphere_fit + TRAIN_FROM + 200
     draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], cfg, reel)
-    t0 = time.perf_counter()
-    loss_c, aux_c, grads_c = tps.compute_loss_and_grads(
-        _tree_map(cpu, params), og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy)),
-        reel.to("cpu"), draws, it, cfg)
-    cpu_s = time.perf_counter() - t0
-    s = aux_c["samples"]
-    smp = RaySamples(*(getattr(s, f).to(device) for f in
-                       ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")),
-                     sdf=s.sdf.to(device) if s.sdf is not None else None)
-    loss_g, _, grads_g = tps.compute_loss_and_grads(params, grid, reel, draws, it, cfg,
-                                                    fg_samples=smp)
+    reel_c = reel.to("cpu")
+    preds = []  # (colour, ray hits) of the CPU's and the card's run_net
+    run_net = tps.run_net
+
+    def recording_run_net(*args, **kw):
+        out = run_net(*args, **kw)
+        preds.append((out[0].detach().cpu(), out[3]["does_intersect"].detach().cpu()))
+        return out
+
+    tps.run_net = recording_run_net
+    try:
+        t0 = time.perf_counter()
+        loss_c, aux_c, grads_c = tps.compute_loss_and_grads(
+            _tree_map(cpu, params), og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy)),
+            reel_c, draws, it, cfg)
+        cpu_s = time.perf_counter() - t0
+        s = aux_c["samples"]
+        smp = RaySamples(*(getattr(s, f).to(device) for f in
+                           ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")),
+                         sdf=s.sdf.to(device) if s.sdf is not None else None)
+        loss_g, _, grads_g = tps.compute_loss_and_grads(params, grid, reel, draws, it, cfg,
+                                                        fg_samples=smp)
+    finally:
+        tps.run_net = run_net
+    # the colour loss's residual signs on the two sides
+    gt = random_rays_from_reel(reel_c, cfg.nr_rays, indices=draws.to("cpu").ray_indices,
+                               apply_mask=cfg.with_mask)[2]
+    (pred_c, hit), (pred_g, hit_g) = preds
+    res_c, res_g = gt - pred_c, gt - pred_g
+    flips = (torch.sign(res_c) != torch.sign(res_g)) & hit
+    ties = flips & (res_c.abs() <= L1_TIE) & (res_g.abs() <= L1_TIE)
     worst, largest, names = {}, {}, []
 
     def walk(tree, prefix):
@@ -1225,8 +1352,15 @@ def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cro
     summary = {"loss_cpu": float(loss_c), "loss_card": float(loss_g),
                "loss_rel_err": loss_err, "tol_loss": TOL_LOSS_CROSS, "tol_grad": TOL_GRAD_CROSS,
                "valid_samples": int(aux_c["nr_samples"]), "cpu_step_s": cpu_s,
+               "l1_sign_flips": int(flips.sum()), "l1_sign_flips_within_tie": int(ties.sum()),
+               "l1_flip_max_abs_residual": (max(res_c.abs()[flips].max().item(),
+                                                res_g.abs()[flips].max().item())
+                                            if flips.any() else 0.0),
+               "ray_hit_flips": int((hit != hit_g).sum()),
                "grad_rel_l2_err": worst, "grad_max_err_rel_to_max": largest}
     print(json.dumps({label: summary}), flush=True)
+    if not gate:
+        return summary
     if not loss_err <= TOL_LOSS_CROSS:
         fail(f"{label}: loss {float(loss_g)} vs {float(loss_c)} on the CPU")
     bad = {k: v for k, v in worst.items() if not v <= TOL_GRAD_CROSS}
@@ -3598,9 +3732,14 @@ def main() -> int:
     cfg = tps.PermutoSDFTrainConfig()
 
     # 2. kernels against their plain versions
+    t0 = time.perf_counter()
     results = kernel_phases(device, cfg)
+    t1 = time.perf_counter()
     results.update(train_kernel_phases(device, cfg))
+    t2 = time.perf_counter()
     results.update(hit_ray_kernel_phases(device, cfg))
+    print(f"[kernel phases] {time.perf_counter() - t0:.1f} s wall (A-D {t1 - t0:.1f} s, "
+          f"F, G, D', I {t2 - t1:.1f} s)", flush=True)
 
     # 3. the slice: full-width render on both grids
     params = plant_plane_sdf(tps.init_params(SEED, cfg, device=device))
@@ -3803,6 +3942,7 @@ def main() -> int:
     print(json.dumps({"render": render, "interleave_copy": results["interleave_copy"],
                       "frame_device_us_per_launch": (frame_profile or {}).get(
                           "kernels_us_per_launch"), "card": card}), flush=True)
+    print(json.dumps({"fg_sets": results["fg_sets"], "card": card}), flush=True)
     print(json.dumps({"train": train_summary, "card": card}), flush=True)
     print(json.dumps({"sphere_traced": {"operating_point": ST_KW, "scene": scene_summary,
                                         "runs": st_runs, "cross_check": st_cross,

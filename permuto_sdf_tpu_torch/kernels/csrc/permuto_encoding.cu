@@ -31,7 +31,8 @@
 //   one 8-byte float2 load, one sector, where the parameter layout [L, 2,
 //   C] cost two 4-byte loads C slots apart. The copy is made once per
 //   table state by the caller (ops/permuto_encoding.py::interleaved_table);
-//   F and G keep the parameter layout.
+//   G's gathers read it too, and F and G write gradients in the parameter
+//   layout.
 // - One block per tile of points x all K levels, the warps taking the
 //   levels: A 16 points per tile, B 32. A stages the tile's rows in shared
 //   memory and stores them as one contiguous span; B stages the tile's
@@ -51,12 +52,39 @@
 //
 // The lattice is computed in exactly the float order of the plain PyTorch
 // versions (built with --fmad=false), so slot ids match them bit for bit.
-// F and G scatter into a zeroed [L, 2, C] gradient table with float
-// atomics in no fixed order, so their sums vary by float rounding from run
-// to run; at the coarsest levels (sigma ~ 1) most points of a batch hit a
-// handful of slots, so those atomics serialize on a few addresses. F runs
-// one thread per (point, level), level minor; G one thread per point
-// looping over the levels.
+//
+// What bounds F and G on an H100: their float atomics. Each (point, level)
+// adds 2 (d+1) terms into the zeroed [L, 2, C] gradient, 9.4 M at N =
+// 49,152 and K = 24, each a reduction in L2 at a hashed slot; their byte
+// bound is the dense 50 MB output (0.018 ms; G adds its gathers: 0.026).
+// At the coarse levels (sigma ~ 1 next to a batch's spread) most points hit
+// a handful of slots and those atomics serialize on a few addresses; at
+// the fine levels the slots are distinct and the L2's rate of scattered
+// reductions is the limit (~40-60 G a second measured).
+// Design kept for F and G (measured on an H100 against the alternatives
+// below on random, ray-ordered and clustered points, d = 3 and d = 4, with
+// and without parity; PERF.md keeps the times):
+// - One block per tile of 32 points x the K levels, warp w taking levels
+//   w, w + 8, ..., lane = point (F walks only the levels that get
+//   gradients); the tile's points, cotangent rows (and G's u) are staged in
+//   shared memory with coalesced loads.
+// - Before the atomics a warp's lanes that hold the same slot sum their
+//   terms (__match_any_sync and a tree of shuffles); one lane per distinct
+//   slot adds the sum. At the fine levels this costs a match and a vote.
+// - G gathers one float2 per vertex from the interleaved [L, C, 2] copy that
+//   A made for the same table state, builds the tile's d g rows in shared
+//   memory and stores them as one contiguous span.
+// - Measured and not kept: one 8-byte float2 atomic per vertex into a
+//   zeroed [L, C, 2] scratch plus a pass that writes [L, 2, C]: the
+//   atomics took ~35% less time, but the scratch's memset and the pass
+//   (150 MB) cost ~0.035 ms a call more, which lost on the step's mix of
+//   calls (the d = 4 background, the small encodes, parity, clustered
+//   points) and cost 50 MB a call. Combining only at levels with sigma >=
+//   0.01 matched combining everywhere on random and ray-ordered points
+//   and lost on clustered ones; not combining at all was the old kernels'
+//   time. Blocks of 128 or 512 threads instead of 256, and G held to 6
+//   blocks an SM (fewer registers), each won some cases and lost others
+//   by up to ~15%.
 //
 // Alternating-level table gradients (JAX `grad_level_parity`,
 // permuto_encoding.py:561-609, where the frozen levels gather through
@@ -336,40 +364,123 @@ __global__ void __launch_bounds__(kGradBlock) encode_point_grad_kernel(
   }
 }
 
+// Kernels F and G add into the [L, 2, C] gradient of a level table. A warp
+// holds 32 points of one level (lane = point), so where the level is coarse
+// next to the points' spread its lanes hit the same vertices: the lanes that
+// hold the same slot sum their terms first (__match_any_sync, then a tree of
+// shuffles over each group's lanes), and one lane per distinct slot adds the
+// sum. The sum order differs from the plain version's index_add_ (float
+// rounding only), as the atomics' order does anyway. A lane with key
+// kNoSlot (past the tile's end, or a zero cotangent) adds nothing.
+constexpr uint32_t kNoSlot = 0xffffffffu;
+
+// The lanes of the calling warp that share `key` sum (v0, v1) into the
+// group's lowest lane, which returns true; every other lane returns false.
+// All 32 lanes call it. Where no two lanes share a key (the fine levels) it
+// costs the match and one vote.
+__device__ __forceinline__ bool combine_peers(uint32_t key, float& v0, float& v1) {
+  const unsigned peers = __match_any_sync(PSDF_FULL_MASK, key);
+  const int lane = threadIdx.x & 31;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));  // place within the group
+  const bool leader = rank == 0;
+  unsigned above = peers & ~((2u << lane) - 1u);  // the group's lanes above
+  while (__any_sync(PSDF_FULL_MASK, above != 0u)) {
+    const int next = __ffs(above);  // 1 + the nearest live lane above, or 0
+    const int src = next ? next - 1 : lane;
+    const float a0 = __shfl_sync(PSDF_FULL_MASK, v0, src);
+    const float a1 = __shfl_sync(PSDF_FULL_MASK, v1, src);
+    if (next) {
+      v0 = v0 + a0;
+      v1 = v1 + a1;
+    }
+    // the odd places are summed into the even ones; halve the places
+    above &= __ballot_sync(PSDF_FULL_MASK, (rank & 1u) == 0u);
+    rank >>= 1;
+  }
+  return leader;
+}
+
+// One vertex's (v0, v1) into level `l` of the [L, 2, C] gradient, combined
+// over the warp's lanes first: two float atomics (the return value unused,
+// so they compile to reductions) per distinct slot.
+__device__ __forceinline__ void scatter_vertex(float* __restrict__ d_table, int capacity, int l,
+                                               uint32_t key, float v0, float v1) {
+  if (!combine_peers(key, v0, v1) || key == kNoSlot) return;
+  float* t0 = d_table + (long long)l * 2 * capacity;
+  atomicAdd(t0 + key, v0);
+  atomicAdd(t0 + capacity + key, v1);
+}
+
+// Stages rows [n0, n0 + rows) of a row-major [N, stride] array into shared
+// memory with row stride `srow` (>= stride), reading one contiguous span.
+__device__ __forceinline__ void stage_rows(float* __restrict__ dst, const float* __restrict__ src,
+                                           int n0, int rows, int stride, int srow) {
+  const float* s = src + (long long)n0 * stride;
+  for (int i = threadIdx.x; i < rows * stride; i += blockDim.x) {
+    const int r = i / stride;
+    dst[r * srow + (i - r * stride)] = s[i];
+  }
+}
+
+// Kernels F and G: one block per tile of P = 32 points x the K levels; warp
+// w takes levels w, w + nwarps, ... with lane = point, so a warp's lanes
+// share one level table and can combine their atomics.
+constexpr int kTableGradBlock = 256;
+constexpr int kTableGradTile = 32;
+
+// Number of levels < K that get table gradients, and the j-th of them.
+__device__ __forceinline__ int grad_level_count(int K, int phase, int period) {
+  if (period <= 1) return K;
+  return K > phase ? (K - phase + period - 1) / period : 0;
+}
+__device__ __forceinline__ int grad_level(int j, int phase, int period) {
+  return period <= 1 ? j : phase + j * period;
+}
+
 // Kernel F. d_table [L, 2, C] (zeroed by the caller) += the transpose of
 // kernel A's gather: d table[l, f, slot_r] += bary_r * (window_l *
-// g[n, 2l + f]) for the K computed levels that get gradients. One thread
-// per (point, level).
-template <int D>
-__global__ void __launch_bounds__(256) encode_table_grad_kernel(
+// g[n, 2l + f]) for the K computed levels that get gradients. The tile's
+// points and cotangent rows are staged in shared memory (row stride padded
+// to odd); the warps walk the levels that get gradients only, so under
+// parity no warp idles on a frozen level.
+template <int D, int P>
+__global__ void __launch_bounds__(kTableGradBlock) encode_table_grad_kernel(
     const float* __restrict__ points, int n_points, int capacity,
     const float* __restrict__ shift, const float* __restrict__ scales,
     const float* __restrict__ window, const float* __restrict__ E, int K,
     const float* __restrict__ g, int g_stride, int phase, int period,
     float* __restrict__ d_table) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n_points * K) return;
-  const int n = (int)(idx / K);
-  const int l = (int)(idx - (long long)n * K);
-  if (!level_gets_grad(l, phase, period)) return;  // a frozen level
-  const float w = (window != nullptr) ? window[l] : 1.0f;
-  const float* gn = g + (long long)n * g_stride;
-  const float g0 = gn[2 * l] * w;
-  const float g1 = gn[2 * l + 1] * w;
-  if (g0 == 0.f && g1 == 0.f) return;  // adds nothing
+  const int srow = g_stride | 1;
+  float* pts = psdf_dynamic_smem<float>();  // [P][D]
+  float* g_tile = pts + P * D;              // [P][srow]
+  const int n0 = blockIdx.x * P;
+  const int rows = min(P, n_points - n0);
+  stage_rows(pts, points, n0, rows, D, D);
+  stage_rows(g_tile, g, n0, rows, g_stride, srow);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int pi = min(lane, rows - 1);  // lanes past the tile's end compute the last point
   float p[D];
 #pragma unroll
-  for (int j = 0; j < D; ++j) p[j] = points[(long long)n * D + j];
-  float lat[D];
-  lattice_point<D>(p, shift, scales, l, lat);
-  Simplex<D> s;
-  find_simplex<D>(lat, E, (uint32_t)(capacity - 1), s);
-  float* t0 = d_table + (long long)l * 2 * capacity;
-  float* t1 = t0 + capacity;
+  for (int j = 0; j < D; ++j) p[j] = pts[pi * D + j];
+  const int n_levels = grad_level_count(K, phase, period);
+  for (int j = threadIdx.x >> 5; j < n_levels; j += nwarps) {
+    const int l = grad_level(j, phase, period);
+    const float w = (window != nullptr) ? window[l] : 1.0f;
+    const float g0 = g_tile[pi * srow + 2 * l] * w;
+    const float g1 = g_tile[pi * srow + 2 * l + 1] * w;
+    const bool adds = lane < rows && !(g0 == 0.f && g1 == 0.f);
+    if (!__any_sync(PSDF_FULL_MASK, adds)) continue;  // the warp adds nothing here
+    float lat[D];
+    lattice_point<D>(p, shift, scales, l, lat);
+    Simplex<D> s;
+    find_simplex<D>(lat, E, (uint32_t)(capacity - 1), s);
 #pragma unroll
-  for (int r = 0; r <= D; ++r) {
-    atomicAdd(t0 + s.slot[r], s.bary[r] * g0);
-    atomicAdd(t1 + s.slot[r], s.bary[r] * g1);
+    for (int r = 0; r <= D; ++r)
+      scatter_vertex(d_table, capacity, l, adds ? s.slot[r] : kNoSlot, s.bary[r] * g0,
+                     s.bary[r] * g1);
   }
 }
 
@@ -378,47 +489,60 @@ __global__ void __launch_bounds__(256) encode_table_grad_kernel(
 // (d+1) and grad_j += sum_i E[i][j] gel_i / sigma_l. Given the cotangent u
 // [N, D] of the point gradient, set c_i = (E u)_i / sigma_l / (d+1) and
 // h_r = sum_i c_i ([lo_i = r] - [hi_i = r]); then
-//   d table[l, f, slot_r] += (h_r w) g_f   (scatter, atomics, at the levels
-//                                          that get gradients; d_table
-//                                          zeroed by the caller),
+//   d table[l, f, slot_r] += (h_r w) g_f   (scatter at the levels that get
+//                                          gradients, combined as in F),
 //   d g[n, 2l + f] = w sum_r h_r feat_{r,f} (gather, no atomics),
 //   d g[n, 2K + j] = u_j concat_scaling,
 // and d points = 0 (the barycentric weights are piecewise linear in the
 // points, so kernel B's output does not move with them for a fixed g).
-template <int D>
-__global__ void __launch_bounds__(128) encode_double_backward_kernel(
+// Tiles as in F; the gathers read one float2 per vertex of the interleaved
+// [L, C, 2] table, as A and B do. The tile's points, u and g rows are
+// staged in shared memory, and its d g rows are built there (row stride
+// padded to odd) and stored as one contiguous span.
+template <int D, int P>
+__global__ void __launch_bounds__(kTableGradBlock) encode_double_backward_kernel(
     const float* __restrict__ points, int n_points,
-    const float* __restrict__ table, int capacity,
+    const float2* __restrict__ table, int capacity,
     const float* __restrict__ shift, const float* __restrict__ scales,
     const float* __restrict__ window, const float* __restrict__ E, int K,
     float concat_scaling, int concat, const float* __restrict__ g,
     int g_stride, const float* __restrict__ u, int phase, int period,
     float* __restrict__ d_table, float* __restrict__ d_g) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_points) return;
-  float p[D], un[D];
-#pragma unroll
-  for (int j = 0; j < D; ++j) {
-    p[j] = points[(long long)n * D + j];
-    un[j] = u[(long long)n * D + j];
-  }
-  const float* gn = g + (long long)n * g_stride;
-  float* dgn = d_g + (long long)n * g_stride;
+  const int srow = g_stride | 1;
+  float* pts = psdf_dynamic_smem<float>();  // [P][D]
+  float* u_tile = pts + P * D;              // [P][D]
+  float* g_tile = u_tile + P * D;           // [P][srow]
+  float* dg_tile = g_tile + P * srow;       // [P][srow]
+  const int n0 = blockIdx.x * P;
+  const int rows = min(P, n_points - n0);
+  stage_rows(pts, points, n0, rows, D, D);
+  stage_rows(u_tile, u, n0, rows, D, D);
+  stage_rows(g_tile, g, n0, rows, g_stride, srow);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int pi = min(lane, rows - 1);  // lanes past the tile's end compute the last point
+  const bool valid = lane < rows;
   const float dp1 = (float)(D + 1);
-  float Eu[D + 1];
+  float p[D], Eu[D + 1];
+#pragma unroll
+  for (int j = 0; j < D; ++j) p[j] = pts[pi * D + j];
 #pragma unroll
   for (int i = 0; i <= D; ++i) {
-    float acc = E[i * D] * un[0];
+    float acc = E[i * D] * u_tile[pi * D];
 #pragma unroll
-    for (int j = 1; j < D; ++j) acc = acc + E[i * D + j] * un[j];
+    for (int j = 1; j < D; ++j) acc = acc + E[i * D + j] * u_tile[pi * D + j];
     Eu[i] = acc;
   }
-
-  for (int l = 0; l < K; ++l) {
+  for (int l = threadIdx.x >> 5; l < K; l += nwarps) {
     const float w = (window != nullptr) ? window[l] : 1.0f;
+    float* dgn = dg_tile + pi * srow + 2 * l;
     if (w == 0.f) {  // the level contributes nothing either way
-      dgn[2 * l] = 0.f;
-      dgn[2 * l + 1] = 0.f;
+      if (valid) {
+        dgn[0] = 0.f;
+        dgn[1] = 0.f;
+      }
       continue;
     }
     float lat[D];
@@ -441,32 +565,42 @@ __global__ void __launch_bounds__(128) encode_double_backward_kernel(
       }
       h[r] = acc;
     }
-    const float* t0 = table + (long long)l * 2 * capacity;
-    const float* t1 = t0 + capacity;
-    float dg0 = h[0] * __ldg(t0 + s.slot[0]);
-    float dg1 = h[0] * __ldg(t1 + s.slot[0]);
+    const float2* t = table + (long long)l * capacity;
+    float2 v = __ldg(t + s.slot[0]);
+    float dg0 = h[0] * v.x;
+    float dg1 = h[0] * v.y;
 #pragma unroll
     for (int r = 1; r <= D; ++r) {
-      dg0 = dg0 + h[r] * __ldg(t0 + s.slot[r]);
-      dg1 = dg1 + h[r] * __ldg(t1 + s.slot[r]);
+      v = __ldg(t + s.slot[r]);
+      dg0 = dg0 + h[r] * v.x;
+      dg1 = dg1 + h[r] * v.y;
     }
-    dgn[2 * l] = w * dg0;
-    dgn[2 * l + 1] = w * dg1;
+    if (valid) {
+      dgn[0] = w * dg0;
+      dgn[1] = w * dg1;
+    }
     if (!level_gets_grad(l, phase, period)) continue;  // a frozen level
-    const float g0 = gn[2 * l];
-    const float g1 = gn[2 * l + 1];
-    float* d0 = d_table + (long long)l * 2 * capacity;
-    float* d1 = d0 + capacity;
+    const float g0 = g_tile[pi * srow + 2 * l];
+    const float g1 = g_tile[pi * srow + 2 * l + 1];
+    const bool adds = valid && !(g0 == 0.f && g1 == 0.f);
+    if (!__any_sync(PSDF_FULL_MASK, adds)) continue;
 #pragma unroll
     for (int r = 0; r <= D; ++r) {
       const float hw = h[r] * w;
-      atomicAdd(d0 + s.slot[r], hw * g0);
-      atomicAdd(d1 + s.slot[r], hw * g1);
+      scatter_vertex(d_table, capacity, l, adds ? s.slot[r] : kNoSlot, hw * g0, hw * g1);
     }
   }
   if (concat) {
-#pragma unroll
-    for (int j = 0; j < D; ++j) dgn[2 * K + j] = un[j] * concat_scaling;
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+      const int r = i / D;
+      dg_tile[r * srow + 2 * K + (i - r * D)] = u_tile[i] * concat_scaling;
+    }
+  }
+  __syncthreads();
+  float* dst = d_g + (long long)n0 * g_stride;
+  for (int i = threadIdx.x; i < rows * g_stride; i += blockDim.x) {
+    const int r = i / g_stride;
+    dst[i] = dg_tile[r * srow + (i - r * g_stride)];
   }
 }
 
@@ -541,55 +675,67 @@ extern "C" int psdf_encode_point_grad(int d, const void* points, int n_points,
   return (int)cudaErrorInvalidValue;
 }
 
+// Kernels F and G add into ``d_table`` [L, 2, C], zeroed by the caller.
+template <int D>
+static int launch_table_grad(void* stream, const float* points, int n_points, int capacity,
+                             const float* shift, const float* scales, const float* window,
+                             const float* E, int K, const float* g, int g_stride, int phase,
+                             int period, float* d_table) {
+  const int grid = psdf_blocks(n_points, kTableGradTile);
+  if (grid == 0) return 0;
+  const size_t smem = sizeof(float) * kTableGradTile * (D + (g_stride | 1));
+  const auto kernel = encode_table_grad_kernel<D, kTableGradTile>;
+  PSDF_LAUNCH(kernel, grid, kTableGradBlock, smem, stream, points, n_points, capacity, shift,
+              scales, window, E, K, g, g_stride, phase, period, d_table);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int psdf_encode_table_grad(int d, const void* points, int n_points,
                                       int capacity, const void* shift,
                                       const void* scales, const void* window,
                                       const void* E, int K, const void* g,
                                       int g_stride, int phase, int period,
                                       void* d_table, void* stream) {
-  const int block = 256;
-  const int grid = psdf_blocks((long long)n_points * K, block);
-  if (grid == 0) return 0;
 #define PSDF_TGRAD_ARGS                                                      \
-  (const float*)points, n_points, capacity, (const float*)shift,              \
+  stream, (const float*)points, n_points, capacity, (const float*)shift,      \
       (const float*)scales, (const float*)window, (const float*)E, K,         \
       (const float*)g, g_stride, phase, period, (float*)d_table
-  if (d == 3) {
-    PSDF_LAUNCH(encode_table_grad_kernel<3>, grid, block, 0, stream,
-                PSDF_TGRAD_ARGS);
-  } else if (d == 4) {
-    PSDF_LAUNCH(encode_table_grad_kernel<4>, grid, block, 0, stream,
-                PSDF_TGRAD_ARGS);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (d == 3) return launch_table_grad<3>(PSDF_TGRAD_ARGS);
+  if (d == 4) return launch_table_grad<4>(PSDF_TGRAD_ARGS);
 #undef PSDF_TGRAD_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+static int launch_double_backward(void* stream, const float* points, int n_points,
+                                  const float2* table, int capacity, const float* shift,
+                                  const float* scales, const float* window, const float* E,
+                                  int K, float concat_scaling, int concat, const float* g,
+                                  int g_stride, const float* u, int phase, int period,
+                                  float* d_table, float* d_g) {
+  const int grid = psdf_blocks(n_points, kTableGradTile);
+  if (grid == 0) return 0;
+  const size_t smem = sizeof(float) * kTableGradTile * (2 * D + 2 * (g_stride | 1));
+  const auto kernel = encode_double_backward_kernel<D, kTableGradTile>;
+  PSDF_LAUNCH(kernel, grid, kTableGradBlock, smem, stream, points, n_points, table, capacity,
+              shift, scales, window, E, K, concat_scaling, concat, g, g_stride, u, phase,
+              period, d_table, d_g);
   return (int)cudaGetLastError();
 }
 
+// Kernel G reads ``table`` as the interleaved [L, C, 2] copy, as A and B do.
 extern "C" int psdf_encode_double_backward(
     int d, const void* points, int n_points, const void* table, int capacity,
     const void* shift, const void* scales, const void* window, const void* E,
     int K, float concat_scaling, int concat, const void* g, int g_stride,
-    const void* u, int phase, int period, void* d_table, void* d_g,
-    void* stream) {
-  const int block = 128;
-  const int grid = psdf_blocks(n_points, block);
-  if (grid == 0) return 0;
+    const void* u, int phase, int period, void* d_table, void* d_g, void* stream) {
 #define PSDF_DBWD_ARGS                                                       \
-  (const float*)points, n_points, (const float*)table, capacity,              \
+  stream, (const float*)points, n_points, (const float2*)table, capacity,     \
       (const float*)shift, (const float*)scales, (const float*)window,        \
       (const float*)E, K, concat_scaling, concat, (const float*)g, g_stride,  \
       (const float*)u, phase, period, (float*)d_table, (float*)d_g
-  if (d == 3) {
-    PSDF_LAUNCH(encode_double_backward_kernel<3>, grid, block, 0, stream,
-                PSDF_DBWD_ARGS);
-  } else if (d == 4) {
-    PSDF_LAUNCH(encode_double_backward_kernel<4>, grid, block, 0, stream,
-                PSDF_DBWD_ARGS);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (d == 3) return launch_double_backward<3>(PSDF_DBWD_ARGS);
+  if (d == 4) return launch_double_backward<4>(PSDF_DBWD_ARGS);
 #undef PSDF_DBWD_ARGS
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

@@ -26,7 +26,7 @@ levels ``(phase, period)`` that get table gradients and skip the others. The
 SDF's normals are built from the two (``models/fields.py``), which is the
 reverse-mode gradient JAX forms, without differentiating a backward pass.
 
-The table keeps the JAX parameter layout ``[L, F, C]``; kernels A and B
+The table keeps the JAX parameter layout ``[L, F, C]``; kernels A, B and G
 read an interleaved ``[L, C, F]`` copy of it (:func:`interleaved_table`),
 made once per table state.
 """
@@ -402,8 +402,8 @@ _INTERLEAVED: dict = {}
 
 def interleaved_table(table: torch.Tensor) -> torch.Tensor:
     """The table ``[L, 2, C]`` as ``[L, C, 2]``, where each vertex's two
-    features are one 8-byte load (kernels A and B gather one float2 where
-    the parameter layout costs two 4-byte loads ``C`` slots apart).
+    features are one 8-byte load (kernels A, B and G gather one float2
+    where the parameter layout costs two 4-byte loads ``C`` slots apart).
 
     The copy is cached per table state: keyed on the device and
     ``data_ptr()``, and valid while a weak reference to the table's storage
@@ -521,7 +521,7 @@ def encode_double_backward_cuda(points, table, shift, scales, window, E, K: int,
     d_g = torch.empty_like(g)
     lib = kernels.load("permuto_encoding")
     err = lib.psdf_encode_double_backward(
-        d, kernels.ptr(points), N, kernels.ptr(table), table.shape[-1],
+        d, kernels.ptr(points), N, kernels.ptr(interleaved_table(table)), table.shape[-1],
         kernels.ptr(shift), kernels.ptr(scales), kernels.ptr(window), kernels.ptr(E), K,
         float(concat_scaling), int(concat), kernels.ptr(g), g.shape[1], kernels.ptr(u),
         int(levels[0]), int(levels[1]), kernels.ptr(d_table), kernels.ptr(d_g),

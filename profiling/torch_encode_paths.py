@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the main paths that kernels A, B, D, E1 and E2 run, for the port of one tree.
+"""Time the main paths that kernels A, B, D, E1, E2, F and G run, for the port of one tree.
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
+                                            [--paths host,events,fg,frame,train,lever,sdf,nerf]
     python3 profiling/torch_encode_paths.py --summarize FILE.json ...
 
 Imports ``permuto_sdf_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
@@ -10,9 +11,15 @@ trees, for example a parent unpacked with ``git archive`` beside the change.
 Run the trees in alternating processes on one GPU and compare only within
 that session: frame and step times move with the host's load.
 
-Per tree, on the card (CUDA, one GPU), with the parameters made from a seed:
+Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
+(``--paths`` picks the sections; default all):
 - events: CUDA-event ms and device ms per call of the E1, E2 and D
   wrappers at R = 2048 (E2 in each form the tree has);
+- fg: CUDA-event ms, device ms in the kernel's own symbols and device ms
+  of every kernel and memset of the call, of kernels F and G on the point
+  sets of the checkout's own ``chip_smoke.fg_point_sets`` (random, rays,
+  clustered) at the training step's fg (d = 3, N = 49,152) and background
+  (d = 4, N = 16,384) counts, every level and parity (phase 1 of period 2);
 - host: the wall µs per call of ``encode_fwd_cuda`` on 256 points (the
   launch and wrapper cost, the device idle), of a cache hit of
   ``interleaved_table``, of ``importance_round_cuda`` (E1),
@@ -21,17 +28,21 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed:
   of ``neus_render`` (kernel D through its autograd function) on 32 rays;
 - frame: ``render_image`` at 400² (chip_smoke's exact frame on the full
   grid), ``--frames`` frames, then one under torch.profiler;
-- train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in)
-  and one flagship step under torch.profiler;
+- train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in;
+  interleaved-table copies per step) and one flagship step under
+  torch.profiler;
+- lever: LEVER_STEPS steps of chip_smoke's recommended profile past its
+  gate (the train-time LOD, parity alternating) on the trained state, host
+  clock per step, and one step under torch.profiler;
 - sdf_from_mesh: ``train_sdf_from_mesh.train`` for 50 and 300 steps
   (ms/step from the difference), one step under torch.profiler, then the
   trained field's 512³ mesh three times (grid SDF and marching tetrahedra);
 - nerf: ``train_nerf.train`` at ``NerfTrainConfig()`` for 2 and 26 steps
   (ms/step from the difference) and one step under torch.profiler.
 
-Each profile gives the device ms and the launches of kernels A, B, D, E1
-and E2 (the device µs per launch is their ratio). Each path also records
-the peak of ``torch.cuda.max_memory_allocated``.
+Each profile gives the device ms and the launches of kernels A, B, D, E1,
+E2, F and G (the device µs per launch is their ratio). Each path also
+records the peak of ``torch.cuda.max_memory_allocated``.
 Prints the profiles as chip_smoke does and, last, one JSON line of the
 results (also written to ``--out``). ``--summarize`` reads such files and
 prints, for each number and each ``--label``, the median over the runs and
@@ -51,7 +62,9 @@ SDF_SHORT, SDF_STEPS = 50, 300
 NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
-PROFILED = ("A", "B", "D", "E1", "E2")
+LEVER_STEPS, LEVER_WARMUP = 12, 2
+PROFILED = ("A", "B", "D", "E1", "E2", "F", "G")
+PATHS = ("host", "events", "fg", "frame", "train", "lever", "sdf", "nerf")
 
 
 def _profiled(cs, device, what, fn):
@@ -180,7 +193,6 @@ def event_costs(cs, device):
     import inspect
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from permuto_sdf_tpu_torch.ops import importance_sampling as isp
     from permuto_sdf_tpu_torch.ops import volume_rendering as vr
@@ -203,17 +215,116 @@ def event_costs(cs, device):
     out = {}
     for name, (kernel, fn) in calls.items():
         out[name + "_ms"] = cs.time_ms(fn, 20, device)
-        out[name + "_device_ms"] = None
-        for _ in range(3):  # the profiler now and then delivers no device records
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fn()
-                torch.cuda.synchronize(device)
-            total_ms = _kernel_stats(cs, prof)[f"{kernel}_ms"]
-            if total_ms > 0:
-                out[name + "_device_ms"] = total_ms / 20
-                break
+        out[name + "_device_ms"] = _device_ms(cs, device, fn, kernel)[0]
     return out
+
+
+def _device_ms(cs, device, fn, kernel, calls=20):
+    """Device ms per call of ``fn`` over ``calls`` calls under
+    torch.profiler: (in ``kernel``'s own symbols, in every device activity
+    of the call); (None, None) if three tries record no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # the profiler now and then delivers no device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(device)
+        own = _kernel_stats(cs, prof)[f"{kernel}_ms"]
+        total = sum(cs._dev_us(e) for e in prof.key_averages()
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+        if own > 0:
+            return own / calls, total / calls
+    return None, None
+
+
+def _own_chip_smoke():
+    """The chip_smoke module of the checkout that holds this script (its
+    point sets stay the same whichever tree ``--root`` names)."""
+    import importlib.util
+
+    here = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("_own_chip_smoke", here)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fg_costs(cs, device, cfg):
+    """Kernels F and G on the three point sets, d = 3 and d = 4, every
+    level and parity (1, 2): CUDA-event ms and device ms per call (the
+    kernel's own symbols, and every device activity of the call, its
+    output's memset included)."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    sets_of = _own_chip_smoke().fg_point_sets
+    rng = np.random.default_rng(cs.SEED + 1)
+    L, R = cfg.nr_levels, cfg.nr_rays
+    out = {}
+
+    for d, n, per_ray, scaling in ((3, R * cfg.samples_per_ray, cfg.samples_per_ray, 1e-3),
+                                   (4, R * cfg.nr_samples_bg, cfg.nr_samples_bg, 1.0)):
+        spec = pe.PermutoEncodingSpec(pos_dim=d, capacity=cfg.capacity, nr_levels=L,
+                                      concat_points_scaling=scaling)
+        prm = pe.init_encoding_params(torch.Generator().manual_seed(cs.SEED + d), spec, device)
+        prm["lattice_values"] *= 1e3
+        scales, E, _ = pe.encoding_constants(spec, None, device)
+        g = torch.from_numpy(rng.normal(size=(n, 2 * L + d)).astype(np.float32)).to(device)
+        u = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(device)
+        window = torch.ones(L, device=device)
+        for set_name, pts in sets_of(device, n, d, per_ray, cs.SEED + 7).items():
+            base = (pts, prm["lattice_values"], prm["shift_per_level"], scales, window, E, L)
+            for levels in ((0, 1), (1, 2)):
+                label = f"d{d}_{set_name}" + ("_parity" if levels[1] > 1 else "")
+                calls = {"F": lambda: pe.encode_table_grad_cuda(*base, g, levels),
+                         "G": lambda: pe.encode_double_backward_cuda(
+                             *base, scaling, True, g, u, levels)}
+                for kernel, fn in calls.items():
+                    key = f"{kernel}.{label}"
+                    out[key + ".ms"] = cs.time_ms(fn, 20, device)
+                    out[key + ".device_ms"], out[key + ".call_device_ms"] = _device_ms(
+                        cs, device, fn, kernel)
+    return out
+
+
+def lever_path(cs, device, cfg, params, grid, reel):
+    """LEVER_STEPS steps of the recommended profile past its gate (the
+    train-time LOD, parity alternating with the iteration), host clock per
+    step after LEVER_WARMUP, then one step under torch.profiler."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    lcfg = cs._lever_cfg(cfg)
+    optimizer = tps.make_optimizer(lcfg)
+    opt_state = optimizer.init(params)
+    it0 = lcfg.nr_iter_sphere_fit + cs.TRAIN_FROM + 20_000  # past the AUTO gate (39,000)
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    copies = pe.interleaved_table.copies
+    for i in range(LEVER_WARMUP + LEVER_STEPS):
+        draws = tps.draw_train_step(tps.step_generators(cs.SEED, it0 + i)[0], lcfg, reel)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt_state, _, _ = tps.train_step(params, opt_state, grid, reel, draws, it0 + i,
+                                                 lcfg, optimizer)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    copies = (pe.interleaved_table.copies - copies) / (LEVER_WARMUP + LEVER_STEPS)
+    peak = _peak_mib(device)
+    it = it0 + LEVER_WARMUP + LEVER_STEPS
+    draws = tps.draw_train_step(tps.step_generators(cs.SEED, it)[0], lcfg, reel)
+    prof = _profiled(cs, device, "lever_step", lambda: tps.train_step(
+        params, opt_state, grid, reel, draws, it, lcfg, optimizer))
+    steps = times[LEVER_WARMUP:]
+    return {"ms_all": steps, "ms_median": statistics.median(steps), "peak_mib": peak,
+            "interleave_copies_per_step": copies, "profile": prof}
 
 
 def frame_path(cs, device, cfg, frames):
@@ -249,9 +360,10 @@ def train_path(cs, device, cfg):
     tps.train_step(params, opt_state, grid, reel, draws, it, cfg, optimizer)  # warm-up
     prof = _profiled(cs, device, "step", lambda: tps.train_step(
         params, opt_state, grid, reel, draws, it + 1, cfg, optimizer))
-    return reel, {"ms_all": summary["ms_per_step_all"],
-                  "ms_median": summary["ms_per_step_median"], "peak_mib": peak,
-                  "profile": prof}
+    return params, grid, reel, {
+        "ms_all": summary["ms_per_step_all"], "ms_median": summary["ms_per_step_median"],
+        "peak_mib": peak, "interleave_copies_per_step": summary.get("interleave_copies_per_step"),
+        "profile": prof}
 
 
 def sdf_from_mesh_path(cs, device):
@@ -382,6 +494,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None)
     ap.add_argument("--summarize", nargs="+", metavar="FILE", default=None)
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="comma-separated sections to run, of " + ",".join(PATHS))
     args = ap.parse_args(argv)
     if args.summarize:
         summarize(args.summarize)
@@ -406,12 +520,28 @@ def main(argv=None) -> int:
     kernels.build()
     device = torch.device("cuda")
     cfg = tps.PermutoSDFTrainConfig()
-    res = {"tree": args.label or root, "card": cs.card_line(),
-           "host": host_costs(device, cfg), "events": event_costs(cs, device),
-           "frame": frame_path(cs, device, cfg, args.frames)}
-    reel, res["train"] = train_path(cs, device, cfg)
-    res["sdf_from_mesh"] = sdf_from_mesh_path(cs, device)
-    res["nerf"] = nerf_path(cs, device, reel)
+    paths = set(args.paths.split(","))
+    if not paths <= set(PATHS):
+        print(f"torch_encode_paths: unknown --paths {sorted(paths - set(PATHS))}",
+              file=sys.stderr)
+        return 2
+    res = {"tree": args.label or root, "card": cs.card_line()}
+    if "host" in paths:
+        res["host"] = host_costs(device, cfg)
+    if "events" in paths:
+        res["events"] = event_costs(cs, device)
+    if "fg" in paths:
+        res["fg"] = fg_costs(cs, device, cfg)
+    if "frame" in paths:
+        res["frame"] = frame_path(cs, device, cfg, args.frames)
+    if paths & {"train", "lever", "nerf"}:
+        params, grid, reel, res["train"] = train_path(cs, device, cfg)
+        if "lever" in paths:
+            res["lever"] = lever_path(cs, device, cfg, params, grid, reel)
+        if "nerf" in paths:
+            res["nerf"] = nerf_path(cs, device, reel)
+    if "sdf" in paths:
+        res["sdf_from_mesh"] = sdf_from_mesh_path(cs, device)
     line = json.dumps({"encode_paths": res})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -3,8 +3,9 @@
 // (permuto_sdf_tpu_torch/kernels/csrc), so `g++ -std=c++20` can compile
 // the .cu sources and run them on the CPU in tests: each block runs its
 // threads as std::threads, atomicAdd is a std::atomic_ref add, the warp
-// shuffles, ballots and __reduce_add_sync exchange values
-// through a per-warp slot array between two barriers, __syncthreads is a
+// shuffles, ballots, __any_sync, __match_any_sync and __reduce_add_sync
+// exchange values through a per-warp slot array between two barriers
+// (__ffs is the compiler's builtin), __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
 // psdf_dynamic_smem are redefined for that (float2 is a plain pair, uint4
 // four plain words, so a 16-byte vector load is a struct copy; cp.async
@@ -60,6 +61,13 @@ inline unsigned __ballot_sync(unsigned, bool p) {
   unsigned r = 0; for (int i = 0; i < 32; ++i) if (emu_warp->slot[i]) r |= 1u << i;
   emu_warp->bar->arrive_and_wait(); return r;
 }
+inline bool __any_sync(unsigned m, bool p) { return __ballot_sync(m, p) != 0u; }
+inline unsigned __match_any_sync(unsigned, unsigned v) {
+  emu_warp->slot[emu_lane()] = v; emu_warp->bar->arrive_and_wait();
+  unsigned r = 0; for (int i = 0; i < 32; ++i) if ((unsigned)emu_warp->slot[i] == v) r |= 1u << i;
+  emu_warp->bar->arrive_and_wait(); return r;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   emu_warp->slot[emu_lane()] = v; emu_warp->bar->arrive_and_wait();
   unsigned r = 0; for (int i = 0; i < 32; ++i) r += (unsigned)emu_warp->slot[i];

@@ -93,10 +93,11 @@ def test_kernels_A_B_source_matches_plain(emulated, d, K, window, N, concat):
 
 
 def test_kernels_A_B_interleaved_table_follows_the_table(emulated):
-    """A and B read the table as the cached [L, C, 2] copy: made once per
+    """A, B and G read the table as the cached [L, C, 2] copy: made once per
     table state (a detached alias, as the trainers pass, reuses it), made
     again after an in-place Adam update and for a freshly loaded table, and
-    A's output equals the plain version's after each."""
+    A's, B's and G's outputs equal the plain versions' after each (G's
+    feature cotangent gathers from the copy: a stale one would show)."""
     import io
     import weakref
 
@@ -108,6 +109,7 @@ def test_kernels_A_B_interleaved_table_follows_the_table(emulated):
     params = pe.init_encoding_params(torch.Generator().manual_seed(3), spec, "cpu")
     pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (100, 3)).astype(np.float32))
     g = torch.from_numpy(rng.normal(size=(100, 11)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(100, 3)).astype(np.float32))
     scales, E, _ = pe.encoding_constants(spec, None, "cpu")
 
     def check(copies_made, table=None):
@@ -119,6 +121,12 @@ def test_kernels_A_B_interleaved_table_follows_the_table(emulated):
                                           pe.encode_fwd_plain(*args).numpy())
             np.testing.assert_array_equal(pe.encode_point_grad_cuda(*args, g).numpy(),
                                           pe.encode_point_grad_plain(*args, g).numpy())
+            (dt_k, dg_k), (dt_p, dg_p) = (pe.encode_double_backward_cuda(*args, g, u),
+                                          pe.encode_double_backward_plain(*args, g, u))
+            np.testing.assert_allclose(dg_k.numpy(), dg_p.numpy(),
+                                       atol=1e-6 * float(dg_p.abs().max()), rtol=0)
+            np.testing.assert_allclose(dt_k.numpy(), dt_p.numpy(),
+                                       atol=1e-5 * float(dt_p.abs().max()), rtol=0)
         assert pe.interleaved_table.copies == copies + copies_made
 
     check(1)
@@ -229,35 +237,54 @@ def test_kernel_D_run_lengths_match_plain(emulated, monkeypatch, S):
                                    rtol=0)
 
 
-@pytest.mark.parametrize("d,K,window", [(3, 4, True), (4, 3, False)])
-def test_kernels_F_G_source_match_plain(emulated, d, K, window):
+def _fg_points(rng, n, d, clustered):
+    """Uniform points in [-0.5, 0.5]^d, or (clustered) points in a cube of
+    side 0.01: then a warp's 32 lanes share their slots at every level
+    coarser than the cube, and kernels F and G combine their atomics."""
+    if clustered:
+        return torch.from_numpy((0.1 + rng.uniform(0.0, 0.01, (n, d))).astype(np.float32))
+    return torch.from_numpy(rng.uniform(-0.5, 0.5, (n, d)).astype(np.float32))
+
+
+def _close_per_level(a, b):
+    """Each level of a table gradient within 1e-5 of its largest |value|."""
+    for lvl in range(a.shape[0]):
+        scale = float(b[lvl].abs().max())
+        np.testing.assert_allclose(a[lvl].numpy(), b[lvl].numpy(),
+                                   atol=1e-5 * scale + 1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("d,K,window,N,clustered", [
+    pytest.param(3, 4, True, 200, False, id="3-4-True"),
+    pytest.param(4, 3, False, 200, False, id="4-3-False"),
+    (3, 4, True, 96, True),  # clustered: the lanes combine their atomics; whole tiles
+    (3, 3, True, 77, True),  # clustered, K < L, a zero-weight level, a ragged tile
+    (4, 4, False, 45, True)])  # d = 4 clustered, a ragged tile
+def test_kernels_F_G_source_match_plain(emulated, d, K, window, N, clustered):
     """Kernel F (table gradient) and kernel G (double backward) against
     their plain versions. Both add into the table with atomicAdd in no fixed
-    order, so each level of the table gradient is held to 1e-5 of its
-    largest |value|; G's feature cotangent is a gather and matches to 1e-6."""
-    rng = np.random.default_rng(d * 7 + K)
+    order, after summing the terms of a warp's lanes that share a slot, so
+    each level of the table gradient is held to 1e-5 of its largest
+    |value|; G's feature cotangent is a gather and matches to 1e-6."""
+    rng = np.random.default_rng(d * 7 + K + (N if clustered else 0))
     spec = pe.PermutoEncodingSpec(pos_dim=d, capacity=2 ** 10, nr_levels=4,
                                   concat_points_scaling=1e-3)
     prm = pe.init_encoding_params(torch.Generator().manual_seed(2), spec, "cpu")
     table = prm["lattice_values"] * 1e3
-    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (200, d)).astype(np.float32))
+    pts = _fg_points(rng, N, d, clustered)
     scales, E, _ = pe.encoding_constants(spec, None, "cpu")
     win = torch.tensor([1.0, 0.6, 0.2, 0.0]) if window else None
     args = (pts, table, prm["shift_per_level"], scales, win, E, K)
-    g = torch.from_numpy(rng.normal(size=(200, 2 * K + d)).astype(np.float32))
+    if clustered:  # the first tile's points share a slot at the coarsest level
+        ids = pe.flat_slot_ids(pts[:32], table, prm["shift_per_level"], scales, E, K)
+        assert torch.unique(ids[0, 0]).numel() < ids.shape[2] // 4
+    g = torch.from_numpy(rng.normal(size=(N, 2 * K + d)).astype(np.float32))
     launches = (pe.encode_table_grad_cuda.launches, pe.encode_double_backward_cuda.launches)
-
-    def close_per_level(a, b):
-        for lvl in range(a.shape[0]):
-            scale = float(b[lvl].abs().max())
-            np.testing.assert_allclose(a[lvl].numpy(), b[lvl].numpy(),
-                                       atol=1e-5 * scale + 1e-12, rtol=0)
-
-    close_per_level(pe.encode_table_grad_cuda(*args, g), pe.encode_table_grad_plain(*args, g))
-    u = torch.from_numpy(rng.normal(size=(200, d)).astype(np.float32))
+    _close_per_level(pe.encode_table_grad_cuda(*args, g), pe.encode_table_grad_plain(*args, g))
+    u = torch.from_numpy(rng.normal(size=(N, d)).astype(np.float32))
     dt_k, dg_k = pe.encode_double_backward_cuda(*args, 1e-3, True, g, u)
     dt_p, dg_p = pe.encode_double_backward_plain(*args, 1e-3, True, g, u)
-    close_per_level(dt_k, dt_p)
+    _close_per_level(dt_k, dt_p)
     np.testing.assert_allclose(dg_k.numpy(), dg_p.numpy(), atol=1e-6 * float(dg_p.abs().max()))
     assert (pe.encode_table_grad_cuda.launches, pe.encode_double_backward_cuda.launches) == (
         launches[0] + 1, launches[1] + 1)
@@ -723,25 +750,30 @@ def test_importance_stage_through_the_kernel_sources_matches_plain(emulated, mon
     assert (got.sdf is None) == (not carry)
 
 
-@pytest.mark.parametrize("d,K,levels", [(3, 4, (0, 2)), (3, 4, (1, 2)), (4, 4, (2, 3)),
-                                        (3, 3, (1, 3))])
-def test_kernels_F_G_parity_source_match_plain(emulated, d, K, levels):
+@pytest.mark.parametrize("d,K,levels,N,clustered", [
+    pytest.param(3, 4, (0, 2), 200, False, id="3-4-levels0"),
+    pytest.param(3, 4, (1, 2), 200, False, id="3-4-levels1"),
+    pytest.param(4, 4, (2, 3), 200, False, id="4-4-levels2"),
+    pytest.param(3, 3, (1, 3), 200, False, id="3-3-levels3"),
+    (3, 4, (1, 2), 77, True),  # clustered (combined atomics), a ragged tile
+    (4, 3, (0, 2), 45, True)])  # d = 4, K < L, clustered, a ragged tile
+def test_kernels_F_G_parity_source_match_plain(emulated, d, K, levels, N, clustered):
     """Kernels F and G with alternating-level table gradients ``levels =
     (phase, period)``: the frozen levels of the table gradient are exactly
     zero, the active ones equal the same kernel without parity (1e-5 of the
     level's largest |value|: atomics in no fixed order) and the plain
     version with parity; G's feature cotangent is unchanged at every
     level."""
-    rng = np.random.default_rng(d * 13 + K + levels[0])
+    rng = np.random.default_rng(d * 13 + K + levels[0] + (N if clustered else 0))
     spec = pe.PermutoEncodingSpec(pos_dim=d, capacity=2 ** 10, nr_levels=4,
                                   concat_points_scaling=1e-3)
     prm = pe.init_encoding_params(torch.Generator().manual_seed(3), spec, "cpu")
     table = prm["lattice_values"] * 1e3
-    pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (200, d)).astype(np.float32))
+    pts = _fg_points(rng, N, d, clustered)
     scales, E, _ = pe.encoding_constants(spec, None, "cpu")
     args = (pts, table, prm["shift_per_level"], scales, torch.tensor([1.0, 0.8, 0.5, 0.2]), E, K)
-    g = torch.from_numpy(rng.normal(size=(200, 2 * K + d)).astype(np.float32))
-    u = torch.from_numpy(rng.normal(size=(200, d)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(N, 2 * K + d)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(size=(N, d)).astype(np.float32))
     phase, period = levels
     launches = (pe.encode_table_grad_cuda.launches, pe.encode_double_backward_cuda.launches)
     got_f = pe.encode_table_grad_cuda(*args, g, levels)
