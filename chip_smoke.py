@@ -480,14 +480,70 @@ def encoding_tables(params) -> int:
     return len(found)
 
 
+def probe_sampler_cases(device, cfg) -> dict:
+    """Kernel C's inputs on the paths that launch it, as wrapper arguments:
+    the exact frame's centre chunk (R = CHUNK, no jitter) on the full and
+    the shell grid ("full", "shell"); the flagship step's batch (nr_rays
+    rays through random pixels of the view, jittered starts) on the shell
+    grid ("step_jitter"); the NeRF step's batch on a shell of its 64^3 grid
+    ("nerf64")."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+
+    P = 512
+    o, dr, te, tx = centre_chunk_rays(device)
+    shell = shell_grid(cfg.grid, device).occupancy
+    exact = (cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray, P)
+    cases = {"full": (cfg.grid, og.make_occupancy_grid(cfg.grid, device=device).occupancy,
+                      o, dr, te, tx) + exact,
+             "shell": (cfg.grid, shell, o, dr, te, tx) + exact}
+    K, tf = camera()
+    fo, fd = rays_from_frame(K, tf, WIDTH, HEIGHT, device=device)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    ncfg = tn.NerfTrainConfig()
+    for label, run_cfg, occ in (("step_jitter", cfg, shell),
+                                ("nerf64", ncfg, shell_grid(ncfg.grid, device).occupancy)):
+        pick = torch.randperm(fo.shape[0], generator=gen)[:run_cfg.nr_rays].to(device)
+        ro, rd = fo[pick].contiguous(), fd[pick].contiguous()
+        _, rte, _, rtx, _ = Sphere().ray_intersection(ro, rd)
+        start = torch.rand((run_cfg.nr_rays, 1), generator=gen).to(device)
+        cases[label] = (run_cfg.grid, occ, ro, rd, rte, rtx, run_cfg.min_dist_between_samples,
+                        run_cfg.max_nr_samples_per_ray, P, start)
+    return cases
+
+
+def probe_sampler_work(cargs, mask):
+    """(bytes, operations) of kernel C on ``cargs`` with the plain version's
+    ``mask``: the rays (and starts) read once, each distinct voxel the probes
+    touch read once, z, dt, mask and ray_fixed_dt written once."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    gcfg, _, o, dr, te, tx, _, S, P = cargs[:9]
+    R = o.shape[0]
+    frac = (torch.arange(P, device=o.device, dtype=torch.float32) + 0.5) / P
+    ts = te.reshape(-1, 1) + frac[None, :] * (tx - te).reshape(-1, 1)
+    lin, _ = og.point_to_lin_idx(gcfg, (o[:, None, :] + ts[..., None] * dr[:, None, :]
+                                        ).reshape(-1, 3))
+    probed = torch.unique(lin).numel()
+    nbytes = R * (8 + (len(cargs) > 9)) * 4 + probed + R * S * 9 + R * 4
+    return nbytes, probe_sampler_ops(te, tx, mask, P)
+
+
 def probe_sampler_ops(t_entry, t_exit, mask, P: int) -> int:
-    """Float operations kernel C's body does for these rays: per probe of a
-    ray that meets the bound (t_exit > t_entry; the others have nothing to
-    probe) 23: probe fraction 2, t 3, point 6, three voxel indices 4 each;
-    per such ray 8: seg_len 2, occupied length 2, sample count 2, dt 2; per
-    valid sample 11 + 3 per step of the binary search over the P counts:
-    arc 2, each step's count * seg_len and compare 3, cum_before 2, into 3,
-    t 4. Invalid sample slots only store zeros."""
+    """Float operations of kernel C's function for these rays: per probe of
+    a ray that meets the bound (t_exit > t_entry; the others have nothing
+    to probe) 23: probe fraction 2, t 3, point 6, three voxel indices 4
+    each; per such ray 8: seg_len 2, occupied length 2, sample count 2,
+    dt 2; per valid sample 11 + 3 per step of searchsorted's binary search
+    over the P counts (the kernel starts from arc / seg_len and needs
+    fewer): arc 2, each step's count * seg_len and compare 3, cum_before 2,
+    into 3, t 4. Invalid sample slots only store zeros."""
     steps = math.ceil(math.log2(P + 1))
     hit = int((t_exit > t_entry).sum())
     return hit * (23 * P + 8) + int(mask.sum()) * (11 + 3 * steps)
@@ -613,14 +669,9 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
     results["B"] = dict(max_abs_err=max(errs), ms=timing[0], plain_ms=timing[1],
                         bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
-    # --- C: probe sampler on the chunk of rays through the frame's center
-    o, dr, te, tx = centre_chunk_rays(device)
-    gcfg = cfg.grid
-    P, S = 512, cfg.max_nr_samples_per_ray
+    # --- C: probe sampler on the inputs of the paths that launch it
     errs, timing = [], None
-    for label, grid in (("full", og.make_occupancy_grid(gcfg, device=device)),
-                        ("shell", shell_grid(gcfg, device))):
-        cargs = (gcfg, grid.occupancy, o, dr, te, tx, cfg.min_dist_between_samples, S, P)
+    for label, cargs in probe_sampler_cases(device, cfg).items():
         got = og.probe_sampler_cuda(*cargs)
         want = og.probe_sampler_plain(*cargs)
         if not torch.equal(got[2], want[2]):
@@ -630,13 +681,9 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
         errs.append(err)
         ms = time_ms(lambda: og.probe_sampler_cuda(*cargs), reps, device)
         pms = time_ms(lambda: og.probe_sampler_plain(*cargs), plain_reps, device)
-        frac = (torch.arange(P, device=device, dtype=torch.float32) + 0.5) / P
-        ts = te + frac[None, :] * (tx - te)
-        lin, _ = og.point_to_lin_idx(gcfg, (o[:, None, :] + ts[..., None] * dr[:, None, :]).reshape(-1, 3))
-        probed = torch.unique(lin).numel()
-        nbytes = R * 8 * 4 + probed + R * S * 9 + R * 4
-        b = bound_ms(nbytes, probe_sampler_ops(te, tx, want[2], P))
-        _report(f"C:{label} R={R} valid={int(want[2].sum())}", err, TOL_C, ms, pms, b)
+        b = bound_ms(*probe_sampler_work(cargs, want[2]))
+        _report(f"C:{label} R={cargs[2].shape[0]} V={cargs[0].nr_voxels_per_dim} "
+                f"valid={int(want[2].sum())}", err, TOL_C, ms, pms, b)
         if label == "full":
             dms = device_ms(lambda: og.probe_sampler_cuda(*cargs), "C", device)
             timing = (ms, pms, b)
@@ -644,6 +691,7 @@ def kernel_phases(device, cfg, reps=20, plain_reps=3):
                         bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
 
     # --- D: NeuS mode (fg, S=96) and NeRF mode (bg, S=32)
+    o, dr, _, _ = centre_chunk_rays(device)
     errs, timing = [], None
     for label, S in (("neus", S_fg), ("nerf", cfg.nr_samples_bg)):
         nr = torch.from_numpy(rng.integers(0, S + 1, R)).to(device)
@@ -1438,6 +1486,20 @@ def sphere_scene(device, cfg):
     return params, grid, summary
 
 
+def chebyshev_grids(device, gcfg, scene_occupancy) -> dict:
+    """Kernel J0's grids: the scene's refreshed occupancy ("scene"), an
+    all-empty grid (the old scan-until-best kernel's worst case), a random
+    sparse one (0.2% occupied, from SEED) and a full one."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    nv = gcfg.nr_voxels
+    return {"scene": scene_occupancy,
+            "empty": torch.zeros(nv, dtype=torch.bool, device=device),
+            "sparse": (torch.rand(nv, generator=gen) < 0.002).to(device),
+            "full": torch.ones(nv, dtype=torch.bool, device=device)}
+
+
 def _jump_lookups(field, gcfg, o, d, t, allow, jumps):
     """Replays a kernel's chained jumps (J1, J2): the number of field
     lookups and the distinct voxels they read."""
@@ -1473,22 +1535,27 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
     gcfg, cap = cfg.grid, st._EMPTY_DIST_CAP
     results = {}
 
-    # --- J0: the distance field of the refreshed grid
-    got = og.chebyshev_field_cuda(gcfg, grid.occupancy, cap)
-    want = og.chebyshev_field_plain(gcfg, grid.occupancy, cap)
-    err = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
-    ms = time_ms(lambda: og.chebyshev_field_cuda(gcfg, grid.occupancy, cap), reps, device)
-    pms = time_ms(lambda: og.chebyshev_field_plain(gcfg, grid.occupancy, cap), plain_reps, device)
-    # the occupancy read once and the uint8 field written once; three passes
-    # of a linear-time method
-    b = bound_ms(2 * gcfg.nr_voxels, 3 * gcfg.nr_voxels * OPS_PER_CHEBYSHEV_VOXEL_PASS)
-    hist = torch.bincount(want.to(torch.int64), minlength=cap + 1)
-    _report(f"J0 V={gcfg.nr_voxels_per_dim} cap={cap} (occupied {int(hist[0])}, "
-            f"at the cap {int(hist[cap])})", err, 0.0, ms, pms, b)
-    dms = device_ms(lambda: og.chebyshev_field_cuda(gcfg, grid.occupancy, cap), "J0", device)
-    results["J0"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-                         device_ms=dms)
-    field = got
+    # --- J0: the distance field of the refreshed grid (the timed row), and
+    # of an empty, a random sparse and a full grid, at caps 15 and cap
+    field = None
+    for label, occ in chebyshev_grids(device, gcfg, grid.occupancy).items():
+        for c in (15, cap):
+            got = og.chebyshev_field_cuda(gcfg, occ, c)
+            want = og.chebyshev_field_plain(gcfg, occ, c)
+            err = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+            ms = time_ms(lambda: og.chebyshev_field_cuda(gcfg, occ, c), reps, device)
+            pms = time_ms(lambda: og.chebyshev_field_plain(gcfg, occ, c), plain_reps, device)
+            # the occupancy read once and the uint8 field written once; three
+            # passes of a linear-time method
+            b = bound_ms(2 * gcfg.nr_voxels, 3 * gcfg.nr_voxels * OPS_PER_CHEBYSHEV_VOXEL_PASS)
+            hist = torch.bincount(want.to(torch.int64), minlength=c + 1)
+            _report(f"J0:{label} V={gcfg.nr_voxels_per_dim} cap={c} (occupied {int(hist[0])}, "
+                    f"at the cap {int(hist[c])})", err, 0.0, ms, pms, b)
+            if label == "scene" and c == cap:
+                dms = device_ms(lambda: og.chebyshev_field_cuda(gcfg, occ, c), "J0", device)
+                results["J0"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                                     bound_by=b[1], device_ms=dms)
+                field = got
 
     # --- the padded state of one 400x400 chunk
     K, tf = camera_k(WIDTH, HEIGHT)
@@ -1670,14 +1737,18 @@ def sphere_render_phase(device, cfg, scenes):
     return out
 
 
-def profile_sphere_frame(device, cfg, params, grid):
-    """One more 400x400 sphere-traced frame under torch.profiler."""
+def profile_sphere_frame(device, cfg, params, grid, first=False):
+    """One more 400x400 sphere-traced frame under torch.profiler; with
+    ``first``, the first frame after a grid refresh (the distance field
+    cache emptied, so the frame builds the field with J0)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
 
     K, tf = camera_k(WIDTH, HEIGHT)
+    if first:
+        tps._DIST_FIELD_CACHE.clear()
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3221,6 +3292,21 @@ def plain_trace_kernel_phases(device, cfg, params, grid, field, reps=20, plain_r
     dms = device_ms(lambda: og.first_occupied_cuda(*cargs), "C3", device)
     results["C3"] = dict(max_abs_err=(got[0] - want[0]).abs().max().item(), ms=ms, plain_ms=pms,
                          bound_ms=b[0], bound_by=b[1], device_ms=dms)
+    # C3 at the plain frame's shape: one PT_CHUNK-ray chunk from the view's middle
+    mid = (R // 2 // PT_CHUNK) * PT_CHUNK
+    ch = (gcfg, grid.occupancy) + tuple(t[mid:mid + PT_CHUNK].contiguous()
+                                        for t in (o, d, te, tx)) + (P,)
+    got, want = og.first_occupied_cuda(*ch), og.first_occupied_plain(*ch)
+    ulp = _ulps(got[0], want[0])
+    if not torch.equal(got[1], want[1]) or not ulp <= TOL_C3_ULP:
+        fail(f"kernel C3 on a {PT_CHUNK}-ray chunk: has differs on "
+             f"{(got[1] != want[1]).sum().item()} rays, t_first {ulp} ulp")
+    results["C3"]["chunk_ms"] = time_ms(lambda: og.first_occupied_cuda(*ch), reps, device)
+    results["C3"]["chunk_device_ms"] = device_ms(lambda: og.first_occupied_cuda(*ch), "C3",
+                                                 device)
+    print(f"[kernel C3:chunk] R={PT_CHUNK} (has {int(want[1].sum())}; t_first {ulp} ulp) "
+          f"ms={results['C3']['chunk_ms']:.4f} device_ms={results['C3']['chunk_device_ms']}",
+          flush=True)
 
     # --- J3: one iteration of the full-state loop on one chunk
     mid = (R // 2 // PT_CHUNK) * PT_CHUNK
@@ -3790,6 +3876,7 @@ def main() -> int:
     # 8. sphere-traced frames at the viewer's operating point, one profiled
     st_runs = sphere_render_phase(device, cfg, scenes)
     st_profile = profile_sphere_frame(device, cfg, sphere_params, sphere_grid)
+    st_first_profile = profile_sphere_frame(device, cfg, sphere_params, sphere_grid, first=True)
 
     # 9. the card against the CPU on 1024 sphere-traced rays
     st_cross = sphere_cross_check(device, cfg, sphere_params, sphere_grid, field)
@@ -3946,7 +4033,9 @@ def main() -> int:
     print(json.dumps({"train": train_summary, "card": card}), flush=True)
     print(json.dumps({"sphere_traced": {"operating_point": ST_KW, "scene": scene_summary,
                                         "runs": st_runs, "cross_check": st_cross,
-                                        "profile": st_profile}, "card": card}), flush=True)
+                                        "profile": st_profile,
+                                        "profile_first_frame": st_first_profile},
+                      "card": card}), flush=True)
     print(json.dumps({"lod": {"runs": lod_runs, "profile": lod_profile,
                               "cross_check": lod_cross}, "card": card}), flush=True)
     print(json.dumps({"hit_ray_train": hit_train, "card": card}), flush=True)

@@ -13,22 +13,36 @@
 //
 // What bounds them on an H100: bytes and memory latency. J0 reads the
 // 16.8 MB bool grid and writes the 16.8 MB uint8 field (three passes move
-// about 100 MB, all of it in or near the 50 MB L2); its integer work is up
-// to 2 x 63 min/max per voxel and pass where the grid is empty. J1 and J2
-// read and write a few bytes of state per ray (origin, direction, t, t_exit,
-// the flags) and gather one byte of the field per jump, at positions that
-// follow the ray: scattered one-byte reads of a field that stays in L2.
+// about 100 MB, all of it in or near the 50 MB L2); a linear-time method
+// does ~10 integer operations per voxel and pass whatever the field's
+// values. J1 and J2 read and write a few bytes of state per ray (origin,
+// direction, t, t_exit, the flags) and gather one byte of the field per
+// jump, at positions that follow the ray: scattered one-byte reads of a
+// field that stays in L2.
 //
 // Design of J0: the JAX op takes `max_dist` sweeps of a 3x3x3 min-pool
 // (d = min(d, minpool(d) + 1), voxels outside the grid ignored). The same
 // integers come from three separable 1-D passes (z, y, x), each
 // out[a] = min over a' of max(|a - a'|, in[a']), starting from 0 on an
 // occupied voxel and `cap` on an empty one: the L-inf distance to the
-// nearest occupied voxel, capped. A block loads 32 lines of the pass's axis
-// into shared memory (a [V][32] byte tile), and each thread scans outward
-// from its voxel until the offset reaches its best value (at most `cap`
-// steps). The field is uint8 (values 0..cap, cap <= 255): a 256^3 field is
-// 16.8 MB and stays in L2 while J1 and J2 gather from it.
+// nearest occupied voxel, capped. One thread per line, 32 lines a block,
+// staged in shared memory in 16-byte vectors with neighbouring threads on
+// neighbouring bytes of the grid (the z pass copies its lines' contiguous
+// bytes; the y and x passes copy rows of 32 neighbouring lines). Each line
+// is one forward and one backward scan in constant work per voxel
+// (`chebyshev_step`: the best value moves by at most one per voxel unless
+// the voxel's own value is smaller, and a table of each value's latest
+// position says when it steps up), the two scans interleaved in one loop.
+// The field is uint8 (values 0..cap, cap <= 255): a 256^3 field is 16.8 MB
+// and stays in L2 while J1 and J2 gather from it. It replaced a design with
+// each voxel scanning outward until the offset reached its best value (up
+// to 2 cap shared reads a voxel and pass on empty space), the z pass's
+// loads 32 sectors a warp: 1.48 device ms on a 256^3 shell and 1.74 on an
+// empty grid at cap 63, against ~0.22 for the scans on every grid (NVIDIA
+// H100 80GB HBM3, 700 W; profiling/torch_encode_paths.py --paths grid).
+// Staging alone (the scans removed) took 0.077 of that; a Meijster-style
+// deque of candidates per line (a ring of cap + 1 entries), with the same
+// staging, 0.46-0.81 (neither variant is kept).
 //
 // Design of J1 and J2: one thread per ray. A jump reads the field at
 // o + t d (one byte) and advances t by max(k - 1, 0) voxels; a jump of 0
@@ -88,38 +102,156 @@ __device__ __forceinline__ float jump_along(const uint8_t* __restrict__ field,
   return t;
 }
 
-constexpr int kLines = 32;  // lines of one pass per block (one per lane)
-constexpr int kRows = 8;    // warps per block, each walks every 8th voxel
+constexpr int kLines = 32;  // lines of one J0 pass per block, one per thread
+
+// J0's line stride in shared memory when the lines are staged line by line:
+// at least V bytes and 4 mod 8, so the 32 lines' bytes at one offset fall
+// in 32 distinct banks.
+__host__ __device__ __forceinline__ int chebyshev_row_bytes(int V) {
+  return ((V + 7) & ~7) + 4;
+}
+
+// One step of a J0 scan at scan index k with value v: the best m over the
+// positions so far is v where v does not exceed the previous m; otherwise
+// it stays m while the latest position p with a value <= m lies within m
+// of k, and then becomes m + 1, p the later of p and the latest position
+// whose value is m + 1. `last`, indexed by value (every value is <= cap),
+// holds each value's latest scan index; p never decreases, so an entry
+// never written (0, as zeroed) never wins. Without branches, so the two
+// scans of a line interleave (with branches, or with the store and the load
+// made conditional, the sphere scene's shell took 0.238-0.254 device ms at
+// 256^3 against 0.217).
+__device__ __forceinline__ void chebyshev_step(int k, int v, int cap, int& m, int& p,
+                                               uint16_t* __restrict__ last) {
+  last[v * kLines] = (uint16_t)k;
+  const int next = last[min(m + 1, cap) * kLines];  // after the store
+  const bool reset = v <= m;
+  const bool up = !reset && k - p > m;
+  p = reset ? k : (up ? max(p, next) : p);
+  m = reset ? v : m + (int)up;
+}
+
+// J0, the 1-D pass of one line in shared memory (element a at a * es):
+// out[a] = min over a' of max(|a - a'|, in[a']), the smaller of a forward
+// scan (a' <= a) and a backward scan (a' >= a), in constant work per voxel.
+// The two scans run in one loop, two independent chains: in its first half
+// each writes its own positions, in the second half each takes the minimum
+// with what the other scan wrote there.
+__device__ __forceinline__ void chebyshev_line(const uint8_t* __restrict__ in,
+                                               uint8_t* __restrict__ out, int V,
+                                               int es, int cap,
+                                               uint16_t* __restrict__ last_f,
+                                               uint16_t* __restrict__ last_b) {
+  int mf = 255, pf = 0, mb = 255, pb = 0;  // >= any value: the first step resets
+#pragma unroll 2
+  for (int k = 0; k < V; ++k) {
+    const int af = k * es, ab = (V - 1 - k) * es;
+    chebyshev_step(k, in[af], cap, mf, pf, last_f);
+    chebyshev_step(k, in[ab], cap, mb, pb, last_b);
+    if (2 * k < V - 1) {
+      out[af] = (uint8_t)mf;
+      out[ab] = (uint8_t)mb;
+    } else if (2 * k == V - 1) {
+      out[af] = (uint8_t)min(mf, mb);
+    } else {
+      out[af] = (uint8_t)min((int)out[af], mf);
+      out[ab] = (uint8_t)min((int)out[ab], mb);
+    }
+  }
+}
+
+// Four bytes of the bool grid as the first pass's input: 0 where occupied,
+// cap where empty.
+__device__ __forceinline__ uint32_t chebyshev_start4(uint32_t w, uint32_t cap) {
+  uint32_t m = 0;
+  for (int b = 0; b < 4; ++b) m |= ((w >> (8 * b) & 255u) ? 0u : cap) << (8 * b);
+  return m;
+}
 
 // J0, one pass along one axis. Line l = (u, w) starts at u * su + w * sw and
-// its voxels are `es` apart. With `from_occupancy`, `in` is the bool grid
-// and the pass starts from 0 (occupied) / cap (empty).
-__global__ void __launch_bounds__(kLines * kRows) chebyshev_pass_kernel(
+// its voxels are `es` apart; with es == 1 (the z pass) line l starts at l V.
+// With `from_occupancy`, `in` is the bool grid and the pass starts from 0
+// (occupied) / cap (empty). The block stages its 32 lines in shared memory
+// with neighbouring threads on neighbouring bytes of the grid, in 16-byte
+// vectors where V allows: the z pass copies its lines' contiguous bytes
+// line by line (tile [32][row bytes]); the y and x passes copy rows of the
+// tile [V][32], each row the 32 lines' neighbouring voxels at one offset.
+__global__ void __launch_bounds__(kLines) chebyshev_pass_kernel(
     int V, long long su, long long sw, long long es, int from_occupancy,
     int cap, const uint8_t* __restrict__ in, uint8_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = threadIdx.x >> 5;
-  const long long l = (long long)blockIdx.x * kLines + lane;
-  const bool ok = l < (long long)V * V;
-  const long long base = ok ? (l / V) * su + (l % V) * sw : 0;
-  uint8_t* tile = psdf_dynamic_smem<uint8_t>();
-  for (int a = row; a < V; a += kRows) {
-    uint8_t v = 0;
-    if (ok) {
-      v = in[base + a * es];
-      if (from_occupancy) v = v ? 0 : (uint8_t)cap;
+  const int t = threadIdx.x;
+  const bool z_pass = es == 1;
+  const int rb = chebyshev_row_bytes(V);
+  const int tile = z_pass ? kLines * rb : V * kLines;
+  const long long nl = (long long)V * V;
+  const long long l0 = (long long)blockIdx.x * kLines;
+  const int nlines = (int)min((long long)kLines, nl - l0);
+  uint8_t* fin = psdf_dynamic_smem<uint8_t>();
+  uint8_t* fout = fin + tile;
+  // the scans' latest index per value, forward then backward: [2][cap + 1][kLines]
+  uint16_t* last = reinterpret_cast<uint16_t*>(fout + tile);
+  for (int i = t; i < 2 * (cap + 1) * kLines; i += kLines) last[i] = 0;
+  // 16-byte vectors: the z pass's lines back to back (su = V^2, sw = V), or
+  // the other passes' 32 lines neighbours in one plane (sw = 1, V % 32 == 0)
+  const bool vec = z_pass ? V % 16 == 0 && su == nl && sw == V
+                          : V % kLines == 0 && sw == 1;
+  if (z_pass && vec) {
+    const int per_line = V / 16;
+    const uint4* src = reinterpret_cast<const uint4*>(in + l0 * V);
+    for (int c = t; c < nlines * per_line; c += kLines) {
+      const uint4 q = src[c];
+      uint32_t w[4] = {q.x, q.y, q.z, q.w};
+      uint32_t* dst = reinterpret_cast<uint32_t*>(fin + (c / per_line) * rb + (c % per_line) * 16);
+      for (int j = 0; j < 4; ++j) dst[j] = from_occupancy ? chebyshev_start4(w[j], cap) : w[j];
     }
-    tile[a * kLines + lane] = v;
+  } else if (vec) {
+    const long long row0 = (l0 / V) * su + (l0 % V) * sw;
+    for (int c = t; c < V * 2; c += kLines) {  // two 16-byte halves per row
+      uint4 q = *reinterpret_cast<const uint4*>(in + row0 + (c >> 1) * es + (c & 1) * 16);
+      if (from_occupancy) {
+        q.x = chebyshev_start4(q.x, cap), q.y = chebyshev_start4(q.y, cap);
+        q.z = chebyshev_start4(q.z, cap), q.w = chebyshev_start4(q.w, cap);
+      }
+      *reinterpret_cast<uint4*>(fin + c * 16) = q;
+    }
+  } else {
+    for (int i = t; i < nlines * V; i += kLines) {
+      const int line = z_pass ? i / V : i % nlines;
+      const int a = z_pass ? i % V : i / nlines;
+      const long long l = l0 + line;
+      const uint8_t v = in[(l / V) * su + (l % V) * sw + a * es];
+      fin[z_pass ? line * rb + a : a * kLines + line] = from_occupancy ? (v ? 0 : cap) : v;
+    }
   }
   __syncthreads();
-  if (!ok) return;
-  for (int a = row; a < V; a += kRows) {
-    int best = tile[a * kLines + lane];
-    for (int d = 1; d < best; ++d) {
-      if (a - d >= 0) best = min(best, max(d, (int)tile[(a - d) * kLines + lane]));
-      if (a + d < V) best = min(best, max(d, (int)tile[(a + d) * kLines + lane]));
+  if (t < nlines) {
+    const int off = z_pass ? t * rb : t;
+    chebyshev_line(fin + off, fout + off, V, z_pass ? 1 : kLines, cap, last + t,
+                   last + (cap + 1) * kLines + t);
+  }
+  __syncthreads();
+  if (z_pass && vec) {
+    const int per_line = V / 16;
+    uint4* dst = reinterpret_cast<uint4*>(out + l0 * V);
+    for (int c = t; c < nlines * per_line; c += kLines) {
+      const uint32_t* w =
+          reinterpret_cast<const uint32_t*>(fout + (c / per_line) * rb + (c % per_line) * 16);
+      uint4 q;
+      q.x = w[0], q.y = w[1], q.z = w[2], q.w = w[3];
+      dst[c] = q;
     }
-    out[base + a * es] = (uint8_t)best;
+  } else if (vec) {
+    const long long row0 = (l0 / V) * su + (l0 % V) * sw;
+    for (int c = t; c < V * 2; c += kLines)
+      *reinterpret_cast<uint4*>(out + row0 + (c >> 1) * es + (c & 1) * 16) =
+          *reinterpret_cast<const uint4*>(fout + c * 16);
+  } else {
+    for (int i = t; i < nlines * V; i += kLines) {
+      const int line = z_pass ? i / V : i % nlines;
+      const int a = z_pass ? i % V : i / nlines;
+      const long long l = l0 + line;
+      out[(l / V) * su + (l % V) * sw + a * es] = fout[z_pass ? line * rb + a : a * kLines + line];
+    }
   }
 }
 
@@ -281,22 +413,28 @@ GridArgs grid_args(int V, float half_extent, float tx, float ty, float tz,
 // J0: field [V^3] uint8 from occupancy [V^3] bool; scratch [V^3] uint8.
 extern "C" int psdf_chebyshev_field(int V, int cap, const void* occupancy,
                                     void* scratch, void* field, void* stream) {
-  if (V <= 0 || cap < 0 || cap > 255) return (int)cudaErrorInvalidValue;
+  if (V <= 0 || V >= (1 << 16) || cap < 0 || cap > 255) return (int)cudaErrorInvalidValue;
   const long long vv = (long long)V * V;
   const int grid = psdf_blocks(vv, kLines);
-  const size_t smem = (size_t)V * kLines;
-  const int block = kLines * kRows;
+  // the z pass's tile [32][row bytes] is the larger of the two layouts
+  const size_t smem = (size_t)2 * kLines * chebyshev_row_bytes(V) +
+                      (size_t)2 * (cap + 1) * kLines * sizeof(uint16_t);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        chebyshev_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+  }
   // z (stride 1), then y (stride V), then x (stride V^2)
-  PSDF_LAUNCH(chebyshev_pass_kernel, grid, block, smem, stream, V, vv,
+  PSDF_LAUNCH(chebyshev_pass_kernel, grid, kLines, smem, stream, V, vv,
               (long long)V, 1ll, 1, cap, (const uint8_t*)occupancy,
               (uint8_t*)field);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  PSDF_LAUNCH(chebyshev_pass_kernel, grid, block, smem, stream, V, vv, 1ll,
+  PSDF_LAUNCH(chebyshev_pass_kernel, grid, kLines, smem, stream, V, vv, 1ll,
               (long long)V, 0, cap, (const uint8_t*)field, (uint8_t*)scratch);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  PSDF_LAUNCH(chebyshev_pass_kernel, grid, block, smem, stream, V,
+  PSDF_LAUNCH(chebyshev_pass_kernel, grid, kLines, smem, stream, V,
               (long long)V, 1ll, vv, 0, cap, (const uint8_t*)scratch,
               (uint8_t*)field);
   return (int)cudaGetLastError();

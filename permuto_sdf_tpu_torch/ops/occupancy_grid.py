@@ -153,32 +153,37 @@ def probe_sampler_plain(cfg: OccupancyGridConfig, occupancy, origins, dirs,
 
 def probe_sampler_cuda(cfg: OccupancyGridConfig, occupancy, origins, dirs,
                        t_entry, t_exit, min_dist: float, S: int, P: int, start=None):
-    """Kernel C launch. Counts launches in ``probe_sampler_cuda.launches``."""
+    """Kernel C launch (``P`` a multiple of 32 up to 1024: the kernel keeps
+    one ballot of 32 probes per lane). Counts launches in
+    ``probe_sampler_cuda.launches``."""
     R = origins.shape[0]
     dev = origins.device
-    if occupancy.dtype != torch.bool or occupancy.numel() != cfg.nr_voxels:
-        raise ValueError("probe sampler: occupancy must be a bool [V^3] tensor")
-    if P % 32:
-        raise ValueError("probe sampler: nr_probes must be a multiple of 32")
-    args = [t.contiguous() for t in (origins, dirs, t_entry.reshape(-1), t_exit.reshape(-1))]
-    if start is not None:
-        start = start.reshape(-1).contiguous()
-        args.append(start)
-    for t in args + [occupancy]:
-        if t.device != dev or (t is not occupancy and t.dtype != torch.float32):
-            raise ValueError("probe sampler: float32 rays and the grid on one device")
+    if (occupancy.dtype != torch.bool or occupancy.numel() != cfg.nr_voxels
+            or occupancy.device != dev):
+        raise ValueError("probe sampler: occupancy must be a bool [V^3] tensor on the rays' "
+                         "device")
+    if P % 32 or not 0 < P <= 1024:
+        raise ValueError("probe sampler: nr_probes must be a multiple of 32 up to 1024")
+    # t_entry, t_exit and start are read as R floats: [R] and [R, 1] alike
+    rays = [origins, dirs, t_entry, t_exit] + ([start] if start is not None else [])
+    for i, t in enumerate(rays):
+        if t.device != dev or t.dtype != torch.float32 or t.numel() != (3 * R if i < 2 else R):
+            raise ValueError("probe sampler: float32 rays [R, 3], t_entry, t_exit and start "
+                             "[R] on one device")
+    o, d, t0, t1, *st = (t.contiguous() for t in rays)
+    occ = occupancy.contiguous()
     z = torch.empty((R, S), dtype=torch.float32, device=dev)
     dt = torch.empty((R, S), dtype=torch.float32, device=dev)
     mask = torch.empty((R, S), dtype=torch.bool, device=dev)
     fixed = torch.empty((R,), dtype=torch.float32, device=dev)
     lib = kernels.load("occupancy_grid")
-    tx, ty, tz = (float(v) for v in cfg.grid_translation)
+    tx, ty, tz = cfg.grid_translation
     err = lib.psdf_probe_sampler(
-        R, *(kernels.ptr(a) for a in args[:4]), kernels.ptr(start),
-        kernels.ptr(occupancy.contiguous()),
-        cfg.nr_voxels_per_dim, cfg.grid_extent / 2.0, tx, ty, tz, cfg.voxel_size,
-        float(min_dist), S, P, kernels.ptr(z), kernels.ptr(dt), kernels.ptr(mask),
-        kernels.ptr(fixed), kernels.current_stream(dev))
+        R, o.data_ptr(), d.data_ptr(), t0.data_ptr(), t1.data_ptr(),
+        st[0].data_ptr() if st else None, occ.data_ptr(),
+        cfg.nr_voxels_per_dim, cfg.grid_extent / 2.0, tx, ty, tz, cfg.voxel_size, min_dist,
+        S, P, z.data_ptr(), dt.data_ptr(), mask.data_ptr(), fixed.data_ptr(),
+        kernels.current_stream(dev))
     kernels.check(lib, err, "occupancy probe sampler (kernel C)")
     probe_sampler_cuda.launches += 1
     return z, dt, mask, fixed

@@ -50,9 +50,12 @@ _MASK32 = 0xFFFFFFFF
 
 @dataclasses.dataclass(frozen=True)
 class PermutoEncodingSpec:
-    """Static configuration of the encoding (the lowering knobs of the JAX
-    spec, such as ``row_gather``, select XLA gather forms and have no
-    counterpart here: every form returns the same f32 values)."""
+    """Static configuration of the encoding. The JAX spec's lowering knobs
+    have no counterpart here: the port always computes the exact float32
+    values of its ``row_gather`` form. ``sorted_scatter`` (and the
+    trainer's ``sdf_gradient_mode``) give those same values in JAX;
+    ``packed_bf16`` without ``row_gather`` does not (its forward values
+    round to bf16), so the trainer refuses ``table_row_gather=False``."""
 
     pos_dim: int
     capacity: int = 2 ** 18

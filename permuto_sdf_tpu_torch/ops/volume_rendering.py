@@ -65,9 +65,11 @@ def alpha_from_density(density, dt, mask):
     return torch.where(mask, a, torch.zeros_like(a))
 
 
-def sdf2alpha_sectional(samples: RaySamples, sdf, inv_s_multiplier: float = 1.0):
+def sdf2alpha_sectional(samples: RaySamples, sdf, *, inv_s_multiplier: float = 1.0):
     """NeuS section alpha from consecutive sdf values (importance sampling),
-    inv_s mapped from the ray's uniform dt in [1e-4, 1e-2] to [1024, 64].
+    inv_s mapped from the ray's uniform dt in [1e-4, 1e-2] to [1024, 64]
+    (JAX's ``dynamic_inv_s=True``; its third positional parameter is
+    ``inv_s``, so the multiplier is keyword-only here).
     The last valid sample of each ray gets alpha 0."""
     mask = samples.mask
     z = samples.z

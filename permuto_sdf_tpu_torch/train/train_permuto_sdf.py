@@ -64,8 +64,11 @@ from permuto_sdf_tpu_torch.utils.losses import sdf_loss_sphere
 @dataclasses.dataclass(frozen=True)
 class PermutoSDFTrainConfig:
     """The fields and defaults of the JAX ``PermutoSDFTrainConfig``. Knobs
-    that only steer the TPU lowering (gather and scatter forms) are
-    accepted and ignored."""
+    that only steer the TPU lowering and give the same values there
+    (``sorted_scatter``, ``sdf_gradient_mode``) are accepted and ignored.
+    ``table_row_gather=False`` is not: in JAX it sends every encode through
+    the packed-bf16 gather, whose forward values round to bf16, so the
+    model configs below raise ``NotImplementedError`` for it."""
 
     s_mult: float = 1.0
     lr: float = 1e-3
@@ -136,8 +139,15 @@ class PermutoSDFTrainConfig:
         return self.max_nr_samples_per_ray + (
             2 * self.nr_samples_imp_sampling if self.do_importance_sampling else 0)
 
+    def _check_table_gather(self):
+        if not self.table_row_gather:
+            raise NotImplementedError(
+                "table_row_gather=False: the packed-bf16 table gather (bf16-rounded "
+                "forward values) is not ported; the port encodes in float32")
+
     @property
     def sdf_model(self) -> SDFConfig:
+        self._check_table_gather()
         return SDFConfig(in_channels=3, geom_feat_size_out=self.sdf_geom_feat_size,
                          nr_iters_for_c2f=self.sdf_nr_iters_for_c2f,
                          capacity=self.capacity, nr_levels=self.nr_levels,
@@ -147,6 +157,7 @@ class PermutoSDFTrainConfig:
 
     @property
     def rgb_model(self) -> RGBConfig:
+        self._check_table_gather()
         return RGBConfig(in_channels=3, geom_feat_size_in=self.sdf_geom_feat_size,
                          nr_iters_for_c2f=self.rgb_nr_iters_for_c2f,
                          capacity=self.capacity, nr_levels=self.nr_levels,
@@ -155,6 +166,7 @@ class PermutoSDFTrainConfig:
 
     @property
     def bg_model(self) -> NerfHashConfig:
+        self._check_table_gather()
         return NerfHashConfig(
             in_channels=4, nr_iters_for_c2f=self.background_nr_iters_for_c2f,
             capacity=self.capacity,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the main paths that kernels A, B, D, E1, E2, F and G run, for the port of one tree.
+"""Time the main paths that kernels A, B, C, D, E1, E2, F, G and J0 run, for the port of one tree.
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
-                                            [--paths host,events,fg,frame,train,lever,sdf,nerf]
+                                            [--paths host,events,fg,grid,frame,sphere,train,
+                                                     lever,sdf,nerf]
     python3 profiling/torch_encode_paths.py --summarize FILE.json ...
 
 Imports ``permuto_sdf_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
@@ -20,6 +21,13 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   sets of the checkout's own ``chip_smoke.fg_point_sets`` (random, rays,
   clustered) at the training step's fg (d = 3, N = 49,152) and background
   (d = 4, N = 16,384) counts, every level and parity (phase 1 of period 2);
+- grid: CUDA-event ms and device ms per call of kernel C on the checkout's
+  own ``chip_smoke.probe_sampler_cases`` (the exact frame's 2048-ray
+  chunk on the full and the shell grid, the flagship step's batch with
+  jittered starts, NeRF's 64³ grid), the wall µs per call of its wrapper
+  on 32 of the step's rays (the device idle), and of kernel J0 on
+  ``chip_smoke.chebyshev_grids`` at 256³ (a shell, empty, random sparse,
+  full) at caps 15 and 63;
 - host: the wall µs per call of ``encode_fwd_cuda`` on 256 points (the
   launch and wrapper cost, the device idle), of a cache hit of
   ``interleaved_table``, of ``importance_round_cuda`` (E1),
@@ -28,6 +36,10 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   of ``neus_render`` (kernel D through its autograd function) on 32 rays;
 - frame: ``render_image`` at 400² (chip_smoke's exact frame on the full
   grid), ``--frames`` frames, then one under torch.profiler;
+- sphere: chip_smoke's sphere scene, then the sphere-traced 400² frame at
+  its operating point under torch.profiler twice: first with the distance
+  field cache emptied (the first frame after a grid refresh, which builds
+  the field with J0), then the next frame;
 - train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in;
   interleaved-table copies per step) and one flagship step under
   torch.profiler;
@@ -40,8 +52,8 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
 - nerf: ``train_nerf.train`` at ``NerfTrainConfig()`` for 2 and 26 steps
   (ms/step from the difference) and one step under torch.profiler.
 
-Each profile gives the device ms and the launches of kernels A, B, D, E1,
-E2, F and G (the device µs per launch is their ratio). Each path also
+Each profile gives the device ms and the launches of kernels A, B, C, D,
+E1, E2, F, G and J0 (the device µs per launch is their ratio). Each path also
 records the peak of ``torch.cuda.max_memory_allocated``.
 Prints the profiles as chip_smoke does and, last, one JSON line of the
 results (also written to ``--out``). ``--summarize`` reads such files and
@@ -63,8 +75,9 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "D", "E1", "E2", "F", "G")
-PATHS = ("host", "events", "fg", "frame", "train", "lever", "sdf", "nerf")
+PROFILED = ("A", "B", "C", "D", "E1", "E2", "F", "G", "J0")
+PATHS = ("host", "events", "fg", "grid", "frame", "sphere", "train", "lever", "sdf", "nerf")
+GRID_HOST_RAYS = 32
 
 
 def _profiled(cs, device, what, fn):
@@ -290,6 +303,67 @@ def fg_costs(cs, device, cfg):
                     out[key + ".device_ms"], out[key + ".call_device_ms"] = _device_ms(
                         cs, device, fn, kernel)
     return out
+
+
+def grid_costs(cs, device, cfg):
+    """Kernel C on the probe-sampler cases and J0 on the distance-field
+    grids of the checkout's own chip_smoke: CUDA-event ms and device ms
+    per call; C's wrapper wall µs per call on GRID_HOST_RAYS rays."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    own = _own_chip_smoke()
+    out = {}
+    cases = own.probe_sampler_cases(device, cfg)
+    for label, cargs in cases.items():
+        fn = lambda: og.probe_sampler_cuda(*cargs)  # noqa: E731
+        out[f"C.{label}.ms"] = cs.time_ms(fn, 20, device)
+        out[f"C.{label}.device_ms"] = _device_ms(cs, device, fn, "C")[0]
+    step = cases["step_jitter"]
+    n = GRID_HOST_RAYS
+    small = step[:2] + tuple(t[:n].contiguous() for t in step[2:6]) + step[6:9] + (
+        step[9][:n].contiguous(),)
+    og.probe_sampler_cuda(*small)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        og.probe_sampler_cuda(*small)
+    torch.cuda.synchronize(device)
+    out["C.wrapper_us"] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    gcfg = cfg.grid
+    grids = own.chebyshev_grids(device, gcfg, own.shell_grid(gcfg, device).occupancy)
+    for label, occ in grids.items():
+        for cap in (15, 63):
+            fn = lambda: og.chebyshev_field_cuda(gcfg, occ, cap)  # noqa: E731
+            key = f"J0.{'shell' if label == 'scene' else label}.cap{cap}"
+            out[key + ".ms"] = cs.time_ms(fn, 20, device)
+            out[key + ".device_ms"] = _device_ms(cs, device, fn, "J0")[0]
+    return out
+
+
+def sphere_path(cs, device, cfg):
+    """The first sphere-traced frame after a grid refresh (the distance
+    field built by J0) and the next one, each under torch.profiler."""
+    import torch
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    params, grid, _ = cs.sphere_scene(device, cfg)
+    K, tf = cs.camera_k(cs.WIDTH, cs.HEIGHT)
+
+    def frame():
+        tps.render_image_sphere_traced_fast(params, grid, K, tf, cs.WIDTH, cs.HEIGHT, cs.ITER,
+                                            cfg, device=device, **cs.ST_KW)
+
+    frame()  # warm-up
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    tps._DIST_FIELD_CACHE.clear()
+    first = _profiled(cs, device, "sphere_first_frame", frame)
+    peak = _peak_mib(device)
+    return {"first_frame": first, "next_frame": _profiled(cs, device, "sphere_frame", frame),
+            "peak_mib": peak}
 
 
 def lever_path(cs, device, cfg, params, grid, reel):
@@ -532,8 +606,12 @@ def main(argv=None) -> int:
         res["events"] = event_costs(cs, device)
     if "fg" in paths:
         res["fg"] = fg_costs(cs, device, cfg)
+    if "grid" in paths:
+        res["grid"] = grid_costs(cs, device, cfg)
     if "frame" in paths:
         res["frame"] = frame_path(cs, device, cfg, args.frames)
+    if "sphere" in paths:
+        res["sphere"] = sphere_path(cs, device, cfg)
     if paths & {"train", "lever", "nerf"}:
         params, grid, reel, res["train"] = train_path(cs, device, cfg)
         if "lever" in paths:

@@ -5,7 +5,8 @@
 // threads as std::threads, atomicAdd is a std::atomic_ref add, the warp
 // shuffles, ballots, __any_sync, __match_any_sync and __reduce_add_sync
 // exchange values through a per-warp slot array between two barriers
-// (__ffs is the compiler's builtin), __syncthreads is a
+// (__ffs is the compiler's builtin; __fns, positive offsets only, a loop
+// over the bits), __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
 // psdf_dynamic_smem are redefined for that (float2 is a plain pair, uint4
 // four plain words, so a 16-byte vector load is a struct copy; cp.async
@@ -68,6 +69,13 @@ inline unsigned __match_any_sync(unsigned, unsigned v) {
   emu_warp->bar->arrive_and_wait(); return r;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+// __fns for a positive offset: the offset-th set bit at or above base
+// (0xffffffff if there is none), as kernel C uses it
+inline unsigned __fns(unsigned mask, unsigned base, int offset) {
+  for (unsigned i = base; i < 32; ++i)
+    if ((mask >> i & 1u) && --offset == 0) return i;
+  return 0xffffffffu;
+}
 inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   emu_warp->slot[emu_lane()] = v; emu_warp->bar->arrive_and_wait();
   unsigned r = 0; for (int i = 0; i < 32; ++i) r += (unsigned)emu_warp->slot[i];

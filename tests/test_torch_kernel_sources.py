@@ -150,20 +150,46 @@ def test_kernels_A_B_interleaved_table_follows_the_table(emulated):
     assert all(ref() is not None for ref, _, _ in pe._INTERLEAVED.values())
 
 
-@pytest.mark.parametrize("S,P,min_dist", [(64, 512, 1e-4), (40, 64, 0.02)])
-def test_kernel_C_source_matches_plain(emulated, S, P, min_dist):
-    rng = np.random.default_rng(S)
-    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
-    R = 37  # not a multiple of the 4 rays per block
+def _c_rays(rng, R):
     o = torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32))
     o = o / o.norm(dim=-1, keepdim=True) * 1.3
     tgt = torch.from_numpy(rng.uniform(-0.3, 0.3, (R, 3)).astype(np.float32))
     dr = torch.nn.functional.normalize(tgt - o, dim=-1)
     _, te, _, tx, _ = Sphere().ray_intersection(o, dr)
-    occ = torch.from_numpy(rng.uniform(size=16 ** 3) < 0.3)
+    return o, dr, te, tx
+
+
+def _c_placements(cfg, occ, o, dr, te, tx, min_dist, S, P, start):
+    """The probe rounds kernel C's valid samples land in, and how many
+    samples lie past the last occupied probe (searchsorted returns P: the
+    index is clamped to P - 1), replayed from the plain version's math."""
+    occ_p, seg = og._probe_occupancy(cfg, occ, o, dr, te, tx, P)
+    counts = torch.cumsum(occ_p.to(torch.int32), dim=-1)
+    z, _, mask, fixed = og.probe_sampler_plain(cfg, occ, o, dr, te, tx, min_dist, S, P, start)
+    st = start.reshape(-1, 1) if start is not None else 0.5
+    arc = (torch.arange(S, dtype=torch.float32)[None, :] + st) * fixed[:, None]
+    idx = torch.searchsorted(counts.to(torch.float32) * seg[:, None], arc.contiguous(),
+                             right=True)
+    rounds = torch.unique(torch.clamp(idx, max=P - 1)[mask] // 32)
+    return rounds, int((idx[mask] == P).sum())
+
+
+@pytest.mark.parametrize("S,P,min_dist,density,R", [
+    pytest.param(64, 512, 1e-4, 0.3, 37, id="64-512-0.0001"),
+    pytest.param(40, 64, 0.02, 0.3, 37, id="40-64-0.02"),  # the generic path (P != 512)
+    (64, 512, 1e-4, 0.95, 9),  # dense: samples land in every round of 32 probes
+    (40, 96, 0.02, 0.95, 6)])  # generic and dense, fewer rays than a block holds
+def test_kernel_C_source_matches_plain(emulated, S, P, min_dist, density, R):
+    rng = np.random.default_rng(S)
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    o, dr, te, tx = _c_rays(rng, R)  # R not a multiple of the 4 rays per block
+    occ = torch.from_numpy(rng.uniform(size=16 ** 3) < density)
     got = og.probe_sampler_cuda(cfg, occ, o, dr, te, tx, min_dist, S, P)
     want = og.probe_sampler_plain(cfg, occ, o, dr, te, tx, min_dist, S, P)
-    assert want[2].sum() > 50
+    assert want[2].sum() > min(50, 3 * R)
+    if density > 0.5:
+        rounds, _ = _c_placements(cfg, occ, o, dr, te, tx, min_dist, S, P, None)
+        assert rounds.numel() == P // 32
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
@@ -353,38 +379,67 @@ def test_kernel_I_source_matches_plain(emulated):
     assert 0 < int((~grids[0].occupancy).sum()) < lin.numel()
 
 
-def test_kernel_C_jittered_start_source_matches_plain(emulated):
+def test_kernel_C_wrapper_refuses_what_the_kernel_cannot_take():
+    """Probe counts beyond one ballot per lane, and t_entry, t_exit or start
+    of another ray count (the kernel would read past them), raise before any
+    launch."""
+    rng = np.random.default_rng(9)
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    o, dr, te, tx = _c_rays(rng, 8)
+    occ = torch.ones(16 ** 3, dtype=torch.bool)
+    for P in (48, 1056):
+        with pytest.raises(ValueError, match="multiple of 32 up to 1024"):
+            og.probe_sampler_cuda(cfg, occ, o, dr, te, tx, 0.02, 16, P)
+    for args in ((te[:-1], tx, None), (te, tx, torch.zeros(9)), (te, tx.double(), None)):
+        with pytest.raises(ValueError, match="float32 rays"):
+            og.probe_sampler_cuda(cfg, occ, o, dr, args[0], args[1], 0.02, 16, 64, args[2])
+
+
+@pytest.mark.parametrize("kind,S,P,R", [
+    ("uniform", 40, 64, 37), ("uniform", 64, 512, 13),
+    ("near_one", 40, 64, 13),  # starts just below 1: samples past the last occupied probe
+    ("near_one", 64, 512, 13)])
+def test_kernel_C_jittered_start_source_matches_plain(emulated, kind, S, P, R):
     """Kernel C with the per-ray start of the training jitter."""
     rng = np.random.default_rng(5)
     cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
-    R = 37
-    o = torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32))
-    o = o / o.norm(dim=-1, keepdim=True) * 1.3
-    dr = torch.nn.functional.normalize(
-        torch.from_numpy(rng.uniform(-0.3, 0.3, (R, 3)).astype(np.float32)) - o, dim=-1)
-    _, te, _, tx, _ = Sphere().ray_intersection(o, dr)
+    o, dr, te, tx = _c_rays(rng, R)
     occ = torch.from_numpy(rng.uniform(size=16 ** 3) < 0.3)
     start = torch.from_numpy(rng.uniform(size=R).astype(np.float32))
-    got = og.probe_sampler_cuda(cfg, occ, o, dr, te, tx, 0.02, 40, 64, start)
-    want = og.probe_sampler_plain(cfg, occ, o, dr, te, tx, 0.02, 40, 64, start)
+    if kind == "near_one":
+        start = torch.full((R,), float(np.nextafter(np.float32(1), np.float32(0))))
+        assert _c_placements(cfg, occ, o, dr, te, tx, 0.02, S, P, start)[1] > 0
+    got = og.probe_sampler_cuda(cfg, occ, o, dr, te, tx, 0.02, S, P, start)
+    want = og.probe_sampler_plain(cfg, occ, o, dr, te, tx, 0.02, S, P, start)
     assert want[2].sum() > 50
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-@pytest.mark.parametrize("V,cap,kind", [(16, 63, "sparse"), (32, 15, "sparse"), (32, 63, "shell")])
+@pytest.mark.parametrize("V,cap,kind", [
+    (16, 63, "sparse"), (32, 15, "sparse"), (32, 63, "shell"),
+    (16, 15, "empty"), (16, 63, "full"), (16, 0, "sparse"), (16, 255, "sparse"),
+    (20, 63, "sparse"), (20, 255, "shell"),  # V = 20: lines not a multiple of a block
+    (15, 63, "sparse")])  # odd V: the scans meet at a middle voxel
 def test_kernel_J0_source_matches_plain(emulated, V, cap, kind):
     """Kernel J0 (three separable passes) against the plain version (the
     JAX op's min-pool sweeps): the same integers."""
     rng = np.random.default_rng(V + cap)
     cfg = og.OccupancyGridConfig(nr_voxels_per_dim=V)
-    occ = torch.from_numpy(rng.uniform(size=V ** 3) < 0.002) if kind == "sparse" else _shell(V)
+    occ = {"sparse": lambda: torch.from_numpy(rng.uniform(size=V ** 3) < 0.002),
+           "shell": lambda: _shell(V), "empty": lambda: torch.zeros(V ** 3, dtype=torch.bool),
+           "full": lambda: torch.ones(V ** 3, dtype=torch.bool)}[kind]()
     launches = og.chebyshev_field_cuda.launches
     got = og.chebyshev_field_cuda(cfg, occ, cap)
     assert og.chebyshev_field_cuda.launches == launches + 1
     want = og.chebyshev_field_plain(cfg, occ, cap)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert 0 == int(want.min()) < 3 < int(want.max())
+    if kind == "empty":
+        assert int(want.min()) == int(want.max()) == cap
+    elif kind == "full" or cap == 0:
+        assert int(want.max()) == 0
+    else:
+        assert 0 == int(want.min()) < 3 < int(want.max())
 
 
 @pytest.mark.parametrize("n,p,sizes", [(5000, 0.3, (100, 1500, 1523, 6000)), (0, 0.0, (0, 256)),
