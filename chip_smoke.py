@@ -107,15 +107,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    extraction's grid SDF and first M call (at most one interleaved-table
    copy per mesh);
 16. slice 7, the plain sphere tracers: kernel C3 (the first occupied
-   probe) on every ray of the 400x400 view and J3 (the plain tracers' step
-   on position state) at one PT_CHUNK-ray chunk against their plain
-   versions (has exact, t_first within TOL_C3_ULP; flags exact, positions
-   within TOL_J3); ``render_image_sphere_traced`` (chunk PT_CHUNK,
-   PT_TRACES traces) at 400x400 on both scenes beside the fast tracer's
-   ms/frame, and ``render_rays_sphere_traced_compacted`` on the whole
-   sphere-scene view, with the launch counts read per path (J3 exactly
-   PT_TRACES per chunk); 1024 plain-traced rays card against CPU at the
-   sphere-frame gates of phase 9;
+   probe) on every ray of the 400x400 view and at one PT_CHUNK-ray chunk,
+   on the sphere scene's grid and on an empty, a random sparse and a full
+   one (each with its distance field, which C3 reads), a grid refresh
+   between two seeds (the trainer's cached field rebuilt, the second seed
+   as the plain version's), and J3 (the plain tracers' step on position
+   state) at one PT_CHUNK-ray chunk against their plain versions (has and
+   t_first exact; flags exact, positions within TOL_J3);
+   ``render_image_sphere_traced`` (chunk PT_CHUNK, PT_TRACES traces) at
+   400x400 on both scenes beside the fast tracer's ms/frame, and
+   ``render_rays_sphere_traced_compacted`` on the whole sphere-scene view,
+   with the launch counts read per path (J3 exactly PT_TRACES per chunk);
+   1024 plain-traced rays card against CPU at the sphere-frame gates of
+   phase 9;
 17. slice 7, sampling without the grid and NeRF: kernels C2 (uniform fg
    samples) and I2 (the density refresh) against their plain versions at
    the NeRF step's shapes (exact); ``train_nerf.train`` at
@@ -2080,6 +2084,78 @@ def importance_kernel_phases(device, cfg, params, grid, frame_profile=None, reps
     return results
 
 
+def importance_sharp_phase(device, cfg, params, grid):
+    """Kernel E1, and E2's round 2 (form b, which shares E1's draw), against
+    their plain versions where the weights are sharp: the sphere scene
+    (SPHERE_INIT_STEPS steps towards a sphere's SDF, its refreshed grid) at
+    one CHUNK-ray chunk through the exact frame's center and at the
+    training step's rays (jitter on), the samples and proxy sdf as the path
+    gives them. z within TOL_E, masks exact. Prints the largest error, the
+    draws off by more than 1e-6, and how sharp the weights are: the median
+    over the rays with weight of the largest normalized weight."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    K_cam, tf = camera()
+    origins, dirs = rays_from_frame(K_cam, tf, WIDTH, HEIGHT, device=device)
+    mid = (origins.shape[0] // 2 // CHUNK) * CHUNK
+    n = cfg.nr_samples_imp_sampling
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+
+    def proxy_sdf(smp):
+        with torch.no_grad():
+            return tps._masked_sdf_value(params["sdf"], smp.flat_positions(), smp.flat_mask(),
+                                         ITER, cfg.sdf_model, None,
+                                         max_levels=cfg.imp_sampling_max_levels
+                                         ).reshape(smp.mask.shape)
+
+    for label, R, jittered in (("chunk", CHUNK, False), ("train", cfg.nr_rays, True)):
+        o, d = origins[mid:mid + R].contiguous(), dirs[mid:mid + R].contiguous()
+        _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
+        smp = og.compute_samples_in_occupied_regions(cfg.grid, grid, o, d, te, tx,
+                                                     cfg.min_dist_between_samples,
+                                                     cfg.max_nr_samples_per_ray)
+        sdf = proxy_sdf(smp)
+        smp = smp.with_sdf(sdf)
+        mov = 1.0 / (n + 1) / 2.0
+        jit = [torch.from_numpy(rng.uniform(-mov, mov, (R, n)).astype(np.float32)).to(device)
+               if jittered else None for _ in range(2)]
+        zk, mk = isp.importance_round_cuda(smp, sdf, n, jit[0])
+        zp, mp = isp.importance_round_plain(smp, sdf, n, jit[0])
+        imp = isp.importance_round(smp, sdf, n, jit[0])
+        imp = imp.with_sdf(proxy_sdf(imp))
+        _, dk = isp.merge_samples_cuda(smp, imp, tx, n, jit[1])
+        _, dp = isp.merge_samples_plain(smp, imp, tx, n, jit[1])
+        cdf = isp._weights_cdf(smp, sdf, 1.0)
+        w_max = (cdf[:, 1:] - cdf[:, :-1]).amax(dim=1)
+        sharp = float(w_max[w_max > 0].median()) if bool((w_max > 0).any()) else 0.0
+        res = {}
+        for name, (a, am), (b, bm) in (("E1", (zk, mk), (zp, mp)),
+                                       ("E2b", (dk.z, dk.mask), (dp.z, dp.mask))):
+            if not torch.equal(am, bm):
+                fail(f"kernel {name} on the sphere scene ({label}): masks differ in "
+                     f"{int((am != bm).sum())} slots")
+            err = (a - b).abs()
+            res[name] = {"max_abs_err": err.max().item(), "above_1e-6": int((err > 1e-6).sum())}
+            if not res[name]["max_abs_err"] <= TOL_E:
+                fail(f"kernel {name} on the sphere scene ({label}): z off by "
+                     f"{res[name]['max_abs_err']:.3e} > {TOL_E:.0e}")
+        res["median_max_weight"] = sharp
+        out[label] = res
+        print(f"[kernel E1:sharp] sphere scene {label} R={R} S={smp.max_samples} n={n}: median "
+              f"largest weight {sharp:.4f}; E1 z err {res['E1']['max_abs_err']:.3e} "
+              f"({res['E1']['above_1e-6']} above 1e-6), E2 round 2 z err "
+              f"{res['E2b']['max_abs_err']:.3e} ({res['E2b']['above_1e-6']} above 1e-6); "
+              f"TOL_E {TOL_E:.0e}", flush=True)
+    return out
+
+
 def hit_ray_kernel_phases(device, cfg, reps=20, plain_reps=3):
     """Kernels H1 and H2 (and H2's backward) against their plain versions at
     the training step's shapes: nr_rays rays of S = max_nr_samples_per_ray
@@ -3230,9 +3306,10 @@ PT_TRACES = 15  # its nr_sphere_traces
 PT_FRAMES = 3  # timed plain-traced frames per scene, after one warm-up frame
 PT_KERNELS = ("C3", "J3", "A", "B")  # J0 only when the scene's field is not cached yet
 PT_COMPACT_KERNELS = ("C3", "J3", "H0", "A", "B")
-TOL_C3_ULP = 1  # t_first: the same float operations; has exact
+TOL_C3_ULP = 0  # t_first: the same float operations; has exact
 TOL_J3 = 1e-6  # positions: the same float operations (--fmad=false); flags exact
 OPS_PER_PROBE = 23  # a probe's t, point and voxel index (as probe_sampler_ops)
+C3_SPAN = 16  # the probes one test of C3's pass 1 settles (kSpan, occupancy_grid.cu)
 OPS_PER_ROW_J3 = 30  # J3's step, convergence test and the bound sphere's test
 OPS_PER_SAMPLE_C2 = 20  # C2's per-slot count, spacing, z, clip and dt
 OPS_PER_PROBE_I2 = 3  # I2's decay, max and threshold
@@ -3240,6 +3317,68 @@ NERF_SHORT = 2  # the short run whose time the window's run subtracts
 NERF_STEPS = 24  # the NeRF window: 3 grid refreshes (every 8 iterations)
 NERF_KERNELS = ("A", "C", "D", "D'", "F", "I", "I2")
 GRIDFREE_KERNELS = ("A", "B", "C2", "D", "D'", "E1", "E2", "F", "G")
+
+
+def c3_bound(gcfg, occupancy, field, o, d, te, tx, P, rays_per_pass=16384):
+    """The least time of kernel C3's work on these rays, given the grid's
+    distance field ``field`` (built once per grid state for the tracers, so
+    not counted here). A ray that meets the bound needs one probe per
+    C3_SPAN-probe span up to the span of its first occupied probe (every
+    span without one): the field at the span's start rules the span out
+    where its end lies within (distance - 1) voxels on every axis. It also
+    needs each probe up to the first occupied one in a span not ruled out:
+    only its voxel's byte settles that. Bytes: the rays once, the results
+    once, and each field byte and voxel those probes read once. Returns
+    (bound_ms's tuple, the counts)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    v = gcfg.nr_voxels_per_dim
+    dev = occupancy.device
+    field_read = torch.zeros(v ** 3, dtype=torch.bool, device=dev)
+    voxels_read = torch.zeros(v ** 3, dtype=torch.bool, device=dev)
+    idx = torch.arange(P, device=dev)
+    frac = (idx.to(torch.float32) + 0.5) / float(P)
+    starts = torch.arange(0, P, C3_SPAN, device=dev)
+    ends = torch.clamp(starts + C3_SPAN, max=P - 1)
+    shift = torch.tensor(gcfg.grid_translation, dtype=torch.float32, device=dev)
+    span_probes = fine_probes = meets = 0
+    for i in range(0, o.shape[0], rays_per_pass):
+        oi, di = o[i:i + rays_per_pass], d[i:i + rays_per_pass]
+        tei = te[i:i + rays_per_pass].reshape(-1, 1)
+        txi = tx[i:i + rays_per_pass].reshape(-1, 1)
+        ts = tei + frac[None, :] * (txi - tei)
+        pts = oi[:, None, :] + ts[..., None] * di[:, None, :]
+        ijk = torch.floor((pts - shift + gcfg.grid_extent / 2.0)
+                          / torch.tensor(gcfg.voxel_size, dtype=torch.float32)).to(torch.int64)
+        inb = ((ijk >= 0) & (ijk < v)).all(dim=-1)
+        c = ijk.clamp(0, v - 1)
+        lin = (c[..., 0] * v + c[..., 1]) * v + c[..., 2]
+        occ = occupancy[lin] & inb
+        first = torch.where(occ.any(dim=-1), torch.argmax(occ.to(torch.uint8), dim=-1), P - 1)
+        upto = (idx[None, :] <= first[:, None]) & (txi > tei)
+        a_ijk, b_ijk = ijk[:, starts], ijk[:, ends]
+        a_in, a_lin = inb[:, starts], lin[:, starts]
+        k = field[a_lin].to(torch.int64)
+        reach = (b_ijk - a_ijk).abs().amax(dim=-1)
+        lo, hi = torch.minimum(a_ijk, b_ijk), torch.maximum(a_ijk, b_ijk)
+        touches = ((hi >= 0) & (lo < v)).all(dim=-1)
+        flagged = torch.where(a_in, (k == 0) | (reach > k - 1), touches)
+        span_upto = upto[:, starts]
+        fine = upto & flagged[:, idx // C3_SPAN]
+        span_probes += int(span_upto.sum())
+        fine_probes += int(fine.sum())
+        meets += int((txi > tei).sum())
+        field_read[a_lin[span_upto & a_in]] = True
+        voxels_read[lin[fine & inb]] = True
+        del ts, pts, ijk, inb, c, lin, occ, fine
+    R = o.shape[0]
+    work = dict(span_probes=span_probes, fine_probes=fine_probes,
+                field_bytes=int(field_read.sum()), voxels=int(voxels_read.sum()))
+    b = bound_ms(R * 8 * 4 + R * 5 + work["field_bytes"] + work["voxels"],
+                 (span_probes + fine_probes) * OPS_PER_PROBE + meets * 6)
+    return b, work
 
 
 def plain_trace_kernel_phases(device, cfg, params, grid, field, reps=20, plain_reps=3):
@@ -3266,47 +3405,42 @@ def plain_trace_kernel_phases(device, cfg, params, grid, field, reps=20, plain_r
     _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
     R = o.shape[0]
 
-    # --- C3: the first occupied probe segment of every ray of the view
+    # --- C3: the first occupied probe segment of every ray of the view, on
+    # the grid's distance field (the tracers build it once per grid state)
+    kc = dict(dist_field=field)
     cargs = (gcfg, grid.occupancy, o, d, te, tx, P)
-    got = og.first_occupied_cuda(*cargs)
+    got = og.first_occupied_cuda(*cargs, **kc)
     want = og.first_occupied_plain(*cargs)
     if not torch.equal(got[1], want[1]):
         fail(f"kernel C3: has differs on {(got[1] != want[1]).sum().item()} rays")
     ulp = _ulps(got[0], want[0])
-    ms = time_ms(lambda: og.first_occupied_cuda(*cargs), reps, device)
+    ms = time_ms(lambda: og.first_occupied_cuda(*cargs, **kc), reps, device)
     pms = time_ms(lambda: og.first_occupied_plain(*cargs), plain_reps, device)
-    # the work these rays need: the probes up to the first occupied one (all
-    # P without one) of the rays that meet the bound, and the voxels they read
-    occ, seg_len = og._probe_occupancy(gcfg, grid.occupancy, o, d, te, tx, P)
-    meets = (tx > te)[:, 0]
-    first = torch.where(want[1], torch.argmax(occ.to(torch.uint8), dim=-1), P - 1)
-    needed = (torch.arange(P, device=device)[None, :] <= first[:, None]) & meets[:, None]
-    frac = (torch.arange(P, device=device, dtype=torch.float32) + 0.5) / P
-    ts = te + frac[None, :] * (tx - te)
-    lin, _ = og.point_to_lin_idx(gcfg, (o[:, None, :] + ts[..., None] * d[:, None, :])[needed])
-    probes, voxels = int(needed.sum()), int(torch.unique(lin).numel())
-    del occ, ts, lin, needed
-    b = bound_ms(R * 8 * 4 + voxels + R * 5, probes * OPS_PER_PROBE + int(meets.sum()) * 6)
-    _report(f"C3 R={R} P={P} (has {int(want[1].sum())}, {probes} probes needed, {voxels} "
-            f"voxels; t_first {ulp} ulp)", float(ulp), TOL_C3_ULP, ms, pms, b)
-    dms = device_ms(lambda: og.first_occupied_cuda(*cargs), "C3", device)
+    b, work = c3_bound(gcfg, grid.occupancy, field, o, d, te, tx, P)
+    _report(f"C3 R={R} P={P} (has {int(want[1].sum())}; {work}; t_first {ulp} ulp)",
+            float(ulp), TOL_C3_ULP, ms, pms, b)
+    dms = device_ms(lambda: og.first_occupied_cuda(*cargs, **kc), "C3", device)
     results["C3"] = dict(max_abs_err=(got[0] - want[0]).abs().max().item(), ms=ms, plain_ms=pms,
-                         bound_ms=b[0], bound_by=b[1], device_ms=dms)
+                         bound_ms=b[0], bound_by=b[1], device_ms=dms, work=work)
     # C3 at the plain frame's shape: one PT_CHUNK-ray chunk from the view's middle
     mid = (R // 2 // PT_CHUNK) * PT_CHUNK
-    ch = (gcfg, grid.occupancy) + tuple(t[mid:mid + PT_CHUNK].contiguous()
-                                        for t in (o, d, te, tx)) + (P,)
-    got, want = og.first_occupied_cuda(*ch), og.first_occupied_plain(*ch)
+    chunk = tuple(t[mid:mid + PT_CHUNK].contiguous() for t in (o, d, te, tx))
+    ch = (gcfg, grid.occupancy) + chunk + (P,)
+    got, want = og.first_occupied_cuda(*ch, **kc), og.first_occupied_plain(*ch)
     ulp = _ulps(got[0], want[0])
     if not torch.equal(got[1], want[1]) or not ulp <= TOL_C3_ULP:
         fail(f"kernel C3 on a {PT_CHUNK}-ray chunk: has differs on "
              f"{(got[1] != want[1]).sum().item()} rays, t_first {ulp} ulp")
-    results["C3"]["chunk_ms"] = time_ms(lambda: og.first_occupied_cuda(*ch), reps, device)
-    results["C3"]["chunk_device_ms"] = device_ms(lambda: og.first_occupied_cuda(*ch), "C3",
-                                                 device)
-    print(f"[kernel C3:chunk] R={PT_CHUNK} (has {int(want[1].sum())}; t_first {ulp} ulp) "
-          f"ms={results['C3']['chunk_ms']:.4f} device_ms={results['C3']['chunk_device_ms']}",
-          flush=True)
+    results["C3"]["chunk_ms"] = time_ms(lambda: og.first_occupied_cuda(*ch, **kc), reps, device)
+    results["C3"]["chunk_device_ms"] = device_ms(lambda: og.first_occupied_cuda(*ch, **kc),
+                                                 "C3", device)
+    b, work = c3_bound(gcfg, grid.occupancy, field, *chunk, P)
+    results["C3"]["chunk_bound_ms"], results["C3"]["chunk_work"] = b[0], work
+    print(f"[kernel C3:chunk] R={PT_CHUNK} (has {int(want[1].sum())}; {work}; t_first {ulp} "
+          f"ulp) ms={results['C3']['chunk_ms']:.4f} device_ms="
+          f"{results['C3']['chunk_device_ms']} bound_ms={b[0]:.6f} ({b[1]})", flush=True)
+    results["C3"]["grids"], results["C3"]["refresh"] = probe_grid_phases(
+        device, gcfg, grid, (o, d, te, tx), chunk, P, reps)
 
     # --- J3: one iteration of the full-state loop on one chunk
     mid = (R // 2 // PT_CHUNK) * PT_CHUNK
@@ -3370,6 +3504,68 @@ def plain_trace_kernel_phases(device, cfg, params, grid, field, reps=20, plain_r
     results["J3"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
                          device_ms=dms)
     return results
+
+
+def probe_grid_phases(device, gcfg, grid, rays, chunk, P, reps=20):
+    """Kernel C3 exactly on the scene's, an empty, a random sparse and a
+    full grid (``chebyshev_grids``), each with its distance field at the
+    tracers' cap, at the whole view and at one PT_CHUNK-ray chunk; then a
+    grid refresh between two seeds (kernel I marking every probed voxel
+    occupied, on a copy of the scene's grid), the seeds reading the
+    trainer's cached field, which the refresh rebuilds: the second seed
+    moves as the plain version's. Returns (C3's numbers per grid, the
+    refresh's)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    probe_grids = {}
+    for name, occ in chebyshev_grids(device, gcfg, grid.occupancy).items():
+        field = og.chebyshev_empty_distance(gcfg, occ, st._EMPTY_DIST_CAP)
+        probe_grids[name] = {}
+        for label, rs in (("view", rays), ("chunk", chunk)):
+            args = (gcfg, occ) + rs + (P,)
+            got = og.first_occupied_cuda(*args, dist_field=field)
+            want = og.first_occupied_plain(*args)
+            ulp = _ulps(got[0], want[0])
+            if not torch.equal(got[1], want[1]) or not ulp <= TOL_C3_ULP:
+                fail(f"kernel C3 ({label}) on the {name} grid: has differs on "
+                     f"{(got[1] != want[1]).sum().item()} rays, t_first {ulp} ulp")
+            run = lambda: og.first_occupied_cuda(*args, dist_field=field)  # noqa: E731
+            probe_grids[name][label] = {"has": int(want[1].sum()), "ms": time_ms(run, reps, device),
+                                        "device_ms": device_ms(run, "C3", device)}
+        print(f"[kernel C3:{name}] " + ", ".join(
+            f"{lb} has {x['has']} ms={x['ms']:.4f} device_ms={x['device_ms']}"
+            for lb, x in probe_grids[name].items()), flush=True)
+
+    # a refresh between two seeds: the second follows the refreshed grid
+    state = og.OccupancyGridState(values=grid.values.clone(), occupancy=grid.occupancy.clone())
+    args = lambda: (gcfg, state.occupancy) + chunk + (P,)  # noqa: E731
+    seed = lambda: og.first_occupied_cuda(  # noqa: E731
+        *args(), dist_field=tps._cached_dist_field(gcfg, state))
+    builds = og.chebyshev_field_cuda.launches
+    before = seed()
+    if not torch.equal(seed()[0], before[0]):
+        fail("kernel C3: two seeds on one grid state differ")
+    _, lin = og.compute_stratified_sample_of_grid_points(gcfg, 1 << 18, 5, device=device)
+    og.update_with_sdf_random_sample(gcfg, state, lin, torch.zeros(lin.shape[0], device=device),
+                                     INV_S_TRAINED)
+    after = seed()
+    want = og.first_occupied_plain(*args())
+    builds = og.chebyshev_field_cuda.launches - builds
+    moved = int((after[0] != before[0]).sum())
+    if (builds != 2 or not torch.equal(after[1], want[1]) or _ulps(after[0], want[0]) != 0
+            or moved == 0):
+        fail(f"kernel C3 across a grid refresh: {builds} field builds (expected 2), "
+             f"{moved} seeds moved, has differs on {(after[1] != want[1]).sum().item()} rays")
+    refresh = {"field_builds": builds, "seeds_moved": moved,
+               "has_before": int(before[1].sum()), "has_after": int(after[1].sum())}
+    print(f"[kernel C3:refresh] {builds} field builds for two grid states, {moved} of "
+          f"{PT_CHUNK} seeds moved (has {refresh['has_before']} -> {refresh['has_after']}) as "
+          f"the plain version's", flush=True)
+    return probe_grids, refresh
 
 
 def plain_trace_render_phase(device, cfg, scenes, fast_runs):
@@ -3871,6 +4067,7 @@ def main() -> int:
     sphere_params, sphere_grid, scene_summary = sphere_scene(device, cfg)
     st_results, field = sphere_kernel_phases(device, cfg, sphere_params, sphere_grid)
     results.update(st_results)
+    results["E1"]["sharp"] = importance_sharp_phase(device, cfg, sphere_params, sphere_grid)
     scenes = {"sphere": (sphere_params, sphere_grid), "plane": (params, grids["full"])}
 
     # 8. sphere-traced frames at the viewer's operating point, one profiled
@@ -4048,7 +4245,10 @@ def main() -> int:
                       "card": card}), flush=True)
     print(json.dumps({"plain_traced": {"runs": {k: {x: y for x, y in v.items() if x != "launches"}
                                                  for k, v in plain_runs.items()},
-                                        "cross_check": plain_cross, "phases_s": slice7_s},
+                                        "cross_check": plain_cross, "phases_s": slice7_s,
+                                        "c3": {k: results["C3"].get(k) for k in
+                                               ("chunk_ms", "chunk_device_ms", "chunk_bound_ms",
+                                                "work", "chunk_work", "grids", "refresh")}},
                       "card": card}), flush=True)
     print(json.dumps({"nerf": nerf_summary, "gridfree_train": gridfree, "card": card}),
           flush=True)

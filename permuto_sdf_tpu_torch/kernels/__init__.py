@@ -63,7 +63,7 @@ SIGNATURES = {
         "psdf_probe_sampler": [_I] + [_P] * 6 + [_I] + [_F] * 6 + [_I, _I] + [_P] * 5,
         "psdf_grid_points": [_I, _U, _I] + [_F] * 5 + [_P] * 4,
         "psdf_grid_update": [_I, _P, _P] + [_F] * 3 + [_P] * 3,
-        "psdf_first_occupied": [_I] + [_P] * 5 + [_I] + [_F] * 5 + [_I] + [_P] * 3,
+        "psdf_first_occupied": [_I] + [_P] * 6 + [_I] + [_F] * 5 + [_I] + [_P] * 3,
         "psdf_density_update": [_I, _P, _P, _F, _F] + [_P] * 3,
     },
     "volume_rendering": {

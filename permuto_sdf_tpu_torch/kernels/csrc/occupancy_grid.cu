@@ -20,11 +20,13 @@
 // samples of z, dt and mask; at the exact frame's chunk (R = 2048 rays, one
 // warp each) the launch fills a quarter of the card's warp slots, so C's
 // time is one warp's chain: its loads, three IEEE divisions per probe, the
-// scan and the placement. C3 reads the same probes up to the first occupied
-// one and writes 5 bytes per ray. I and I2 are bound by the scattered
-// accesses: each of the n probes writes (I2: reads and writes) a 4-byte
-// value and a 1-byte flag at a voxel far from its neighbours' (a 32-byte
-// sector each).
+// scan and the placement. C3 needs the same probes up to the first
+// occupied one and writes 5 bytes per ray; it reads a voxel's byte only
+// where the distance field cannot rule a run of probes out, so its time is
+// the warp's chain of rounds and their probes' arithmetic. I and I2 are
+// bound by the scattered accesses: each of the n probes writes (I2: reads
+// and writes) a 4-byte value and a 1-byte flag at a voxel far from its
+// neighbours' (a 32-byte sector each).
 //
 // Design of C: one warp per ray, probing in rounds of 32 (lane k takes probe
 // 32 j + k, so one load instruction reads 32 neighbouring probes; at
@@ -49,14 +51,30 @@
 // sample: 0.0137 device ms at R = 2048 against the new 0.0073 (NVIDIA H100
 // 80GB HBM3, 700 W, profiling/torch_encode_paths.py --paths grid).
 //
-// Design of C3: one warp per ray, probing in rounds of 32 consecutive
-// probes (lane k takes probe 32 j + k, so neighbouring lanes read
-// neighbouring positions); a ballot per round finds the first occupied
-// probe, and the warp stops at the first round that has one: a ray that
-// meets occupancy early reads only the probes before it. The probe's point
-// and voxel come from `probe_occupied`, the helper kernel C uses, so the
-// two index the grid identically. The seed is the start of the first
-// occupied segment, t_entry + first * seg_len, or t_exit without one.
+// Design of C3: one warp per ray, two passes over the grid's Chebyshev
+// distance field (kernel J0's, which the plain sphere tracers build for
+// the same grid state, and pass to C3). Every float operation of the
+// probe's voxel (`probe_ijk`, the helper kernel C uses, so the two index
+// the grid identically) is monotone in the probe index, so along a ray each
+// axis's voxel index is monotone, and the probes between two probes lie in
+// the box of voxels that the two span. Pass 1 gives each lane a span of 16
+// probes (512 a round): one probe's voxel a lane, its neighbour's end by a
+// shuffle. A start voxel at field distance k > 0 has no occupied voxel
+// within L-inf distance k - 1, and every voxel of the box lies within the
+// box's largest side of the start, so a span whose end is within k - 1 of
+// its start on every axis is empty (a span starting outside the grid is
+// empty where its box misses the grid). Pass 2 walks the other spans in
+// order, two a round (half a warp each), each probe reading its voxel's
+// byte. The first occupied probe is the one-level probe's, bit for bit,
+// whatever the field's cap; a ray through empty space computes 32 probes,
+// not 512. The seed is the start of the first occupied segment,
+// t_entry + first * seg_len, or t_exit without one. It replaced the same
+// warp probing and reading the byte grid at every probe in rounds of 32
+// (mostly one 32-byte sector each): 0.0168 device ms at the plain frame's
+// 8,192-ray chunk and 0.252 at R = 160,000; and a design whose pass 1 read
+// a coarse grid (a byte per 8^3 block, built once per grid state): 0.0065
+// and 0.059 (NVIDIA H100 80GB HBM3, 700 W, profiling/torch_encode_paths.py
+// --paths plain, profiling/c3_designs.py).
 //
 // Design of I and I2: one thread per probe. The voxel of probe i of update
 // k is lin = (a (k n + i) + b) mod 2^m in uint32 with a and b odd (a Weyl
@@ -71,22 +89,50 @@
 
 namespace {
 
-// The voxel of probe p of P along the ray o + t d, t in [te, t1], in the
-// V^3 grid, or -1 outside it: the probe's midpoint
-// t = te + ((p + 0.5) / P) (t1 - te) and its voxel index, in the float order
-// of the JAX op.
+// The voxel (ix, iy, iz) of probe p of P along the ray o + t d, t in
+// [te, t1], in the V^3 grid, and whether it lies inside the grid: the
+// probe's midpoint t = te + ((p + 0.5) / P) (t1 - te) and its voxel index,
+// in the float order of the JAX op. kPow2: P and the voxel size are powers
+// of two and the divisions by them are products by their reciprocals
+// inv_P and inv_vs, which are then exact: the same quotients, bit for bit,
+// for a fraction of an IEEE division's instructions.
+template <bool kPow2 = false>
+__device__ __forceinline__ bool probe_ijk(
+    int V, float half_extent, float tx, float ty, float tz, float voxel_size,
+    float ox, float oy, float oz, float dx, float dy, float dz, float te,
+    float t1, int p, int P, int& ix, int& iy, int& iz, float inv_P = 0.0f,
+    float inv_vs = 0.0f) {
+  float frac, qx, qy, qz;
+  if constexpr (kPow2) {
+    frac = ((float)p + 0.5f) * inv_P;
+  } else {
+    frac = ((float)p + 0.5f) / (float)P;
+  }
+  const float ts = te + frac * (t1 - te);
+  const float px = ox + ts * dx, py = oy + ts * dy, pz = oz + ts * dz;
+  if constexpr (kPow2) {
+    qx = ((px - tx) + half_extent) * inv_vs;
+    qy = ((py - ty) + half_extent) * inv_vs;
+    qz = ((pz - tz) + half_extent) * inv_vs;
+  } else {
+    qx = ((px - tx) + half_extent) / voxel_size;
+    qy = ((py - ty) + half_extent) / voxel_size;
+    qz = ((pz - tz) + half_extent) / voxel_size;
+  }
+  ix = (int)floorf(qx);
+  iy = (int)floorf(qy);
+  iz = (int)floorf(qz);
+  return ix >= 0 && ix < V && iy >= 0 && iy < V && iz >= 0 && iz < V;
+}
+
+// The linear voxel index of probe p, or -1 outside the grid.
 __device__ __forceinline__ long long probe_voxel(
     int V, float half_extent, float tx, float ty, float tz, float voxel_size,
     float ox, float oy, float oz, float dx, float dy, float dz, float te,
     float t1, int p, int P) {
-  const float frac = ((float)p + 0.5f) / (float)P;
-  const float ts = te + frac * (t1 - te);
-  const float px = ox + ts * dx, py = oy + ts * dy, pz = oz + ts * dz;
-  const int ix = (int)floorf(((px - tx) + half_extent) / voxel_size);
-  const int iy = (int)floorf(((py - ty) + half_extent) / voxel_size);
-  const int iz = (int)floorf(((pz - tz) + half_extent) / voxel_size);
-  const bool inb = ix >= 0 && ix < V && iy >= 0 && iy < V && iz >= 0 &&
-                   iz < V;
+  int ix, iy, iz;
+  const bool inb = probe_ijk(V, half_extent, tx, ty, tz, voxel_size, ox, oy,
+                             oz, dx, dy, dz, te, t1, p, P, ix, iy, iz);
   return inb ? ((long long)ix * V + iy) * V + iz : -1;
 }
 
@@ -222,13 +268,20 @@ __global__ void __launch_bounds__(128) probe_sampler_kernel(
   if (lane == 0) ray_fixed_dt[ray] = nr > 0 ? dt_ray : 0.f;
 }
 
+// C3's spans: pass 1 tests runs of kSpan probes at once.
+constexpr int kSpan = 16;  // half a warp: pass 2 probes two spans a round
+static_assert(kSpan == 16, "pass 2 gives each span half a warp");
+
 // Kernel C3: per ray, the start of the first occupied probe segment and
-// whether there is one (t_exit without one).
+// whether there is one (t_exit without one), runs of probes ruled out by
+// the grid's distance field `field`. kPow2: see probe_ijk.
+template <bool kPow2>
 __global__ void __launch_bounds__(128) first_occupied_kernel(
     int R, const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ t_entry, const float* __restrict__ t_exit,
-    const uint8_t* __restrict__ occ, int V, float half_extent, float tx,
-    float ty, float tz, float voxel_size, int P, float* __restrict__ t_first,
+    const uint8_t* __restrict__ occ, const uint8_t* __restrict__ field,
+    int V, float half_extent, float tx, float ty, float tz, float voxel_size,
+    int P, float inv_P, float inv_vs, float* __restrict__ t_first,
     uint8_t* __restrict__ has) {
   const int lane = threadIdx.x & 31;
   const long long ray =
@@ -241,15 +294,54 @@ __global__ void __launch_bounds__(128) first_occupied_kernel(
   const float te = t_entry[ray];
   const float t1 = t_exit[ray];
   int first = -1;
-  for (int base = 0; base < P; base += 32) {  // warp-uniform rounds
-    const int p = base + lane;
-    const bool o = p < P && probe_occupied(occ, V, half_extent, tx, ty, tz,
-                                           voxel_size, ox, oy, oz, dx, dy,
-                                           dz, te, t1, p, P);
-    const unsigned b = __ballot_sync(PSDF_FULL_MASK, o);
-    if (b != 0) {
-      first = base + __popc((b & (0u - b)) - 1u);  // the lowest set lane
-      break;
+  for (int base = 0; base < P && first < 0; base += 32 * kSpan) {  // warp-uniform
+    // pass 1: lane l tests span s = base / kSpan + l, probes [a, b] with
+    // b = a + kSpan (the next span's first probe) or P - 1
+    const int a = base + kSpan * lane;
+    int ix, iy, iz;
+    const bool a_in = probe_ijk<kPow2>(V, half_extent, tx, ty, tz, voxel_size,
+                                       ox, oy, oz, dx, dy, dz, te, t1,
+                                       min(a, P - 1), P, ix, iy, iz, inv_P,
+                                       inv_vs);
+    int jx = __shfl_down_sync(PSDF_FULL_MASK, ix, 1);
+    int jy = __shfl_down_sync(PSDF_FULL_MASK, iy, 1);
+    int jz = __shfl_down_sync(PSDF_FULL_MASK, iz, 1);
+    const int b = min(a + kSpan, P - 1);
+    if (a < P && (lane == 31 || b != a + kSpan))
+      probe_ijk<kPow2>(V, half_extent, tx, ty, tz, voxel_size, ox, oy, oz, dx,
+                       dy, dz, te, t1, b, P, jx, jy, jz, inv_P, inv_vs);
+    bool maybe = false;
+    if (a < P) {
+      if (a_in) {
+        const int k = field[((long long)ix * V + iy) * V + iz];
+        const int reach = max(max(abs(jx - ix), abs(jy - iy)), abs(jz - iz));
+        maybe = k == 0 || reach > k - 1;
+      } else {
+        maybe = max(min(ix, jx), 0) <= min(max(ix, jx), V - 1) &&
+                max(min(iy, jy), 0) <= min(max(iy, jy), V - 1) &&
+                max(min(iz, jz), 0) <= min(max(iz, jz), V - 1);
+      }
+    }
+    unsigned spans = __ballot_sync(PSDF_FULL_MASK, maybe);
+    // pass 2: the flagged spans in order, two a round (half a warp each)
+    while (spans != 0) {  // warp-uniform
+      const int s1 = __ffs(spans) - 1;
+      spans &= spans - 1;
+      const int s2 = spans != 0 ? __ffs(spans) - 1 : -1;
+      if (s2 >= 0) spans &= spans - 1;
+      const int s = lane < 16 ? s1 : s2;
+      const int p = base + kSpan * s + (lane & 15);
+      bool o = s >= 0 && p < P &&
+               probe_ijk<kPow2>(V, half_extent, tx, ty, tz, voxel_size, ox,
+                                oy, oz, dx, dy, dz, te, t1, p, P, ix, iy, iz,
+                                inv_P, inv_vs);
+      if (o) o = occ[((long long)ix * V + iy) * V + iz] != 0;
+      const unsigned hit = __ballot_sync(PSDF_FULL_MASK, o);
+      if (hit != 0) {
+        const int k = __ffs(hit) - 1;  // the lowest set lane: s1's half first
+        first = base + kSpan * (k < 16 ? s1 : s2) + (k & 15);
+        break;
+      }
     }
   }
   if (lane == 0) {
@@ -376,19 +468,31 @@ extern "C" int psdf_grid_update(int n, const void* lin, const void* sdf,
 
 extern "C" int psdf_first_occupied(int R, const void* origins, const void* dirs,
                                    const void* t_entry, const void* t_exit,
-                                   const void* occ, int V, float half_extent,
-                                   float tx, float ty, float tz,
-                                   float voxel_size, int P, void* t_first,
-                                   void* has, void* stream) {
-  if (P <= 0) return (int)cudaErrorInvalidValue;
+                                   const void* occ, const void* field, int V,
+                                   float half_extent, float tx, float ty,
+                                   float tz, float voxel_size, int P,
+                                   void* t_first, void* has, void* stream) {
+  if (P <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
   const int block = 128;  // 4 rays per block
   const int grid = psdf_blocks((long long)R * 32, block);
   if (grid == 0) return 0;
-  PSDF_LAUNCH(first_occupied_kernel, grid, block, 0, stream, R,
-              (const float*)origins, (const float*)dirs,
-              (const float*)t_entry, (const float*)t_exit,
-              (const uint8_t*)occ, V, half_extent, tx, ty, tz, voxel_size, P,
-              (float*)t_first, (uint8_t*)has);
+  // P and the voxel size powers of two (a normal float with a normal
+  // reciprocal): their reciprocals are exact
+  int e = 0;
+  const float m = frexpf(voxel_size, &e);
+  const bool pow2 = (P & (P - 1)) == 0 && m == 0.5f && e - 1 >= -126 && 1 - e <= 127;
+#define PSDF_FIRST_OCCUPIED_ARGS                                              \
+  R, (const float*)origins, (const float*)dirs, (const float*)t_entry,        \
+      (const float*)t_exit, (const uint8_t*)occ, (const uint8_t*)field, V,    \
+      half_extent, tx, ty, tz, voxel_size, P, 1.0f / (float)P,                \
+      ldexpf(1.0f, 1 - e), (float*)t_first, (uint8_t*)has
+  if (pow2)
+    PSDF_LAUNCH(first_occupied_kernel<true>, grid, block, 0, stream,
+                PSDF_FIRST_OCCUPIED_ARGS);
+  else
+    PSDF_LAUNCH(first_occupied_kernel<false>, grid, block, 0, stream,
+                PSDF_FIRST_OCCUPIED_ARGS);
+#undef PSDF_FIRST_OCCUPIED_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@ and the empty-space distance field (counterpart of
 The sampler ``compute_samples_in_occupied_regions`` is kernel C on the card
 (``kernels/csrc/occupancy_grid.cu``), the plain sphere tracers' seed
 ``compute_first_sample_start_of_occupied_regions`` kernel C3 (the same
-file, the same probes); ``compute_stratified_sample_of_grid_points``
+file, the same probes, runs of them ruled out by the grid's distance
+field); ``compute_stratified_sample_of_grid_points``
 and ``update_with_sdf_random_sample`` are the two entry points of kernel
 I, ``update_with_density_random_sample`` (NeRF's refresh) is kernel I2;
 ``chebyshev_empty_distance`` is kernel J0 (``kernels/csrc/sphere_trace.cu``).
@@ -25,6 +26,7 @@ change.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -224,8 +226,11 @@ def first_occupied_plain(cfg: OccupancyGridConfig, occupancy, origins, dirs, t_e
 
 
 def first_occupied_cuda(cfg: OccupancyGridConfig, occupancy, origins, dirs, t_entry,
-                        t_exit, P: int):
-    """Kernel C3 launch. Counts launches in ``first_occupied_cuda.launches``."""
+                        t_exit, P: int, dist_field=None):
+    """Kernel C3 launch, reading ``dist_field``, the grid state's
+    :func:`chebyshev_empty_distance` at any cap (the plain tracers pass
+    theirs); kernel J0 builds it here at cap 63, the tracers' cap, when it
+    is None. Counts launches in ``first_occupied_cuda.launches``."""
     R = origins.shape[0]
     dev = origins.device
     if occupancy.dtype != torch.bool or occupancy.numel() != cfg.nr_voxels:
@@ -234,14 +239,21 @@ def first_occupied_cuda(cfg: OccupancyGridConfig, occupancy, origins, dirs, t_en
     for t in args + [occupancy]:
         if t.device != dev or (t is not occupancy and t.dtype != torch.float32):
             raise ValueError("first occupied probe: float32 rays and the grid on one device")
+    if dist_field is None:
+        dist_field = chebyshev_field_cuda(cfg, occupancy, 63)
+    elif (dist_field.dtype != torch.uint8 or dist_field.device != dev
+          or dist_field.numel() != cfg.nr_voxels):
+        raise ValueError("first occupied probe: dist_field must be the grid's uint8 [V^3] "
+                         "distance field on the rays' device")
     t_first = torch.empty((R,), dtype=torch.float32, device=dev)
     has = torch.empty((R,), dtype=torch.bool, device=dev)
     lib = kernels.load("occupancy_grid")
     tx, ty, tz = (float(v) for v in cfg.grid_translation)
     err = lib.psdf_first_occupied(
         R, *(kernels.ptr(a) for a in args), kernels.ptr(occupancy.contiguous()),
-        cfg.nr_voxels_per_dim, cfg.grid_extent / 2.0, tx, ty, tz, cfg.voxel_size, int(P),
-        kernels.ptr(t_first), kernels.ptr(has), kernels.current_stream(dev))
+        kernels.ptr(dist_field.contiguous()), cfg.nr_voxels_per_dim, cfg.grid_extent / 2.0,
+        tx, ty, tz, cfg.voxel_size, int(P), kernels.ptr(t_first), kernels.ptr(has),
+        kernels.current_stream(dev))
     kernels.check(lib, err, "first occupied probe (kernel C3)")
     first_occupied_cuda.launches += 1
     return t_first, has
@@ -252,12 +264,17 @@ first_occupied_cuda.launches = 0
 
 def compute_first_sample_start_of_occupied_regions(cfg: OccupancyGridConfig,
                                                    grid: OccupancyGridState, origins, dirs,
-                                                   t_entry, t_exit, nr_probes: int = 512):
+                                                   t_entry, t_exit, nr_probes: int = 512,
+                                                   dist_field=None):
     """The plain tracers' seed: per ray, the start ``t_entry + first *
     seg_len`` of the first of ``nr_probes`` probe segments whose midpoint
     lies in an occupied voxel, or ``t_exit`` without one -> (t_first [R],
-    has_occupied [R] bool)."""
-    fn = kernels.dispatch(origins.device, first_occupied_cuda, first_occupied_plain)
+    has_occupied [R] bool). On the card kernel C3 reads the grid's
+    ``dist_field`` (see :func:`first_occupied_cuda`); the CPU path reads the
+    grid alone."""
+    fn = kernels.dispatch(origins.device,
+                          functools.partial(first_occupied_cuda, dist_field=dist_field),
+                          first_occupied_plain)
     return fn(cfg, grid.occupancy, origins, dirs, t_entry, t_exit, nr_probes)
 
 

@@ -292,18 +292,19 @@ trace_step_pos_cuda.launches = 0
 
 def _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg, grid, dist_field):
     """The plain tracers' start: the bound's entry, or with a grid half a
-    voxel past the start of the first occupied probe segment (kernel C3)
+    voxel past the start of the first occupied probe segment (kernel C3,
+    which reads the grid's distance field, built here unless given)
     -> (pos [R, 3], alive [R], dist_field or None)."""
     p_entry, t_entry, _, t_exit, hit = boundary_primitive.ray_intersection(ray_origins,
                                                                            ray_dirs)
     if grid is None or grid_cfg is None:
         return p_entry, hit[:, 0], None
-    t_first, has_occ = og.compute_first_sample_start_of_occupied_regions(
-        grid_cfg, grid, ray_origins, ray_dirs, t_entry, t_exit)
-    pos = ray_origins + t_first[:, None] * ray_dirs
-    pos = pos + ray_dirs * grid_cfg.voxel_size * 0.5  # half a voxel inside
     if dist_field is None:
         dist_field = _grid_distance_field(grid_cfg, grid)
+    t_first, has_occ = og.compute_first_sample_start_of_occupied_regions(
+        grid_cfg, grid, ray_origins, ray_dirs, t_entry, t_exit, dist_field=dist_field)
+    pos = ray_origins + t_first[:, None] * ray_dirs
+    pos = pos + ray_dirs * grid_cfg.voxel_size * 0.5  # half a voxel inside
     return pos, has_occ & hit[:, 0], dist_field
 
 

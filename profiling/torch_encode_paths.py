@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the main paths that kernels A, B, C, D, E1, E2, F, G and J0 run, for the port of one tree.
+"""Time the main paths that kernels A, B, C, C3, D, E1, E2, F, G and J0 run, for the port of one tree.
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
-                                            [--paths host,events,fg,grid,frame,sphere,train,
-                                                     lever,sdf,nerf]
+                                            [--paths host,events,fg,grid,plain,frame,sphere,
+                                                     train,lever,sdf,nerf]
     python3 profiling/torch_encode_paths.py --summarize FILE.json ...
 
 Imports ``permuto_sdf_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
@@ -28,6 +28,13 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   on 32 of the step's rays (the device idle), and of kernel J0 on
   ``chip_smoke.chebyshev_grids`` at 256³ (a shell, empty, random sparse,
   full) at caps 15 and 63;
+- plain: chip_smoke's sphere scene; CUDA-event ms and device ms per call
+  of kernel C3 at the plain frame's PT_CHUNK-ray chunk and on the whole
+  400² view (R = 160,000) on ``chebyshev_grids`` (the scene's grid, empty,
+  random sparse, full; each with its distance field where the tree's C3
+  reads one); then ``render_image_sphere_traced`` at 400² (PT_CHUNK,
+  PT_TRACES): ``--frames`` timed frames after a warm-up, then one under
+  torch.profiler, whose own wall time is printed beside the timed ones;
 - host: the wall µs per call of ``encode_fwd_cuda`` on 256 points (the
   launch and wrapper cost, the device idle), of a cache hit of
   ``interleaved_table``, of ``importance_round_cuda`` (E1),
@@ -52,8 +59,9 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
 - nerf: ``train_nerf.train`` at ``NerfTrainConfig()`` for 2 and 26 steps
   (ms/step from the difference) and one step under torch.profiler.
 
-Each profile gives the device ms and the launches of kernels A, B, C, D,
-E1, E2, F, G and J0 (the device µs per launch is their ratio). Each path also
+Each profile gives the device ms and the launches of kernels A, B, C, C3,
+D, E1, E2, F, G, J0 and J3 (the device µs per launch is their ratio). Each
+path also
 records the peak of ``torch.cuda.max_memory_allocated``.
 Prints the profiles as chip_smoke does and, last, one JSON line of the
 results (also written to ``--out``). ``--summarize`` reads such files and
@@ -75,8 +83,9 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "C", "D", "E1", "E2", "F", "G", "J0")
-PATHS = ("host", "events", "fg", "grid", "frame", "sphere", "train", "lever", "sdf", "nerf")
+PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "J0", "J3")
+PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
+         "nerf")
 GRID_HOST_RAYS = 32
 
 
@@ -339,6 +348,66 @@ def grid_costs(cs, device, cfg):
             key = f"J0.{'shell' if label == 'scene' else label}.cap{cap}"
             out[key + ".ms"] = cs.time_ms(fn, 20, device)
             out[key + ".device_ms"] = _device_ms(cs, device, fn, "J0")[0]
+    return out
+
+
+def plain_path(cs, device, cfg, frames):
+    """Kernel C3 on the sphere scene's and three other grids at the plain frame's chunk and on the whole view, then the
+    plain sphere-traced 400² frame: timed frames, and one under
+    torch.profiler."""
+    import inspect
+
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    own = _own_chip_smoke()
+    # the trees whose C3 reads the distance field get the grid's, built once
+    # per grid state as the tracers build it
+    reads_field = "dist_field" in inspect.signature(og.first_occupied_cuda).parameters
+    params, grid, _ = cs.sphere_scene(device, cfg)
+    gcfg, P = cfg.grid, 512
+    K, tf = cs.camera_k(cs.WIDTH, cs.HEIGHT)
+    o, d = rays_from_frame(K, tf, cs.WIDTH, cs.HEIGHT, device=device)
+    _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
+    R, chunk = o.shape[0], own.PT_CHUNK
+    mid = (R // 2 // chunk) * chunk
+    rays = {"chunk": tuple(t[mid:mid + chunk].contiguous() for t in (o, d, te, tx)),
+            "view": (o, d, te, tx)}
+    out = {}
+    for label, occ in own.chebyshev_grids(device, gcfg, grid.occupancy).items():
+        kc = ({"dist_field": og.chebyshev_empty_distance(gcfg, occ, st._EMPTY_DIST_CAP)}
+              if reads_field else {})
+        for shape, rs in rays.items():
+            fn = lambda: og.first_occupied_cuda(gcfg, occ, *rs, P, **kc)  # noqa: E731
+            key = f"C3.{label}.{shape}"
+            out[key + ".ms"] = cs.time_ms(fn, 20, device)
+            out[key + ".device_ms"] = _device_ms(cs, device, fn, "C3")[0]
+
+    def frame():
+        tps.render_image_sphere_traced(params, grid, K, tf, cs.WIDTH, cs.HEIGHT, cs.ITER, cfg,
+                                       chunk=chunk, nr_sphere_traces=own.PT_TRACES,
+                                       device=device)
+
+    frame()  # warm-up: the distance field is built here
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(frames):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = _profiled(cs, device, "plain_frame", frame)
+    print(f"[plain frame] timed {[round(t, 1) for t in times]} ms, median "
+          f"{statistics.median(times):.1f}; the profiled frame's wall "
+          f"{prof['wall_ms'] if prof else None} ms, busy "
+          f"{prof['device_busy_ms'] if prof else None} ms", flush=True)
+    out["frame"] = {"ms_all": times, "ms_median": statistics.median(times),
+                    "peak_mib": _peak_mib(device), "profile": prof}
     return out
 
 
@@ -608,6 +677,8 @@ def main(argv=None) -> int:
         res["fg"] = fg_costs(cs, device, cfg)
     if "grid" in paths:
         res["grid"] = grid_costs(cs, device, cfg)
+    if "plain" in paths:
+        res["plain"] = plain_path(cs, device, cfg, args.frames)
     if "frame" in paths:
         res["frame"] = frame_path(cs, device, cfg, args.frames)
     if "sphere" in paths:

@@ -580,7 +580,8 @@ def _imp_batch(rng, R, S, nr):
 
 
 @pytest.mark.parametrize("S,n,jitter,mult", [(64, 16, False, 1.0), (70, 16, True, 2.0),
-                                             (8, 4, True, 1.0), (80, 40, False, 2.0)])
+                                             (8, 4, True, 1.0), (80, 40, False, 2.0),
+                                             (128, 32, True, 1.0)])
 def test_kernel_E1_source_matches_plain(emulated, S, n, jitter, mult):
     """Kernel E1 (section alphas, the transmittance and CDF warp scans in
     double, the upper-bound search) against the plain round on rays with 0,
@@ -603,6 +604,32 @@ def test_kernel_E1_source_matches_plain(emulated, S, n, jitter, mult):
     np.testing.assert_array_equal(m_k.numpy(), m_p.numpy())
     np.testing.assert_allclose(z_k.numpy(), z_p.numpy(), atol=1e-6, rtol=0)
     assert torch.equal(m_k, (nr > 0)[:, None].expand(R, n)) and (z_k[0] == 0).all()
+
+
+@pytest.mark.parametrize("S,n", [(64, 16), (128, 32)])
+def test_kernel_E1_zero_weight_rays_match_plain(emulated, S, n):
+    """Kernel E1 on rays whose weights sum below the 1e-6 floor of the
+    normalization: one valid sample (its alpha is 0: a weight sum of 0 and
+    an all-zero CDF), or an sdf far outside the surface (every alpha
+    ~1e-6, the floor reached with two valid samples), beside ordinary rays:
+    masks equal, z_imp to 1e-6."""
+    from permuto_sdf_tpu_torch.ops import importance_sampling as isp
+
+    rng = np.random.default_rng(S)
+    R = 37
+    nr = torch.from_numpy(rng.integers(2, S + 1, R))
+    nr[:8], nr[8:12] = 1, 2
+    smp, sdf, _ = _imp_batch(rng, R, S, nr)
+    sdf[:24] = 5.0  # far outside: sigmoid saturates, alpha = 1e-6 / (1 + 1e-6)
+    jit = torch.from_numpy(rng.uniform(-0.5, 0.5, (R, n)).astype(np.float32)) / (n + 1)
+    z_k, m_k = isp.importance_round_cuda(smp, sdf, n, jit)
+    z_p, m_p = isp.importance_round_plain(smp, sdf, n, jit)
+    np.testing.assert_array_equal(m_k.numpy(), m_p.numpy())
+    np.testing.assert_allclose(z_k.numpy(), z_p.numpy(), atol=1e-6, rtol=0)
+    alpha = torch.clamp(vr.sdf2alpha_sectional(smp, sdf), 0.0, 1.0)
+    w_sum = torch.where(smp.mask, alpha, 0.0)[:24].sum(dim=1)
+    assert bool((w_sum[:8] == 0).all()) and bool((w_sum[8:12] < 1e-6).all())
+    assert bool((w_sum[12:24] > 1e-6).all())
 
 
 @pytest.mark.parametrize("carry", [False, True])
@@ -987,6 +1014,124 @@ def test_kernel_C3_source_matches_plain(emulated, P, kind):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     has = want[1]
     assert (0 < int(has.sum()) < has.numel()) if kind == "shell" else not has.any()
+
+
+def _sparse_blocks(V, rng, blocks=40, per_block=2):
+    """A V^3 grid with ``per_block`` random voxels set in each of ``blocks``
+    random 8^3 blocks: clusters of occupancy with empty space around and
+    between their voxels."""
+    occ = torch.zeros(V, V, V, dtype=torch.bool)
+    c = V // 8
+    for cell in rng.choice(c ** 3, size=blocks, replace=False):
+        cx, cy, cz = cell // (c * c), (cell // c) % c, cell % c
+        for ix, iy, iz in rng.integers(0, 8, (per_block, 3)):
+            occ[8 * cx + ix, 8 * cy + iy, 8 * cz + iz] = True
+    return occ.reshape(-1)
+
+
+def _c3_rays(rng, n, radius=0.5):
+    """Rays from a sphere of radius 1.2 towards points near the grid's
+    center, clipped to a bound sphere of ``radius`` (beyond 0.5 the probes
+    start and end outside the grid) -> (o, d, t_entry, t_exit)."""
+    o = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    o = o / o.norm(dim=-1, keepdim=True) * 1.2
+    tgt = torch.from_numpy(rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(tgt - o, dim=-1)
+    _, te, _, tx, _ = Sphere(radius=radius).ray_intersection(o, d)
+    return o, d, te, tx
+
+
+@pytest.mark.parametrize("P,kind,cap", [(512, "sparse", 63), (100, "sparse", 63),
+                                        (512, "sparse", 2), (512, "full", 63)])
+def test_kernel_C3_field_spans_match_plain(emulated, P, kind, cap):
+    """Kernel C3 rules spans of 16 probes out with the grid's distance
+    field: on a V = 64 grid of 48 sparse clusters (spans near a cluster
+    that the field cannot rule out, whose probes find nothing), on a full
+    grid, and with a field capped at 2 (a span rules out only where its
+    end is within one voxel of its start), ``has`` and ``t_first`` equal
+    the plain version's exactly."""
+    rng = np.random.default_rng(P + cap)
+    V = 64
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=V)
+    occ = (_sparse_blocks(V, rng, blocks=48, per_block=24) if kind == "sparse"
+           else torch.ones(V ** 3, dtype=torch.bool))
+    field = og.chebyshev_field_plain(cfg, occ, cap)
+    o, d, te, tx = _c3_rays(rng, 101 if kind == "sparse" else 33)
+    got = og.first_occupied_cuda(cfg, occ, o, d, te, tx, P, dist_field=field)
+    want = og.first_occupied_plain(cfg, occ, o, d, te, tx, P)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    has = want[1]
+    if kind == "full":
+        assert bool(has[(tx > te)[:, 0]].all())
+    else:
+        assert 5 < int(has.sum()) < has.numel()
+
+
+def test_kernel_C3_seed_follows_a_refresh(emulated, monkeypatch):
+    """The tracers' seed reads C3's distance field from the trainer's
+    per-state cache: a second seed on the same grid reuses it, and an
+    in-place refresh (kernel I through its emulated launch, then a plain
+    index write; both bump the occupancy's version) builds it again
+    (kernel J0), so the next seed follows the new grid."""
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    monkeypatch.setattr(kernels, "dispatch", lambda device, cuda_fn, plain_fn: cuda_fn)
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    grid = og.make_occupancy_grid(cfg, initial_occupied=False, device="cpu")
+    o, d, te, tx = _c3_rays(np.random.default_rng(3), 29)
+    tps._DIST_FIELD_CACHE.clear()
+
+    def seed(builds):
+        launches = og.chebyshev_field_cuda.launches
+        got = og.first_occupied_cuda(cfg, grid.occupancy, o, d, te, tx, 64,
+                                     dist_field=tps._cached_dist_field(cfg, grid))
+        want = og.first_occupied_plain(cfg, grid.occupancy, o, d, te, tx, 64)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert og.chebyshev_field_cuda.launches == launches + builds
+        return int(got[1].sum())
+
+    assert seed(1) == 0 and seed(0) == 0
+    lin = torch.from_numpy(np.flatnonzero(_shell(16).numpy()).astype(np.int32))
+    og.grid_update_cuda(cfg, grid, lin, torch.zeros(lin.shape[0]), 300.0, 1e-4)
+    shell_hits = seed(1)
+    assert shell_hits > 5 and seed(0) == shell_hits
+    grid.occupancy[:] = False
+    assert seed(1) == 0
+
+
+@pytest.mark.parametrize("V", [12, 20])
+def test_kernel_C3_any_grid_size_matches_plain(emulated, V):
+    """C3 on grids whose size no span or block divides, on rays whose
+    probes start and end outside the grid: ``has`` and ``t_first`` equal
+    the plain version's exactly on voxels set only near the grid's far
+    faces, on a full grid and on single voxels at block faces; without a
+    field the wrapper builds one (kernel J0)."""
+    rng = np.random.default_rng(V)
+    cfg = og.OccupancyGridConfig(nr_voxels_per_dim=V)
+    tail = torch.zeros(V, V, V, dtype=torch.bool)
+    tail[V - V % 8:] = torch.from_numpy(rng.random((V % 8, V, V)) < 0.25)
+    tail[:, V - V % 8:, :2] = True
+    o, d, te, tx = _c3_rays(rng, 33, radius=0.8)
+    grids = [tail.reshape(-1), torch.ones(V ** 3, dtype=torch.bool)]
+    for ijk in ((7, 0, 0), (0, 7, 3), (3, 0, 7), (V - 1, 2, 9), (8, V - 1, V - 1)):
+        one = torch.zeros(V, V, V, dtype=torch.bool)
+        one[ijk] = True
+        grids.append(one.reshape(-1))
+    for i, occ in enumerate(grids):
+        want = og.first_occupied_plain(cfg, occ, o, d, te, tx, 100)
+        field = og.chebyshev_field_plain(cfg, occ, 63)
+        got = og.first_occupied_cuda(cfg, occ, o, d, te, tx, 100, dist_field=field)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        if i < 2:
+            assert int(want[1].sum()) > 3
+    launches = og.chebyshev_field_cuda.launches
+    got = og.first_occupied_cuda(cfg, grids[0], o, d, te, tx, 100)
+    assert og.chebyshev_field_cuda.launches == launches + 1
+    want = og.first_occupied_plain(cfg, grids[0], o, d, te, tx, 100)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_kernel_J3_source_matches_plain(emulated):
