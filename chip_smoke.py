@@ -89,11 +89,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    compaction, and one lever step (parity 1) card against CPU within
    TOL_LOSS_CROSS and TOL_GRAD_CROSS;
 14. mesh extraction (kernel M, marching tetrahedra): M1 (triangle counts
-   per cube) and M2 (the emission) against their plain versions on a
-   planted 128^3 grid (exact-level nodes, degenerate faces) and on the
-   sphere scene's 256^3 grid (counts, keys and faces exactly, world
-   vertices within TOL_M_ULP), timed with the weld; kernel A and the whole
-   SDF of one 64^3 block of the grid SDF (row M0);
+   per tile and per 32-cube word) and M2 (the emission and its hash-table
+   weld) against their plain versions on a planted 128^3 grid (exact-level
+   nodes, degenerate faces) and on the sphere scene's 256^3 and 512^3
+   grids (counts, keys, degenerate flags and each emission's first
+   emission of its key exactly, world vertices within TOL_M_ULP; the
+   welded V and F equal to the plain weld's), timed with the ranking glue
+   and as a whole; kernel A and the whole SDF of one 64^3 block of the
+   grid SDF (row M0);
 15. the SDF-from-mesh slice: ``train_sdf_from_mesh.train`` at full width
    on the UV sphere for SDF_MESH_STEPS steps (the loss must fall), one step
    card against CPU (loss within TOL_SDF_MESH_LOSS, every leaf's gradient
@@ -2931,7 +2934,8 @@ def lever_train_phase(device, cfg, params, grid, reel, sphere_params, sphere_gri
 # ---------------------------------------------------------------------------
 
 MESH_PLANTED_RES = 128  # the planted grid of the kernel phase
-MESH_SCENE_RES = 256  # the sphere scene's grid of the kernel phase
+MESH_SCENE_RES = 256  # the sphere scene's grid of the kernel phase (its numbers in `kernels`)
+MESH_SCENE_LARGE_RES = 512  # ... and a larger one (no plain timing)
 MESH_RES = (196, 256, 512)  # extraction resolutions of the slice (196: main's --mc_res)
 MESH_PLAIN_RES = (196, 256)  # V and F held against the plain path on the same grid
 MESH_M_REPS = 3  # timed calls of M on each extraction's grid, after the first
@@ -2943,12 +2947,15 @@ TOL_SDF_MESH_LOSS = 1e-5  # one step card vs CPU: the loss (float32 means over 3
 TOL_SDF_MESH_GRAD = 1e-3  # ... and every leaf's gradient, relative L2
 CHAMFER_SAMPLES = 200_000
 # operations of kernel M, counted from its body: M1 compares a cube's 8
-# corners (8) and, for an active cube, forms six tet cases and adds their
-# counts (6 x 6); M2 interpolates an emitted vertex (ids 6, w 4, 3 axes of
-# 4 each; its weld key is the port's own glue, not the function's work)
-OPS_PER_CUBE_M1 = 8
-OPS_PER_ACTIVE_CUBE_M1 = 36
+# corners (8), looks its count up by those bits (1) and adds it into its
+# word (1); M2 interpolates an emitted vertex (ids 6, w 4, 3 axes of 4
+# each), forms its key (3 axes: widen, scale, round, narrow) and inserts
+# it into the weld table (a hash of 3 products and 3 mixes, ~4 probe
+# compares)
+OPS_PER_CUBE_M1 = 10
 OPS_PER_VERTEX_M2 = 22
+OPS_PER_KEY_M2 = 12
+OPS_PER_INSERT_M2 = 16
 
 
 def planted_mesh_grid(n, seed=SEED):
@@ -3000,15 +3007,57 @@ def _closed_edge_share(F) -> float:
     return float((counts == 2).float().mean())
 
 
+def _active_cubes(grid, slab=32) -> int:
+    """The cubes with a corner below the level 0 and a corner not below it."""
+    import torch
+
+    nx, ny, nz = grid.shape
+    n = 0
+    for x0 in range(0, nx - 1, slab):
+        x1 = min(x0 + slab, nx - 1)
+        below = torch.stack([grid[x0 + dx:x1 + dx, dy:ny - 1 + dy, dz:nz - 1 + dz] < 0
+                             for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+        n += int((below.any(0) & ~below.all(0)).sum())
+    return n
+
+
+def _m2_bound(grid, word_tris, tile_tris, active, T, V, F):
+    """M2's bound by the work the function needs: it reads every tile's
+    total, the active tiles' offsets and word counts and the active cubes'
+    corners, writes a degenerate flag per triangle and the welded mesh (V x
+    12 + F x 24 bytes), and touches one table sector (32 bytes) per
+    distinct key, V of them. The design's own products, the 3T unwelded
+    copies and keys and a table of two slots per emission, are not
+    counted. The operations are every emission's position, key and
+    insert."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+
+    nx, ny, _ = grid.shape
+    _, words, tiles = mc._tiling(grid.shape)
+    groups = -(-(ny - 1) // mc._TILE_ROWS)
+    rows = torch.tensor([min(mc._TILE_ROWS, ny - 1 - mc._TILE_ROWS * g) for g in range(groups)],
+                        device=tile_tris.device).repeat(nx - 1)
+    on = tile_tris > 0
+    nbytes = (tiles * 4 + int(on.sum()) * 8 + int(rows[on].sum()) * words * 2 + active * 32
+              + T + V * 12 + F * 24 + V * 32)
+    return bound_ms(nbytes, (OPS_PER_VERTEX_M2 + OPS_PER_KEY_M2 + OPS_PER_INSERT_M2) * 3 * T)
+
+
 def mesh_kernel_phases(device, cfg, sphere_params, reps=20, plain_reps=2):
     """Kernels M1 and M2 against their plain versions on the planted grid
-    (MESH_PLANTED_RES^3) and on the sphere scene's grid (MESH_SCENE_RES^3):
-    M1's counts and block totals and M2's keys and degenerate flags
-    exactly, its world vertices within TOL_M_ULP, the welded V and F equal;
-    ms per launch of M1, M2 and the weld, and of the whole of M (the host
-    reads the triangle total between M1 and M2). Also kernel A and the
-    whole SDF of one 64^3 block of the grid SDF (row M0). Returns
-    ({kernel: numbers}, summary)."""
+    (MESH_PLANTED_RES^3) and on the sphere scene's grids (MESH_SCENE_RES^3,
+    MESH_SCENE_LARGE_RES^3): M1's word and tile counts and M2's keys,
+    degenerate flags and first emissions of each key exactly, its world
+    vertices within TOL_M_ULP, the welded V and F of the ranking glue
+    (``weld_first``) and of the dispatcher equal to the plain weld's of the
+    plain emission; ms per call of M1, M2 (with its table), the ranking
+    glue and the whole of M (the host reads the triangle total after M1,
+    then M2's overflow flag with the mesh's two counts), each kernel's
+    device ms. M2's bound must not exceed the whole of M's.
+    Also kernel A and the whole SDF of one 64^3 block of the grid SDF (row
+    M0). Returns ({kernel: numbers}, summary)."""
     import numpy as np
     import torch
 
@@ -3019,85 +3068,106 @@ def mesh_kernel_phases(device, cfg, sphere_params, reps=20, plain_reps=2):
     def scene_sdf(pts):
         return sdf_apply(sphere_params["sdf"], pts, ITER, cfg.sdf_model)[0]
 
-    n_p, n_s = MESH_PLANTED_RES, MESH_SCENE_RES
-    grids = {"planted": (torch.from_numpy(planted_mesh_grid(n_p)).to(device),
-                         (-0.5, -0.5, -0.5), (1.0 / (n_p - 1),) * 3),
-             "sphere_scene": (mc.sdf_grid(scene_sdf, n_s, -0.5, 0.5, device=device),
-                              (-0.5, -0.5, -0.5), (1.0 / (n_s - 1),) * 3)}
+    n_p, n_s, n_l = MESH_PLANTED_RES, MESH_SCENE_RES, MESH_SCENE_LARGE_RES
+    grids = {"planted": lambda: (torch.from_numpy(planted_mesh_grid(n_p)).to(device),
+                                 (-0.5, -0.5, -0.5), (1.0 / (n_p - 1),) * 3),
+             "sphere_scene": lambda: (mc.sdf_grid(scene_sdf, n_s, -0.5, 0.5, device=device),
+                                      (-0.5, -0.5, -0.5), (1.0 / (n_s - 1),) * 3),
+             f"sphere_scene_{n_l}": lambda: (mc.sdf_grid(scene_sdf, n_l, -0.5, 0.5,
+                                                         device=device),
+                                             (-0.5, -0.5, -0.5), (1.0 / (n_l - 1),) * 3)}
     results, summary = {}, {}
-    for label, (grid, origin, spacing) in grids.items():
-        counts, blocks = mc.mt_count_cuda(grid, 0.0)
-        counts_p, blocks_p = mc.mt_count_plain(grid, 0.0)
-        m1_err = int((counts.to(torch.int32) - counts_p.to(torch.int32)).abs().max()) + int(
-            (blocks - blocks_p).abs().max())
-        offsets, T = mc.mt_offsets(blocks)
-        emitted = mc.mt_emit_cuda(grid, 0.0, counts, offsets, T, origin, spacing)
+    for label, make in grids.items():
+        grid, origin, spacing = make()
+        words, tiles = mc.mt_count_cuda(grid, 0.0)
+        words_p, tiles_p = mc.mt_count_plain(grid, 0.0)
+        m1_err = int((words.to(torch.int32) - words_p.to(torch.int32)).abs().max()) + int(
+            (tiles - tiles_p).abs().max())
+        offsets, T = mc.mt_offsets(tiles)
+        emitted = mc.mt_emit_cuda(grid, 0.0, words, tiles, offsets, T, origin, spacing)
         emitted_p = mc.mt_emit_plain(grid, 0.0, origin, spacing)
+        first_p = mc.mt_first_plain(emitted_p[1])
         if emitted[1].shape != emitted_p[1].shape or not torch.equal(emitted[1], emitted_p[1]):
             fail(f"kernel M2:{label}: weld keys differ from the plain version")
         if not torch.equal(emitted[2], emitted_p[2]):
             fail(f"kernel M2:{label}: degenerate flags differ from the plain version")
+        if not torch.equal(emitted[3], first_p):
+            fail(f"kernel M2:{label}: the first emissions of the keys differ from the plain "
+                 f"version's")
         ulps = _ulps(emitted[0], emitted_p[0])
         abs_err = float((emitted[0] - emitted_p[0]).abs().max()) if T else 0.0
-        V, F = mc.weld(*emitted)
+        V, F = mc.weld_first(emitted[0], emitted[3], emitted[2], emitted[4])
         Vp, Fp = mc.weld(*emitted_p)
         Vm, Fm = mc.marching_tetrahedra(grid, 0.0, origin, spacing)  # the dispatcher: kernel M
-        if not (torch.equal(F, Fp) and torch.equal(Fm, Fp) and V.shape == Vp.shape
-                and torch.equal(Vm, V)):
+        if not (torch.equal(V, Vp) and torch.equal(F, Fp) and torch.equal(Vm, Vp)
+                and torch.equal(Fm, Fp)):
             fail(f"kernel M:{label}: the welded mesh differs from the plain path "
                  f"(V {V.shape[0]} vs {Vp.shape[0]}, F {F.shape[0]} vs {Fp.shape[0]})")
+        del emitted_p, first_p, Vp, Fp, Vm, Fm
         used = torch.zeros(V.shape[0], dtype=torch.bool, device=device)
         used[F.reshape(-1)] = True
-        active = int((counts > 0).sum())
-        cubes = counts.numel()
-        ms1 = time_ms(lambda: mc.mt_count_cuda(grid, 0.0), reps, device)
-        ms2 = time_ms(lambda: mc.mt_emit_cuda(grid, 0.0, counts, offsets, T, origin, spacing),
-                      reps, device)
-        ms_weld = time_ms(lambda: mc.weld(*emitted), reps, device)
+        active = _active_cubes(grid)
+        cubes = (grid.shape[0] - 1) * (grid.shape[1] - 1) * (grid.shape[2] - 1)
+
+        def m1():
+            return mc.mt_count_cuda(grid, 0.0)
+
+        def m2():
+            return mc.mt_emit_cuda(grid, 0.0, words, tiles, offsets, T, origin, spacing)
+
+        ms1, ms2 = time_ms(m1, reps, device), time_ms(m2, reps, device)
+        ms_weld = time_ms(lambda: mc.weld_first(emitted[0], emitted[3], emitted[2], emitted[4]),
+                          reps, device)
         ms_m = time_ms(lambda: mc.marching_tetrahedra_cuda(grid, 0.0, origin, spacing), reps,
                        device)
-        pms1 = time_ms(lambda: mc.mt_count_plain(grid, 0.0), plain_reps, device)
-        pms2 = time_ms(lambda: mc.mt_emit_plain(grid, 0.0, origin, spacing), plain_reps, device)
-        pms = time_ms(lambda: mc.marching_tetrahedra_plain(grid, 0.0, origin, spacing),
-                      plain_reps, device)
+        dms1, dms2 = device_ms(m1, "M1", device), device_ms(m2, "M2", device)
+        plain = label != f"sphere_scene_{n_l}"
+        pms1 = time_ms(lambda: mc.mt_count_plain(grid, 0.0), plain_reps, device) if plain else None
+        pms2 = (time_ms(lambda: mc.mt_emit_plain(grid, 0.0, origin, spacing), plain_reps, device)
+                if plain else None)
+        pms = (time_ms(lambda: mc.marching_tetrahedra_plain(grid, 0.0, origin, spacing),
+                       plain_reps, device) if plain else None)
         E = 3 * T
-        b1 = bound_ms(grid.numel() * 4 + cubes + blocks.numel() * 4,
-                      OPS_PER_CUBE_M1 * cubes + OPS_PER_ACTIVE_CUBE_M1 * active)
-        # M2's function: read the counts and the active cubes' corners, yield
-        # the mesh (the weld keys and unwelded copies are the port's glue)
-        b2 = bound_ms(cubes + active * 8 * 4 + V.shape[0] * 12 + F.shape[0] * 24,
-                      OPS_PER_VERTEX_M2 * E)
+        b1 = bound_ms(grid.numel() * 4 + words.numel() * 2 + tiles.numel() * 4,
+                      OPS_PER_CUBE_M1 * cubes)
+        b2 = _m2_bound(grid, words, tiles, active, T, V.shape[0], F.shape[0])
         bm = bound_ms(grid.numel() * 4 + V.shape[0] * 12 + F.shape[0] * 24,
-                      OPS_PER_CUBE_M1 * cubes + OPS_PER_ACTIVE_CUBE_M1 * active
-                      + OPS_PER_VERTEX_M2 * E)
+                      OPS_PER_CUBE_M1 * cubes
+                      + (OPS_PER_VERTEX_M2 + OPS_PER_KEY_M2 + OPS_PER_INSERT_M2) * E)
+        if b2[0] > bm[0]:
+            fail(f"kernel M2:{label}: its bound {b2[0]:.4g} ms exceeds the whole of M's "
+                 f"{bm[0]:.4g}: it counts bytes the function does not need")
         _report(f"M1:{label} {tuple(grid.shape)} cubes={cubes} active={active}", m1_err, 0,
-                ms1, pms1, b1)
-        _report(f"M2:{label} T={T} (world ulps)", ulps, TOL_M_ULP, ms2, pms2, b2)
+                ms1, pms1 if plain else float("nan"), b1)
+        _report(f"M2:{label} T={T} (world ulps)", ulps, TOL_M_ULP, ms2,
+                pms2 if plain else float("nan"), b2)
         summary[label] = {
             "grid": list(grid.shape), "cubes": cubes, "active_cubes": active, "triangles": T,
+            "active_tiles": int((tiles > 0).sum()), "tiles": tiles.numel(),
+            "active_words": int((words > 0).sum()), "words": words.numel(),
+            "table_slots": mc.table_slots(T),
             "degenerate": int(emitted[2].sum()), "V": V.shape[0], "F": F.shape[0],
             "unreferenced_vertices": int((~used).sum()), "world_max_ulps": ulps,
             "world_max_abs_err": abs_err, "m1_ms": ms1, "m2_ms": ms2, "weld_ms": ms_weld,
-            "m_ms": ms_m, "m1_plain_ms": pms1, "m2_plain_ms": pms2, "m_plain_ms": pms,
-            "m1_bound_ms": b1[0], "m2_bound_ms": b2[0], "m_bound_ms": bm[0],
-            "m_bound_by": bm[1]}
+            "m_ms": ms_m, "m1_device_ms": dms1, "m2_device_ms": dms2,
+            "m1_plain_ms": pms1, "m2_plain_ms": pms2, "m_plain_ms": pms,
+            "m1_bound_ms": b1[0], "m1_bound_by": b1[1], "m2_bound_ms": b2[0],
+            "m2_bound_by": b2[1], "m_bound_ms": bm[0], "m_bound_by": bm[1]}
         print(f"[mesh kernel {label}] {tuple(grid.shape)}: {active} active cubes, T={T} "
               f"({summary[label]['degenerate']} degenerate), V={V.shape[0]} F={F.shape[0]} "
               f"({summary[label]['unreferenced_vertices']} unreferenced), world ulps {ulps}; "
-              f"M1 {ms1:.4f} ms, M2 {ms2:.4f}, weld {ms_weld:.4f}, M whole {ms_m:.4f} "
-              f"(bound {bm[0]:.4g}, {bm[1]}), plain {pms:.1f} ms", flush=True)
+              f"M1 {ms1:.4f} ms (device {dms1}, bound {b1[0]:.4g}), M2 {ms2:.4f} (device "
+              f"{dms2}, bound {b2[0]:.4g}), ranking glue {ms_weld:.4f}, M whole {ms_m:.4f} "
+              f"(bound {bm[0]:.4g}, {bm[1]}), plain {pms} ms", flush=True)
         if label == "sphere_scene":
             results["M1"] = dict(max_abs_err=float(m1_err), ms=ms1, plain_ms=pms1,
-                                 bound_ms=b1[0], bound_by=b1[1],
-                                 device_ms=device_ms(lambda: mc.mt_count_cuda(grid, 0.0), "M1",
-                                                     device))
+                                 bound_ms=b1[0], bound_by=b1[1], device_ms=dms1)
             results["M2"] = dict(max_abs_err=abs_err, ms=ms2, plain_ms=pms2, bound_ms=b2[0],
-                                 bound_by=b2[1], device_ms=device_ms(
-                                     lambda: mc.mt_emit_cuda(grid, 0.0, counts, offsets, T,
-                                                             origin, spacing), "M2", device))
+                                 bound_by=b2[1], device_ms=dms2)
         if label == "planted" and not (summary[label]["degenerate"] > 0
                                        and summary[label]["unreferenced_vertices"] > 0):
             fail("kernel M: the planted grid reached no degenerate face")
+        del emitted, grid
 
     # row M0: one 64^3 block of the grid SDF (kernel A, then the whole SDF)
     spec = cfg.sdf_model.encoding
@@ -3272,7 +3342,7 @@ def sdf_mesh_phase(device, cfg, sphere_params):
             if res in MESH_PLAIN_RES:
                 Vp, Fp = mc.marching_tetrahedra_plain(grid, 0.0, (-0.5,) * 3, spacing)
                 run["world_max_ulps_vs_plain"] = _ulps(V, Vp) if V.shape == Vp.shape else None
-                if not (V.shape == Vp.shape and torch.equal(F, Fp)):
+                if not (torch.equal(V, Vp) and torch.equal(F, Fp)):
                     fail(f"extraction {name} at {res}: V/F {V.shape[0]}/{F.shape[0]} vs the "
                          f"plain path's {Vp.shape[0]}/{Fp.shape[0]}")
             t0 = time.perf_counter()

@@ -92,7 +92,8 @@ SIGNATURES = {
     },
     "marching_tets": {
         "psdf_mt_count": [_P, _I, _I, _I, _F] + [_P] * 4,
-        "psdf_mt_emit": [_P, _I, _I, _I, _F] + [_P] * 4 + [_F] * 6 + [_P] * 4,
+        "psdf_mt_emit": [_P, _I, _I, _I, _F] + [_P] * 5 + [_F] * 6 + [_P] * 4 + [_L]
+                        + [_P] * 3,
     },
     "ray_sampler": {
         "psdf_samples_fg": [_I, _I, _P, _P, _P, _F] + [_P] * 5,

@@ -18,9 +18,12 @@ key ``llround(g * 1e6)`` per grid axis in order of first emission (the
 vertices of a dropped degenerate face stay), and the world transform
 ``origin + g * spacing`` rounded once (the host build contracts it into a
 fused multiply-add). On the card this is kernel M
-(``kernels/csrc/marching_tets.cu``: M1 counts the triangles per cube, M2
-emits them); on the CPU the plain version below. Both end in the same
-welding glue (:func:`weld`).
+(``kernels/csrc/marching_tets.cu``: M1 counts the triangles of each tile
+of cubes and each 32-cube word, M2 emits them and inserts every emitted
+vertex into a hash table keyed by its exact key, which leaves each key's
+first emission), then a ranking of the first emissions into vertex numbers
+(:func:`weld_first`: a cumulative sum and gathers, no sort); on the CPU the
+plain version below, which welds with :func:`weld` (``torch.unique``).
 
 Meshes come back as tensors on the grid's device: vertices [V, 3] float32
 in world units, faces [F, 3] int64.
@@ -131,7 +134,25 @@ for _t in range(6):
             _ca, _cb = _cb, _ca
         _EDGE_CORNERS[_t, _e] = (_ca, _cb)
 
-_THREADS = 256  # cubes per block of kernel M
+# A cube's triangles by its 8 corners' "below the level" bits (corner k at
+# bit k): their count (0 exactly for the inactive cubes, all corners below
+# or none) and, in the C++ order (tetrahedron, then triangle), each edge's
+# two cube corners ordered by global corner id as ca | cb << 3 (12
+# triangles at most; unused entries 0).
+_CUBE_TRIS = np.zeros(256, dtype=np.int64)
+_CUBE_TRI_CORNERS = np.zeros((256, 12, 3), dtype=np.uint8)
+for _lo in range(256):
+    for _t, _tet in enumerate(_TETS):
+        _case = sum(((_lo >> int(c)) & 1) << i for i, c in enumerate(_tet))
+        for _k in range(_N_TRIS[_case]):
+            for _e in range(3):
+                _ca, _cb = _EDGE_CORNERS[_t, _TRI_EDGES[_case, _k, _e]]
+                _CUBE_TRI_CORNERS[_lo, _CUBE_TRIS[_lo], _e] = _ca | _cb << 3
+            _CUBE_TRIS[_lo] += 1
+
+_TILE_ROWS = 8  # cube rows (y) per tile of kernel M (kRows in marching_tets.cu)
+_WORD = 32  # cubes (z) per word of M1's counts
+_EMPTY_SLOT = 2 ** 31 - 1  # a free slot of M2's table (kEmpty)
 
 
 def _f32(x) -> float:
@@ -170,6 +191,16 @@ def _empty(device):
             torch.zeros((0, 3), dtype=torch.int64, device=device))
 
 
+def _key_firsts(keys: torch.Tensor):
+    """(first emission of each distinct key [U] int64, each emission's key
+    index [E])."""
+    uniq, inverse = torch.unique(keys, dim=0, return_inverse=True)
+    first = torch.full((uniq.shape[0],), keys.shape[0], dtype=torch.int64, device=keys.device)
+    first.scatter_reduce_(0, inverse, torch.arange(keys.shape[0], device=keys.device),
+                          reduce="amin")
+    return first, inverse
+
+
 def weld(verts: torch.Tensor, keys: torch.Tensor, degenerate: torch.Tensor):
     """Emitted vertices -> a welded mesh: vertices [E, 3] (world, in
     emission order, three per triangle), their keys [E, 3] int64 and the
@@ -179,15 +210,34 @@ def weld(verts: torch.Tensor, keys: torch.Tensor, degenerate: torch.Tensor):
     dropped, their vertices kept."""
     if keys.shape[0] == 0:
         return _empty(verts.device)
-    uniq, inverse = torch.unique(keys, dim=0, return_inverse=True)
-    emission = torch.arange(keys.shape[0], device=keys.device)
-    first = torch.full((uniq.shape[0],), keys.shape[0], dtype=torch.int64, device=keys.device)
-    first.scatter_reduce_(0, inverse, emission, reduce="amin")
+    first, inverse = _key_firsts(keys)
     order = torch.argsort(first)
     rank = torch.empty_like(order)
     rank[order] = torch.arange(order.shape[0], device=order.device)
     faces = rank[inverse].reshape(-1, 3)[~degenerate.to(torch.bool)]
     return verts[first[order]], faces
+
+
+def weld_first(verts: torch.Tensor, first: torch.Tensor, degenerate: torch.Tensor,
+               overflow: torch.Tensor):
+    """The welded mesh from each emission's first emission of its key
+    (``first`` [E] int32, as M2's table leaves it) and M2's overflow flag
+    ([1] int32): the same (vertices, faces) as :func:`weld`, by a
+    cumulative sum and gathers over the emissions, with no sort. One host
+    read fetches the flag and the two counts, which size the selections;
+    raises if the flag is set."""
+    if first.shape[0] == 0:
+        return _empty(verts.device)
+    is_first = first == torch.arange(first.shape[0], dtype=first.dtype, device=first.device)
+    number = torch.cumsum(is_first, 0) - 1  # a first emission's vertex number
+    kept = ~degenerate.to(torch.bool)
+    nv, nf, full = torch.stack([number[-1] + 1, kept.sum(), overflow[0].to(torch.int64)]).tolist()
+    if full:
+        raise RuntimeError(f"marching tetrahedra (kernel M2): the weld table is full (a key "
+                           f"of the {first.shape[0]} emitted vertices found no slot)")
+    faces = number.index_select(0, first).reshape(-1, 3)
+    return (verts.index_select(0, torch.nonzero_static(is_first, size=nv).squeeze(1)),
+            faces.index_select(0, torch.nonzero_static(kept, size=nf).squeeze(1)))
 
 
 # ---------------------------------------------------------------------------
@@ -237,28 +287,42 @@ def _slabs(nx: int, slab: int):
     return [(x0, min(x0 + slab, nx - 1)) for x0 in range(0, nx - 1, slab)]
 
 
+def _tiling(shape):
+    """(cube rows, words per row, tiles) of kernel M's tiling of a grid."""
+    nx, ny, nz = shape
+    if min(nx, ny, nz) < 2:
+        return 0, 0, 0
+    return ((nx - 1) * (ny - 1), -(-(nz - 1) // _WORD),
+            (nx - 1) * -(-(ny - 1) // _TILE_ROWS))
+
+
 def mt_count_plain(values: torch.Tensor, level: float, slab: int = 16):
-    """Plain version of kernel M1: (counts [cubes] uint8, block_tris
-    [ceil(cubes / 256)] int32)."""
+    """Plain version of kernel M1: (word_tris [cube rows * words] int16, the
+    triangles of each 32-cube word of each cube row (x-major), tile_tris
+    [tiles] int32, those of each tile of _TILE_ROWS rows)."""
     values = values.to(torch.float32).contiguous()
     nx, ny, nz = values.shape
     dev = values.device
-    if min(nx, ny, nz) < 2:
-        return (torch.zeros((0,), dtype=torch.uint8, device=dev),
+    _, words, _ = _tiling(values.shape)
+    if words == 0:
+        return (torch.zeros((0,), dtype=torch.int16, device=dev),
                 torch.zeros((0,), dtype=torch.int32, device=dev))
     level_t = torch.tensor(_f32(level), dtype=torch.float32, device=dev)
     tets = torch.from_numpy(_TETS).to(dev)
     n_tris = torch.from_numpy(_N_TRIS).to(dev)
-    parts = []
+    groups = -(-(ny - 1) // _TILE_ROWS)
+    word_parts, tile_parts = [], []
     for x0, x1 in _slabs(nx, slab):
         lo = torch.stack([values[x0 + dx:x1 + dx, dy:ny - 1 + dy, dz:nz - 1 + dz] < level_t
                           for dx, dy, dz in _CUBE_CORNERS.tolist()], dim=-1).to(torch.int64)
         case = (lo[..., tets] << torch.arange(4, device=dev)).sum(-1)  # [X, Y, Z, 6]
-        parts.append(n_tris[case].sum(-1).reshape(-1))
-    counts = torch.cat(parts)
-    pad = (-counts.numel()) % _THREADS
-    block_tris = torch.nn.functional.pad(counts, (0, pad)).reshape(-1, _THREADS).sum(-1)
-    return counts.to(torch.uint8), block_tris.to(torch.int32)
+        counts = n_tris[case].sum(-1)  # [X, Y, Z]
+        counts = torch.nn.functional.pad(counts, (0, words * _WORD - (nz - 1)))
+        per_word = counts.reshape(x1 - x0, ny - 1, words, _WORD).sum(-1)
+        word_parts.append(per_word.reshape(-1))
+        per_row = torch.nn.functional.pad(per_word.sum(-1), (0, groups * _TILE_ROWS - (ny - 1)))
+        tile_parts.append(per_row.reshape(x1 - x0, groups, _TILE_ROWS).sum(-1).reshape(-1))
+    return torch.cat(word_parts).to(torch.int16), torch.cat(tile_parts).to(torch.int32)
 
 
 def mt_emit_plain(values: torch.Tensor, level: float, origin, spacing, slab: int = 16):
@@ -280,6 +344,15 @@ def mt_emit_plain(values: torch.Tensor, level: float, origin, spacing, slab: int
     return tuple(torch.cat(t) for t in zip(*parts))
 
 
+def mt_first_plain(keys: torch.Tensor) -> torch.Tensor:
+    """Plain version of what M2's table leaves: each emission's first
+    emission of its key, [E] int32."""
+    if keys.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=keys.device)
+    first, inverse = _key_firsts(keys)
+    return first[inverse].to(torch.int32)
+
+
 def marching_tetrahedra_plain(values: torch.Tensor, level: float = 0.0,
                               origin=(0.0, 0.0, 0.0), spacing=(1.0, 1.0, 1.0),
                               slab: int = 16):
@@ -296,11 +369,12 @@ _TABLES: dict = {}
 
 
 def _case_table(device):
-    """(tri_edges [96], n_tris [16]) int32 on ``device``, made once."""
+    """(cube_tris [256] int32, cube_tri_corners [256 * 12 * 3] uint8) on
+    ``device``, made once."""
     key = str(device)
     if key not in _TABLES:
-        _TABLES[key] = (torch.from_numpy(_TRI_EDGES.astype(np.int32).reshape(-1)).to(device),
-                        torch.from_numpy(_N_TRIS.astype(np.int32)).to(device))
+        _TABLES[key] = (torch.from_numpy(_CUBE_TRIS.astype(np.int32)).to(device),
+                        torch.from_numpy(_CUBE_TRI_CORNERS.reshape(-1)).to(device))
     return _TABLES[key]
 
 
@@ -313,76 +387,104 @@ def _check_grid(values):
 
 
 def mt_count_cuda(values: torch.Tensor, level: float):
-    """Kernel M1 launch: (counts [cubes] uint8, block_tris [blocks] int32),
-    the triangles of each cube (x-major) and their sum per 256 cubes.
-    Counts launches in ``mt_count_cuda.launches``."""
+    """Kernel M1 launch: (word_tris [cube rows * words] int16, tile_tris
+    [tiles] int32), as :func:`mt_count_plain`. Counts launches in
+    ``mt_count_cuda.launches``."""
     _check_grid(values)
     nx, ny, nz = values.shape
     dev = values.device
-    nr_cubes = max(nx - 1, 0) * max(ny - 1, 0) * max(nz - 1, 0)
-    counts = torch.empty((nr_cubes,), dtype=torch.uint8, device=dev)
-    block_tris = torch.empty((-(-nr_cubes // _THREADS),), dtype=torch.int32, device=dev)
-    _, n_tris = _case_table(dev)
+    rows, words, tiles = _tiling(values.shape)
+    word_tris = torch.empty((rows * words,), dtype=torch.int16, device=dev)
+    tile_tris = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    cube_tris = _case_table(dev)[0]
     lib = kernels.load("marching_tets")
-    err = lib.psdf_mt_count(kernels.ptr(values), nx, ny, nz, _f32(level), kernels.ptr(n_tris),
-                            kernels.ptr(counts), kernels.ptr(block_tris),
+    err = lib.psdf_mt_count(kernels.ptr(values), nx, ny, nz, _f32(level), kernels.ptr(cube_tris),
+                            kernels.ptr(word_tris), kernels.ptr(tile_tris),
                             kernels.current_stream(dev))
     kernels.check(lib, err, "marching tetrahedra count (kernel M1)")
-    if nr_cubes:
+    if tiles:
         mt_count_cuda.launches += 1
-    return counts, block_tris
+    return word_tris, tile_tris
 
 
 mt_count_cuda.launches = 0
 
 
-def mt_emit_cuda(values: torch.Tensor, level: float, counts: torch.Tensor,
-                 block_offsets: torch.Tensor, nr_tris: int, origin, spacing):
+def table_slots(nr_tris: int) -> int:
+    """M2's hash table size for ``nr_tris`` triangles: the power of two at
+    or above two slots per emitted vertex, so at most half of it is used."""
+    return 1 << max(6 * nr_tris - 1, 1).bit_length()
+
+
+def mt_emit_cuda(values: torch.Tensor, level: float, word_tris: torch.Tensor,
+                 tile_tris: torch.Tensor, tile_offsets: torch.Tensor, nr_tris: int, origin,
+                 spacing):
     """Kernel M2 launch: the ``nr_tris`` triangles that M1 counted ->
-    (world [3T, 3] float32, keys [3T, 3] int64, degenerate [T] bool), in
-    the C++ walk's emission order. ``block_offsets`` [blocks] int64 is the
-    exclusive sum of M1's block totals. Counts launches in
-    ``mt_emit_cuda.launches``."""
+    (world [3T, 3] float32, keys [3T, 3] int64, degenerate [T] bool, first
+    [3T] int32, overflow [1] int32), in the C++ walk's emission order;
+    ``first`` is each emission's first emission of its key
+    (:func:`mt_first_plain`), read from the hash table of
+    :func:`table_slots` int32 slots after M2. ``tile_offsets`` [tiles]
+    int64 is the exclusive sum of M1's tile totals. ``overflow`` is set if
+    a key found no slot; at two slots per emitted vertex a full turn of the
+    table always finds one, and :func:`weld_first` reads the flag with its
+    counts. Counts launches in ``mt_emit_cuda.launches``."""
     _check_grid(values)
     nx, ny, nz = values.shape
     dev = values.device
-    if block_offsets.dtype != torch.int64 or counts.dtype != torch.uint8:
-        raise ValueError("marching tetrahedra: uint8 counts and int64 block offsets")
+    if (word_tris.dtype != torch.int16 or tile_tris.dtype != torch.int32
+            or tile_offsets.dtype != torch.int64):
+        raise ValueError("marching tetrahedra: int16 word counts, int32 tile counts and "
+                         "int64 tile offsets")
+    E = 3 * nr_tris
+    if E >= _EMPTY_SLOT:
+        raise ValueError(f"marching tetrahedra: {nr_tris} triangles exceed the int32 "
+                         "emission ids of the weld table")
+    slots = table_slots(nr_tris)
     origin, spacing = _placement(origin, spacing)
-    verts = torch.empty((3 * nr_tris, 3), dtype=torch.float32, device=dev)
-    keys = torch.empty((3 * nr_tris, 3), dtype=torch.int64, device=dev)
+    verts = torch.empty((E, 3), dtype=torch.float32, device=dev)
+    keys = torch.empty((E, 3), dtype=torch.int64, device=dev)
     degenerate = torch.empty((nr_tris,), dtype=torch.uint8, device=dev)
-    tri_edges, n_tris = _case_table(dev)
+    table = torch.full((slots,), _EMPTY_SLOT, dtype=torch.int32, device=dev)
+    slot_of = torch.empty((E,), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    cube_tris, cube_tri_corners = _case_table(dev)
     lib = kernels.load("marching_tets")
-    err = lib.psdf_mt_emit(kernels.ptr(values), nx, ny, nz, _f32(level), kernels.ptr(tri_edges),
-                           kernels.ptr(n_tris), kernels.ptr(counts), kernels.ptr(block_offsets),
-                           *origin, *spacing, kernels.ptr(verts), kernels.ptr(keys),
-                           kernels.ptr(degenerate), kernels.current_stream(dev))
+    err = lib.psdf_mt_emit(kernels.ptr(values), nx, ny, nz, _f32(level), kernels.ptr(cube_tris),
+                           kernels.ptr(cube_tri_corners), kernels.ptr(word_tris),
+                           kernels.ptr(tile_tris), kernels.ptr(tile_offsets), *origin, *spacing,
+                           kernels.ptr(verts), kernels.ptr(keys), kernels.ptr(degenerate),
+                           kernels.ptr(table), slots, kernels.ptr(slot_of),
+                           kernels.ptr(overflow), kernels.current_stream(dev))
     kernels.check(lib, err, "marching tetrahedra emit (kernel M2)")
     mt_emit_cuda.launches += 1
-    return verts, keys, degenerate.to(torch.bool)
+    return verts, keys, degenerate.to(torch.bool), table.index_select(0, slot_of), overflow
 
 
 mt_emit_cuda.launches = 0
 
 
-def mt_offsets(block_tris: torch.Tensor):
-    """M1's block totals -> (exclusive block offsets [blocks] int64, the
+def mt_offsets(tile_tris: torch.Tensor):
+    """M1's tile totals -> (exclusive tile offsets [tiles] int64, the
     number of triangles). Reading the total synchronises with the host."""
-    incl = torch.cumsum(block_tris, 0, dtype=torch.int64)
+    incl = torch.cumsum(tile_tris, 0, dtype=torch.int64)
     nr_tris = int(incl[-1]) if incl.numel() else 0
-    return incl - block_tris, nr_tris
+    return incl - tile_tris, nr_tris
 
 
 def marching_tetrahedra_cuda(values: torch.Tensor, level: float = 0.0,
                              origin=(0.0, 0.0, 0.0), spacing=(1.0, 1.0, 1.0)):
-    """Kernel M: M1, the block offsets, M2, then the welding."""
+    """Kernel M: M1, the tile offsets (a host read of the triangle total),
+    M2 with the weld table, then the ranking of the first emissions
+    (:func:`weld_first`, a second host read)."""
     values = values.to(torch.float32).contiguous()
-    counts, block_tris = mt_count_cuda(values, level)
-    block_offsets, nr_tris = mt_offsets(block_tris)
+    word_tris, tile_tris = mt_count_cuda(values, level)
+    tile_offsets, nr_tris = mt_offsets(tile_tris)
     if nr_tris == 0:
         return _empty(values.device)
-    return weld(*mt_emit_cuda(values, level, counts, block_offsets, nr_tris, origin, spacing))
+    world, _, degenerate, first, overflow = mt_emit_cuda(values, level, word_tris, tile_tris,
+                                                         tile_offsets, nr_tris, origin, spacing)
+    return weld_first(world, first, degenerate, overflow)
 
 
 def marching_tetrahedra(values: torch.Tensor, level: float = 0.0,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the main paths that kernels A, B, C, C3, D, E1, E2, F, G and J0 run, for the port of one tree.
+"""Time the main paths that kernels A, B, C, C3, D, E1, E2, F, G, J0 and M run, for the port of one tree.
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
                                             [--paths host,events,fg,grid,plain,frame,sphere,
-                                                     train,lever,sdf,nerf]
+                                                     train,lever,sdf,nerf,mesh]
     python3 profiling/torch_encode_paths.py --summarize FILE.json ...
 
 Imports ``permuto_sdf_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
@@ -57,7 +57,14 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   (ms/step from the difference), one step under torch.profiler, then the
   trained field's 512³ mesh three times (grid SDF and marching tetrahedra);
 - nerf: ``train_nerf.train`` at ``NerfTrainConfig()`` for 2 and 26 steps
-  (ms/step from the difference) and one step under torch.profiler.
+  (ms/step from the difference) and one step under torch.profiler;
+- mesh: chip_smoke's sphere scene and its grid SDF at 256³ and 512³ (host
+  clock, median of the calls after the first); on each grid, CUDA-event ms per call of the tree's own pieces of kernel M
+  (M1, M2, the welding glue that follows M2, and the whole of
+  ``marching_tetrahedra_cuda``), device ms per call of M1 and M2 in their
+  own symbols, the whole of M on the host clock (median of 10 calls), and
+  one whole call under torch.profiler (device busy ms; M1's and M2's
+  device ms in it).
 
 Each profile gives the device ms and the launches of kernels A, B, C, C3,
 D, E1, E2, F, G, J0 and J3 (the device µs per launch is their ratio). Each
@@ -83,9 +90,12 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "J0", "J3")
+PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "J0", "J3", "M1", "M2")
 PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
-         "nerf")
+         "nerf", "mesh")
+M_RES = (256, 512)
+M_HOST_CALLS = 10
+M_GRID_CALLS = 4
 GRID_HOST_RAYS = 32
 
 
@@ -596,6 +606,76 @@ def nerf_path(cs, device, reel):
     return {"ms_per_step": ms_step, "peak_mib": peak, "profile": prof}
 
 
+def mesh_path(cs, device, cfg):
+    """Kernel M on the sphere scene's grids: the tree's M1, M2 and welding
+    glue, and the whole of M."""
+    import torch
+
+    from permuto_sdf_tpu_torch.models.fields import sdf_apply
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+
+    params, _, _ = cs.sphere_scene(device, cfg)
+    out = {}
+    for res in M_RES:
+        grid_runs = []
+        for _ in range(M_GRID_CALLS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            grid = mc.sdf_grid(lambda p: sdf_apply(params["sdf"], p, cs.ITER, cfg.sdf_model)[0],
+                               res, -0.5, 0.5, device=device)
+            torch.cuda.synchronize(device)
+            grid_runs.append((time.perf_counter() - t0) * 1e3)
+        origin, spacing = (-0.5,) * 3, (1.0 / (res - 1),) * 3
+        counted = mc.mt_count_cuda(grid, 0.0)
+        offsets, T = mc.mt_offsets(counted[1])
+        if hasattr(mc, "weld_first"):  # M2 welds in its hash table; ranking glue after it
+            def m2():
+                return mc.mt_emit_cuda(grid, 0.0, *counted, offsets, T, origin, spacing)
+
+            emitted = m2()
+            glue = lambda: mc.weld_first(emitted[0], emitted[3], emitted[2],  # noqa: E731
+                                         emitted[4])
+        else:  # M2 emits per cube; torch.unique, a scatter-min and argsort weld
+            def m2():
+                return mc.mt_emit_cuda(grid, 0.0, counted[0], offsets, T, origin, spacing)
+
+            emitted = m2()
+            glue = lambda: mc.weld(*emitted)  # noqa: E731
+
+        def m1():
+            return mc.mt_count_cuda(grid, 0.0)
+
+        def whole():
+            return mc.marching_tetrahedra_cuda(grid, 0.0, origin, spacing)
+
+        V, F = whole()
+        key = f"M{res}"
+        r = {"triangles": T, "V": V.shape[0], "F": F.shape[0]}
+        for name, fn in (("m1", m1), ("m2", m2), ("weld", glue), ("m", whole)):
+            r[name + "_ms"] = cs.time_ms(fn, 20, device)
+        r["m1_device_ms"] = _device_ms(cs, device, m1, "M1")[0]
+        r["m2_device_ms"], r["m2_call_device_ms"] = _device_ms(cs, device, m2, "M2")
+        host = []
+        for _ in range(M_HOST_CALLS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            whole()
+            torch.cuda.synchronize(device)
+            host.append((time.perf_counter() - t0) * 1e3)
+        r["m_host_ms"] = statistics.median(host)
+        r["grid_ms"] = statistics.median(grid_runs[1:])  # the first call also warms up
+        r["mesh_ms"] = r["grid_ms"] + r["m_host_ms"]
+        r["profile"] = _profiled(cs, device, f"mesh_{res}", whole)
+        print(f"[mesh {res}^3] T={T} V={V.shape[0]} F={F.shape[0]}: M1 {r['m1_ms']:.4f} ms "
+              f"(device {r['m1_device_ms']}), M2 {r['m2_ms']:.4f} (device "
+              f"{r['m2_device_ms']}), weld glue {r['weld_ms']:.4f}, whole M {r['m_ms']:.4f} "
+              f"(host clock {r['m_host_ms']:.4f}); grid SDF {r['grid_ms']:.2f}, mesh "
+              f"{r['mesh_ms']:.2f}", flush=True)
+        out[key] = r
+        del grid, counted, emitted
+    return out
+
+
 def _numbers(res, prefix=""):
     """The result's scalar numbers by dotted key; a list of frame or step
     times counts as its median."""
@@ -691,6 +771,8 @@ def main(argv=None) -> int:
             res["nerf"] = nerf_path(cs, device, reel)
     if "sdf" in paths:
         res["sdf_from_mesh"] = sdf_from_mesh_path(cs, device)
+    if "mesh" in paths:
+        res["mesh"] = mesh_path(cs, device, cfg)
     line = json.dumps({"encode_paths": res})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,7 +2,9 @@
 // CPU stand-in for the CUDA runtime subset that the port's kernels use
 // (permuto_sdf_tpu_torch/kernels/csrc), so `g++ -std=c++20` can compile
 // the .cu sources and run them on the CPU in tests: each block runs its
-// threads as std::threads, atomicAdd is a std::atomic_ref add, the warp
+// threads as std::threads, atomicAdd, atomicCAS and atomicMin (32 or 64
+// bits) go through std::atomic_ref, __ldcg is an atomic load and
+// __threadfence a sequentially consistent fence, the warp
 // shuffles, ballots, __any_sync, __match_any_sync and __reduce_add_sync
 // exchange values through a per-warp slot array between two barriers
 // (__ffs is the compiler's builtin; __fns, positive offsets only, a loop
@@ -37,7 +39,7 @@ inline const char* cudaGetErrorString(int) { return "emulated"; }
 #define __host__
 #define __forceinline__ inline
 #define __constant__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
 #define __shared__
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
@@ -86,6 +88,16 @@ inline void __syncwarp() { emu_warp->bar->arrive_and_wait(); }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 template <class T> T __ldg(const T* p) { return *p; }
 template <class T> T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
+template <class T> T atomicCAS(T* p, T cmp, T v) {
+  std::atomic_ref<T>(*p).compare_exchange_strong(cmp, v); return cmp;
+}
+template <class T> T atomicMin(T* p, T v) {
+  std::atomic_ref<T> a(*p); T old = a.load();
+  while (v < old && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <class T> T __ldcg(const T* p) { return std::atomic_ref<T>(*const_cast<T*>(p)).load(); }
 template <class F> void emu_launch(int grid, int block, size_t smem, F&& body) {
   for (int b = 0; b < grid; ++b) {
     std::vector<unsigned char> sm(smem + 16);

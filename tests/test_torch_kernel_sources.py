@@ -960,13 +960,44 @@ def test_kernels_D2_source_match_plain(emulated):
         assert float(a[~valid].abs().max()) == 0.0
 
 
+def _kernel_m_matches_plain(v, origin, spacing):
+    """Kernel M's pieces (M1, the tile offsets, M2 with its weld table, the
+    ranking glue) against their plain versions, exactly; returns (T, M2's
+    outputs, the welded mesh)."""
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+
+    launches = (mc.mt_count_cuda.launches, mc.mt_emit_cuda.launches)
+    word_tris, tile_tris = mc.mt_count_cuda(v, 0.0)
+    want_words, want_tiles = mc.mt_count_plain(v, 0.0, slab=3)
+    assert torch.equal(word_tris, want_words) and torch.equal(tile_tris, want_tiles)
+    offsets, T = mc.mt_offsets(tile_tris)
+    want = mc.mt_emit_plain(v, 0.0, origin, spacing)
+    want = (*want, mc.mt_first_plain(want[1]))
+    assert T == want[2].shape[0]
+    if T == 0:
+        assert mc.mt_count_cuda.launches == launches[0] + (word_tris.numel() > 0)
+        return T, want, mc.weld(*want[:3])
+    emitted = mc.mt_emit_cuda(v, 0.0, word_tris, tile_tris, offsets, T, origin, spacing)
+    assert (mc.mt_count_cuda.launches, mc.mt_emit_cuda.launches) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+    for a, b in zip(emitted[:4], want):
+        assert torch.equal(a, b)
+    assert emitted[4].tolist() == [0]  # no key found the table full
+    Vk, Fk = mc.weld_first(emitted[0], emitted[3], emitted[2], emitted[4])
+    Vp, Fp = mc.weld(*want[:3])
+    assert torch.equal(Vk, Vp) and torch.equal(Fk, Fp)
+    return T, emitted, (Vk, Fk)
+
+
 @pytest.mark.parametrize("grid", ["planted", "sphere"])
 def test_kernel_M_source_matches_plain(emulated, grid):
-    """Kernel M (M1 counts the triangles per cube and block, M2 emits them
-    at the blocks' offsets) against its plain version on a grid that is not
-    a cube (10 x 11 x 12: cube ids cross block boundaries mid-row): the
-    emitted world positions, weld keys and degenerate flags bit for bit
-    before the welding, the welded mesh after it. The planted grid holds
+    """Kernel M (M1 counts the triangles of each tile of 8 cube rows and
+    each 32-cube word, M2 emits them at the tiles' offsets and welds them in
+    a hash table) against its plain version on a grid that is not a cube
+    (10 x 11 x 12: the second tile of each x holds 2 rows): M1's counts,
+    the emitted world positions, weld keys, degenerate flags and each
+    emission's first emission of its key bit for bit, the welded mesh of
+    the ranking glue equal to the plain weld's. The planted grid holds
     exact-level nodes, degenerate faces and the 1e-12 denominator floor."""
     from permuto_sdf_tpu_torch.ops import marching_cubes as mc
     from test_torch_marching_tets import planted_grid, sphere_grid
@@ -974,25 +1005,76 @@ def test_kernel_M_source_matches_plain(emulated, grid):
     v = (planted_grid(13) if grid == "planted" else sphere_grid(13, 0.31))[:10, :11, :12]
     v = torch.from_numpy(np.ascontiguousarray(v))
     origin, spacing = (-0.5, -0.4, -0.3), (0.05, 0.04, 1.0 / 23)
-    launches = (mc.mt_count_cuda.launches, mc.mt_emit_cuda.launches)
-    counts, block_tris = mc.mt_count_cuda(v, 0.0)
-    offsets, T = mc.mt_offsets(block_tris)
-    emitted = mc.mt_emit_cuda(v, 0.0, counts, offsets, T, origin, spacing)
-    assert (mc.mt_count_cuda.launches, mc.mt_emit_cuda.launches) == (launches[0] + 1,
-                                                                     launches[1] + 1)
-    want_counts, want_blocks = mc.mt_count_plain(v, 0.0, slab=3)
-    assert torch.equal(counts, want_counts) and torch.equal(block_tris, want_blocks)
-    assert len(block_tris) == 4  # 990 cubes, the last block partial
-    want = mc.mt_emit_plain(v, 0.0, origin, spacing)
-    assert T == want[2].shape[0] > 50
-    for a, b in zip(emitted, want):
-        assert torch.equal(a, b)
+    T, emitted, (Vk, Fk) = _kernel_m_matches_plain(v, origin, spacing)
+    assert T > 50
+    assert mc.mt_count_plain(v, 0.0)[1].shape == (18,)  # 9 x, 2 tiles each
     if grid == "planted":
         assert emitted[2].sum() > 0
-    Vk, Fk = mc.weld(*emitted)
     Vp, Fp = mc.marching_tetrahedra_plain(v, 0.0, origin, spacing)
     assert torch.equal(Vk, Vp) and torch.equal(Fk, Fp)
-    assert torch.equal(mc.marching_tetrahedra_cuda(v, 0.0, origin, spacing)[1], Fp)
+    Vm, Fm = mc.marching_tetrahedra_cuda(v, 0.0, origin, spacing)
+    assert torch.equal(Vm, Vp) and torch.equal(Fm, Fp)
+
+
+def _thin_grid(axis):
+    """A 700-long grid of 3 x 3 nodes across, a field through x = 600 along
+    the long axis whose nodes just below the level sit 1e-7 under it: the
+    crossings on the long edges lie w ~ 1e-9 from x = 600, far below
+    float32's ulp there (6.1e-5), so they round onto the node, where the
+    crossings of the short edges from the same node land too (w ~ 2e-7,
+    keys 0 across). Only an exact-triple weld numbers them as the plain
+    weld does."""
+    x = np.arange(700, dtype=np.float32)
+    f = np.where(x <= 600, np.float32(-1e-7), np.float32(100.0) * (x - 600))
+    v = np.broadcast_to(f[:, None, None], (700, 3, 3)).copy()
+    v[600, 1:, :] = 0.5  # short edges crossed beside the near-level nodes
+    v[600, 0, 2] = 0.5
+    return np.ascontiguousarray(np.moveaxis(v, 0, axis))
+
+
+@pytest.mark.parametrize("case", ["small_table", "thin_x", "thin_z", "empty", "inside",
+                                  "full_table"])
+def test_kernel_M_edge_cases_match_plain(emulated, monkeypatch, case):
+    """Kernel M on the cases its hash weld must get right: a table of just
+    enough slots (the power of two at or above the distinct keys: long
+    probe chains that wrap around the table's end), a thin 700 x 3 x 3 grid
+    whose float32 crossings collide with a node's key (along x: 699 tiles
+    of 2 rows; along z: two staged chunks of 352 cubes per row), an empty
+    and an all-inside grid (no triangles: M2 is not launched), and a table
+    smaller than the distinct keys (the mesh raises). The small tables
+    replace ``table_slots``, whose two slots per emission never fill."""
+    from permuto_sdf_tpu_torch.ops import marching_cubes as mc
+    from test_torch_marching_tets import sphere_grid
+
+    origin, spacing = (-0.5, -0.4, -0.3), (0.05, 0.04, 1.0 / 23)
+    if case in ("small_table", "full_table"):
+        v = torch.from_numpy(np.ascontiguousarray(sphere_grid(13, 0.35)[:10, :11, :12]))
+        keys = mc.mt_emit_plain(v, 0.0, origin, spacing)[1]
+        distinct = torch.unique(keys, dim=0).shape[0]
+        slots = 1 << (distinct - 1).bit_length()
+        if case == "full_table":
+            monkeypatch.setattr(mc, "table_slots", lambda nr_tris: slots // 2)
+            with pytest.raises(RuntimeError, match="full"):
+                mc.marching_tetrahedra_cuda(v, 0.0, origin, spacing)
+            return
+        assert distinct > 0.8 * slots  # 860 keys in 1,024 slots: chains cross the end
+        monkeypatch.setattr(mc, "table_slots", lambda nr_tris: slots)
+        T, _, _ = _kernel_m_matches_plain(v, origin, spacing)
+        assert T > 50
+    elif case.startswith("thin"):
+        v = torch.from_numpy(_thin_grid(0 if case == "thin_x" else 2))
+        T, (world, keys, *_), (Vk, Fk) = _kernel_m_matches_plain(v, origin, (1.0,) * 3)
+        # crossings at distinct world positions share a key (11 keys, 29
+        # pairs of key and position), and some faces survive the weld
+        pairs = torch.cat([keys, world.view(torch.int32).to(torch.int64)], 1)
+        assert torch.unique(pairs, dim=0).shape[0] > torch.unique(keys, dim=0).shape[0]
+        assert Vk.shape[0] == torch.unique(keys, dim=0).shape[0] and 0 < Fk.shape[0] < T
+    else:
+        v = torch.full((6, 7, 9), 1.0 if case == "empty" else -1.0)
+        T, _, (Vk, Fk) = _kernel_m_matches_plain(v, origin, spacing)
+        assert T == 0 and Vk.shape == (0, 3) and Fk.shape == (0, 3)
+        assert all(t.shape[0] == 0 for t in mc.marching_tetrahedra_cuda(v, 0.0, origin,
+                                                                          spacing))
 
 
 @pytest.mark.parametrize("P,kind", [(512, "shell"), (100, "shell"), (64, "empty")])
