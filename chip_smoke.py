@@ -305,11 +305,13 @@ def _kernel_events(prof, kernel):
             and any(x in e.key for x in sym)]
 
 
-def device_ms(fn, kernel: str, device, reps: int = 10):
+def device_ms(fn, kernel: str, device, reps: int = 10, per_launch: bool = False):
     """The card's ms per call of ``fn`` in ``kernel``'s own symbols
     (torch.profiler over ``reps`` calls after one warm-up call; launches of
-    other kernels in ``fn`` are left out); None if three profiled runs
-    recorded no device time."""
+    other kernels in ``fn`` are left out), or with ``per_launch`` per
+    launch of the kernel among the records the profiler delivered (for a
+    function of one launch a call, a record the profiler drops then biases
+    nothing); None if three profiled runs recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,9 +322,10 @@ def device_ms(fn, kernel: str, device, reps: int = 10):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize(device)
-        us = sum(_dev_us(e) for e in _kernel_events(prof, kernel))
+        events = _kernel_events(prof, kernel)
+        us = sum(_dev_us(e) for e in events)
         if us > 0:
-            return us / 1e3 / reps
+            return us / 1e3 / (sum(e.count for e in events) if per_launch else reps)
     return None
 
 
@@ -567,7 +570,7 @@ ERR_KIND = {"A": "abs", "B": "rel", "C": "abs", "D": "abs", "F": "rel_level",
             "G": "rel_level", "D'": "rel", "I": "abs", "J0": "abs", "J1": "abs", "J2": "abs",
             "H0": "abs", "E1": "abs", "E2": "abs", "H1": "abs", "H2": "abs",
             "L": "rel_floor1", "D2": "abs", "D2'": "rel", "M1": "abs", "M2": "ulp",
-            "C3": "ulp", "J3": "abs", "C2": "abs", "I2": "abs"}
+            "C3": "ulp", "J3": "abs", "C2": "abs", "I2": "abs", "J3f": "abs", "J2f": "abs"}
 GATED = {}  # kernel -> (largest gated error over its checks, tolerance)
 
 
@@ -977,12 +980,13 @@ def counters():
             "D2'": (vr.neus_render_mixed_bwd_cuda,), "M1": (mc.mt_count_cuda,),
             "M2": (mc.mt_emit_cuda,), "C3": (og.first_occupied_cuda,),
             "J3": (st.trace_step_pos_cuda,), "C2": (rs.samples_fg_cuda,),
-            "I2": (og.density_update_cuda,)}
+            "I2": (og.density_update_cuda,), "J3f": (st.trace_loop_pos_cuda,),
+            "J2f": (st.trace_round_cuda,)}
 
 
 RENDER_KERNELS = ("A", "B", "C", "D", "E1", "E2")
 TRAIN_KERNELS = ("A", "B", "C", "D", "E1", "E2", "F", "G", "D'", "I")
-SPHERE_KERNELS = ("J0", "J1", "J2", "H0", "A", "B")
+SPHERE_KERNELS = ("J0", "J1", "J2f", "H0", "A", "B")
 
 
 def reset_counts():
@@ -1053,7 +1057,8 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "D2'": "render_mixed_bwd_kernel", "M1": "mt_count_kernel",
                   "M2": "mt_emit_kernel", "C3": "first_occupied_kernel",
                   "J3": "trace_step_pos_kernel", "C2": "samples_fg_kernel",
-                  "I2": "density_update_kernel"}
+                  "I2": "density_update_kernel", "J3f": "trace_loop_pos_kernel",
+                  "J2f": "trace_round_kernel"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -1645,7 +1650,7 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
                        s["conv_f"], s["sdf_f"])
     pos, _ = st.trace_step_plain(idx, None, *sargs(state1), **kw)
     with torch.no_grad():
-        s_val = tps._make_sdf_eval(cfg.sdf_model, ST_KW["lod_schedule"][0])(
+        s_val = tps.SDFEval(cfg.sdf_model, ST_KW["lod_schedule"][0])(
             (params["sdf"], ITER), pos)
     ks, ps = ({k: v.clone() for k, v in state1.items()} for _ in range(2))
     out_k = st.trace_step_cuda(idx, s_val, *sargs(ks), **kw, counts=True)
@@ -1704,7 +1709,7 @@ def sphere_render_phase(device, cfg, scenes):
         torch.cuda.synchronize(device)
         field_ms = (time.perf_counter() - t0) * 1e3
         reset_counts()
-        times, stats = [], []
+        times, stats, stages = [], [], 0
         for f in range(frames + 1):
             stats = []
             torch.cuda.synchronize(device)
@@ -1714,10 +1719,18 @@ def sphere_render_phase(device, cfg, scenes):
                                                       **ST_KW)
             torch.cuda.synchronize(device)
             times.append((time.perf_counter() - t0) * 1e3)
+            stages += sum(1 for s in stats if s[0] != "lit")
         counts = read_counts()
         missing = [k for k in SPHERE_KERNELS if counts[k] <= 0]
         if missing:
             fail(f"sphere-traced render {run}: no launch of kernel {missing}")
+        # J2f once a round and once for the refine, the unfused J2 never, and
+        # A only in the shading (two encodes a chunk), B once a chunk
+        chunks = sum(1 for s in stats if s[0] == "lit") * (frames + 1)
+        want = {"J2f": stages, "J2": 0, "A": 2 * chunks, "B": chunks}
+        if any(counts[k] != v for k, v in want.items()):
+            fail(f"sphere-traced render {run}: launches {({k: counts[k] for k in want})}, "
+                 f"expected {want}")
         for t in img:
             if not torch.isfinite(t).all():
                 fail(f"sphere-traced render {run}: non-finite values")
@@ -3374,13 +3387,29 @@ def sdf_mesh_phase(device, cfg, sphere_params):
 PT_CHUNK = 8192  # render_image_sphere_traced's default chunk
 PT_TRACES = 15  # its nr_sphere_traces
 PT_FRAMES = 3  # timed plain-traced frames per scene, after one warm-up frame
-PT_KERNELS = ("C3", "J3", "A", "B")  # J0 only when the scene's field is not cached yet
-PT_COMPACT_KERNELS = ("C3", "J3", "H0", "A", "B")
+PT_KERNELS = ("C3", "J3f", "A", "B")  # J0 only when the scene's field is not cached yet
+PT_COMPACT_KERNELS = ("C3", "J3f", "H0", "A", "B")
+PT_COMPACT_ROUNDS = 5  # render_rays_sphere_traced_compacted's nr_rounds
 TOL_C3_ULP = 0  # t_first: the same float operations; has exact
 TOL_J3 = 1e-6  # positions: the same float operations (--fmad=false); flags exact
 OPS_PER_PROBE = 23  # a probe's t, point and voxel index (as probe_sampler_ops)
 C3_SPAN = 16  # the probes one test of C3's pass 1 settles (kSpan, occupancy_grid.cu)
 OPS_PER_ROW_J3 = 30  # J3's step, convergence test and the bound sphere's test
+# J3f and J2f against their plain versions (the SDF through sdf_apply, then
+# J3's or J2's plain version): the encoding is kernel A's bit for bit, but
+# the fused MLP sums in order with fmaf where cuBLAS may block its sums, so
+# positions (t and sdf for J2f) agree within TOL_FUSED where the flags
+# agree. A flag (a convergence or bound test at its edge) may differ, and a
+# path may differ where a position at a voxel's edge takes another jump:
+# each on at most max(FUSED_MAX_ROWS, FUSED_SHARE of the rows), each such
+# row within FUSED_MAX_GAP (2.5 voxels of the 256^3 grid). Set from the
+# readings on an H100 80GB HBM3 at 700 W, which had no such row and gaps of
+# at most 1.5e-8 (PERF.md, PR 14), with room for a couple of rays at an edge.
+TOL_FUSED = 1e-5
+FUSED_MAX_ROWS = 2
+FUSED_SHARE = 0.0005
+FUSED_MAX_GAP = 0.01
+OPS_PER_GELU = 15  # tanh and the polynomial
 OPS_PER_SAMPLE_C2 = 20  # C2's per-slot count, spacing, z, clip and dt
 OPS_PER_PROBE_I2 = 3  # I2's decay, max and threshold
 NERF_SHORT = 2  # the short run whose time the window's run subtracts
@@ -3688,10 +3717,14 @@ def plain_trace_render_phase(device, cfg, scenes, fast_runs):
               f"{lit}; launches/frame "
               f"{ {k: round(v, 2) for k, v in out[f'{scene}_plain']['launches_per_frame'].items()} }",
               flush=True)
-        # J3 once per trace per chunk: the full-state loop runs every iteration
-        if counts["J3"] != PT_TRACES * chunks * (PT_FRAMES + 1):
-            fail(f"plain sphere-traced frame ({scene}): J3 launches {counts['J3']}, expected "
-                 f"{PT_TRACES * chunks * (PT_FRAMES + 1)}")
+        # J3f once a chunk (all PT_TRACES iterations, the SDF inside the
+        # launch), the unfused J3 never, and A only in the shading (the SDF's
+        # and the RGB model's encodes), B once a chunk
+        runs = chunks * (PT_FRAMES + 1)
+        want = {"J3f": runs, "J3": 0, "A": 2 * runs, "B": runs}
+        if any(counts[k] != v for k, v in want.items()):
+            fail(f"plain sphere-traced frame ({scene}): launches "
+                 f"{ {k: counts[k] for k in want} }, expected {want}")
     params, grid = scenes["sphere"]
     o, d = rays_from_frame(K, tf, WIDTH, HEIGHT, device=device)
     field = tps._cached_dist_field(cfg.grid, grid)
@@ -3708,6 +3741,11 @@ def plain_trace_render_phase(device, cfg, scenes, fast_runs):
     missing = [k for k in PT_COMPACT_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"compacted sphere-traced frame: no launch of kernel {missing}")
+    # J3f once a round, the unfused J3 never, A only in the shading
+    want = {"J3f": PT_COMPACT_ROUNDS * (PT_FRAMES + 1), "J3": 0, "A": 2 * (PT_FRAMES + 1)}
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"compacted sphere-traced frame: launches {({k: counts[k] for k in want})}, "
+             f"expected {want}")
     if not (torch.isfinite(rgb).all() and torch.isfinite(nrm).all()) or not w.sum() > 0:
         fail("compacted sphere-traced frame: non-finite values or nothing shaded")
     timed = times[1:]
@@ -3740,6 +3778,7 @@ def plain_trace_cross_check(device, cfg, params, grid, field):
     import torch
 
     from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.models.fields import SDFEval
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import sphere_trace as st
     from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
@@ -3761,14 +3800,13 @@ def plain_trace_cross_check(device, cfg, params, grid, field):
     agree = (lit_c == lit_p).float().mean().item()
     err = {k: (card[i].cpu() - ref[i]).abs().amax(dim=-1) for i, k in ((0, "rgb"),
                                                                       (1, "normals"))}
-    with torch.no_grad():
-        sdf_fn = lambda p_: lambda x: tps.sdf_apply(p_["sdf"], x, ITER, cfg.sdf_model)[0]  # noqa: E731
-        pos_c = st.sphere_trace(sdf_fn(params), o.to(device), d.to(device), tps.BOUND,
+    with torch.no_grad():  # the render's trace: J3f on the card, the plain loop on the CPU
+        pos_c = st.sphere_trace(SDFEval(cfg.sdf_model), o.to(device), d.to(device), tps.BOUND,
                                 PT_TRACES, grid_cfg=cfg.grid, grid=grid, dist_field=field,
-                                final_sdf=False)[0]
-        pos_p = st.sphere_trace(sdf_fn(params_cpu), o, d, tps.BOUND, PT_TRACES,
+                                final_sdf=False, ctx=(params["sdf"], ITER))[0]
+        pos_p = st.sphere_trace(SDFEval(cfg.sdf_model), o, d, tps.BOUND, PT_TRACES,
                                 grid_cfg=cfg.grid, grid=grid_cpu, dist_field=cpu(field),
-                                final_sdf=False)[0]
+                                final_sdf=False, ctx=(params_cpu["sdf"], ITER))[0]
         same = tps._shade(params, pos_p.to(device), d.to(device), ITER, cfg)
         want = tps._shade(params_cpu, pos_p, d, ITER, cfg)
     shade_err = max((a.cpu() - b).abs().amax(dim=-1)[lit_p].max().item() if lit_p.any() else 0.0
@@ -3804,6 +3842,267 @@ def plain_trace_cross_check(device, cfg, params, grid, field):
         fail(f"plain-trace cross-check: {summary['whole_path_rays_off']} of {int(both.sum())} "
              f"rays lit in both differ by more than {TOL_ST_CROSS:.4f}")
     return summary
+
+
+def _recording_eval(sdf_eval, active_of, recs):
+    """``sdf_eval`` that also records, at each call of a plain trace loop,
+    the points of the rows the fused kernel evaluates (``active_of()``, the
+    active rows at that moment) and their sdf."""
+    def fn(ctx, pts):
+        s = sdf_eval(ctx, pts)
+        act = active_of()
+        recs.append((pts[act], s[act]))
+        return s
+    return fn
+
+
+def _fused_bound(params_sdf, cfg, K, recs, gate, substeps, state_bytes):
+    """The least time of a fused trace launch over this run's work: the
+    bytes of the distinct 32-byte table sectors its evaluations gather, the
+    staged weights, the state and a byte a field lookup; the operations of
+    its evaluations (K levels of lattice math, the MLP and its GELUs, the
+    step) and lookups -> (bound_ms(...), work)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    pts = torch.cat([p for p, _ in recs]) if recs else torch.zeros((0, 3))
+    s = torch.cat([v for _, v in recs]) if recs else torch.zeros((0,))
+    enc = params_sdf["encoding"]
+    scales, E, _ = pe.encoding_constants(cfg.encoding, None, pts.device)
+    sectors = [torch.zeros((0,), dtype=torch.int64, device=pts.device)]
+    for part in pts.split(32768):  # the slot ids of ~32k points at a time, 4 slots a sector
+        ids = pe.flat_slot_ids(part, enc["lattice_values"], enc["shift_per_level"], scales, E, K)
+        sectors.append((ids // 4).unique())
+    n_sectors = int(torch.cat(sectors).unique().numel())
+    evals = int(pts.shape[0])
+    lookups = int(((s > gate) & (s.abs() >= 2e-4)).sum()) * substeps
+    n_in = 2 * K + 3
+    mlp_ops = 2 * (n_in * 32 + 2 * 32 * 32 + 32) + 3 * 32 * OPS_PER_GELU
+    ops = evals * (K * OPS_PER_POINT_LEVEL_A + mlp_ops + OPS_PER_ROW_J3) + lookups * OPS_PER_LOOKUP
+    nbytes = n_sectors * 32 + 4 * (n_in * 32 + 2 * 32 * 32 + 4 * 32 + 1) + state_bytes + lookups
+    work = {"evaluations": evals, "table_sectors": n_sectors, "lookups": lookups,
+            "ops_per_evaluation": K * OPS_PER_POINT_LEVEL_A + mlp_ops + OPS_PER_ROW_J3}
+    return bound_ms(nbytes, ops), work
+
+
+def _fused_compare(name, rows, pos_k, pos_p, flags_k, flags_p):
+    """The fused result against the plain one on ``rows`` rows: rays whose
+    flags differ, and rays whose flags agree but whose position (or t)
+    differs by more than TOL_FUSED (another jump at a voxel's edge), each
+    at most max(FUSED_MAX_ROWS, FUSED_SHARE of the rows) and within
+    FUSED_MAX_GAP -> (the largest gap on the other rays, summary)."""
+    import torch
+
+    differ = torch.zeros(pos_k.shape[0], dtype=torch.bool, device=pos_k.device)
+    for a, b in zip(flags_k, flags_p):
+        differ |= a != b
+    gap = (pos_k - pos_p).abs()
+    gap = gap.amax(dim=-1) if gap.dim() > 1 else gap
+    path = ~differ & (gap > TOL_FUSED)
+    ok = ~differ & ~path
+    summary = {"rows": rows, "flags_differ": int(differ.sum()), "paths_differ": int(path.sum()),
+               "max_gap_flags_agree": gap[~differ].max().item() if (~differ).any() else 0.0,
+               "max_gap_differing": gap[differ | path].max().item() if (differ | path).any()
+               else 0.0}
+    limit = max(FUSED_MAX_ROWS, FUSED_SHARE * rows)
+    if summary["flags_differ"] > limit or summary["paths_differ"] > limit:
+        fail(f"kernel {name}: {summary} (at most {limit:g} rows may differ)")
+    if summary["max_gap_differing"] > FUSED_MAX_GAP:
+        fail(f"kernel {name}: {summary} (a differing row within {FUSED_MAX_GAP:g})")
+    return (gap[ok].max().item() if ok.any() else 0.0), summary
+
+
+def fused_trace_phases(device, cfg, scenes, reps=10, plain_reps=2):
+    """Kernels J3f and J2f (the trace loops with the flagship SDF evaluated
+    inside the launch) against their plain versions (``sdf_apply`` on the
+    card, then J3's or J2's plain version) on the sphere and the plane
+    scene, from the same state: J3f at the plain frame's PT_CHUNK-ray chunk
+    (the C3 seed, PT_TRACES iterations) and at the compacted renderer's
+    first round (its first bucket of the whole view, 3 iterations, the sdf
+    store); J2f at the fast frame's round 0 (the 400² view padded as the
+    render pads it, after J1's prepass: LOD 6, 5 iterations, 4 chained
+    jumps) and its refine (every level, 3 iterations). Each against
+    ``_fused_compare``'s limits; timed from a restored state (the restore's
+    time subtracted), device ms in the kernel's own symbols, the bound from
+    the run's own work.
+    Returns ({"J3f": ..., "J2f": ...} of the sphere scene, summary)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.models.fields import SDFEval
+    from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    gcfg = cfg.grid
+    K_cam, tf = camera_k(WIDTH, HEIGHT)
+    o_all, d_all = rays_from_frame(K_cam, tf, WIDTH, HEIGHT, device=device)
+    bound = st._sphere_bound(tps.BOUND)
+    L = cfg.sdf_model.nr_levels
+    results, summary = {}, {}
+
+    def timed(name, run_k, run_p, restore):
+        restore_ms = time_ms(restore, reps, device)
+        ms = time_ms(lambda: (restore(), run_k()), reps, device) - restore_ms
+        pms = time_ms(lambda: (restore(), run_p()), plain_reps, device) - restore_ms
+        # one launch a call: per launch, so a record the profiler drops biases nothing
+        dms = device_ms(lambda: (restore(), run_k()), name, device, reps=5, per_launch=True)
+        return ms, pms, dms
+
+    for scene, (params, grid) in scenes.items():
+        field = tps._cached_dist_field(gcfg, grid)
+        ctx = (params["sdf"], ITER)
+        full = SDFEval(cfg.sdf_model, None)
+        out = {}
+
+        # --- J3f: the plain frame's centre chunk, all PT_TRACES iterations
+        mid = (o_all.shape[0] // 2 // PT_CHUNK) * PT_CHUNK
+        oc, dc = o_all[mid:mid + PT_CHUNK].contiguous(), d_all[mid:mid + PT_CHUNK].contiguous()
+        pos, alive, _ = st._plain_seed(oc, dc, tps.BOUND, gcfg, grid, field)
+        state0 = {"pos_f": pos.contiguous(), "alive_f": alive.contiguous(),
+                  "conv_f": torch.zeros_like(alive)}
+        ks, ps, work = ({k: v.clone() for k, v in state0.items()} for _ in range(3))
+        kw = dict(dist_field=field, grid_cfg=gcfg, iters=PT_TRACES, sdf_multiplier=0.9,
+                  sdf_converged_tresh=2e-4, bound=bound)
+        recs = []
+        rec = _recording_eval(full, lambda: ps["alive_f"] & ~ps["conv_f"], recs)
+        with torch.no_grad():
+            st.trace_loop_pos_cuda(full, ctx, None, dc, ks["pos_f"], ks["alive_f"], ks["conv_f"],
+                                   None, **kw)
+            st.trace_loop_pos_plain(rec, ctx, None, dc, ps["pos_f"], ps["alive_f"],
+                                    ps["conv_f"], None, **kw)
+        err, cmp_ = _fused_compare("J3f", PT_CHUNK, ks["pos_f"], ps["pos_f"],
+                                   (ks["alive_f"], ks["conv_f"]), (ps["alive_f"], ps["conv_f"]))
+        b, w = _fused_bound(params["sdf"], cfg.sdf_model, L, recs, gcfg.voxel_size, 1,
+                            PT_CHUNK * (12 + 12 + 2 + 12 + 2))
+
+        def restore(work=work, state0=state0):
+            for k, v in work.items():
+                v.copy_(state0[k])
+
+        def run(fn, work=work, ctx=ctx, dc=dc, kw=kw, full=full):
+            with torch.no_grad():
+                fn(full, ctx, None, dc, work["pos_f"], work["alive_f"], work["conv_f"], None,
+                   **kw)
+
+        ms, pms, dms = timed("J3f", lambda: run(st.trace_loop_pos_cuda),
+                             lambda: run(st.trace_loop_pos_plain), restore)
+        _report(f"J3f:{scene} chunk={PT_CHUNK} traces={PT_TRACES} ({cmp_}; {w})", err, TOL_FUSED,
+                ms, pms, b)
+        out["J3f_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+                                bound_by=b[1], device_ms=dms, compare=cmp_, work=w)
+
+        # --- J3f, the bucket form: the compacted renderer's first round on the whole view
+        pos, alive, _ = st._plain_seed(o_all, d_all, tps.BOUND, gcfg, grid, field)
+        R = o_all.shape[0]
+        bstate0 = {"pos_f": st._padded(pos.contiguous()), "alive_f": st._padded(alive, False),
+                   "conv_f": torch.zeros(R + 1, dtype=torch.bool, device=device),
+                   "sdf_f": torch.zeros(R + 1, device=device)}
+        dirs_f = st._padded(d_all.contiguous())
+        idx, _ = compaction.nonzero_static_plain(bstate0["alive_f"][:R], max(256, R // 4), R)
+        ks, ps = ({k: v.clone() for k, v in bstate0.items()} for _ in range(2))
+        bkw = dict(dist_field=field, grid_cfg=gcfg, iters=3, sdf_multiplier=0.9,
+                   sdf_converged_tresh=2e-4, bound=bound)
+        with torch.no_grad():
+            st.trace_loop_pos_cuda(full, ctx, idx, dirs_f, ks["pos_f"], ks["alive_f"],
+                                   ks["conv_f"], ks["sdf_f"], **bkw)
+            st.trace_loop_pos_plain(full, ctx, idx, dirs_f, ps["pos_f"], ps["alive_f"],
+                                    ps["conv_f"], ps["sdf_f"], **bkw)
+        err_b, cmp_b = _fused_compare(
+            "J3f", int((idx < R).sum()), torch.cat([ks["pos_f"], ks["sdf_f"][:, None]], 1),
+            torch.cat([ps["pos_f"], ps["sdf_f"][:, None]], 1), (ks["alive_f"], ks["conv_f"]),
+            (ps["alive_f"], ps["conv_f"]))
+        recs, bwork = [], {k: v.clone() for k, v in bstate0.items()}
+        with torch.no_grad():
+            st.trace_loop_pos_plain(
+                _recording_eval(full, lambda: (bwork["alive_f"] & ~bwork["conv_f"])[idx]
+                                & (idx < R), recs),
+                ctx, idx, dirs_f, bwork["pos_f"], bwork["alive_f"], bwork["conv_f"],
+                bwork["sdf_f"], **bkw)
+        b, w = _fused_bound(params["sdf"], cfg.sdf_model, L, recs, gcfg.voxel_size, 1,
+                            idx.shape[0] * 8 + int((idx < R).sum()) * 48)  # 8 B an id, 48 a row
+
+        def brestore(bwork=bwork, bstate0=bstate0):
+            for k, v in bwork.items():
+                v.copy_(bstate0[k])
+
+        def brun(fn, bwork=bwork, idx=idx, dirs_f=dirs_f, ctx=ctx, bkw=bkw, full=full):
+            with torch.no_grad():
+                fn(full, ctx, idx, dirs_f, bwork["pos_f"], bwork["alive_f"], bwork["conv_f"],
+                   bwork["sdf_f"], **bkw)
+
+        ms, pms, dms = timed("J3f", lambda: brun(st.trace_loop_pos_cuda),
+                             lambda: brun(st.trace_loop_pos_plain), brestore)
+        _report(f"J3f:{scene}_bucket bucket={idx.shape[0]} iters=3 ({cmp_b}; {w})", err_b,
+                TOL_FUSED, ms, pms, b)
+        out["J3f_bucket"] = dict(max_abs_err=err_b, ms=ms, plain_ms=pms, bound_ms=b[0],
+                                 bound_by=b[1], device_ms=dms, compare=cmp_b, work=w)
+
+        # --- J2f: the fast frame's round 0 (LOD 6) after the prepass, then the refine
+        Rf = st.pow2_bucket(o_all.shape[0], lo=256, hi=1 << 21)
+        pad = Rf - o_all.shape[0]
+        o = torch.cat([o_all, torch.tensor([[10.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+        d = torch.cat([d_all, torch.tensor([[1.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+        _, te, _, tx, hit = tps.BOUND.ray_intersection(o, d)
+        s0 = {"origins_f": st._padded(o), "dirs_f": st._padded(d), "texit_f": st._padded(tx[:, 0]),
+              "t_f": st._padded(te[:, 0]), "alive_f": st._padded(hit[:, 0], False),
+              "conv_f": torch.zeros(Rf + 1, dtype=torch.bool, device=device),
+              "sdf_f": torch.zeros(Rf + 1, device=device)}
+        st.jump_prepass_plain(field, s0["origins_f"], s0["dirs_f"], s0["texit_f"], s0["t_f"],
+                              s0["alive_f"], gcfg, 16)
+        jkw = dict(dist_field=field, grid_cfg=gcfg, sdf_multiplier=0.9, sdf_converged_tresh=2e-4,
+                   jump_substeps=4, jump_gate=gcfg.voxel_size)
+        keys = ("origins_f", "dirs_f", "texit_f", "t_f", "alive_f", "conv_f", "sdf_f")
+        for stage, ev, iters in (("round0", SDFEval(cfg.sdf_model, ST_KW["lod_schedule"][0]), 5),
+                                 ("refine", full, ST_KW["nr_refine_iters"])):
+            mask = (s0["alive_f"] & ~s0["conv_f"])[:Rf]
+            idx, _ = compaction.nonzero_static_plain(mask, st.pow2_bucket(
+                int(mask.sum()), lo=256, hi=Rf), Rf)
+            ks, ps, work = ({k: v.clone() for k, v in s0.items()} for _ in range(3))
+            recs = []
+            rec = _recording_eval(ev, lambda: (ps["alive_f"] & ~ps["conv_f"])[idx] & (idx < Rf),
+                                  recs)
+            with torch.no_grad():
+                c_k = st.trace_round_cuda(ev, ctx, idx, *(ks[k] for k in keys), iters=iters,
+                                          **jkw)
+                c_p = st.trace_round_plain(rec, ctx, idx, *(ps[k] for k in keys), iters=iters,
+                                           **jkw)
+            n = int((idx < Rf).sum())
+            err_j, cmp_j = _fused_compare("J2f", n, torch.stack([ks["t_f"], ks["sdf_f"]], 1),
+                                          torch.stack([ps["t_f"], ps["sdf_f"]], 1),
+                                          (ks["alive_f"], ks["conv_f"]),
+                                          (ps["alive_f"], ps["conv_f"]))
+            cmp_j["counts"], cmp_j["counts_plain"] = c_k.tolist(), c_p.tolist()
+            if (c_k - c_p).abs().sum().item() > 2 * max(FUSED_MAX_ROWS, FUSED_SHARE * n):
+                fail(f"kernel J2f ({scene} {stage}): counts {c_k.tolist()} vs {c_p.tolist()}")
+            Kl = ev.max_levels or L
+            b, w = _fused_bound(params["sdf"], cfg.sdf_model, Kl, recs, gcfg.voxel_size, 4,
+                                idx.shape[0] * 8 + n * (12 + 12 + 4 + 4 + 2 + 4 + 4 + 2 + 4))
+
+            def restore(work=work, s0=s0):
+                for k, v in work.items():
+                    v.copy_(s0[k])
+
+            def run(fn, work=work, ev=ev, idx=idx, iters=iters):
+                with torch.no_grad():
+                    fn(ev, ctx, idx, *(work[k] for k in keys), iters=iters, **jkw)
+
+            ms, pms, dms = timed("J2f", lambda: run(st.trace_round_cuda),
+                                 lambda: run(st.trace_round_plain), restore)
+            _report(f"J2f:{scene}_{stage} R={Rf} bucket={idx.shape[0]} levels={Kl} iters={iters} "
+                    f"({cmp_j}; {w})", err_j, TOL_FUSED, ms, pms, b)
+            out[f"J2f_{stage}"] = dict(max_abs_err=err_j, ms=ms, plain_ms=pms, bound_ms=b[0],
+                                       bound_by=b[1], device_ms=dms, compare=cmp_j, work=w)
+            s0 = {k: v.clone() for k, v in ps.items()}  # the refine starts from the round
+            s0["conv_f"] = torch.zeros_like(s0["conv_f"])  # ... with every alive ray re-opened
+        print(json.dumps({"fused_trace": {scene: out}}), flush=True)
+        summary[scene] = out
+        if scene == "sphere":
+            keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+            results["J3f"] = {k: out["J3f_chunk"][k] for k in keys}
+            results["J2f"] = {k: out["J2f_round0"][k] for k in keys}
+    return results, summary
 
 
 def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
@@ -4196,14 +4495,18 @@ def main() -> int:
     results.update(plain_trace_kernel_phases(device, cfg, sphere_params, sphere_grid, field))
     plain_runs = plain_trace_render_phase(device, cfg, scenes, st_runs)
     plain_cross = plain_trace_cross_check(device, cfg, sphere_params, sphere_grid, field)
+    # slice 14: J3f and J2f, the trace loops with the SDF inside the launch,
+    # against their plain versions on both scenes
+    fused_results, fused_summary = fused_trace_phases(device, cfg, scenes)
+    results.update(fused_results)
     ncfg = tn.NerfTrainConfig()
     results.update(nerf_kernel_phases(device, ncfg, tn.init_params(SEED, ncfg, reel.nr_images,
                                                                     device), reel))
     nerf_summary, nerf_counts, _ = nerf_phase(device, reel, ncfg)
     gridfree, gridfree_counts = gridfree_phase(device, cfg, tparams, tgrid, reel)
     slice7_s = time.perf_counter() - t0
-    print(f"[slice 7 phases] {slice7_s:.1f} s wall for C3, J3, C2 and I2, the plain-traced "
-          f"frames, the NeRF trainer and the grid-free window", flush=True)
+    print(f"[slice 7 phases] {slice7_s:.1f} s wall for C3, J3, J3f, J2f, C2 and I2, the "
+          f"plain-traced frames, the NeRF trainer and the grid-free window", flush=True)
 
     # 15. summary lines
     meta = {
@@ -4260,6 +4563,10 @@ def main() -> int:
         "I2": ("occupancy_density_refresh",
                "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
                "permuto_sdf_tpu/ops/occupancy_grid.py:193"),
+        "J3f": ("plain_sphere_trace_loop", "permuto_sdf_tpu_torch/kernels/csrc/sphere_trace.cu",
+                "permuto_sdf_tpu/ops/sphere_trace.py:88"),
+        "J2f": ("sphere_trace_round", "permuto_sdf_tpu_torch/kernels/csrc/sphere_trace.cu",
+                "permuto_sdf_tpu/ops/sphere_trace.py:337"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
@@ -4316,6 +4623,7 @@ def main() -> int:
     print(json.dumps({"plain_traced": {"runs": {k: {x: y for x, y in v.items() if x != "launches"}
                                                  for k, v in plain_runs.items()},
                                         "cross_check": plain_cross, "phases_s": slice7_s,
+                                        "fused": fused_summary,
                                         "c3": {k: results["C3"].get(k) for k in
                                                ("chunk_ms", "chunk_device_ms", "chunk_bound_ms",
                                                 "work", "chunk_work", "grids", "refresh")}},

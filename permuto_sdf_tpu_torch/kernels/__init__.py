@@ -47,6 +47,15 @@ class RowArrays(ctypes.Structure):
                 ("count", _I)]
 
 
+class SdfNet(ctypes.Structure):
+    """The flagship SDF's tensors that kernels J2f and J3f read, passed by
+    value (``SdfNet`` in ``csrc/sphere_trace.cu``)."""
+
+    _fields_ = [(name, _P) for name in ("table", "shift", "scales", "window", "E", "w0", "b0",
+                                        "w1", "b1", "w2", "b2", "w3", "b3")] + [
+        ("capacity", _I), ("L", _I), ("K", _I), ("w3_cols", _I), ("concat_scaling", _F)]
+
+
 # The C signature of each library's exported launch functions; each returns
 # a cudaError_t as an int.
 SIGNATURES = {
@@ -80,6 +89,10 @@ SIGNATURES = {
                            + [_I] + [_P] * 3,
         "psdf_trace_step_pos": [_I, _I] + [_P] * 8 + [_I] + [_F] * 5 + [_I] + [_F] * 7
                                + [_P] * 2,
+        "psdf_trace_loop_pos": [_I, _I, _P, SdfNet] + [_P] * 6 + [_I] + [_F] * 5
+                               + [_I, _I] + [_F] * 7 + [_P],
+        "psdf_trace_round": [_I, _I, _P, SdfNet] + [_P] * 8 + [_I] + [_F] * 5
+                            + [_I, _I] + [_F] * 3 + [_I] + [_P] * 2,
     },
     "compaction": {
         "psdf_compact": [_I, _P, _I, _L] + [_P] * 4,

@@ -123,6 +123,23 @@ def sdf_apply(params, points, iter_nr, cfg: SDFConfig, max_levels=None):
     return _split_sdf(mlp_apply(_sdf_mlp(params, K, cfg), feats), cfg)
 
 
+@dataclasses.dataclass(frozen=True)
+class SDFEval:
+    """The SDF's value on the ``max_levels`` coarsest levels (None: all) as
+    a sphere tracer's evaluation, called as ``(ctx, pts [N, 3]) -> sdf
+    [N]`` with ``ctx = (params_sdf, iter_nr)``. For such a descriptor the
+    tracers of ``ops/sphere_trace.py`` launch their fused kernels on the
+    card (J2f, J3f: the SDF evaluated inside the trace loop's launch); any
+    other callable is evaluated as it is, between the trace steps."""
+
+    cfg: SDFConfig
+    max_levels: Optional[int] = None
+
+    def __call__(self, ctx, pts):
+        params_sdf, it = ctx
+        return sdf_apply(params_sdf, pts, it, self.cfg, max_levels=self.max_levels)[0].reshape(-1)
+
+
 def sdf_with_gradient(params, points, iter_nr, cfg: SDFConfig, max_levels=None):
     """(sdf, d sdf / d points, geom_feat): one reverse pass with a unit
     cotangent on the sdf (reverse mode, as the JAX default). With

@@ -29,16 +29,30 @@ iteration after that leaves the state as it is, so the result is the same
 without a host read per iteration. ``sphere_trace_compacted`` lists its
 active rays into buckets of the JAX op's static sizes (kernel H0) and
 launches J3 on the bucket, in place on the padded full-size state.
+
+For the flagship SDF the loops run on the card in one launch each, with
+the SDF evaluated inside it: given an
+:class:`~permuto_sdf_tpu_torch.models.fields.SDFEval` (and its ctx, the
+SDF's params and iteration), ``sphere_trace`` and
+``sphere_trace_compacted`` launch kernel J3f once a trace (once a round
+compacted), and ``sphere_trace_adaptive`` launches kernel J2f once a
+round (the trainer's LOD evaluations are such descriptors). An opaque
+``sdf_fn`` or ``sdf_eval`` keeps the loop of SDF calls and J3 or J2
+launches, and the CPU always runs the plain loop, which is also the fused
+kernels' reference.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from permuto_sdf_tpu_torch import kernels
+from permuto_sdf_tpu_torch.models.fields import SDFEval, _c2f_t, _sdf_levels
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
 from permuto_sdf_tpu_torch.ops.compaction import nonzero_static
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 
@@ -290,6 +304,161 @@ def trace_step_pos_cuda(idx, s, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_fiel
 trace_step_pos_cuda.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Kernels J3f and J2f: the trace loops with the flagship SDF inside the launch
+# ---------------------------------------------------------------------------
+
+def _sdf_net(sdf_eval: SDFEval, ctx, dev):
+    """The kernels' view of the SDF ``sdf_eval`` with ``ctx = (params_sdf,
+    iter_nr)`` -> (``kernels.SdfNet``, the tensors it points at). Raises for
+    what the kernels do not evaluate: d != 3, other MLP widths than [2L + 3,
+    32, 32, 32, 1 + G]."""
+    cfg = sdf_eval.cfg
+    params_sdf, it = ctx
+    spec, L = cfg.encoding, cfg.nr_levels
+    if cfg.in_channels != 3 or spec.nr_feat_per_level != 2:
+        raise NotImplementedError("the fused trace kernels (J2f, J3f) evaluate the SDF of 3-D "
+                                  "points with 2 features a level")
+    mlp = params_sdf["mlp_sdf"]
+    widths = [tuple(layer["w"].shape) for layer in mlp]
+    want = [(2 * L + 3, 32), (32, 32), (32, 32), (32, 1 + cfg.geom_feat_size_out)]
+    if widths != want or any(tuple(layer["b"].shape) != (w[1],) for layer, w in zip(mlp, want)):
+        raise NotImplementedError(f"the fused trace kernels (J2f, J3f) evaluate the SDF MLP "
+                                  f"{want}, not {widths}")
+    K = _sdf_levels(cfg, sdf_eval.max_levels) or L
+    window = pe.coarse2fine_window(_c2f_t(it, cfg.nr_iters_for_c2f), L)
+    scales, E, window = pe.encoding_constants(spec, window, dev)
+    enc = params_sdf["encoding"]
+    tensors = [pe.interleaved_table(enc["lattice_values"]), enc["shift_per_level"].detach(),
+               scales, window, E] + [layer[k].detach() for layer in mlp for k in ("w", "b")]
+    tensors = [t.contiguous() for t in tensors]
+    for t in tensors:
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError("the fused trace kernels: the SDF's tensors must be float32 on the "
+                             "state's device")
+    net = kernels.SdfNet(*(t.data_ptr() for t in tensors), capacity=spec.capacity, L=L, K=K,
+                         w3_cols=want[3][1], concat_scaling=float(spec.concat_points_scaling))
+    return net, tensors
+
+
+def _trace_loop_pos(step, sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field,
+                    grid_cfg, iters: int, sdf_multiplier: float, sdf_converged_tresh: float,
+                    bound):
+    """``iters`` times the SDF at the rows' positions, then ``step`` (J3 or
+    its plain version), in place: the rows ``idx`` (a bucket whose fill
+    slots point at the state's last row) or every row."""
+    sub_pos = pos_f[idx] if idx is not None else pos_f
+    for _ in range(iters):
+        s = sdf_eval(ctx, sub_pos).reshape(-1)
+        out = step(idx, s, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field, grid_cfg,
+                   sdf_multiplier, sdf_converged_tresh, bound, pos_out=idx is not None)
+        sub_pos = out if idx is not None else pos_f
+
+
+def trace_loop_pos_plain(sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field,
+                         grid_cfg, iters: int, sdf_multiplier: float,
+                         sdf_converged_tresh: float, bound):
+    """Plain version of kernel J3f: ``iters`` times ``sdf_eval(ctx, pos)``
+    and J3's plain version, on the rows ``idx`` (or every row), in place."""
+    _trace_loop_pos(trace_step_pos_plain, sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f,
+                    sdf_f, dist_field, grid_cfg, iters, sdf_multiplier, sdf_converged_tresh,
+                    bound)
+
+
+def trace_loop_pos_cuda(sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field,
+                        grid_cfg, iters: int, sdf_multiplier: float,
+                        sdf_converged_tresh: float, bound):
+    """Kernel J3f launch: J3's ``iters`` iterations with the SDF of
+    ``sdf_eval`` (an :class:`SDFEval`) evaluated inside one launch. Counts
+    launches in ``trace_loop_pos_cuda.launches``."""
+    dev = pos_f.device
+    _check_state("fused plain trace", dev, (dirs_f, pos_f) + ((sdf_f,) if sdf_f is not None
+                                                               else ()), (alive_f, conv_f))
+    R = pos_f.shape[0] - 1 if idx is not None else pos_f.shape[0]
+    if idx is not None and (idx.dtype != torch.int64 or idx.device != dev or idx.dim() != 1):
+        raise ValueError("fused plain trace: int64 [B] row ids on the state's device")
+    if dist_field is not None and (dist_field.dtype != torch.uint8 or dist_field.device != dev):
+        raise ValueError("fused plain trace: the distance field must be uint8 on the state's "
+                         "device")
+    B = idx.shape[0] if idx is not None else R
+    net, keep = _sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
+    (cx, cy, cz), r2 = bound
+    lib = kernels.load("sphere_trace")
+    err = lib.psdf_trace_loop_pos(
+        B, R, kernels.ptr(idx.contiguous() if idx is not None else None), net,
+        kernels.ptr(dirs_f), kernels.ptr(pos_f),
+        kernels.ptr(alive_f), kernels.ptr(conv_f), kernels.ptr(sdf_f),
+        kernels.ptr(dist_field.contiguous() if dist_field is not None else None),
+        *_grid_scalars(grid_cfg if dist_field is not None else None), _EMPTY_DIST_CAP,
+        int(iters), float(sdf_multiplier), float(sdf_converged_tresh),
+        float(grid_cfg.voxel_size) if dist_field is not None else 0.0, cx, cy, cz, r2,
+        kernels.current_stream(dev))
+    kernels.check(lib, err, "fused plain sphere trace (kernel J3f)")
+    trace_loop_pos_cuda.launches += 1
+
+
+trace_loop_pos_cuda.launches = 0
+
+
+def _trace_round(step, sdf_eval, ctx, idx, origins_f, dirs_f, texit_f, t_f, alive_f, conv_f,
+                 sdf_f, dist_field, grid_cfg, iters: int, sdf_multiplier: float,
+                 sdf_converged_tresh: float, jump_substeps: int, jump_gate: float):
+    """One round on the bucket ``idx``: the positions, then ``iters`` times
+    the SDF and ``step`` (J2 or its plain version), in place -> the round's
+    counts [2] int32 (still active, converged and alive)."""
+    args = (origins_f, dirs_f, texit_f, t_f, alive_f, conv_f, sdf_f, dist_field, grid_cfg,
+            sdf_multiplier, sdf_converged_tresh, jump_substeps, jump_gate)
+    pos, counts = step(idx, None, *args, counts=iters == 0)
+    for i in range(iters):
+        s = sdf_eval(ctx, pos).reshape(-1)
+        pos, counts = step(idx, s, *args, counts=i == iters - 1)
+    return counts
+
+
+def trace_round_plain(sdf_eval, ctx, idx, origins_f, dirs_f, texit_f, t_f, alive_f, conv_f,
+                      sdf_f, dist_field, grid_cfg, iters: int, sdf_multiplier: float,
+                      sdf_converged_tresh: float, jump_substeps: int, jump_gate: float):
+    """Plain version of kernel J2f: one round of ``iters`` times
+    ``sdf_eval(ctx, pos)`` and J2's plain version -> the round's counts."""
+    return _trace_round(trace_step_plain, sdf_eval, ctx, idx, origins_f, dirs_f, texit_f, t_f,
+                        alive_f, conv_f, sdf_f, dist_field, grid_cfg, iters, sdf_multiplier,
+                        sdf_converged_tresh, jump_substeps, jump_gate)
+
+
+def trace_round_cuda(sdf_eval, ctx, idx, origins_f, dirs_f, texit_f, t_f, alive_f, conv_f,
+                     sdf_f, dist_field, grid_cfg, iters: int, sdf_multiplier: float,
+                     sdf_converged_tresh: float, jump_substeps: int, jump_gate: float):
+    """Kernel J2f launch: one round of J2 with the SDF of ``sdf_eval`` (an
+    :class:`SDFEval`) evaluated inside one launch -> the round's counts [2]
+    int32. Counts launches in ``trace_round_cuda.launches``."""
+    dev = t_f.device
+    _check_state("fused trace round", dev, (origins_f, dirs_f, texit_f, t_f, sdf_f),
+                 (alive_f, conv_f))
+    if idx.dtype != torch.int64 or idx.device != dev or idx.dim() != 1:
+        raise ValueError("fused trace round: int64 [B] bucket ids on the state's device")
+    if dist_field is not None and (dist_field.dtype != torch.uint8 or dist_field.device != dev):
+        raise ValueError("fused trace round: the distance field must be uint8 on the state's "
+                         "device")
+    net, keep = _sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
+    counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+    lib = kernels.load("sphere_trace")
+    err = lib.psdf_trace_round(
+        idx.shape[0], t_f.shape[0] - 1, kernels.ptr(idx.contiguous()), net,
+        kernels.ptr(origins_f), kernels.ptr(dirs_f),
+        kernels.ptr(texit_f), kernels.ptr(t_f), kernels.ptr(alive_f), kernels.ptr(conv_f),
+        kernels.ptr(sdf_f),
+        kernels.ptr(dist_field.contiguous() if dist_field is not None else None),
+        *_grid_scalars(grid_cfg if dist_field is not None else None), _EMPTY_DIST_CAP,
+        int(iters), float(sdf_multiplier), float(sdf_converged_tresh), float(jump_gate),
+        int(jump_substeps), kernels.ptr(counts), kernels.current_stream(dev))
+    kernels.check(lib, err, "fused sphere-trace round (kernel J2f)")
+    trace_round_cuda.launches += 1
+    return counts
+
+
+trace_round_cuda.launches = 0
+
+
 def _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg, grid, dist_field):
     """The plain tracers' start: the bound's entry, or with a grid half a
     voxel past the start of the first occupied probe segment (kernel C3,
@@ -308,20 +477,36 @@ def _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg, grid, dist_
     return pos, has_occ & hit[:, 0], dist_field
 
 
+def _trace_route(sdf_fn, ctx, device):
+    """How a plain tracer runs ``sdf_fn`` on ``device`` -> (the loop, the
+    evaluation ``(ctx, pts) -> sdf``, its ctx): for an :class:`SDFEval`
+    kernel J3f's loop on the card (its plain version on the CPU), else the
+    loop of ``sdf_fn(pts)`` and J3 (or J3's plain version)."""
+    if isinstance(sdf_fn, SDFEval):  # the flagship SDF: one launch of J3f on the card
+        if ctx is None:
+            raise ValueError("an SDFEval is traced with its ctx = (params_sdf, iter_nr)")
+        return kernels.dispatch(device, trace_loop_pos_cuda, trace_loop_pos_plain), sdf_fn, ctx
+    step = kernels.dispatch(device, trace_step_pos_cuda, trace_step_pos_plain)
+    return functools.partial(_trace_loop_pos, step), lambda _, p: sdf_fn(p), None
+
+
 def sphere_trace(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
                  nr_sphere_traces: int = 15, sdf_multiplier: float = 0.9,
                  sdf_converged_tresh: float = 2e-4,
                  grid_cfg: Optional[og.OccupancyGridConfig] = None,
                  grid: Optional[og.OccupancyGridState] = None,
                  time_val: Optional[float] = None, dist_field=None,
-                 final_sdf: bool = True):
+                 final_sdf: bool = True, ctx=None):
     """Masked sphere tracing of every ray for ``nr_sphere_traces``
     iterations (``sdf_fn`` maps [N, 3] to [N] sdf values), with the grid's
     empty-space jumps when ``grid`` is given (its distance field built here
-    unless ``dist_field`` is). Returns (pos [R, 3], sdf [R] at the final
-    positions (None with ``final_sdf=False``), converged [R],
-    within_bounds [R])."""
+    unless ``dist_field`` is). ``sdf_fn`` may be an :class:`SDFEval` with
+    its ``ctx = (params_sdf, iter_nr)``: then all the iterations are one
+    launch of kernel J3f on the card, which evaluates the SDF inside the
+    loop. Returns (pos [R, 3], sdf [R] at the final positions (None with
+    ``final_sdf=False``), converged [R], within_bounds [R])."""
     _check_time(time_val)
+    loop, sdf_eval, ctx = _trace_route(sdf_fn, ctx, ray_origins.device)
     bound = _sphere_bound(boundary_primitive)
     pos, alive, dist_field = _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg,
                                          grid, dist_field)
@@ -329,12 +514,9 @@ def sphere_trace(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
     dirs_f = ray_dirs.contiguous()
     alive_f = alive.contiguous()
     conv_f = torch.zeros_like(alive_f)
-    step = kernels.dispatch(pos_f.device, trace_step_pos_cuda, trace_step_pos_plain)
-    for _ in range(nr_sphere_traces):
-        s = sdf_fn(pos_f).reshape(-1)
-        step(None, s, dirs_f, pos_f, alive_f, conv_f, None, dist_field, grid_cfg,
-             sdf_multiplier, sdf_converged_tresh, bound)
-    sdf = sdf_fn(pos_f).reshape(-1) if final_sdf else None
+    loop(sdf_eval, ctx, None, dirs_f, pos_f, alive_f, conv_f, None, dist_field, grid_cfg,
+         nr_sphere_traces, sdf_multiplier, sdf_converged_tresh, bound)
+    sdf = sdf_eval(ctx, pos_f).reshape(-1) if final_sdf else None
     return pos_f, sdf, conv_f, alive_f
 
 
@@ -353,15 +535,18 @@ def sphere_trace_compacted(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
                            grid: Optional[og.OccupancyGridState] = None,
                            time_val: Optional[float] = None,
                            first_bucket_fraction: float = 0.25, dist_field=None,
-                           final_sdf: bool = True):
+                           final_sdf: bool = True, ctx=None):
     """Sphere tracing in ``nr_rounds`` rounds of ``iters_per_round``
     iterations, each round on a bucket of the active rays of a static size:
     max(256, R * first_bucket_fraction) (at most R), halved every round.
     Active rays that overflow a bucket wait for the next round. A final
     bucket of that first size re-evaluates the sdf of the converged alive
-    rays. Returns (pos [R, 3], sdf [R] (None with ``final_sdf=False``),
-    converged & alive [R], within_bounds [R])."""
+    rays. For an :class:`SDFEval` ``sdf_fn`` with its ``ctx`` each round is
+    one launch of kernel J3f on the card, on its bucket (H0). Returns (pos
+    [R, 3], sdf [R] (None with ``final_sdf=False``), converged & alive [R],
+    within_bounds [R])."""
     _check_time(time_val)
+    loop, sdf_eval, ctx = _trace_route(sdf_fn, ctx, ray_origins.device)
     bound = _sphere_bound(boundary_primitive)
     R = ray_origins.shape[0]
     pos, alive, dist_field = _plain_seed(ray_origins, ray_dirs, boundary_primitive, grid_cfg,
@@ -373,24 +558,20 @@ def sphere_trace_compacted(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
     alive_f = _padded(alive, False)
     conv_f = torch.zeros_like(alive_f)
     sdf_f = torch.zeros((R + 1,), dtype=pos_f.dtype, device=pos_f.device)
-    step = kernels.dispatch(pos_f.device, trace_step_pos_cuda, trace_step_pos_plain)
     first_bucket = max(256, int(R * first_bucket_fraction))
     bucket = first_bucket
     for _ in range(nr_rounds):
         bucket = min(bucket, R)
         idx, _ = nonzero_static(alive_f[:R] & ~conv_f[:R], bucket, fill_value=R)
-        sub_pos = pos_f[idx]
-        for _ in range(iters_per_round):
-            s = sdf_fn(sub_pos).reshape(-1)
-            sub_pos = step(idx, s, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field,
-                           grid_cfg, sdf_multiplier, sdf_converged_tresh, bound, pos_out=True)
+        loop(sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field, grid_cfg,
+             iters_per_round, sdf_multiplier, sdf_converged_tresh, bound)
         bucket = bucket // 2
     sdf = None
     if final_sdf:
         # the final sdf of the converged rays that fit one first-size bucket
         # (the rest keep their last evaluated sdf, as in the JAX op)
         idx, _ = nonzero_static((conv_f & alive_f)[:R], min(first_bucket, R), fill_value=R)
-        s = sdf_fn(pos_f[idx]).reshape(-1)
+        s = sdf_eval(ctx, pos_f[idx]).reshape(-1)
         sdf_f[idx] = torch.where(idx < R, s, sdf_f[idx])
         sdf = sdf_f[:R]
     return pos_f[:R], sdf, (conv_f & alive_f)[:R], alive_f[:R]
@@ -406,22 +587,25 @@ def _trace_rounds_impl(sdf_eval, ctx, origins_f, dirs_f, texit_f, dist_field,
                        sdf_converged_tresh: float, time_val,
                        jump_substeps: int = 1, jump_gate: float = 0.0):
     """``iters`` trace steps on a host-sized bucket of the active rays
-    (alive, not converged), in place on the full-size state. Returns the
-    state and the bucket's counts [2] (still active, converged and alive):
-    every active ray is in the bucket, so the first is the frame's active
-    count; the frame's hits are the second plus those before the round."""
+    (alive, not converged), in place on the full-size state: one launch of
+    kernel J2f on the card when ``sdf_eval`` is an :class:`SDFEval`, else
+    ``iters`` times the SDF and kernel J2. Returns the state and the
+    bucket's counts [2] (still active, converged and alive): every active
+    ray is in the bucket, so the first is the frame's active count; the
+    frame's hits are the second plus those before the round."""
     _check_time(time_val)
     R = t_f.shape[0] - 1
     idx, _ = nonzero_static(alive_f[:R] & ~conv_f[:R], bucket, fill_value=R)
     if grid_cfg is None:
         dist_field = None
-    step = kernels.dispatch(t_f.device, trace_step_cuda, trace_step_plain)
-    args = (origins_f, dirs_f, texit_f, t_f, alive_f, conv_f, sdf_f, dist_field, grid_cfg,
-            sdf_multiplier, sdf_converged_tresh, jump_substeps, jump_gate)
-    pos, counts = step(idx, None, *args, counts=iters == 0)
-    for i in range(iters):
-        s = sdf_eval(ctx, pos).reshape(-1)
-        pos, counts = step(idx, s, *args, counts=i == iters - 1)
+    if isinstance(sdf_eval, SDFEval):  # the flagship SDF: one launch of J2f on the card
+        rnd = kernels.dispatch(t_f.device, trace_round_cuda, trace_round_plain)
+    else:
+        rnd = functools.partial(_trace_round, kernels.dispatch(t_f.device, trace_step_cuda,
+                                                               trace_step_plain))
+    counts = rnd(sdf_eval, ctx, idx, origins_f, dirs_f, texit_f, t_f, alive_f, conv_f, sdf_f,
+                 dist_field, grid_cfg, iters, sdf_multiplier, sdf_converged_tresh,
+                 jump_substeps, jump_gate)
     return t_f, alive_f, conv_f, sdf_f, counts
 
 

@@ -41,8 +41,9 @@ from permuto_sdf_tpu_torch.datasets.tensor_reel import (
 )
 from permuto_sdf_tpu_torch.device import resolve_device
 from permuto_sdf_tpu_torch.models.fields import (
-    NerfHashConfig, RGBConfig, SDFConfig, init_colorcal, init_nerf_hash, init_rgb, init_sdf,
-    nerf_hash_apply, rgb_apply, sdf_apply, sdf_curvature_from_gradient, sdf_with_gradient,
+    NerfHashConfig, RGBConfig, SDFConfig, SDFEval, init_colorcal, init_nerf_hash, init_rgb,
+    init_sdf, nerf_hash_apply, rgb_apply, sdf_apply, sdf_curvature_from_gradient,
+    sdf_with_gradient,
 )
 from permuto_sdf_tpu_torch.models.mlp import lipshitz_bound_full
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
@@ -1068,33 +1069,23 @@ def render_image(params, grid, K, tf_world_cam, width, height, iter_nr_anneal,
 # Sphere-traced rendering (the interactive viewer's frame)
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _make_sdf_eval(sdf_cfg: SDFConfig, max_levels):
-    """The tracer's sdf evaluation on the ``max_levels`` coarsest levels
-    (None: all), ctx = (params_sdf, iteration)."""
-
-    def eval_fn(ctx, pts):
-        params_sdf, it = ctx
-        return sdf_apply(params_sdf, pts, it, sdf_cfg, max_levels=max_levels)[0].reshape(-1)
-
-    return eval_fn
-
-
 def _make_trace_lod_evals(cfg, ctx, lod_levels, lod_schedule):
     """The tracer's march, refine and per-round SDF evaluations for a LOD
-    setting -> (march_eval, refine_eval, refine_ctx, round_evals)."""
-    full_eval = _make_sdf_eval(cfg.sdf_model, None)
+    setting, each an :class:`SDFEval` (ctx = (params_sdf, iteration)), so
+    the tracer's rounds take kernel J2f on the card -> (march_eval,
+    refine_eval, refine_ctx, round_evals)."""
+    full_eval = SDFEval(cfg.sdf_model, None)
     round_evals = ()
     if lod_schedule is not None:
         # explicit per-round LOD ramp (the last entry repeats); full-res refine
-        march_eval = _make_sdf_eval(cfg.sdf_model, lod_schedule[-1])
+        march_eval = SDFEval(cfg.sdf_model, lod_schedule[-1])
         refine_eval, refine_ctx = full_eval, ctx
-        round_evals = tuple(_make_sdf_eval(cfg.sdf_model, lv) for lv in lod_schedule)
+        round_evals = tuple(SDFEval(cfg.sdf_model, lv) for lv in lod_schedule)
     elif lod_levels is not None and lod_levels < cfg.nr_levels:
-        march_eval = _make_sdf_eval(cfg.sdf_model, lod_levels)
+        march_eval = SDFEval(cfg.sdf_model, lod_levels)
         refine_eval, refine_ctx = full_eval, ctx
         # round 0 processes every bound-hitting ray: an even coarser LOD
-        round_evals = (_make_sdf_eval(cfg.sdf_model, max(4, lod_levels // 2)),)
+        round_evals = (SDFEval(cfg.sdf_model, max(4, lod_levels // 2)),)
     else:
         march_eval, refine_eval, refine_ctx = full_eval, None, None
     return march_eval, refine_eval, refine_ctx, round_evals
@@ -1112,10 +1103,6 @@ def _lit_and_state(pos, converged, alive, grid, grid_cfg, cfg, bucket=None):
 
 def _grid_cfg(cfg: PermutoSDFTrainConfig, grid):
     return cfg.grid if (cfg.use_occupancy_grid and grid is not None) else None
-
-
-def _sdf_fn(params, iter_nr_anneal, cfg: PermutoSDFTrainConfig):
-    return lambda p: sdf_apply(params["sdf"], p, iter_nr_anneal, cfg.sdf_model)[0]
 
 
 def _shade(params, pos, dirs, iter_nr_anneal, cfg: PermutoSDFTrainConfig, sdf_cfg=None):
@@ -1141,16 +1128,18 @@ def render_rays_sphere_traced(params, grid, origins, dirs, iter_nr_anneal,
                               sdf_multiplier: float = 0.9, sdf_converged_tresh: float = 2e-4,
                               dist_field=None):
     """Sphere trace every ray to the surface (:func:`~permuto_sdf_tpu_torch.
-    ops.sphere_trace.sphere_trace`, kernels C3 and J3 with the grid's jumps),
+    ops.sphere_trace.sphere_trace` of the SDF's ``SDFEval``: kernel C3, then
+    one launch of J3f, the SDF evaluated inside it, with the grid's jumps),
     then shade one sample per ray with the RGB model; the weight is 1 where
     the ray is alive and its end lies inside the bound (and in occupied
     space), convergence not required -> (rgb [R,3], normals [R,3],
     weights [R,1])."""
     grid_cfg = _grid_cfg(cfg, grid)
     pos, _, converged, alive = sphere_trace(
-        _sdf_fn(params, iter_nr_anneal, cfg), origins, dirs, BOUND, nr_sphere_traces,
-        sdf_multiplier, sdf_converged_tresh, grid_cfg=grid_cfg, grid=grid,
-        dist_field=dist_field, final_sdf=False)  # the shading re-evaluates the sdf
+        SDFEval(cfg.sdf_model), origins, dirs, BOUND, nr_sphere_traces, sdf_multiplier,
+        sdf_converged_tresh, grid_cfg=grid_cfg, grid=grid, dist_field=dist_field,
+        final_sdf=False,  # the shading re-evaluates the sdf
+        ctx=(params["sdf"], iter_nr_anneal))
     weights = _lit_and_state(pos, converged, alive, grid, grid_cfg, cfg).to(torch.float32)[:, None]
     rgb, normals = _shade(params, pos, dirs, iter_nr_anneal, cfg)
     return rgb * weights, normals * weights, weights
@@ -1163,15 +1152,18 @@ def render_rays_sphere_traced_compacted(params, grid, origins, dirs, iter_nr_ann
                                         sdf_converged_tresh: float = 2e-4,
                                         first_bucket_fraction: float = 0.25, dist_field=None):
     """The trace in static buckets (:func:`~permuto_sdf_tpu_torch.ops.
-    sphere_trace.sphere_trace_compacted`), then the lit rays shaded in one
+    sphere_trace.sphere_trace_compacted` of the SDF's ``SDFEval``: one
+    launch of J3f a round),
+    then the lit rays shaded in one
     bucket of max(256, R * first_bucket_fraction) rays (kernel H0). The
     weights are clamped to the rays actually shaded: lit rays that overflow
     the bucket render as background -> (rgb, normals, weights)."""
     grid_cfg = _grid_cfg(cfg, grid)
     pos, _, converged, alive = sphere_trace_compacted(
-        _sdf_fn(params, iter_nr_anneal, cfg), origins, dirs, BOUND, nr_rounds,
-        iters_per_round, sdf_multiplier, sdf_converged_tresh, grid_cfg=grid_cfg, grid=grid,
-        first_bucket_fraction=first_bucket_fraction, dist_field=dist_field, final_sdf=False)
+        SDFEval(cfg.sdf_model), origins, dirs, BOUND, nr_rounds, iters_per_round,
+        sdf_multiplier, sdf_converged_tresh, grid_cfg=grid_cfg, grid=grid,
+        first_bucket_fraction=first_bucket_fraction, dist_field=dist_field, final_sdf=False,
+        ctx=(params["sdf"], iter_nr_anneal))
     lit = _lit_and_state(pos, converged, alive, grid, grid_cfg, cfg)
     R = origins.shape[0]
     idx, _ = nonzero_static(lit, min(R, max(256, int(R * first_bucket_fraction))),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the main paths that kernels A, B, C, C3, D, E1, E2, F, G, J0 and M run, for the port of one tree.
+"""Time the main paths that kernels A-G, C3, J0, J2f, J3f and M run, for the port of one tree.
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
                                             [--paths host,events,fg,grid,plain,frame,sphere,
@@ -44,9 +44,10 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
 - frame: ``render_image`` at 400² (chip_smoke's exact frame on the full
   grid), ``--frames`` frames, then one under torch.profiler;
 - sphere: chip_smoke's sphere scene, then the sphere-traced 400² frame at
-  its operating point under torch.profiler twice: first with the distance
-  field cache emptied (the first frame after a grid refresh, which builds
-  the field with J0), then the next frame;
+  its operating point: ``--frames`` timed frames after a warm-up, then
+  under torch.profiler twice: first with the distance field cache emptied
+  (the first frame after a grid refresh, which builds the field with J0),
+  then the next frame;
 - train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in;
   interleaved-table copies per step) and one flagship step under
   torch.profiler;
@@ -67,7 +68,9 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   device ms in it).
 
 Each profile gives the device ms and the launches of kernels A, B, C, C3,
-D, E1, E2, F, G, J0 and J3 (the device µs per launch is their ratio). Each
+D, E1, E2, F, G, J0, J2, J2f, J3, J3f, M1 and M2 (the device µs per launch
+is their ratio), and the count of every device activity of the window
+(kernels, memsets and copies: ``device_launches``). Each
 path also
 records the peak of ``torch.cuda.max_memory_allocated``.
 Prints the profiles as chip_smoke does and, last, one JSON line of the
@@ -79,6 +82,7 @@ the range (no GPU needed).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -90,7 +94,8 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "J0", "J3", "M1", "M2")
+PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "J0", "J2", "J2f", "J3", "J3f", "M1",
+            "M2")
 PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
          "nerf", "mesh")
 M_RES = (256, 512)
@@ -113,19 +118,24 @@ def _profiled(cs, device, what, fn):
     if s is None:
         return None
     out = {"wall_ms": wall_ms, "device_busy_ms": s["device_busy_ms"],
-           "device_idle_share": s["device_idle_share"]}
+           "device_idle_share": s["device_idle_share"],
+           # every device activity of the window: kernels, memsets and copies
+           "device_launches": sum(e.count for e in prof.key_averages()
+                                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                                  and cs._dev_us(e) > 0)}
     out.update(_kernel_stats(cs, prof))
     return out
 
 
 def _kernel_stats(cs, prof):
-    """Device ms and launches of each profiled kernel, by chip_smoke's
-    kernel symbols."""
+    """Device ms and launches of each profiled kernel, by the kernel symbols
+    of this checkout's chip_smoke (a parent tree's may lack the newer
+    kernels; the older ones keep their symbols)."""
     out = {}
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA")]
     for k in PROFILED:
-        sym = cs.KERNEL_SYMBOLS[k]
+        sym = _own_chip_smoke().KERNEL_SYMBOLS[k]
         hits = [e for e in events if sym in e.key]
         dev_us = sum(getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0) for e in hits)
@@ -271,6 +281,7 @@ def _device_ms(cs, device, fn, kernel, calls=20):
     return None, None
 
 
+@functools.lru_cache(maxsize=None)
 def _own_chip_smoke():
     """The chip_smoke module of the checkout that holds this script (its
     point sets stay the same whichever tree ``--root`` names)."""
@@ -415,15 +426,17 @@ def plain_path(cs, device, cfg, frames):
     print(f"[plain frame] timed {[round(t, 1) for t in times]} ms, median "
           f"{statistics.median(times):.1f}; the profiled frame's wall "
           f"{prof['wall_ms'] if prof else None} ms, busy "
-          f"{prof['device_busy_ms'] if prof else None} ms", flush=True)
+          f"{prof['device_busy_ms'] if prof else None} ms, "
+          f"{prof['device_launches'] if prof else None} device launches", flush=True)
     out["frame"] = {"ms_all": times, "ms_median": statistics.median(times),
                     "peak_mib": _peak_mib(device), "profile": prof}
     return out
 
 
-def sphere_path(cs, device, cfg):
-    """The first sphere-traced frame after a grid refresh (the distance
-    field built by J0) and the next one, each under torch.profiler."""
+def sphere_path(cs, device, cfg, frames):
+    """``frames`` timed sphere-traced frames after a warm-up; then the first
+    frame after a grid refresh (the distance field built by J0) and the
+    next one, each under torch.profiler."""
     import torch
 
     from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
@@ -436,13 +449,25 @@ def sphere_path(cs, device, cfg):
                                             cfg, device=device, **cs.ST_KW)
 
     frame()  # warm-up
+    times = []
+    for _ in range(frames):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     tps._DIST_FIELD_CACHE.clear()
     first = _profiled(cs, device, "sphere_first_frame", frame)
     peak = _peak_mib(device)
-    return {"first_frame": first, "next_frame": _profiled(cs, device, "sphere_frame", frame),
-            "peak_mib": peak}
+    nxt = _profiled(cs, device, "sphere_frame", frame)
+    print(f"[sphere frame] timed {[round(t, 1) for t in times]} ms, median "
+          f"{statistics.median(times):.1f}; the profiled frame's wall "
+          f"{nxt['wall_ms'] if nxt else None} ms, busy {nxt['device_busy_ms'] if nxt else None} "
+          f"ms, {nxt['device_launches'] if nxt else None} device launches", flush=True)
+    return {"ms_all": times, "ms_median": statistics.median(times), "first_frame": first,
+            "next_frame": nxt, "peak_mib": peak}
 
 
 def lever_path(cs, device, cfg, params, grid, reel):
@@ -762,7 +787,7 @@ def main(argv=None) -> int:
     if "frame" in paths:
         res["frame"] = frame_path(cs, device, cfg, args.frames)
     if "sphere" in paths:
-        res["sphere"] = sphere_path(cs, device, cfg)
+        res["sphere"] = sphere_path(cs, device, cfg, args.frames)
     if paths & {"train", "lever", "nerf"}:
         params, grid, reel, res["train"] = train_path(cs, device, cfg)
         if "lever" in paths:

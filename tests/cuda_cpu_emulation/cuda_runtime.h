@@ -10,8 +10,8 @@
 // (__ffs is the compiler's builtin; __fns, positive offsets only, a loop
 // over the bits), __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
-// psdf_dynamic_smem are redefined for that (float2 is a plain pair, uint4
-// four plain words, so a 16-byte vector load is a struct copy; cp.async
+// psdf_dynamic_smem are redefined for that (float2 is a plain pair, float4
+// and uint4 four plain words, so a 16-byte vector load is a struct copy; cp.async
 // is a synchronous memcpy; cudaFuncSetAttribute accepts any shared-memory
 // size). It checks the
 // kernels' logic, not their speed or the GPU's own float rounding.
@@ -32,6 +32,7 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 #define __global__

@@ -1,5 +1,5 @@
 """The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2 (its three
-forms), L, D2, D2', M, C3, J3, C2 and I2,
+forms), L, D2, D2', M, C3, J3, J3f, J2f, C2 and I2,
 compiled for the CPU with g++ against a small CUDA stand-in
 (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
 own kernel wrappers, against the plain PyTorch versions.
@@ -1330,3 +1330,219 @@ def test_plain_tracers_through_the_kernel_sources_match_plain(emulated, monkeypa
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert int(runs["plain"][0][2].sum()) > 20
+
+
+# Kernels J3f and J2f evaluate the SDF inside the trace loop: the encoding's
+# features are kernel A's bit for bit, but the MLP sums in order with fmaf
+# where the plain version's torch.matmul blocks its sums. So positions agree
+# within TOL_FUSED_POS where the flags agree, and the flags (a convergence
+# test |s| < 2e-4 or a bound test right at its edge) may differ on at most
+# FUSED_FLAG_ROWS rays, each within FUSED_MAX_GAP (every case here had no
+# such ray and gaps of at most 7.5e-7).
+TOL_FUSED_POS = 1e-5
+FUSED_FLAG_ROWS = 2
+FUSED_MAX_GAP = 0.01
+_PLANE_N = (0.3, 1.0, 0.2)
+_PLANE_OFFSET = -0.05
+
+
+def _planted_sdf(L, seed=0):
+    """A small flagship SDF (L levels of 2^12 slots, G = 32) whose value is
+    the plane n . p - offset plus small bumps: hidden unit 0 of each layer
+    carries 10 + n . p through GELU (the identity at +10) from the point
+    columns, which the encoding scales by 1e-3; every level adds a bump
+    through unit 0's features, and every other hidden unit of every layer
+    reaches the output through weights of ~1e-3, so the kernels' split of
+    the units among warps shows in the sdf."""
+    from permuto_sdf_tpu_torch.models import fields
+
+    cfg = fields.SDFConfig(capacity=2 ** 12, nr_levels=L, nr_iters_for_c2f=100)
+    gen = torch.Generator().manual_seed(seed)
+    params = fields.init_sdf(gen, cfg, "cpu")
+    mlp = params["mlp_sdf"]
+    n = torch.tensor(_PLANE_N)
+    n = n / n.norm()
+    mlp[0]["w"][:-3, 0] *= 0.05
+    mlp[0]["w"][-3:, 0] = n * 1e3
+    mlp[0]["b"][0] = 10.0
+    for layer in mlp[1:]:
+        layer["w"][:, 0] = 1e-3 * torch.randn(layer["w"].shape[0], generator=gen)
+        layer["w"][0, 0] = 1.0
+        layer["b"][0] = 0.0
+    mlp[-1]["b"][0] = -10.0 - _PLANE_OFFSET
+    params["encoding"]["lattice_values"] *= 50.0  # a bump of ~1e-3
+    return cfg, params
+
+
+def _plane_grid(V):
+    """Voxels whose center is within 1.5 voxels of the planted plane."""
+    n = torch.tensor(_PLANE_N)
+    n = n / n.norm()
+    c = (torch.arange(V, dtype=torch.float32) + 0.5) / V - 0.5
+    x, y, z = torch.meshgrid(c, c, c, indexing="ij")
+    dist = x * n[0] + y * n[1] + z * n[2] - _PLANE_OFFSET
+    return (dist.abs() < 1.5 / V).reshape(-1)
+
+
+def _fused_rays(n, seed=3):
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    o = o / o.norm(dim=-1, keepdim=True) * 1.2
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.uniform(-0.35, 0.35, (n, 3)).astype(np.float32)) - o, dim=-1)
+    return o, d
+
+
+def _sdf_eval(cfg, max_levels=None):
+    from permuto_sdf_tpu_torch.models.fields import SDFEval
+
+    return SDFEval(cfg, max_levels)
+
+
+def _assert_fused_close(got, want, what):
+    """(pos, ..., conv, alive) of a fused trace against the plain trace's."""
+    pos_k, conv_k, alive_k = got[0], got[-2], got[-1]
+    pos_p, conv_p, alive_p = want[0], want[-2], want[-1]
+    flags_differ = (conv_k != conv_p) | (alive_k != alive_p)
+    assert int(flags_differ.sum()) <= FUSED_FLAG_ROWS, what
+    gap = (pos_k - pos_p).abs().amax(dim=-1)
+    assert float(gap[~flags_differ].max()) <= TOL_FUSED_POS, (what, float(gap.max()))
+    assert float(gap.max()) <= FUSED_MAX_GAP, (what, float(gap.max()))
+
+
+@pytest.mark.parametrize("form,grid,K", [("full", True, 6), ("full", False, 4),
+                                         ("compacted", True, 4), ("compacted", False, 6)])
+def test_kernel_J3f_source_matches_plain(emulated, monkeypatch, form, grid, K):
+    """Kernel J3f (the plain tracers' loop with the SDF evaluated in the
+    launch) through ``sphere_trace`` and ``sphere_trace_compacted`` of an
+    ``SDFEval`` against their plain loops (``sdf_apply`` + J3's plain version): with
+    and without a grid, on all L = 6 levels and on K = 4 < L; rays that
+    converge on the plane and rays that leave the bound. One launch a
+    trace, one a compacted round, and no launch of the unfused J3."""
+    cfg, params = _planted_sdf(6)
+    o, d = _fused_rays(200)
+    gcfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    kw = {}
+    if grid:
+        kw = dict(grid_cfg=gcfg, grid=og.OccupancyGridState(values=torch.zeros(gcfg.nr_voxels),
+                                                           occupancy=_plane_grid(16)))
+    kw["ctx"] = (params, 50)
+    if form == "full":
+        run = lambda: st.sphere_trace(_sdf_eval(cfg, K), o, d, Sphere(), 8, **kw)  # noqa: E731
+        launches = 1
+    else:
+        run = lambda: st.sphere_trace_compacted(_sdf_eval(cfg, K), o, d, Sphere(), 3,  # noqa: E731
+                                                3, first_bucket_fraction=0.5, **kw)
+        launches = 3
+    want = run()
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    fused, unfused = st.trace_loop_pos_cuda.launches, st.trace_step_pos_cuda.launches
+    got = run()
+    assert st.trace_loop_pos_cuda.launches == fused + launches
+    assert st.trace_step_pos_cuda.launches == unfused
+    _assert_fused_close(got, want, (form, grid, K))
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=TOL_FUSED_POS, rtol=0)
+    conv = want[-2] & want[-1]
+    assert int(conv.sum()) > 20 and int((~want[-1]).sum()) > 20
+
+
+def test_kernel_J3f_bucket_form_matches_plain(emulated):
+    """J3f on a bucket (every other row, then fill slots that point at the
+    state's last row) from positions inside the bound: the bucket's rows
+    within TOL_FUSED_POS of the plain loop where the flags agree, and the
+    rows outside the bucket and the fill row unchanged, bit for bit."""
+    cfg, params = _planted_sdf(4)
+    o, d = _fused_rays(96)
+    pos0 = o + 0.7 * d
+    R = pos0.shape[0]
+    idx = torch.cat([torch.arange(0, R, 2), torch.full((16,), R)])
+    outs = []
+    for loop in (st.trace_loop_pos_cuda, st.trace_loop_pos_plain):
+        state = [st._padded(pos0.clone()), st._padded(d.clone()),
+                 st._padded(torch.ones(R, dtype=torch.bool), False),
+                 torch.zeros(R + 1, dtype=torch.bool), torch.zeros(R + 1)]
+        pos_f, dirs_f, alive_f, conv_f, sdf_f = state
+        loop(_sdf_eval(cfg), (params, 50), idx, dirs_f, pos_f, alive_f, conv_f, sdf_f, None,
+             None, 12, 0.9, 2e-4, st._sphere_bound(Sphere()))
+        outs.append(state)
+    (pos_k, _, alive_k, conv_k, sdf_k), (pos_p, _, alive_p, conv_p, sdf_p) = outs
+    _assert_fused_close((pos_k[:R], conv_k[:R], alive_k[:R]), (pos_p[:R], conv_p[:R],
+                                                              alive_p[:R]), "bucket")
+    same = (conv_k == conv_p) & (alive_k == alive_p)
+    np.testing.assert_allclose(sdf_k[same].numpy(), sdf_p[same].numpy(), atol=TOL_FUSED_POS,
+                               rtol=0)
+    untouched = torch.ones(R + 1, dtype=torch.bool)
+    untouched[idx] = False
+    untouched[R] = True  # the fill row
+    for a, b in zip(outs[0], [st._padded(pos0), st._padded(d),
+                              st._padded(torch.ones(R, dtype=torch.bool), False),
+                              torch.zeros(R + 1, dtype=torch.bool), torch.zeros(R + 1)]):
+        np.testing.assert_array_equal(a[untouched].numpy(), b[untouched].numpy())
+    assert int((conv_p & alive_p).sum()) > 5
+
+
+def test_kernel_J2f_through_the_adaptive_tracer_matches_plain(emulated, monkeypatch):
+    """``sphere_trace_adaptive`` with SDFEval descriptors (a per-round LOD
+    schedule of 2, 4 and 6 levels, the full SDF's refine, the grid's jumps
+    and prepass): kernel J2f once a round and once for the refine, no
+    launch of the unfused J2, against the plain route (the SDF, then J2's
+    plain version): positions within TOL_FUSED_POS where the flags agree."""
+    cfg, params = _planted_sdf(8)
+    o, d = _fused_rays(300, seed=5)
+    gcfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    grid = og.OccupancyGridState(values=torch.zeros(gcfg.nr_voxels), occupancy=_plane_grid(16))
+    ctx = (params, 50)
+    kw = dict(nr_rounds=3, iters_per_round=4, grid_cfg=gcfg, grid=grid, min_bucket=64,
+              refine_sdf_eval=_sdf_eval(cfg), refine_ctx=ctx, nr_refine_iters=3,
+              round_sdf_evals=tuple(_sdf_eval(cfg, k) for k in (2, 4, 6)), jump_substeps=2,
+              prepass_jumps=4, return_n_hit=True)
+    stats_p, stats_k = [], []
+    want = st.sphere_trace_adaptive(_sdf_eval(cfg, 6), ctx, o, d, Sphere(), stats_out=stats_p,
+                                    **kw)
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    fused, unfused = st.trace_round_cuda.launches, st.trace_step_cuda.launches
+    got = st.sphere_trace_adaptive(_sdf_eval(cfg, 6), ctx, o, d, Sphere(), stats_out=stats_k,
+                                   **kw)
+    assert st.trace_round_cuda.launches == fused + len(stats_k)
+    assert st.trace_step_cuda.launches == unfused
+    assert stats_p[-1][0] == "refine" and stats_p[-1][3] > 30
+    assert abs(got[4] - want[4]) <= FUSED_FLAG_ROWS
+    _assert_fused_close(got[:4], want[:4], "adaptive")
+    # the sdf where the flags agree, refreshed at the final positions
+    same = (got[2] == want[2]) & (got[3] == want[3]) & want[3]
+    np.testing.assert_allclose(got[1][same].numpy(), want[1][same].numpy(), atol=TOL_FUSED_POS,
+                               rtol=0)
+
+
+def test_fused_trace_kernels_refuse_other_sdfs(emulated):
+    """J3f and J2f evaluate one SDF: d = 3, the MLP [2L + 3, 32, 32, 32, 1 +
+    G]. Other widths and a 4-D SDF raise, and so does ``time_val``."""
+    import dataclasses
+
+    from permuto_sdf_tpu_torch.models import fields
+
+    cfg, params = _planted_sdf(4)
+    o, d = _fused_rays(32)
+    R = o.shape[0]
+    state = lambda: (None, d.clone(), o.clone(), torch.ones(R, dtype=torch.bool),  # noqa: E731
+                     torch.zeros(R, dtype=torch.bool), None, None, None, 2, 0.9, 2e-4,
+                     st._sphere_bound(Sphere()))
+    wide = {**params, "mlp_sdf": [dict(layer) for layer in params["mlp_sdf"]]}
+    wide["mlp_sdf"][1] = {"w": torch.zeros(32, 64), "b": torch.zeros(64)}
+    with pytest.raises(NotImplementedError, match="MLP"):
+        st.trace_loop_pos_cuda(_sdf_eval(cfg), (wide, 50), *state())
+    cfg4 = dataclasses.replace(cfg, in_channels=4)
+    params4 = fields.init_sdf(torch.Generator().manual_seed(0), cfg4, "cpu")
+    with pytest.raises(NotImplementedError, match="3-D"):
+        st.trace_loop_pos_cuda(_sdf_eval(cfg4), (params4, 50), *state())
+    idx = torch.arange(R)
+    pad = lambda t: st._padded(t)  # noqa: E731
+    with pytest.raises(NotImplementedError, match="MLP"):
+        st.trace_round_cuda(_sdf_eval(cfg), (wide, 50), idx, pad(o), pad(d), pad(torch.ones(R)),
+                            pad(torch.zeros(R)), pad(torch.ones(R, dtype=torch.bool)),
+                            pad(torch.zeros(R, dtype=torch.bool)), pad(torch.zeros(R)), None,
+                            None, 2, 0.9, 2e-4, 1, 0.0)
+    with pytest.raises(NotImplementedError, match="time_val"):
+        st.sphere_trace(_sdf_eval(cfg), o, d, Sphere(), 2, time_val=0.5, ctx=(params, 50))
+    with pytest.raises(NotImplementedError, match="time_val"):
+        st.sphere_trace_adaptive(_sdf_eval(cfg), (params, 50), o, d, Sphere(), time_val=0.5)
