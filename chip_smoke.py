@@ -2676,7 +2676,8 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     _report(f"L R={R} S={S} K={K} E={E} ({int(smp.mask.sum())} valid samples; sel exact on "
             f"{R - int(diff.sum())} rays, a tie under rounding on {n_tie}; cos_fd relative)",
             cos_err, TOL_L_COS, ms, pms, b)
-    dms = device_ms(lambda: vr.train_lod_select_cuda(*args), "L", device)
+    dms = device_ms(lambda: vr.train_lod_select_cuda(*args), "L", device,
+                    per_launch=True)
     results["L"] = dict(max_abs_err=(cos_k - cos_p).abs().max().item(), ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
                         sel_rays_exact=R - int(diff.sum()), sel_rays_tied=n_tie, device_ms=dms)
 
@@ -2708,7 +2709,8 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     pms = time_ms(lambda: vr.neus_render_mixed_plain(*margs), plain_reps, device)
     _report(f"D2 R={R} S={S} K+E={KE} (mixed chain; the step's sdf and a planted one)", err,
             TOL_D, ms, pms, b)
-    dms = device_ms(lambda: vr.neus_render_mixed_cuda(*margs), "D2", device)
+    dms = device_ms(lambda: vr.neus_render_mixed_cuda(*margs), "D2", device,
+                    per_launch=True)
     results["D2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
                          device_ms=dms)
     cots = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
@@ -2728,7 +2730,8 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     pms = time_ms(lambda: vr.neus_render_mixed_bwd_plain(*margs, *cots), plain_reps, device)
     _report(f"D2' R={R} S={S} K+E={KE} (relative; the step's sdf and a planted one)", err,
             TOL_DB, ms, pms, b)
-    dms = device_ms(lambda: vr.neus_render_mixed_bwd_cuda(*margs, *cots), "D2'", device)
+    dms = device_ms(lambda: vr.neus_render_mixed_bwd_cuda(*margs, *cots), "D2'", device,
+                    per_launch=True)
     results["D2'"] = dict(max_abs_err=abs_err, ms=ms, plain_ms=pms, bound_ms=b[0],
                           bound_by=b[1], device_ms=dms)
 

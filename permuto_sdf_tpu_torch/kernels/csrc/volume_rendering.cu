@@ -455,28 +455,170 @@ __global__ void __launch_bounds__(128) render_weights_bwd_kernel(
 // elsewhere) and integrates rgb and gradient over the selected slots; D2'
 // is its VJP with respect to the fine set's sdf, gradient and rgb (the
 // carried values are constants, as under JAX's stop_gradient).
+//
+// What bounds L and D2' on an H100: bytes (~1.8 and ~3.6 KB a ray; 0.00027
+// and 0.00055 ms at the lever step's 512 rays). At 512 rays a warp a ray
+// leaves ~4 warps an SM, so a launch takes the latency of one warp's chain
+// of loads and arithmetic, and the kernels launch once a step, after ~1,700
+// other launches, with a cold instruction cache. So both stage each ray's
+// rows in shared memory once (cp.async, all in flight before any
+// arithmetic) and read no device memory after that, and both keep their
+// code small: every loop over slots, rows, tiles or sort stages rolled
+// (#pragma unroll 1), the staging and the sort one copy each (noinline). A
+// lane takes slot lane + 32 i for the per-slot math (fd cos, alpha), then
+// a contiguous run of ceil(S / 32) slots for kernel D's scan of the runs'
+// products (one warp scan a ray). L selects with a bitonic sort of 64-bit
+// keys (the weight's order-preserving bits over ~slot: larger first, ties
+// by the lower slot) in registers, 128 keys a tile and 4 neighbours a lane
+// (13 of a tile's 28 stages need no shuffle), tiles merged through shared
+// memory above S = 128; once for the top K, once for the extras. D2' maps
+// the fine rows to their slots in one pass of a row per lane
+// (__match_any_sync on the slot), runs the reverse affine recurrence as one
+// suffix scan of the runs' composed maps, and takes the chain rule through
+// alpha at a row per lane. Both write their outputs from shared memory in
+// 16-byte stores where the rows are aligned.
 // ---------------------------------------------------------------------------
 
-// Rank of v[i] in the descending order of v[0..S) that `lax.top_k` (and a
-// stable descending sort) gives: larger values first, ties by lower index.
-__device__ __forceinline__ int slot_rank(const float* v, int S, int i) {
-  const float vi = v[i];
-  int r = 0;
-  for (int j = 0; j < S; ++j) {
-    const float vj = v[j];
-    r += (vj > vi || (vj == vi && j < i)) ? 1 : 0;
+// psdf_warp_stage and psdf_warp_copy, one copy each for every row of L and
+// D2' (see above).
+__device__ __attribute__((noinline)) void lod_stage(void* dst, const void* src,
+                                                    int nbytes) {
+  psdf_warp_stage(dst, src, nbytes);
+}
+
+__device__ __attribute__((noinline)) void lod_store(void* dst, const void* src,
+                                                    int nbytes) {
+  psdf_warp_copy(dst, src, nbytes);
+}
+
+// The sort's width: the next power of two of S, at least one tile of 128.
+__host__ __device__ inline int lod_sort_width(int S) {
+  int P = 128;
+  while (P < S) P <<= 1;
+  return P;
+}
+
+// Kernel L's shared memory per ray, in bytes: the sort's keys, then sdf,
+// dt, scores, cos_fd and the alphas at S slots, the mask and the top-K
+// flags.
+__host__ __device__ inline int lod_select_warp_bytes(int S) {
+  return 8 * lod_sort_width(S) + 20 * psdf_pad4(S) + 2 * psdf_pad16(S);
+}
+
+// The selection's key of value v at slot i: the order-preserving bits of v
+// (v + 0 first, so that -0 ranks as +0, as the float compare has them
+// equal) over ~i, so that a tie goes to the lower slot.
+__device__ __forceinline__ unsigned long long rank_key(float v, int i) {
+  unsigned u = __float_as_uint(v + 0.0f);
+  u ^= (u & 0x80000000u) ? 0xffffffffu : 0x80000000u;
+  return ((unsigned long long)u << 32) | (unsigned)~i;
+}
+
+__device__ __forceinline__ int key_slot(unsigned long long key) {
+  return (int)~(unsigned)key;
+}
+
+__device__ __forceinline__ void cmp_swap(unsigned long long& a,
+                                         unsigned long long& b, bool desc) {
+  if (desc ? a < b : a > b) {
+    const unsigned long long t = a;
+    a = b;
+    b = t;
   }
-  return r;
+}
+
+// One compare-exchange stage (k, j) of a bitonic sort into descending order
+// on a warp's register tile: key[r] holds element base + 4 lane + r of the
+// sort (base a multiple of 128). Partners 1 or 2 apart are in the lane's
+// own registers, farther ones one shuffle away; a pair sorts descending
+// where its lower element has bit k clear.
+__device__ __forceinline__ void tile_stage(unsigned long long (&key)[4],
+                                           int base, int k, int j, int lane) {
+  const bool lane_desc = ((base + 4 * lane) & k) == 0;  // for k >= 4
+  if (j == 1) {
+    cmp_swap(key[0], key[1], k == 2 || lane_desc);
+    cmp_swap(key[2], key[3], k != 2 && lane_desc);
+  } else if (j == 2) {
+    cmp_swap(key[0], key[2], lane_desc);
+    cmp_swap(key[1], key[3], lane_desc);
+  } else {
+    const int jl = j >> 2;  // the partner's lane distance
+    const bool desc = ((base + 4 * (lane & ~jl)) & k) == 0;
+    const bool take_max = ((lane & jl) == 0) == desc;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const unsigned long long o = __shfl_xor_sync(PSDF_FULL_MASK, key[r], jl);
+      if ((o > key[r]) == take_max) key[r] = o;
+    }
+  }
+}
+
+__device__ __forceinline__ void tile_load(unsigned long long (&key)[4],
+                                          const unsigned long long* s,
+                                          int base, int lane) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) key[r] = s[base + 4 * lane + r];
+}
+
+__device__ __forceinline__ void tile_store(const unsigned long long (&key)[4],
+                                           unsigned long long* s, int base,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) s[base + 4 * lane + r] = key[r];
+}
+
+// Sorts a warp's P keys in shared memory (P a power of two, at least 128)
+// in descending order: each 128-key tile through every stage up to k = 128
+// in registers, then for each k above that the stages 128 or more apart in
+// shared memory and the closer ones by tiles in registers. One copy of the
+// code for both of L's sorts.
+__device__ __attribute__((noinline)) void warp_sort_desc(
+    unsigned long long* s_key, int P, int lane) {
+  unsigned long long key[4];
+#pragma unroll 1
+  for (int base = 0; base < P; base += 128) {
+    tile_load(key, s_key, base, lane);
+#pragma unroll 1
+    for (int k = 2; k <= 128; k <<= 1) {
+#pragma unroll 1
+      for (int j = k >> 1; j > 0; j >>= 1) tile_stage(key, base, k, j, lane);
+    }
+    tile_store(key, s_key, base, lane);
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int k = 256; k <= P; k <<= 1) {
+#pragma unroll 1
+    for (int j = k >> 1; j >= 128; j >>= 1) {
+#pragma unroll 1
+      for (int t = lane; t < (P >> 1); t += 32) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const unsigned long long a = s_key[i], b = s_key[i + j];
+        if ((i & k) == 0 ? a < b : a > b) {
+          s_key[i] = b;
+          s_key[i + j] = a;
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll 1
+    for (int base = 0; base < P; base += 128) {
+      tile_load(key, s_key, base, lane);
+#pragma unroll 1
+      for (int j = 64; j > 0; j >>= 1) tile_stage(key, base, k, j, lane);
+      tile_store(key, s_key, base, lane);
+    }
+    __syncwarp();
+  }
 }
 
 // Kernel L. In: the carried sdf, dt, mask [R,S]; scores [R,S] in [0, 1)
 // (read only when E > 0). Out: cos_fd [R,S] = (sdf_{i+1} - sdf_i) /
 // max(dt_i, 1e-6) (sdf_S := sdf_{S-1}), and sel [R, K+E]: the K slots of
 // largest NeuS weight (-1 at invalid slots), then the E slots of largest
-// score among the valid slots outside them (-1 elsewhere). One warp per
-// ray; the weights' transmittance is kernel D's warp scan; a slot's rank
-// is a count over the ray's slots in shared memory, and a slot of rank r
-// writes sel[r] (the ranks are a permutation, so every entry is written).
+// score among the valid slots outside them (-1 elsewhere), each in
+// descending order with ties to the lower slot, as `lax.top_k`. One warp
+// per ray, blockDim.x / 32 rays per block.
 __global__ void __launch_bounds__(128) train_lod_select_kernel(
     int R, int S, int K, int E, const float* __restrict__ sdf,
     const float* __restrict__ dt, const uint8_t* __restrict__ mask,
@@ -484,50 +626,92 @@ __global__ void __launch_bounds__(128) train_lod_select_kernel(
     float* __restrict__ cos_fd, long long* __restrict__ sel) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long ray =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long ray = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (ray >= R) return;  // whole warps leave together; no block barrier below
-  float* s_rank = psdf_dynamic_smem<float>() + (long long)warp * 2 * S;
-  float* s_score = s_rank + S;
-  const long long base_rs = ray * S;
-  const int KE = K + E;
-  long long* sel_r = sel + ray * KE;
+  const int P = lod_sort_width(S);
+  unsigned long long* s_key = reinterpret_cast<unsigned long long*>(
+      psdf_dynamic_smem<uint8_t>() + (size_t)warp * lod_select_warp_bytes(S));
+  float* s_sdf = reinterpret_cast<float*>(s_key + P);
+  float* s_dt = s_sdf + psdf_pad4(S);
+  float* s_sc = s_dt + psdf_pad4(S);
+  float* s_cos = s_sc + psdf_pad4(S);
+  float* s_alpha = s_cos + psdf_pad4(S);
+  uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_alpha + psdf_pad4(S));
+  uint8_t* s_top = s_mask + psdf_pad16(S);
+  const long long row = ray * S;
 
-  float carry = 1.0f;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool in_row = i < S;
-    const bool valid = in_row && mask[base_rs + i] != 0;
-    float alpha = 0.f;
-    if (in_row) {
-      const float v = sdf[base_rs + i];
-      const float v_next = sdf[base_rs + (i + 1 < S ? i + 1 : S - 1)];
-      const float dist = dt[base_rs + i];
-      const float c = (v_next - v) / fmaxf(dist, 1e-6f);
-      cos_fd[base_rs + i] = c;
-      if (valid) alpha = neus_alpha(v, dist, c, inv_s, cos_anneal_ratio).alpha;
-    }
-    const float x = valid ? (1.0f - alpha + 1e-7f) : 1.0f;
-    const float T = transmittance_chunk(x, lane, carry);
-    if (in_row) s_rank[i] = valid ? alpha * T : -1.0f;
+  lod_stage(s_sdf, sdf + row, S * 4);
+  lod_stage(s_dt, dt + row, S * 4);
+  lod_stage(s_mask, mask + row, S);
+  if (E > 0) lod_stage(s_sc, scores + row, S * 4);
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32) s_top[i] = 0;
+  psdf_stage_wait();
+
+  // fd cos and alpha
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32) {
+    const float v = s_sdf[i];
+    const float dist = s_dt[i];
+    const float c = (s_sdf[min(i + 1, S - 1)] - v) / fmaxf(dist, 1e-6f);
+    s_cos[i] = c;
+    s_alpha[i] = s_mask[i] != 0
+                     ? neus_alpha(v, dist, c, inv_s, cos_anneal_ratio).alpha
+                     : 0.f;
   }
   __syncwarp();
-  for (int i = lane; i < S; i += 32) {
-    const int r = slot_rank(s_rank, S, i);
-    if (r < K) sel_r[r] = i;
-    if (E > 0)
-      s_score[i] = (r >= K && mask[base_rs + i] != 0) ? scores[base_rs + i]
-                                                      : -1.0f;
+  lod_store(cos_fd + row, s_cos, S * 4);
+
+  // this lane's run [i0, i1): the product of its transmittance factors,
+  // one exclusive scan of the runs' products, then the ranking keys
+  const int per = (S + 31) / 32;
+  const int i0 = min(lane * per, S), i1 = min(i0 + per, S);
+  float prod = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i)
+    if (s_mask[i] != 0) prod = prod * (1.0f - s_alpha[i] + 1e-7f);
+  float incl = prod;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(PSDF_FULL_MASK, incl, off);
+    if (lane >= off) incl = y * incl;
+  }
+  float T = __shfl_up_sync(PSDF_FULL_MASK, incl, 1);
+  if (lane == 0) T = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i) {
+    const bool valid = s_mask[i] != 0;
+    const float alpha = s_alpha[i];
+    s_key[i] = rank_key(valid ? alpha * T : -1.0f, i);
+    if (valid) T = T * (1.0f - alpha + 1e-7f);
+  }
+#pragma unroll 1
+  for (int i = S + lane; i < P; i += 32) s_key[i] = 0ull;  // below every key
+  __syncwarp();
+  warp_sort_desc(s_key, P, lane);
+  long long* sel_r = sel + ray * (K + E);
+#pragma unroll 1
+  for (int k = lane; k < K; k += 32) {
+    const int slot = key_slot(s_key[k]);
+    sel_r[k] = slot;
+    s_top[slot] = 1;
   }
   if (E == 0) return;
   __syncwarp();
-  for (int i = lane; i < S; i += 32) {
-    const int r = slot_rank(s_score, S, i);
-    if (r < E) sel_r[K + r] = i;
+
+  // the extras: the score at the valid slots outside the top K, -1 elsewhere
+#pragma unroll 1
+  for (int i = lane; i < P; i += 32) {
+    const bool extra = i < S && s_mask[i] != 0 && s_top[i] == 0;
+    s_key[i] = i >= S ? 0ull : rank_key(extra ? s_sc[i] : -1.0f, i);
   }
+  __syncwarp();
+  warp_sort_desc(s_key, P, lane);
+#pragma unroll 1
+  for (int k = lane; k < E; k += 32) sel_r[K + k] = key_slot(s_key[k]);
 }
 
-// Shared by D2 and D2': the ray's sel row into s_sel, and s_rep[i] = the
+// D2's: the ray's sel row into s_sel, and s_rep[i] = the
 // last fine row k (within the ray) with sel[k] == i when slot i is valid,
 // else -1. A ray with fewer valid samples than K + E selects some slots
 // twice (`lax.top_k` over ties at -1); JAX's scatter of the fine values
@@ -665,16 +849,44 @@ __global__ void __launch_bounds__(128) render_mixed_kernel(
   }
 }
 
+// Kernel D2''s shared memory per ray, in bytes: the fine rows' slot ids
+// (int64), sdf, integration terms, gradients and rgb (the sdf, gradient and
+// rgb buffers then take their cotangents); the carried sdf, cos_fd, dt,
+// the weight cotangents (then their totals), alpha, T, the rows' sums of
+// terms (then the reverse recurrence's S) and the representative row at S
+// slots; the mask.
+__host__ __device__ inline int mixed_bwd_warp_bytes(int S, int KE) {
+  return 16 * psdf_pad4(KE) + 8 * psdf_pad4(3 * KE) + 32 * psdf_pad4(S) +
+         psdf_pad16(S);
+}
+
+// The affine map of the backward's reverse recurrence at slot j: S_j = b +
+// a S_{j+1} with a = 1 - alpha_{j+1} + 1e-7 and b = Gw_{j+1} alpha_{j+1}
+// (+ g_bgT at j + 1 = nr - 1) for j < nr - 1, and S_j = 0 from nr - 1 on.
+__device__ __forceinline__ void reverse_map(const float* s_alpha,
+                                            const float* s_Gw, int j, int nr,
+                                            float gbg, float& a, float& b) {
+  a = 0.f;
+  b = 0.f;
+  if (j < nr - 1) {
+    const float a1 = s_alpha[j + 1];
+    a = 1.0f - a1 + 1e-7f;
+    b = s_Gw[j + 1] * a1;
+    if (j + 1 == nr - 1) b = b + gbg;
+  }
+}
+
 // Kernel D2'. Cotangents in: g_weights [R,S], g_wsum [R], g_bgT [R], g_rgb
 // [R,3], g_grad [R,3]. Out: d_sdf_c [R*KE], d_grads_c [R*KE,3], d_rgb_c
 // [R*KE,3], zero at fine rows whose slot is invalid. D''s recompute and
-// reverse affine scan on the mixed chain: the total cotangent of a weight
+// reverse recurrence on the mixed chain: the total cotangent of a weight
 // is g_weights + g_wsum at every valid slot, plus g_rgb . rgb_c + g_grad .
-// grads_c of each fine row at the slot, so an unselected valid slot still
-// moves the cotangents of the selected slots before it. The chain rule
-// through alpha runs at the slots of a fine row (the others are constants)
-// and lands on the slot's representative row (the last, as JAX's scatter);
-// every fine row gets its integration terms.
+// grads_c of each fine row at the slot (added in row order), so an
+// unselected valid slot still moves the cotangents of the selected slots
+// before it. The chain rule through alpha runs at the slots of a fine row
+// (the others are constants) and lands on the slot's representative row
+// (the last, as JAX's scatter); every fine row gets its integration terms.
+// One warp per ray, blockDim.x / 32 rays per block.
 __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
     int R, int S, int KE, const float* __restrict__ sdf_carried,
     const float* __restrict__ cos_fd, const long long* __restrict__ sel,
@@ -688,25 +900,36 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
     float* __restrict__ d_rgb_c) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long ray =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long ray = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (ray >= R) return;  // whole warps leave together; no block barrier below
-  float* s_alpha = psdf_dynamic_smem<float>() + (long long)warp * (6 * S + KE);
-  float* s_T = s_alpha + S;
-  float* s_Gw = s_T + S;
-  float* s_dv = s_Gw + S;
-  float* s_dcos = s_dv + S;
-  int* s_rep = reinterpret_cast<int*>(s_dcos + S);
-  int* s_sel = s_rep + S;
-  const long long base_rs = ray * S;
-  fine_rows_of_slots(lane, ray, S, KE, sel, mask, s_sel, s_rep);
+  long long* s_sel = reinterpret_cast<long long*>(
+      psdf_dynamic_smem<uint8_t>() +
+      (size_t)warp * mixed_bwd_warp_bytes(S, KE));
+  float* s_sdfc = reinterpret_cast<float*>(s_sel + psdf_pad4(KE));
+  float* s_term = s_sdfc + psdf_pad4(KE);
+  float* s_gradc = s_term + psdf_pad4(KE);
+  float* s_rgbc = s_gradc + psdf_pad4(3 * KE);
+  float* s_sdf = s_rgbc + psdf_pad4(3 * KE);
+  float* s_cos = s_sdf + psdf_pad4(S);
+  float* s_dt = s_cos + psdf_pad4(S);
+  float* s_Gw = s_dt + psdf_pad4(S);  // g_weights, then the total cotangent
+  float* s_alpha = s_Gw + psdf_pad4(S);
+  float* s_T = s_alpha + psdf_pad4(S);
+  float* s_sum = s_T + psdf_pad4(S);  // the rows' terms, then the S_i
+  int* s_rep = reinterpret_cast<int*>(s_sum + psdf_pad4(S));
+  uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_rep + psdf_pad4(S));
+  const long long row = ray * S, fine = ray * KE;
 
-  int nr = 0;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool valid = i < S && mask[base_rs + i] != 0;
-    nr += __popc(__ballot_sync(PSDF_FULL_MASK, valid));
-  }
+  // every input of the ray, all in flight at once
+  lod_stage(s_sel, sel + fine, KE * 8);
+  lod_stage(s_sdfc, sdf_c + fine, KE * 4);
+  lod_stage(s_gradc, grads_c + fine * 3, KE * 12);
+  lod_stage(s_rgbc, rgb_c + fine * 3, KE * 12);
+  lod_stage(s_sdf, sdf_carried + row, S * 4);
+  lod_stage(s_cos, cos_fd + row, S * 4);
+  lod_stage(s_dt, dt + row, S * 4);
+  lod_stage(s_Gw, g_weights + row, S * 4);
+  lod_stage(s_mask, mask + row, S);
   const float d0 = dirs[ray * 3 + 0], d1 = dirs[ray * 3 + 1],
               d2 = dirs[ray * 3 + 2];
   const float gg0 = g_grad[ray * 3 + 0], gg1 = g_grad[ray * 3 + 1],
@@ -715,81 +938,160 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
               gr2 = g_rgb[ray * 3 + 2];
   const float gws = g_wsum[ray];
   const float gbg = g_bgT[ray];
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32) {
+    s_rep[i] = -1;
+    s_sum[i] = 0.f;
+  }
+  psdf_stage_wait();
 
-  // forward again: alpha, T and the total cotangent of each weight
-  float carry = 1.0f;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool in_row = i < S;
-    const bool valid = in_row && mask[base_rs + i] != 0;
+  // the fine rows, a row per lane: each row's integration term, each valid
+  // slot's sum of its rows' terms in row order and its representative row
+  // (the last that selects it)
+#pragma unroll 1
+  for (int base = 0; base < KE; base += 32) {
+    const int k = base + lane;
+    int slot = -1;
+    if (k < KE) {
+      slot = (int)s_sel[k];
+      const float* cc = s_rgbc + 3 * k;
+      const float* gc = s_gradc + 3 * k;
+      s_term[k] = ((gr0 * cc[0] + gr1 * cc[1]) + gr2 * cc[2]) +
+                  ((gg0 * gc[0] + gg1 * gc[1]) + gg2 * gc[2]);
+    }
+    const unsigned same = __match_any_sync(PSDF_FULL_MASK, (unsigned)slot);
+    __syncwarp();
+    if (k < KE && s_mask[slot] != 0 && (same >> lane) == 1u) {
+      float acc = s_sum[slot];  // the earlier chunks' rows of this slot
+#pragma unroll 1
+      for (unsigned m = same; m != 0u; m &= m - 1u)
+        acc = acc + s_term[base + __ffs(m) - 1];
+      s_sum[slot] = acc;
+      s_rep[slot] = k;
+    }
+    __syncwarp();
+  }
+
+  // alpha and the total weight cotangent of every slot (the mixed chain:
+  // the representative row's sdf and cos, else the carried ones)
+  int cnt = 0;
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32) {
     float alpha = 0.f, Gw = 0.f;
-    if (valid) {
+    if (s_mask[i] != 0) {
       const int rep = s_rep[i];
       float v, c;
-      mixed_sample(rep, ray, KE, base_rs + i, sdf_carried, cos_fd, sdf_c,
-                   grads_c, d0, d1, d2, v, c);
-      alpha = neus_alpha(v, dt[base_rs + i], c, inv_s, cos_anneal_ratio).alpha;
-      Gw = g_weights[base_rs + i] + gws;
-      for (int k = 0; k <= rep; ++k) {
-        if (s_sel[k] != i) continue;
-        const long long f = ray * KE + k;
-        const float* cc = rgb_c + f * 3;
-        const float* gc = grads_c + f * 3;
-        Gw = Gw + ((gr0 * cc[0] + gr1 * cc[1]) + gr2 * cc[2]) +
-             ((gg0 * gc[0] + gg1 * gc[1]) + gg2 * gc[2]);
+      if (rep >= 0) {
+        v = s_sdfc[rep];
+        c = (d0 * s_gradc[3 * rep] + d1 * s_gradc[3 * rep + 1]) +
+            d2 * s_gradc[3 * rep + 2];
+      } else {
+        v = s_sdf[i];
+        c = s_cos[i];
       }
+      alpha = neus_alpha(v, s_dt[i], c, inv_s, cos_anneal_ratio).alpha;
+      Gw = (s_Gw[i] + gws) + s_sum[i];
+      ++cnt;
     }
-    const float x = valid ? (1.0f - alpha + 1e-7f) : 1.0f;
-    const float T = transmittance_chunk(x, lane, carry);
-    if (in_row) {
-      s_alpha[i] = alpha;
-      s_T[i] = valid ? T : 0.f;
-      s_Gw[i] = Gw;
+    s_alpha[i] = alpha;
+    s_Gw[i] = Gw;
+  }
+  const int nr = (int)__reduce_add_sync(PSDF_FULL_MASK, (unsigned)cnt);
+  __syncwarp();
+
+  // this lane's run [i0, i1): the product of its transmittance factors,
+  // one exclusive scan of the runs' products, then T along the run
+  const int per = (S + 31) / 32;
+  const int i0 = min(lane * per, S), i1 = min(i0 + per, S);
+  float prod = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i)
+    if (s_mask[i] != 0) prod = prod * (1.0f - s_alpha[i] + 1e-7f);
+  float incl = prod;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(PSDF_FULL_MASK, incl, off);
+    if (lane >= off) incl = y * incl;
+  }
+  float T = __shfl_up_sync(PSDF_FULL_MASK, incl, 1);
+  if (lane == 0) T = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i) {
+    const bool valid = s_mask[i] != 0;
+    s_T[i] = valid ? T : 0.f;
+    if (valid) T = T * (1.0f - s_alpha[i] + 1e-7f);
+  }
+
+  // the reverse recurrence: the run's maps composed (A, B), one suffix scan
+  // of the runs' maps, then S_i down the run
+  float A = 1.f, B = 0.f;
+#pragma unroll 1
+  for (int i = i1 - 1; i >= i0; --i) {
+    float a, b;
+    reverse_map(s_alpha, s_Gw, i, nr, gbg, a, b);
+    B = b + a * B;
+    A = a * A;
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float A2 = __shfl_down_sync(PSDF_FULL_MASK, A, off);
+    const float B2 = __shfl_down_sync(PSDF_FULL_MASK, B, off);
+    if (lane + off < 32) {
+      B = B + A * B2;
+      A = A * A2;
     }
+  }
+  float s_next = __shfl_down_sync(PSDF_FULL_MASK, B, 1);  // S at i1
+  if (lane == 31) s_next = 0.f;
+#pragma unroll 1
+  for (int i = i1 - 1; i >= i0; --i) {
+    float a, b;
+    reverse_map(s_alpha, s_Gw, i, nr, gbg, a, b);
+    s_next = b + a * s_next;
+    s_sum[i] = s_next;
   }
   __syncwarp();
 
-  // backward: kernel D''s suffix scan of the affine maps S_j = B_j + A_j
-  // S_{j+1}, then the chain rule through alpha at the slots of a fine row
-  float next = 0.f;
-  for (int base = ((S - 1) / 32) * 32; base >= 0; base -= 32) {
-    const int i = base + lane;
-    const float Sj =
-        reverse_affine_chunk(s_alpha, s_Gw, i, nr, gbg, lane, next);
-    if (i >= S || s_rep[i] < 0) continue;  // invalid, or a carried constant
-    const float T = s_T[i];
-    const float dalpha = T * (s_Gw[i] - Sj);
-    const float dist = dt[base_rs + i];
-    float v, c;
-    mixed_sample(s_rep[i], ray, KE, base_rs + i, sdf_carried, cos_fd, sdf_c,
-                 grads_c, d0, d1, d2, v, c);
-    const AlphaParts a = neus_alpha(v, dist, c, inv_s, cos_anneal_ratio);
-    neus_alpha_vjp(a, dalpha, dist, inv_s, cos_anneal_ratio, s_dv[i],
-                   s_dcos[i]);
-  }
-  __syncwarp();
-
-  // the fine rows: the integration terms, and the chain through alpha at
-  // each slot's representative row
+  // the fine rows, a row per lane: the integration terms, and the chain
+  // through alpha at each slot's representative row; the rows' buffers
+  // take their cotangents, then go out in whole vectors
+#pragma unroll 1
   for (int k = lane; k < KE; k += 32) {
-    const long long f = ray * KE + k;
-    const int slot = s_sel[k];
-    float dv = 0.f, dcos = 0.f, w = 0.f;
-    if (mask[base_rs + slot] != 0) {
-      w = s_alpha[slot] * s_T[slot];
+    const int slot = (int)s_sel[k];
+    float dv = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f, c0 = 0.f, c1 = 0.f,
+          c2 = 0.f;
+    if (s_mask[slot] != 0) {
+      const float Ts = s_T[slot];
+      const float w = s_alpha[slot] * Ts;
+      float dcos = 0.f;
       if (s_rep[slot] == k) {
-        dv = s_dv[slot];
-        dcos = s_dcos[slot];
+        const float dalpha = Ts * (s_Gw[slot] - s_sum[slot]);
+        const float dist = s_dt[slot];
+        const float c = (d0 * s_gradc[3 * k] + d1 * s_gradc[3 * k + 1]) +
+                        d2 * s_gradc[3 * k + 2];
+        const AlphaParts ap =
+            neus_alpha(s_sdfc[k], dist, c, inv_s, cos_anneal_ratio);
+        neus_alpha_vjp(ap, dalpha, dist, inv_s, cos_anneal_ratio, dv, dcos);
       }
+      g0 = dcos * d0 + w * gg0;
+      g1 = dcos * d1 + w * gg1;
+      g2 = dcos * d2 + w * gg2;
+      c0 = w * gr0;
+      c1 = w * gr1;
+      c2 = w * gr2;
     }
-    d_sdf_c[f] = dv;
-    d_grads_c[f * 3 + 0] = dcos * d0 + w * gg0;
-    d_grads_c[f * 3 + 1] = dcos * d1 + w * gg1;
-    d_grads_c[f * 3 + 2] = dcos * d2 + w * gg2;
-    d_rgb_c[f * 3 + 0] = w * gr0;
-    d_rgb_c[f * 3 + 1] = w * gr1;
-    d_rgb_c[f * 3 + 2] = w * gr2;
+    s_sdfc[k] = dv;
+    s_gradc[3 * k + 0] = g0;
+    s_gradc[3 * k + 1] = g1;
+    s_gradc[3 * k + 2] = g2;
+    s_rgbc[3 * k + 0] = c0;
+    s_rgbc[3 * k + 1] = c1;
+    s_rgbc[3 * k + 2] = c2;
   }
+  __syncwarp();
+  lod_store(d_sdf_c + fine, s_sdfc, KE * 4);
+  lod_store(d_grads_c + fine * 3, s_gradc, KE * 12);
+  lod_store(d_rgb_c + fine * 3, s_rgbc, KE * 12);
 }
 
 }  // namespace
@@ -845,20 +1147,71 @@ extern "C" int psdf_render_weights_bwd(
   return (int)cudaGetLastError();
 }
 
+// Kernels L and D2' run LOD_RAYS rays a block (a warp each; at the lever
+// step's shapes 1, 2 and 4 measured within 2.5%, 4 the fastest: PERF.md
+// §6), fewer where a block's shared memory would not fit; above 48 KB the
+// kernel opts in.
+constexpr int LOD_RAYS = 4;
+
+template <class Kernel>
+static int lod_block_shape(Kernel kernel, size_t per_ray, int& rays,
+                           size_t& smem) {
+  while (rays > 1 && rays * per_ray > 232448) rays >>= 1;
+  smem = rays * per_ray;
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+static int launch_train_lod_select(int rays, int R, int S, int K, int E,
+                                   const void* sdf, const void* dt,
+                                   const void* mask, const void* scores,
+                                   float inv_s, float cos_anneal_ratio,
+                                   void* cos_fd, void* sel, void* stream) {
+  if (R <= 0) return 0;
+  size_t smem;
+  const int err = lod_block_shape(train_lod_select_kernel,
+                                  lod_select_warp_bytes(S), rays, smem);
+  if (err != 0) return err;
+  PSDF_LAUNCH(train_lod_select_kernel, psdf_blocks(R, rays), 32 * rays, smem,
+              stream, R, S, K, E, (const float*)sdf, (const float*)dt,
+              (const uint8_t*)mask, (const float*)scores, inv_s,
+              cos_anneal_ratio, (float*)cos_fd, (long long*)sel);
+  return (int)cudaGetLastError();
+}
+
+static int launch_render_mixed_bwd(
+    int rays, int R, int S, int KE, const void* sdf_carried,
+    const void* cos_fd, const void* sel, const void* sdf_c,
+    const void* grads_c, const void* rgb_c, const void* dirs, const void* dt,
+    const void* mask, float inv_s, float cos_anneal_ratio,
+    const void* g_weights, const void* g_wsum, const void* g_bgT,
+    const void* g_rgb, const void* g_grad, void* d_sdf_c, void* d_grads_c,
+    void* d_rgb_c, void* stream) {
+  if (R <= 0) return 0;
+  size_t smem;
+  const int err = lod_block_shape(render_mixed_bwd_kernel,
+                                  mixed_bwd_warp_bytes(S, KE), rays, smem);
+  if (err != 0) return err;
+  PSDF_LAUNCH(render_mixed_bwd_kernel, psdf_blocks(R, rays), 32 * rays, smem,
+              stream, R, S, KE, (const float*)sdf_carried,
+              (const float*)cos_fd, (const long long*)sel,
+              (const float*)sdf_c, (const float*)grads_c,
+              (const float*)rgb_c, (const float*)dirs, (const float*)dt,
+              (const uint8_t*)mask, inv_s, cos_anneal_ratio,
+              (const float*)g_weights, (const float*)g_wsum,
+              (const float*)g_bgT, (const float*)g_rgb, (const float*)g_grad,
+              (float*)d_sdf_c, (float*)d_grads_c, (float*)d_rgb_c);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int psdf_train_lod_select(int R, int S, int K, int E,
                                      const void* sdf, const void* dt,
                                      const void* mask, const void* scores,
                                      float inv_s, float cos_anneal_ratio,
                                      void* cos_fd, void* sel, void* stream) {
-  const int block = 128;  // 4 rays per block
-  const int grid = psdf_blocks((long long)R * 32, block);
-  if (grid == 0) return 0;
-  const size_t smem = (size_t)(block / 32) * 2 * S * sizeof(float);
-  PSDF_LAUNCH(train_lod_select_kernel, grid, block, smem, stream, R, S, K, E,
-              (const float*)sdf, (const float*)dt, (const uint8_t*)mask,
-              (const float*)scores, inv_s, cos_anneal_ratio, (float*)cos_fd,
-              (long long*)sel);
-  return (int)cudaGetLastError();
+  return launch_train_lod_select(LOD_RAYS, R, S, K, E, sdf, dt, mask, scores,
+                                 inv_s, cos_anneal_ratio, cos_fd, sel, stream);
 }
 
 extern "C" int psdf_render_mixed(int R, int S, int KE, const void* sdf_carried,
@@ -890,17 +1243,9 @@ extern "C" int psdf_render_mixed_bwd(
     float cos_anneal_ratio, const void* g_weights, const void* g_wsum,
     const void* g_bgT, const void* g_rgb, const void* g_grad, void* d_sdf_c,
     void* d_grads_c, void* d_rgb_c, void* stream) {
-  const int block = 128;  // 4 rays per block
-  const int grid = psdf_blocks((long long)R * 32, block);
-  if (grid == 0) return 0;
-  const size_t smem = (size_t)(block / 32) * (6 * S + KE) * sizeof(float);
-  PSDF_LAUNCH(render_mixed_bwd_kernel, grid, block, smem, stream, R, S, KE,
-              (const float*)sdf_carried, (const float*)cos_fd,
-              (const long long*)sel, (const float*)sdf_c,
-              (const float*)grads_c, (const float*)rgb_c, (const float*)dirs,
-              (const float*)dt, (const uint8_t*)mask, inv_s, cos_anneal_ratio,
-              (const float*)g_weights, (const float*)g_wsum,
-              (const float*)g_bgT, (const float*)g_rgb, (const float*)g_grad,
-              (float*)d_sdf_c, (float*)d_grads_c, (float*)d_rgb_c);
-  return (int)cudaGetLastError();
+  return launch_render_mixed_bwd(LOD_RAYS, R, S, KE, sdf_carried, cos_fd, sel,
+                                 sdf_c, grads_c, rgb_c, dirs, dt, mask, inv_s,
+                                 cos_anneal_ratio, g_weights, g_wsum, g_bgT,
+                                 g_rgb, g_grad, d_sdf_c, d_grads_c, d_rgb_c,
+                                 stream);
 }

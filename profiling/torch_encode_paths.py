@@ -53,7 +53,12 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   torch.profiler;
 - lever: LEVER_STEPS steps of chip_smoke's recommended profile past its
   gate (the train-time LOD, parity alternating) on the trained state, host
-  clock per step, and one step under torch.profiler;
+  clock per step, and one step under torch.profiler; then kernels L, D2
+  and D2' on their own at the next step's shapes (R = nr_rays, S = 96,
+  K + E = 24 + 8): CUDA-event ms per call and device ms per launch among
+  the profiler's records (``device_ms(per_launch=True)``), and a hash of
+  L's and D2's outputs on ``lod_kernels.lever_batch`` (made from a seed),
+  so two trees' outputs compare bit for bit;
 - sdf_from_mesh: ``train_sdf_from_mesh.train`` for 50 and 300 steps
   (ms/step from the difference), one step under torch.profiler, then the
   trained field's 512³ mesh three times (grid SDF and marching tetrahedra);
@@ -68,7 +73,7 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   device ms in it).
 
 Each profile gives the device ms and the launches of kernels A, B, C, C3,
-D, E1, E2, F, G, J0, J2, J2f, J3, J3f, M1 and M2 (the device µs per launch
+D, E1, E2, F, G, J0, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' (the device µs per launch
 is their ratio), and the count of every device activity of the window
 (kernels, memsets and copies: ``device_launches``). Each
 path also
@@ -95,7 +100,8 @@ MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
 PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "J0", "J2", "J2f", "J3", "J3f", "M1",
-            "M2")
+            "M2", "L", "D2", "D2'")
+LOD_REPS = 20
 PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
          "nerf", "mesh")
 M_RES = (256, 512)
@@ -502,7 +508,78 @@ def lever_path(cs, device, cfg, params, grid, reel):
         params, opt_state, grid, reel, draws, it, lcfg, optimizer))
     steps = times[LEVER_WARMUP:]
     return {"ms_all": steps, "ms_median": statistics.median(steps), "peak_mib": peak,
-            "interleave_copies_per_step": copies, "profile": prof}
+            "interleave_copies_per_step": copies, "profile": prof,
+            "kernels": lever_kernels(cs, device, cfg, params, grid, reel, it + 1)}
+
+
+def _lod_hashes(device):
+    """sha256 of kernel L's cos_fd and sel and of D2's five outputs on
+    ``lod_kernels.lever_batch`` (made from a seed, the same on every
+    tree)."""
+    import hashlib
+
+    from lod_kernels import K, E, lever_batch
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+
+    smp, sdf, scores, fine, _ = lever_batch(512, device)
+    cos_fd, sel = vr.train_lod_select_cuda(smp, sdf, 400.0, 0.6, scores, K, E)
+    outs = vr.neus_render_mixed_cuda(smp, sdf, cos_fd, sel, *fine, 400.0, 0.6)
+
+    def sha(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    return {"L_cos_fd": sha([cos_fd]), "L_sel": sha([sel]), "D2": sha(outs)}
+
+
+def lever_kernels(cs, device, cfg, params, grid, reel, it):
+    """Kernels L, D2 and D2' alone at step ``it`` of the recommended profile
+    (as chip_smoke's lever phase builds their inputs): CUDA-event ms per
+    call over LOD_REPS calls, device ms per launch, and ``_lod_hashes``."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import random_rays_from_reel
+    from permuto_sdf_tpu_torch.models.fields import rgb_apply, sdf_with_gradient
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    lcfg = cs._lever_cfg(cfg, table_grad_alternate=False)
+    ita = it - cfg.nr_iter_sphere_fit
+    draws = tps.draw_train_step(tps.step_generators(cs.SEED, it)[0], lcfg, reel).to(device)
+    o, d, _, _, _ = random_rays_from_reel(reel, lcfg.nr_rays, indices=draws.ray_indices)
+    _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
+    with torch.no_grad():
+        smp, _ = tps._create_fg_samples(params, grid, o, d, te, tx, ita, lcfg, draws)
+    R, S = smp.mask.shape
+    K, E = tps._train_lod(lcfg)
+    car = tps._map_range_f32(ita, 0.0, cfg.forced_variance_finish_iter, 0.0, 1.0)
+    inv_s = vr.variance_inv_s(params["variance"], tps._map_range_f32(
+        ita, 0.0, cfg.forced_variance_finish_iter, 0.3, cfg.forced_variance_finish))
+    args = (smp, smp.sdf, inv_s, car, draws.lod_scores, K, E)
+    cos_fd, sel = vr.train_lod_select_cuda(*args)
+    fine = (torch.arange(R, device=device)[:, None] * S + sel).reshape(-1)
+    pos_c, dirs_c = smp.flat_positions()[fine], smp.flat_dirs()[fine]
+    with torch.no_grad():
+        sdf_c, grads_c, geom_c = sdf_with_gradient(params["sdf"], pos_c, ita, lcfg.sdf_model)
+        rgb_c = rgb_apply(params["rgb"], pos_c, dirs_c, grads_c, geom_c, ita, lcfg.rgb_model)
+    margs = (smp, smp.sdf, cos_fd, sel, sdf_c, grads_c, rgb_c, inv_s, car)
+    rng = np.random.default_rng(cs.SEED + 6)
+    cots = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+            for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
+    calls = {"L": lambda: vr.train_lod_select_cuda(*args),
+             "D2": lambda: vr.neus_render_mixed_cuda(*margs),
+             "D2'": lambda: vr.neus_render_mixed_bwd_cuda(*margs, *cots)}
+    out = {"R": R, "S": S, "K": K, "E": E, "valid_samples": int(smp.mask.sum())}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = cs.time_ms(fn, LOD_REPS, device)
+        out[f"{name}_device_ms_per_launch"] = cs.device_ms(fn, name, device, reps=LOD_REPS,
+                                                           per_launch=True)
+    out["hashes"] = _lod_hashes(device)
+    print(f"[lever kernels] {json.dumps(out)}", flush=True)
+    return out
 
 
 def frame_path(cs, device, cfg, frames):

@@ -7,7 +7,7 @@
 // __threadfence a sequentially consistent fence, the warp
 // shuffles, ballots, __any_sync, __match_any_sync and __reduce_add_sync
 // exchange values through a per-warp slot array between two barriers
-// (__ffs is the compiler's builtin; __fns, positive offsets only, a loop
+// (__ffs is the compiler's builtin, __float_as_uint a memcpy; __fns, positive offsets only, a loop
 // over the bits), __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
 // psdf_dynamic_smem are redefined for that (float2 is a plain pair, float4
@@ -85,6 +85,7 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) {
   emu_warp->bar->arrive_and_wait(); return r;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
 inline void __syncwarp() { emu_warp->bar->arrive_and_wait(); }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 template <class T> T __ldg(const T* p) { return *p; }

@@ -906,14 +906,35 @@ def _lod_batch(rng, R, S):
     return smp, sdf, scores
 
 
-@pytest.mark.parametrize("S,K,E", [(70, 24, 8), (40, 40, 0), (37, 6, 3)])
-def test_kernel_L_source_matches_plain(emulated, S, K, E):
-    """Kernel L (fd cos, the ranking weights' warp scan, top-K and the
-    extras by rank) against its plain version: cos_fd bit for bit, sel
-    exactly (ties by the lower index, as ``lax.top_k``), on empty, short,
-    one-sample and full rays, a last sample with dt 0 and exact ties."""
+def _plant_ties(sdf, scores):
+    """Exact ties for kernel L's two selections, in place: rays inside the
+    surface from their first sample (weights 1, 1e-7, 1e-14, ..., then exact
+    zeros), rays whose scores are all equal, and rays of -0.0 beside +0.0
+    scores (the float compare has them equal)."""
+    sdf[7:11] = -1.0
+    scores[7:13] = 0.25
+    scores[9:11, ::2] = -0.0
+    scores[9:11, 1::2] = 0.0
+    scores[11, ::3] = -0.0
+    scores[12, 1::2] = -0.0
+
+
+@pytest.mark.parametrize("S,K,E,ties", [(70, 24, 8, False), (40, 40, 0, False),
+                                        (37, 6, 3, False), (96, 24, 8, False),
+                                        (96, 24, 8, True), (150, 24, 8, False)],
+                         ids=["70-24-8", "40-40-0", "37-6-3", "96-24-8", "96-24-8-ties",
+                              "150-24-8"])
+def test_kernel_L_source_matches_plain(emulated, S, K, E, ties):
+    """Kernel L (fd cos, the ranking weights' warp scan, the top-K and the
+    extras by a bitonic sort of 64-bit keys) against its plain version:
+    cos_fd bit for bit, sel exactly (descending, ties by the lower index, as
+    ``lax.top_k``), on empty, short, one-sample and full rays, a last sample
+    with dt 0 and exact ties (planted ones too: zero weights, equal scores,
+    -0.0 beside +0.0), at the flagship shape and a sort of 256 keys."""
     rng = np.random.default_rng(S + K)
     smp, sdf, scores = _lod_batch(rng, 41, S)
+    if ties:
+        _plant_ties(sdf, scores)
     launches = vr.train_lod_select_cuda.launches
     cos_k, sel_k = vr.train_lod_select_cuda(smp, sdf, 400.0, 0.6, scores, K, E)
     cos_p, sel_p = vr.train_lod_select_plain(smp, sdf, 400.0, 0.6, scores, K, E)
@@ -928,14 +949,18 @@ def test_kernel_L_source_matches_plain(emulated, S, K, E):
         assert (len(set(row.tolist())) == K + E) == (n >= K + E or E == 0), (row, n)
 
 
-def test_kernels_D2_source_match_plain(emulated):
+@pytest.mark.parametrize("S,K,E,seed", [(70, 12, 4, 21), (96, 24, 8, 117)],
+                         ids=["70-12-4", "96-24-8"])
+def test_kernels_D2_source_match_plain(emulated, S, K, E, seed):
     """Kernel D2 (the mixed chain's weights and the selected slots'
     integration) and D2' (its VJP in the fine set's sdf, gradient and rgb)
     against their plain versions (autograd of the plain forward), with
     random cotangents on every output: to 1e-6, and to 1e-5 of each
-    gradient's largest |value|."""
-    rng = np.random.default_rng(21)
-    R, S, K, E = 41, 70, 12, 4
+    gradient's largest |value|, exact zeros at the rows of invalid slots;
+    the short and empty rays select slots twice (the duplicate rows), and
+    (96, 24, 8) is the lever step's shape."""
+    rng = np.random.default_rng(seed)
+    R = 41
     smp, sdf, scores = _lod_batch(rng, R, S)
     cos_fd, sel = vr.train_lod_select_plain(smp, sdf, 400.0, 0.6, scores, K, E)
     n = R * (K + E)
