@@ -191,8 +191,13 @@ WARMUP_STEPS = 2
 TOL_GRAD_CROSS = 1e-2
 TOL_LOSS_CROSS = 1e-3
 # The colour loss's L1 ties in that comparison: |gt - pred| within L1_TIE
-# on both sides with opposite signs (counted by train_cross_check).
+# on both sides with opposite signs (counted by train_cross_check). When
+# every sign flip is such a tie, both sides are evaluated again with the
+# ground truth of the tied channels moved by L1_TIE_SHIFT toward the CPU's
+# residual sign, so both take the same L1 subgradient there, and the gate
+# judges that evaluation (cross_check_gate).
 L1_TIE = 1e-6
+L1_TIE_SHIFT = 4 * L1_TIE
 
 # E1 and E2 vs their plain versions: the CDF's sums and products run in
 # another order (E1 accumulates in double, the plain CUDA scans in float),
@@ -305,13 +310,15 @@ def _kernel_events(prof, kernel):
             and any(x in e.key for x in sym)]
 
 
-def device_ms(fn, kernel: str, device, reps: int = 10, per_launch: bool = False):
+def device_ms(fn, kernel: str, device, reps: int = 10, per_launch: bool = False,
+              launches: int = 1):
     """The card's ms per call of ``fn`` in ``kernel``'s own symbols
     (torch.profiler over ``reps`` calls after one warm-up call; launches of
     other kernels in ``fn`` are left out), or with ``per_launch`` per
-    launch of the kernel among the records the profiler delivered (for a
-    function of one launch a call, a record the profiler drops then biases
-    nothing); None if three profiled runs recorded no device time."""
+    ``launches`` launches of the kernel's symbols among the records the
+    profiler delivered (for a function of ``launches`` launches a call, a
+    record the profiler drops then biases nothing); None if three profiled
+    runs recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -325,7 +332,8 @@ def device_ms(fn, kernel: str, device, reps: int = 10, per_launch: bool = False)
         events = _kernel_events(prof, kernel)
         us = sum(_dev_us(e) for e in events)
         if us > 0:
-            return us / 1e3 / (sum(e.count for e in events) if per_launch else reps)
+            calls = sum(e.count for e in events) / launches if per_launch else reps
+            return us / 1e3 / calls
     return None
 
 
@@ -1049,7 +1057,8 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "C": "probe_sampler_kernel", "D": "render_weights_kernel",
                   "F": "encode_table_grad_kernel", "G": "encode_double_backward_kernel",
                   "D'": "render_weights_bwd_kernel", "I": "grid_",
-                  "J0": "chebyshev_pass_kernel", "J1": "jump_prepass_kernel",
+                  "J0": "chebyshev_pass_kernel",
+                  "J1": ("jump_prepass_kernel", "jump_prepass_list_kernel"),
                   "J2": "trace_step_kernel", "H0": "compact_",
                   "E1": "importance_round_kernel", "E2": "merge_samples_kernel",
                   "H1": "take_rows_kernel", "H2": "scatter_rows_kernel",
@@ -1327,23 +1336,98 @@ def profile_train_step(device, cfg, params, grid, reel):
     return _profile_summary(prof, wall_ms, "step")
 
 
+def _cross_summary(label, ev):
+    """The numbers of one card-vs-CPU evaluation (see cross_check_gate) ->
+    (summary, L1 sign flips [R, 3], the flips within the tie); fails on a
+    gradient on one side only or a non-finite card gradient."""
+    import torch
+
+    res_c, res_g = ev["res_cpu"], ev["res_card"]
+    flips = (torch.sign(res_c) != torch.sign(res_g)) & ev["hit_cpu"]
+    ties = flips & (res_c.abs() <= L1_TIE) & (res_g.abs() <= L1_TIE)
+    worst, largest = {}, {}
+    for name, (gc, gg) in ev["grads"].items():
+        if gc is None and gg is None:
+            continue
+        if gc is None or gg is None:
+            fail(f"{label}: {name} has a gradient on one side only")
+        if not torch.isfinite(gg).all():
+            fail(f"{label}: non-finite gradient of {name} on the card")
+        diff = gg.cpu() - gc
+        norm, scale = gc.norm().item(), gc.abs().max().item()
+        worst[name] = diff.norm().item() / norm if norm > 0 else diff.norm().item()
+        largest[name] = diff.abs().max().item() / scale if scale > 0 else diff.abs().max().item()
+    loss_c, loss_g = ev["loss_cpu"], ev["loss_card"]
+    summary = {"loss_cpu": loss_c, "loss_card": loss_g,
+               "loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+               "tol_loss": TOL_LOSS_CROSS, "tol_grad": TOL_GRAD_CROSS,
+               **ev.get("extra", {}),
+               "l1_sign_flips": int(flips.sum()), "l1_sign_flips_within_tie": int(ties.sum()),
+               "l1_flip_max_abs_residual": (max(res_c.abs()[flips].max().item(),
+                                                res_g.abs()[flips].max().item())
+                                            if flips.any() else 0.0),
+               "ray_hit_flips": int((ev["hit_cpu"] != ev["hit_card"]).sum()),
+               "grad_rel_l2_err": worst, "grad_max_err_rel_to_max": largest}
+    return summary, flips, ties
+
+
+def cross_check_gate(label, evaluate, gate=True):
+    """The card-vs-CPU gate of one training step. ``evaluate(gt_shift)``
+    runs the step on both sides, with ``gt_shift`` [R, 3] added to the
+    colour loss's ground truth on both (None: unchanged), and returns a dict
+    of ``loss_cpu``, ``loss_card`` (floats), ``grads`` ({leaf name: (cpu
+    gradient, card gradient)}), ``res_cpu``, ``res_card`` (gt - pred [R, 3]
+    of the colour loss), ``hit_cpu``, ``hit_card`` ([R, 1] bool: the rays
+    the colour loss counts) and ``extra`` (numbers to print).
+
+    The colour loss is L1, whose subgradient is the residual's sign: a
+    channel whose residual sits within L1_TIE of 0 on both sides can take
+    opposite signs by rounding alone, and one such ±1 among a step's
+    channels moves the colour path's gradients by a few per cent. When
+    every sign flip of the first evaluation is such a tie, both sides are
+    evaluated again with the tied channels' ground truth moved by
+    L1_TIE_SHIFT toward the CPU's residual sign (the same subgradient on
+    both sides; the loss moves by ~L1_TIE_SHIFT a channel), and that second
+    evaluation is gated; otherwise the first is. The gate: the loss within
+    TOL_LOSS_CROSS relative and every leaf's gradient within TOL_GRAD_CROSS
+    relative L2; the card's gradients finite in each evaluation. Prints
+    each evaluation's numbers on a line of its own; returns the first's,
+    with the second's under ``tie_aligned`` (None when there was none)."""
+    import torch
+
+    ev = evaluate(None)
+    first, flips, ties = _cross_summary(label, ev)
+    print(json.dumps({label: first}), flush=True)
+    judged = first
+    first["tie_aligned"] = None
+    if flips.any() and torch.equal(flips, ties):
+        toward = torch.where(ev["res_cpu"] >= 0, L1_TIE_SHIFT, -L1_TIE_SHIFT)
+        shift = torch.where(ties, toward, 0.0)
+        second, _, _ = _cross_summary(label, evaluate(shift))
+        print(json.dumps({f"{label}_tie_aligned": second}), flush=True)
+        judged = first["tie_aligned"] = second
+    if not gate:
+        return first
+    if not judged["loss_rel_err"] <= TOL_LOSS_CROSS:
+        fail(f"{label}: loss {judged['loss_card']} vs {judged['loss_cpu']} on the CPU")
+    bad = {k: v for k, v in judged["grad_rel_l2_err"].items() if not v <= TOL_GRAD_CROSS}
+    if bad:
+        fail(f"{label}: gradients off by more than {TOL_GRAD_CROSS}: {bad}")
+    return first
+
+
 def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cross_check",
                       gate=True):
     """One full-width training step on the CPU (the plain path) and on the
     card, with the same draws and the CPU's fg samples (with the carried
-    sdf the train-time LOD ranks): the loss within TOL_LOSS_CROSS and every
-    leaf's gradient within TOL_GRAD_CROSS (relative L2 error); the card's
-    gradients finite.
-
-    The colour loss is L1, whose subgradient is the residual's sign: the
-    entries whose residual has opposite signs on the two sides are counted
-    (``l1_sign_flips``; within L1_TIE on both sides: a tie under rounding),
-    and so are the rays that hit the bound sphere on one side only
-    (``ray_hit_flips``), so a failing check shows whether either came
-    with it."""
-    import torch
-
-    from permuto_sdf_tpu_torch.datasets.tensor_reel import random_rays_from_reel
+    sdf the train-time LOD ranks), gated by :func:`cross_check_gate`: the
+    loss within TOL_LOSS_CROSS and every leaf's gradient within
+    TOL_GRAD_CROSS (relative L2 error); the card's gradients finite. The
+    colour loss's L1 sign flips (within L1_TIE on both sides: a tie under
+    rounding) and the rays that hit the bound sphere on one side only
+    (``ray_hit_flips``) are counted, so a failing check shows whether either
+    came with it."""
+    from permuto_sdf_tpu_torch.datasets import tensor_reel
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
     from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
@@ -1354,37 +1438,7 @@ def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cro
         it = cfg.nr_iter_sphere_fit + TRAIN_FROM + 200
     draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], cfg, reel)
     reel_c = reel.to("cpu")
-    preds = []  # (colour, ray hits) of the CPU's and the card's run_net
-    run_net = tps.run_net
-
-    def recording_run_net(*args, **kw):
-        out = run_net(*args, **kw)
-        preds.append((out[0].detach().cpu(), out[3]["does_intersect"].detach().cpu()))
-        return out
-
-    tps.run_net = recording_run_net
-    try:
-        t0 = time.perf_counter()
-        loss_c, aux_c, grads_c = tps.compute_loss_and_grads(
-            _tree_map(cpu, params), og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy)),
-            reel_c, draws, it, cfg)
-        cpu_s = time.perf_counter() - t0
-        s = aux_c["samples"]
-        smp = RaySamples(*(getattr(s, f).to(device) for f in
-                           ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")),
-                         sdf=s.sdf.to(device) if s.sdf is not None else None)
-        loss_g, _, grads_g = tps.compute_loss_and_grads(params, grid, reel, draws, it, cfg,
-                                                        fg_samples=smp)
-    finally:
-        tps.run_net = run_net
-    # the colour loss's residual signs on the two sides
-    gt = random_rays_from_reel(reel_c, cfg.nr_rays, indices=draws.to("cpu").ray_indices,
-                               apply_mask=cfg.with_mask)[2]
-    (pred_c, hit), (pred_g, hit_g) = preds
-    res_c, res_g = gt - pred_c, gt - pred_g
-    flips = (torch.sign(res_c) != torch.sign(res_g)) & hit
-    ties = flips & (res_c.abs() <= L1_TIE) & (res_g.abs() <= L1_TIE)
-    worst, largest, names = {}, {}, []
+    names = []
 
     def walk(tree, prefix):
         if isinstance(tree, dict):
@@ -1397,36 +1451,53 @@ def train_cross_check(device, cfg, params, grid, reel, it=None, label="train_cro
             names.append(prefix)
 
     walk(params, "")
-    for name, gc, gg in zip(names, tree_leaves(grads_c), tree_leaves(grads_g)):
-        if gc is None and gg is None:
-            continue
-        if gc is None or gg is None:
-            fail(f"{label}: {name} has a gradient on one side only")
-        if not torch.isfinite(gg).all():
-            fail(f"{label}: non-finite gradient of {name} on the card")
-        diff = gg.cpu() - gc
-        norm, scale = gc.norm().item(), gc.abs().max().item()
-        worst[name] = diff.norm().item() / norm if norm > 0 else diff.norm().item()
-        largest[name] = diff.abs().max().item() / scale if scale > 0 else diff.abs().max().item()
-    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
-    summary = {"loss_cpu": float(loss_c), "loss_card": float(loss_g),
-               "loss_rel_err": loss_err, "tol_loss": TOL_LOSS_CROSS, "tol_grad": TOL_GRAD_CROSS,
-               "valid_samples": int(aux_c["nr_samples"]), "cpu_step_s": cpu_s,
-               "l1_sign_flips": int(flips.sum()), "l1_sign_flips_within_tie": int(ties.sum()),
-               "l1_flip_max_abs_residual": (max(res_c.abs()[flips].max().item(),
-                                                res_g.abs()[flips].max().item())
-                                            if flips.any() else 0.0),
-               "ray_hit_flips": int((hit != hit_g).sum()),
-               "grad_rel_l2_err": worst, "grad_max_err_rel_to_max": largest}
-    print(json.dumps({label: summary}), flush=True)
-    if not gate:
-        return summary
-    if not loss_err <= TOL_LOSS_CROSS:
-        fail(f"{label}: loss {float(loss_g)} vs {float(loss_c)} on the CPU")
-    bad = {k: v for k, v in worst.items() if not v <= TOL_GRAD_CROSS}
-    if bad:
-        fail(f"{label}: gradients off by more than {TOL_GRAD_CROSS}: {bad}")
-    return summary
+    gt = tensor_reel.random_rays_from_reel(reel_c, cfg.nr_rays,
+                                           indices=draws.to("cpu").ray_indices,
+                                           apply_mask=cfg.with_mask)[2]
+    smp = None  # the CPU's fg samples, which the card's step renders
+
+    def evaluate(gt_shift):
+        nonlocal smp
+        preds = []  # (colour, ray hits) of the CPU's and the card's run_net
+        run_net, rays = tps.run_net, tps.random_rays_from_reel
+
+        def recording_run_net(*args, **kw):
+            out = run_net(*args, **kw)
+            preds.append((out[0].detach().cpu(), out[3]["does_intersect"].detach().cpu()))
+            return out
+
+        def shifted_rays(*args, **kw):
+            out = rays(*args, **kw)
+            if gt_shift is None:
+                return out
+            return out[:2] + (out[2] + gt_shift.to(out[2].device),) + out[3:]
+
+        tps.run_net, tps.random_rays_from_reel = recording_run_net, shifted_rays
+        try:
+            t0 = time.perf_counter()
+            loss_c, aux_c, grads_c = tps.compute_loss_and_grads(
+                _tree_map(cpu, params),
+                og.OccupancyGridState(cpu(grid.values), cpu(grid.occupancy)),
+                reel_c, draws, it, cfg)
+            cpu_s = time.perf_counter() - t0
+            if smp is None:
+                s = aux_c["samples"]
+                smp = RaySamples(*(getattr(s, f).to(device) for f in
+                                   ("origins", "dirs", "z", "dt", "mask", "ray_fixed_dt")),
+                                 sdf=s.sdf.to(device) if s.sdf is not None else None)
+            loss_g, _, grads_g = tps.compute_loss_and_grads(params, grid, reel, draws, it, cfg,
+                                                            fg_samples=smp)
+        finally:
+            tps.run_net, tps.random_rays_from_reel = run_net, rays
+        (pred_c, hit), (pred_g, hit_g) = preds
+        g = gt if gt_shift is None else gt + gt_shift
+        return {"loss_cpu": float(loss_c), "loss_card": float(loss_g),
+                "grads": dict(zip(names, zip(tree_leaves(grads_c), tree_leaves(grads_g)))),
+                "res_cpu": g - pred_c, "res_card": g - pred_g, "hit_cpu": hit,
+                "hit_card": hit_g,
+                "extra": {"valid_samples": int(aux_c["nr_samples"]), "cpu_step_s": cpu_s}}
+
+    return cross_check_gate(label, evaluate, gate)
 
 
 # ---------------------------------------------------------------------------
@@ -1513,21 +1584,22 @@ def chebyshev_grids(device, gcfg, scene_occupancy) -> dict:
 
 
 def _jump_lookups(field, gcfg, o, d, t, allow, jumps):
-    """Replays a kernel's chained jumps (J1, J2): the number of field
-    lookups and the distinct voxels they read."""
+    """Replays a kernel's chained jumps (J1, J2): the field lookups (inside
+    the grid only: outside it a kernel reads nothing and jumps the cap),
+    the distinct voxels they read, and each row's count of them."""
     import torch
 
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 
-    lookups, voxels = 0, []
+    per_row, voxels = torch.zeros_like(t, dtype=torch.int64), []
     for _ in range(jumps):
         lin, inb = og.point_to_lin_idx(gcfg, o + t[:, None] * d)
-        lookups += int(allow.sum())
+        per_row += (allow & inb).to(torch.int64)
         voxels.append(lin[allow & inb])
-        k = torch.where(inb, field[lin].to(torch.int32), 63)
+        k = torch.where(inb, field[lin.clamp(0, field.numel() - 1)].to(torch.int32), 63)
         allow = allow & (k > 1)
         t = torch.where(allow, t + (k - 1).to(t.dtype) * gcfg.voxel_size, t)
-    return lookups, int(torch.unique(torch.cat(voxels)).numel())
+    return int(per_row.sum()), int(torch.unique(torch.cat(voxels)).numel()), per_row
 
 
 def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
@@ -1596,30 +1668,62 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
 
     restore_ms = time_ms(restore, reps, device)
 
-    # --- J1: the jump prepass
+    # --- J1: the jump prepass, and round 0's list written in the same launch
     jumps = 16
     ks, ps = ({k: v.clone() for k, v in state0.items()} for _ in range(2))
     args = lambda s: (field, s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"], s["alive_f"])  # noqa: E731
-    n_k = st.jump_prepass_cuda(*args(ks), gcfg, jumps)
-    n_p = st.jump_prepass_plain(*args(ps), gcfg, jumps)
+    n_k, idx_k = st.jump_prepass_cuda(*args(ks), gcfg, jumps)
+    n_p, idx_p = st.jump_prepass_plain(*args(ps), gcfg, jumps)
     err = max(compare("J1", ks[k], ps[k]) for k in ("t_f", "alive_f"))
     if int(n_k) != int(n_p):
         fail(f"kernel J1: alive count {int(n_k)} vs {int(n_p)}")
+    count = int(n_p)
+    for size in (count // 2, count, st.pow2_bucket(count, lo=256, hi=R), R):
+        want, _ = compaction.nonzero_static_plain(ps["alive_f"][:R], size, R)
+        if not torch.equal(idx_k[:size], want):
+            fail(f"kernel J1: round 0's list at bucket {size}: "
+                 f"{(idx_k[:size] != want).sum().item()} ids differ from nonzero_static")
 
-    def run_j1(fn):
+    def run_j1(fn, s=work, jumps=jumps):
         restore()
-        fn(*args(work), gcfg, jumps)
+        fn(field, s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"], s["alive_f"], gcfg, jumps)
 
     ms = time_ms(lambda: run_j1(st.jump_prepass_cuda), reps, device) - restore_ms
     pms = time_ms(lambda: run_j1(st.jump_prepass_plain), plain_reps, device) - restore_ms
-    lookups, voxels = _jump_lookups(field, gcfg, state0["origins_f"], state0["dirs_f"],
-                                    state0["t_f"], state0["alive_f"], jumps)
-    b = bound_ms((R + 1) * (12 + 12 + 4 + 4 + 1 + 4 + 1) + voxels + 4, lookups * OPS_PER_LOOKUP)
-    _report(f"J1 R={R} jumps={jumps} (alive {int(state0['alive_f'].sum())} -> {int(n_p)}, "
-            f"{lookups} lookups of {voxels} voxels)", err, TOL_J, ms, pms, b)
-    dms = device_ms(lambda: run_j1(st.jump_prepass_cuda), "J1", device)
+    lookups, voxels, per_row = _jump_lookups(field, gcfg, state0["origins_f"], state0["dirs_f"],
+                                             state0["t_f"], state0["alive_f"], jumps)
+    # the state read, t and the flags written, the list (8 B a row below R)
+    # and the count; the field's distinct voxels
+    b = bound_ms((R + 1) * (12 + 12 + 4 + 4 + 1 + 4 + 1) + 8 * R + voxels + 4,
+                 lookups * OPS_PER_LOOKUP)
+    # per call of J1's two launches
+    dms = device_ms(lambda: run_j1(st.jump_prepass_cuda), "J1", device, per_launch=True,
+                    launches=2)
+    # the chain floor: the longest chain of one ray, times one chained
+    # lookup's latency measured on that ray alone (its device ms at 16
+    # jumps less at 0, over its chain; the field in L2 from the runs before)
+    ray = int(per_row.argmax())
+    chain = int(per_row[ray])
+    one = {k: torch.cat([v[ray:ray + 1], v[-1:]]) for k, v in state0.items()}
+    one_work = {k: v.clone() for k, v in one.items()}
+
+    def run_one(j):
+        for k, v in one_work.items():
+            v.copy_(one[k])
+        st.jump_prepass_cuda(field, one_work["origins_f"], one_work["dirs_f"],
+                             one_work["texit_f"], one_work["t_f"], one_work["alive_f"], gcfg, j)
+
+    one_ms = [device_ms(lambda j=j: run_one(j), "J1", device, reps=50, per_launch=True,
+                        launches=2) for j in (jumps, 0)]
+    lookup_us = ((one_ms[0] - one_ms[1]) * 1e3 / chain
+                 if chain > 0 and None not in one_ms else None)
+    chain_ms = chain * lookup_us / 1e3 if lookup_us is not None else None
+    _report(f"J1 R={R} jumps={jumps} (alive {int(state0['alive_f'].sum())} -> {count}, "
+            f"{lookups} lookups inside the grid of {voxels} voxels; longest chain {chain} "
+            f"lookups x {lookup_us} us a chained lookup = {chain_ms} ms)", err, TOL_J, ms, pms, b)
     results["J1"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-                         device_ms=dms)
+                         device_ms=dms, longest_chain=chain, chained_lookup_us=lookup_us,
+                         chain_floor_ms=chain_ms)
 
     # --- H0: the round-0 bucket of the parked rays; below, at and above the count
     state1 = ps  # after the prepass
@@ -1674,8 +1778,9 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
     sv = s_val[real]
     conv = conv | ((sv.abs() < 2e-4) & alive)
     act = ~conv & alive
-    lookups, voxels = _jump_lookups(field, gcfg, state1["origins_f"][ii], state1["dirs_f"][ii],
-                                    state1["t_f"][ii] + sv * 0.9, act & (sv > gcfg.voxel_size), 4)
+    lookups, voxels, _ = _jump_lookups(field, gcfg, state1["origins_f"][ii],
+                                       state1["dirs_f"][ii], state1["t_f"][ii] + sv * 0.9,
+                                       act & (sv > gcfg.voxel_size), 4)
     per_ray = 8 + 4 + (12 + 12 + 4 + 4 + 1 + 1 + 4) + (4 + 1 + 1 + 4) + 12
     b = bound_ms(bucket * per_ray + voxels + 8, bucket * OPS_PER_TRACE_STEP
                  + lookups * OPS_PER_LOOKUP)
@@ -1724,10 +1829,11 @@ def sphere_render_phase(device, cfg, scenes):
         missing = [k for k in SPHERE_KERNELS if counts[k] <= 0]
         if missing:
             fail(f"sphere-traced render {run}: no launch of kernel {missing}")
-        # J2f once a round and once for the refine, the unfused J2 never, and
-        # A only in the shading (two encodes a chunk), B once a chunk
+        # J1 once a chunk (it lists round 0's bucket too), J2f once a round
+        # and once for the refine, the unfused J2 never, and A only in the
+        # shading (two encodes a chunk), B once a chunk
         chunks = sum(1 for s in stats if s[0] == "lit") * (frames + 1)
-        want = {"J2f": stages, "J2": 0, "A": 2 * chunks, "B": chunks}
+        want = {"J1": chunks, "J2f": stages, "J2": 0, "A": 2 * chunks, "B": chunks}
         if any(counts[k] != v for k, v in want.items()):
             fail(f"sphere-traced render {run}: launches {({k: counts[k] for k in want})}, "
                  f"expected {want}")
@@ -1859,7 +1965,7 @@ def sphere_cross_check(device, cfg, params, grid, field):
     alive = st._padded(meets[:, 0], False)
     after_prepass = int(st.jump_prepass_plain(
         cpu(field), st._padded(o), st._padded(d), st._padded(tx[:, 0]), st._padded(te[:, 0]),
-        alive, cfg.grid, 16))
+        alive, cfg.grid, 16)[0])
     with torch.no_grad():
         pos_c, _ = _sphere_trace_rays(params, grid, o.to(device), d.to(device), cfg, field)
         pos_p, lit_pp = _sphere_trace_rays(params_cpu, grid_cpu, o, d, cfg, cpu(field))

@@ -84,7 +84,8 @@ SIGNATURES = {
     },
     "sphere_trace": {
         "psdf_chebyshev_field": [_I, _I] + [_P] * 4,
-        "psdf_jump_prepass": [_I, _I, _P, _I] + [_F] * 5 + [_I] + [_P] * 5 + [_I, _P, _P],
+        "psdf_jump_prepass": [_I, _I, _I, _P, _I] + [_F] * 5 + [_I] + [_P] * 5 + [_I]
+                             + [_P] * 4,
         "psdf_trace_step": [_I, _I] + [_P] * 10 + [_I] + [_F] * 5 + [_I] + [_F] * 3
                            + [_I] + [_P] * 3,
         "psdf_trace_step_pos": [_I, _I] + [_P] * 8 + [_I] + [_F] * 5 + [_I] + [_F] * 7

@@ -53,7 +53,19 @@
 // Design of J1 and J2: one thread per ray. A jump reads the field at
 // o + t d (one byte) and advances t by max(k - 1, 0) voxels; a jump of 0
 // leaves t as it is, so the remaining jumps of that ray are skipped (they
-// would read the same voxel). J2 gathers its bucket's state through `idx`,
+// would read the same voxel). J1's time is its longest chain of dependent
+// lookups (up to `jumps` round trips to L2 or HBM, one after another), not
+// its bytes. J1 also lists round 0's bucket (the alive rows below R in
+// ascending order, the fill R behind them: nonzero_static's output for any
+// bucket at or above the count): its first launch writes each tile's alive
+// count, and a second launch (H0's second pass on those counts) writes the
+// list and the count, in place of round 0's mask ops and H0's two
+// launches. Measured against it on the H100 (profiling/j1_designs.py,
+// PERF.md PR 16), and not kept: the field's loads under an L2 evict_last
+// policy (J1 0.6 us faster in the frame, A 2 us slower), the rows' state
+// staged in shared memory, 128 or 512 rows a block, and one launch whose
+// list takes a decoupled look-back over the tiles' counts (3-6 us slower
+// than the two launches). J2 gathers its bucket's state through `idx`,
 // updates it in place and writes the next SDF positions o + t d; fill slots
 // (idx >= R) write nothing back (their state would not change: the pad row
 // is never alive). With `counts`, the warp counts its still-active and its
@@ -156,6 +168,8 @@ __device__ __forceinline__ float jump_along(const uint8_t* __restrict__ field,
   }
   return t;
 }
+
+constexpr int kJumpRows = 256;  // J1's rows a block: a tile of round 0's list
 
 constexpr int kLines = 32;  // lines of one J0 pass per block, one per thread
 
@@ -310,14 +324,49 @@ __global__ void __launch_bounds__(kLines) chebyshev_pass_kernel(
   }
 }
 
-// J1: `jumps` chained jumps on every alive row, then alive &= t <= t_exit,
-// and the number of alive rows below R.
-__global__ void __launch_bounds__(256) jump_prepass_kernel(
+// The sums of a and b over a block of kRows threads, in place in every
+// thread; `red` holds 2 kRows / 32 ints of shared memory.
+template <int kRows>
+__device__ __forceinline__ void block_sum2(int& a, int& b, int* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(PSDF_FULL_MASK, a, off);
+    b += __shfl_xor_sync(PSDF_FULL_MASK, b, off);
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[warp] = a;
+    red[kRows / 32 + warp] = b;
+  }
+  __syncthreads();
+  a = b = 0;
+  for (int w = 0; w < kRows / 32; ++w) {
+    a += red[w];
+    b += red[kRows / 32 + w];
+  }
+}
+
+// J1's tile count: the number of the block's rows with `in_list` into
+// tile_counts[tile]; the block's shared memory starts with 2 kRows / 32
+// ints for it.
+template <int kRows>
+__device__ __forceinline__ void prepass_tile_count(bool in_list, int* __restrict__ tile_counts) {
+  const unsigned ball = __ballot_sync(PSDF_FULL_MASK, in_list);
+  int n = (threadIdx.x & 31) == 0 ? __popc(ball) : 0, unused = 0;
+  block_sum2<kRows>(n, unused, psdf_dynamic_smem<int>());
+  if (threadIdx.x == 0) tile_counts[blockIdx.x] = n;
+}
+
+// J1, first launch: `jumps` chained jumps on every alive row (a thread a
+// row), then alive &= t <= t_exit; each block (a tile of kRows rows) writes
+// the number of its alive rows below R to tile_counts[tile].
+template <int kRows>
+__global__ void __launch_bounds__(kRows) jump_prepass_kernel(
     int n_rows, int R, const uint8_t* __restrict__ field, GridArgs g,
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ t_exit, float* __restrict__ t,
-    uint8_t* __restrict__ alive, int jumps, int* __restrict__ count) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    uint8_t* __restrict__ alive, int jumps, int* __restrict__ tile_counts) {
+  const long long r = (long long)blockIdx.x * kRows + threadIdx.x;
   bool a = false;
   if (r < n_rows) {
     a = alive[r] != 0;
@@ -330,8 +379,45 @@ __global__ void __launch_bounds__(256) jump_prepass_kernel(
       alive[r] = a ? 1 : 0;
     }
   }
-  const unsigned n = __ballot_sync(PSDF_FULL_MASK, a && r < R);
-  if ((threadIdx.x & 31) == 0 && n != 0) atomicAdd(count, __popc(n));
+  prepass_tile_count<kRows>(a && r < R, tile_counts);
+}
+
+// J1, second launch: round 0's list from the flags and the tile counts of
+// the first (the scan of H0's second pass): the alive rows below R in
+// ascending order, then the fill R up to list_size, and their number. A
+// block sums the counts of the tiles before its own and of all tiles, then
+// writes each alive row at its rank and each dead row's fill at its rank
+// among the dead rows counted from the back, so every slot below R is
+// written once.
+template <int kRows>
+__global__ void __launch_bounds__(kRows) jump_prepass_list_kernel(
+    int R, int list_size, const uint8_t* __restrict__ alive,
+    const int* __restrict__ tile_counts, int n_tiles, int* __restrict__ count,
+    long long* __restrict__ list) {
+  int* red = psdf_dynamic_smem<int>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int before = 0, total = 0;
+  for (int j = tid; j < n_tiles; j += kRows) {
+    const int c = tile_counts[j];
+    total += c;
+    before += j < (int)blockIdx.x ? c : 0;
+  }
+  block_sum2<kRows>(before, total, red);
+  const long long r = (long long)blockIdx.x * kRows + tid;
+  const bool in_list = r < R && alive[r] != 0;
+  const unsigned ball = __ballot_sync(PSDF_FULL_MASK, in_list);
+  __syncthreads();  // `red` is reused below
+  if (lane == 0) red[warp] = __popc(ball);
+  __syncthreads();
+  int rank = __popc(ball & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) rank += red[w];
+  if (r < R) {
+    const long long alive_before = before + rank;  // alive rows below r
+    list[in_list ? alive_before : R - 1 - (r - alive_before)] = in_list ? r : R;
+  } else if (r < list_size) {
+    list[r] = R;
+  }
+  if (blockIdx.x == 0 && tid == 0) *count = total;
 }
 
 // J2: for bucket slot j and ray r = idx[j] (< R): with `s` (the SDF at the
@@ -751,21 +837,39 @@ extern "C" int psdf_chebyshev_field(int V, int cap, const void* occupancy,
   return (int)cudaGetLastError();
 }
 
-extern "C" int psdf_jump_prepass(int n_rows, int R, const void* field, int V,
-                                 float half_extent, float tx, float ty,
-                                 float tz, float voxel_size, int cap,
-                                 const void* origins, const void* dirs,
-                                 const void* t_exit, void* t, void* alive,
-                                 int jumps, void* count, void* stream) {
-  const int block = 256;
-  const int grid = psdf_blocks(n_rows, block);
-  if (grid == 0) return 0;
-  PSDF_LAUNCH(jump_prepass_kernel, grid, block, 0, stream, n_rows, R,
-              (const uint8_t*)field,
-              grid_args(V, half_extent, tx, ty, tz, voxel_size, cap),
-              (const float*)origins, (const float*)dirs, (const float*)t_exit,
-              (float*)t, (uint8_t*)alive, jumps, (int*)count);
+// J1's two launches: the jumps (kernel `jump` at kRows rows a block; the
+// port's is jump_prepass_kernel<kJumpRows>, profiling/j1_variants.cu
+// launches other forms), then round 0's list.
+template <int kRows, typename Jump>
+static int launch_jump_prepass(Jump jump, int n_rows, int R, int list_size, const void* field,
+                               const GridArgs& g, const void* origins, const void* dirs,
+                               const void* t_exit, void* t, void* alive, int jumps,
+                               void* count, void* list, void* tile_counts, void* stream) {
+  const int n_tiles = psdf_blocks(n_rows, kRows);
+  if (n_tiles == 0) return 0;
+  const size_t red = sizeof(int) * 2 * (kRows / 32);
+  PSDF_LAUNCH(jump, n_tiles, kRows, red, stream, n_rows, R, (const uint8_t*)field, g,
+              (const float*)origins, (const float*)dirs, (const float*)t_exit, (float*)t,
+              (uint8_t*)alive, jumps, (int*)tile_counts);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const auto write_list = jump_prepass_list_kernel<kRows>;
+  PSDF_LAUNCH(write_list, psdf_blocks(max(n_rows, list_size), kRows), kRows, red, stream, R,
+              list_size, (const uint8_t*)alive, (const int*)tile_counts, n_tiles, (int*)count,
+              (long long*)list);
   return (int)cudaGetLastError();
+}
+
+extern "C" int psdf_jump_prepass(int n_rows, int R, int list_size, const void* field, int V,
+                                 float half_extent, float tx, float ty, float tz,
+                                 float voxel_size, int cap, const void* origins,
+                                 const void* dirs, const void* t_exit, void* t, void* alive,
+                                 int jumps, void* count, void* list, void* tile_counts,
+                                 void* stream) {
+  return launch_jump_prepass<kJumpRows>(
+      jump_prepass_kernel<kJumpRows>, n_rows, R, list_size, field,
+      grid_args(V, half_extent, tx, ty, tz, voxel_size, cap), origins, dirs, t_exit, t, alive,
+      jumps, count, list, tile_counts, stream);
 }
 
 extern "C" int psdf_trace_step(int B, int R, const void* idx, const void* s,

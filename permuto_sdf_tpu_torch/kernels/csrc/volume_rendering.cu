@@ -456,11 +456,12 @@ __global__ void __launch_bounds__(128) render_weights_bwd_kernel(
 // is its VJP with respect to the fine set's sdf, gradient and rgb (the
 // carried values are constants, as under JAX's stop_gradient).
 //
-// What bounds L and D2' on an H100: bytes (~1.8 and ~3.6 KB a ray; 0.00027
-// and 0.00055 ms at the lever step's 512 rays). At 512 rays a warp a ray
-// leaves ~4 warps an SM, so a launch takes the latency of one warp's chain
-// of loads and arithmetic, and the kernels launch once a step, after ~1,700
-// other launches, with a cold instruction cache. So both stage each ray's
+// What bounds L, D2 and D2' on an H100: bytes (~1.8, ~2.7 and ~3.6 KB a
+// ray; 0.00027, 0.00041 and 0.00055 ms at the lever step's 512 rays). At
+// 512 rays a warp a ray leaves ~4 warps an SM, so a launch takes the
+// latency of one warp's chain of loads and arithmetic, and the kernels
+// launch once a step, after ~1,700 other launches, with a cold instruction
+// cache. So all three stage each ray's
 // rows in shared memory once (cp.async, all in flight before any
 // arithmetic) and read no device memory after that, and both keep their
 // code small: every loop over slots, rows, tiles or sort stages rolled
@@ -471,16 +472,20 @@ __global__ void __launch_bounds__(128) render_weights_bwd_kernel(
 // keys (the weight's order-preserving bits over ~slot: larger first, ties
 // by the lower slot) in registers, 128 keys a tile and 4 neighbours a lane
 // (13 of a tile's 28 stages need no shuffle), tiles merged through shared
-// memory above S = 128; once for the top K, once for the extras. D2' maps
-// the fine rows to their slots in one pass of a row per lane
-// (__match_any_sync on the slot), runs the reverse affine recurrence as one
-// suffix scan of the runs' composed maps, and takes the chain rule through
-// alpha at a row per lane. Both write their outputs from shared memory in
-// 16-byte stores where the rows are aligned.
+// memory above S = 128; once for the top K, once for the extras. D2 and
+// D2' share the staging (`mixed_stage`) and the mixed chain
+// (`mixed_chain`: the fine rows mapped to their slots in one pass of a row
+// per lane with __match_any_sync on the slot, alpha, and the
+// transmittance's one warp scan), so D2' differentiates the weights D2
+// wrote. D2 then integrates the fine rows at a row per lane from shared
+// memory; D2' runs the reverse affine recurrence as one suffix scan of the
+// runs' composed maps and takes the chain rule through alpha at a row per
+// lane. All write their outputs from shared memory in 16-byte stores where
+// the rows are aligned.
 // ---------------------------------------------------------------------------
 
-// psdf_warp_stage and psdf_warp_copy, one copy each for every row of L and
-// D2' (see above).
+// psdf_warp_stage and psdf_warp_copy, one copy each for every row of L, D2
+// and D2' (see above).
 __device__ __attribute__((noinline)) void lod_stage(void* dst, const void* src,
                                                     int nbytes) {
   psdf_warp_stage(dst, src, nbytes);
@@ -711,57 +716,161 @@ __global__ void __launch_bounds__(128) train_lod_select_kernel(
   for (int k = lane; k < E; k += 32) sel_r[K + k] = key_slot(s_key[k]);
 }
 
-// D2's: the ray's sel row into s_sel, and s_rep[i] = the
-// last fine row k (within the ray) with sel[k] == i when slot i is valid,
-// else -1. A ray with fewer valid samples than K + E selects some slots
-// twice (`lax.top_k` over ties at -1); JAX's scatter of the fine values
-// into the chain keeps the last of them (the values agree: the same
-// point), and its integration counts every fine row.
-__device__ __forceinline__ void fine_rows_of_slots(
-    int lane, long long ray, int S, int KE, const long long* __restrict__ sel,
-    const uint8_t* __restrict__ mask, int* s_sel, int* s_rep) {
-  for (int k = lane; k < KE; k += 32) s_sel[k] = (int)sel[ray * KE + k];
-  __syncwarp();
-  for (int i = lane; i < S; i += 32) {
-    int rep = -1;
-    if (mask[ray * S + i] != 0) {
-      for (int k = KE - 1; k >= 0; --k) {
-        if (s_sel[k] == i) {
-          rep = k;
-          break;
-        }
-      }
-    }
-    s_rep[i] = rep;
-  }
-  __syncwarp();
+// Kernels D2 and D2''s shared memory per ray, in bytes: the fine rows' slot
+// ids (int64), sdf, integration terms, gradients and rgb (D2' then writes
+// their cotangents there); the carried sdf, cos_fd, dt, the weight
+// cotangents (then their totals), alpha, T (D2: then the weights), the
+// rows' sums of terms (then the reverse recurrence's S) and the
+// representative row at S slots; the mask. D2 leaves the terms, the
+// cotangents and the sums unused.
+__host__ __device__ inline int mixed_warp_bytes(int S, int KE) {
+  return 16 * psdf_pad4(KE) + 8 * psdf_pad4(3 * KE) + 32 * psdf_pad4(S) +
+         psdf_pad16(S);
 }
 
-// The mixed chain's sdf and cos at slot i: the fine set's row rep (>= 0)
-// or the carried sdf and cos_fd.
-__device__ __forceinline__ void mixed_sample(
-    int rep, long long ray, int KE, long long rs,
+struct MixedRows {
+  long long* sel;
+  float *sdfc, *term, *gradc, *rgbc, *sdf, *cos, *dt, *Gw, *alpha, *T, *sum;
+  int* rep;
+  uint8_t* mask;
+};
+
+__device__ __forceinline__ MixedRows mixed_rows(uint8_t* base, int S, int KE) {
+  MixedRows m;
+  m.sel = reinterpret_cast<long long*>(base);
+  m.sdfc = reinterpret_cast<float*>(m.sel + psdf_pad4(KE));
+  m.term = m.sdfc + psdf_pad4(KE);
+  m.gradc = m.term + psdf_pad4(KE);
+  m.rgbc = m.gradc + psdf_pad4(3 * KE);
+  m.sdf = m.rgbc + psdf_pad4(3 * KE);
+  m.cos = m.sdf + psdf_pad4(S);
+  m.dt = m.cos + psdf_pad4(S);
+  m.Gw = m.dt + psdf_pad4(S);
+  m.alpha = m.Gw + psdf_pad4(S);
+  m.T = m.alpha + psdf_pad4(S);
+  m.sum = m.T + psdf_pad4(S);
+  m.rep = reinterpret_cast<int*>(m.sum + psdf_pad4(S));
+  m.mask = reinterpret_cast<uint8_t*>(m.rep + psdf_pad4(S));
+  return m;
+}
+
+// Starts the staging of a ray's rows that D2 and D2' both read (the fine
+// rows, the carried sdf, cos_fd, dt and the mask) into its shared memory at
+// `base`, all in flight at once. (The noinline helpers take `base` and
+// carve the rows again: a MixedRows passed to them would live in local
+// memory.)
+__device__ __attribute__((noinline)) void mixed_stage(
+    uint8_t* base, long long ray, int S, int KE,
     const float* __restrict__ sdf_carried, const float* __restrict__ cos_fd,
-    const float* __restrict__ sdf_c, const float* __restrict__ grads_c,
-    float d0, float d1, float d2, float& v, float& c) {
-  if (rep >= 0) {
-    const long long f = ray * KE + rep;
-    v = sdf_c[f];
-    c = (d0 * grads_c[f * 3 + 0] + d1 * grads_c[f * 3 + 1]) +
-        d2 * grads_c[f * 3 + 2];
-  } else {
-    v = sdf_carried[rs];
-    c = cos_fd[rs];
+    const long long* __restrict__ sel, const float* __restrict__ sdf_c,
+    const float* __restrict__ grads_c, const float* __restrict__ rgb_c,
+    const float* __restrict__ dt, const uint8_t* __restrict__ mask) {
+  const MixedRows m = mixed_rows(base, S, KE);
+  const long long row = ray * S, fine = ray * KE;
+  lod_stage(m.sel, sel + fine, KE * 8);
+  lod_stage(m.sdfc, sdf_c + fine, KE * 4);
+  lod_stage(m.gradc, grads_c + fine * 3, KE * 12);
+  lod_stage(m.rgbc, rgb_c + fine * 3, KE * 12);
+  lod_stage(m.sdf, sdf_carried + row, S * 4);
+  lod_stage(m.cos, cos_fd + row, S * 4);
+  lod_stage(m.dt, dt + row, S * 4);
+  lod_stage(m.mask, mask + row, S);
+}
+
+// The mixed chain of the ray staged at `base`, D2's forward and D2''s recompute (one
+// copy of the code, so the backward differentiates the weights the forward
+// wrote): the fine rows at a row per lane map to their slots
+// (__match_any_sync on the slot; a slot selected twice takes its last row,
+// as JAX's scatter keeps it, and with `terms`, each valid slot's sum of its
+// rows' m.term in row order into m.sum); then every slot's alpha (the
+// representative row's sdf and cos = dir . grad, else the carried sdf and
+// cos_fd) and its exclusive transmittance T (0 at invalid slots), by kernel
+// D's one warp scan of the products of contiguous runs of ceil(S / 32)
+// slots. Returns the number of valid slots.
+__device__ __attribute__((noinline)) int mixed_chain(
+    uint8_t* base, int S, int KE, bool terms, float d0, float d1, float d2,
+    float inv_s, float cos_anneal_ratio) {
+  const MixedRows m = mixed_rows(base, S, KE);
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32) {
+    m.rep[i] = -1;
+    if (terms) m.sum[i] = 0.f;
   }
+  __syncwarp();
+#pragma unroll 1
+  for (int base = 0; base < KE; base += 32) {
+    const int k = base + lane;
+    const int slot = k < KE ? (int)m.sel[k] : -1;
+    const unsigned same = __match_any_sync(PSDF_FULL_MASK, (unsigned)slot);
+    if (k < KE && m.mask[slot] != 0 && (same >> lane) == 1u) {
+      if (terms) {
+        float acc = m.sum[slot];  // the earlier chunks' rows of this slot
+#pragma unroll 1
+        for (unsigned b = same; b != 0u; b &= b - 1u)
+          acc = acc + m.term[base + __ffs(b) - 1];
+        m.sum[slot] = acc;
+      }
+      m.rep[slot] = k;
+    }
+    __syncwarp();
+  }
+
+  int cnt = 0;
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32) {
+    float alpha = 0.f;
+    if (m.mask[i] != 0) {
+      const int rep = m.rep[i];
+      float v, c;
+      if (rep >= 0) {
+        v = m.sdfc[rep];
+        c = (d0 * m.gradc[3 * rep] + d1 * m.gradc[3 * rep + 1]) +
+            d2 * m.gradc[3 * rep + 2];
+      } else {
+        v = m.sdf[i];
+        c = m.cos[i];
+      }
+      alpha = neus_alpha(v, m.dt[i], c, inv_s, cos_anneal_ratio).alpha;
+      ++cnt;
+    }
+    m.alpha[i] = alpha;
+  }
+  const int nr = (int)__reduce_add_sync(PSDF_FULL_MASK, (unsigned)cnt);
+  __syncwarp();
+
+  const int per = (S + 31) / 32;
+  const int i0 = min(lane * per, S), i1 = min(i0 + per, S);
+  float prod = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i)
+    if (m.mask[i] != 0) prod = prod * (1.0f - m.alpha[i] + 1e-7f);
+  float incl = prod;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(PSDF_FULL_MASK, incl, off);
+    if (lane >= off) incl = y * incl;
+  }
+  float T = __shfl_up_sync(PSDF_FULL_MASK, incl, 1);
+  if (lane == 0) T = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i) {
+    const bool valid = m.mask[i] != 0;
+    m.T[i] = valid ? T : 0.f;
+    if (valid) T = T * (1.0f - m.alpha[i] + 1e-7f);
+  }
+  __syncwarp();
+  return nr;
 }
 
 // Kernel D2. In: the carried sdf and cos_fd [R,S], sel [R,KE], the fine
 // set's sdf_c [R*KE], grads_c [R*KE,3], rgb_c [R*KE,3], dirs [R,3], dt and
-// mask [R,S]. Out: weights [R,S], weights_sum [R], bg_T [R], rgb_int [R,3]
-// = sum over the fine rows at valid slots of w[sel] rgb_c, grad_int [R,3]
-// likewise. The weights come from kernel D's warp scan over the slots; the
-// integration is a pass over the fine rows once the weights are in shared
-// memory.
+// mask [R,S]. Out: weights [R,S], weights_sum [R], bg_T [R] (T at the last
+// valid slot; 1 without one), rgb_int [R,3] = sum over the fine rows at
+// valid slots of w[sel] rgb_c, grad_int [R,3] likewise. Stages the ray's
+// rows, runs `mixed_chain`, writes the weights from shared memory and
+// integrates the fine rows from shared memory at a row per lane. One warp
+// per ray, blockDim.x / 32 rays per block.
 __global__ void __launch_bounds__(128) render_mixed_kernel(
     int R, int S, int KE, const float* __restrict__ sdf_carried,
     const float* __restrict__ cos_fd, const long long* __restrict__ sel,
@@ -773,91 +882,54 @@ __global__ void __launch_bounds__(128) render_mixed_kernel(
     float* __restrict__ rgb_int, float* __restrict__ grad_int) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long ray =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long ray = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (ray >= R) return;  // whole warps leave together; no block barrier below
-  float* s_w = psdf_dynamic_smem<float>() + (long long)warp * (2 * S + KE);
-  int* s_rep = reinterpret_cast<int*>(s_w + S);
-  int* s_sel = s_rep + S;
-  const long long base_rs = ray * S;
-  fine_rows_of_slots(lane, ray, S, KE, sel, mask, s_sel, s_rep);
-
-  int nr = 0;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool valid = i < S && mask[base_rs + i] != 0;
-    nr += __popc(__ballot_sync(PSDF_FULL_MASK, valid));
-  }
+  uint8_t* base = psdf_dynamic_smem<uint8_t>() + (size_t)warp * mixed_warp_bytes(S, KE);
+  const MixedRows m = mixed_rows(base, S, KE);
+  mixed_stage(base, ray, S, KE, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c, dt, mask);
   const float d0 = dirs[ray * 3 + 0], d1 = dirs[ray * 3 + 1],
               d2 = dirs[ray * 3 + 2];
-  float carry = 1.0f;
-  float wsum = 0.f;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool in_row = i < S;
-    const bool valid = in_row && mask[base_rs + i] != 0;
-    float alpha = 0.f;
-    if (valid) {
-      float v, c;
-      mixed_sample(s_rep[i], ray, KE, base_rs + i, sdf_carried, cos_fd, sdf_c,
-                   grads_c, d0, d1, d2, v, c);
-      alpha = neus_alpha(v, dt[base_rs + i], c, inv_s, cos_anneal_ratio).alpha;
-    }
-    const float x = valid ? (1.0f - alpha + 1e-7f) : 1.0f;
-    const float T_shifted = transmittance_chunk(x, lane, carry);
-    const float w = alpha * (valid ? T_shifted : 0.f);
-    if (in_row) {
-      weights[base_rs + i] = w;
-      s_w[i] = w;
-    }
-    if (valid && i == nr - 1) bg_T[ray] = T_shifted;
-    if (valid) wsum += w;
+  psdf_stage_wait();
+  const int nr = mixed_chain(base, S, KE, false, d0, d1, d2, inv_s, cos_anneal_ratio);
+
+  // the weights (in place of T), then out in whole vectors
+  const float bg = nr > 0 && m.mask[nr - 1] != 0 ? m.T[nr - 1] : 1.0f;
+  __syncwarp();
+  float a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32) {
+    const float w = m.alpha[i] * m.T[i];
+    m.T[i] = w;
+    a[0] += w;
   }
   __syncwarp();
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f;
-  for (int k = lane; k < KE; k += 32) {
-    const int slot = s_sel[k];
-    if (mask[base_rs + slot] == 0) continue;
-    const float w = s_w[slot];
-    const long long f = ray * KE + k;
-    c0 += w * rgb_c[f * 3 + 0];
-    c1 += w * rgb_c[f * 3 + 1];
-    c2 += w * rgb_c[f * 3 + 2];
-    n0 += w * grads_c[f * 3 + 0];
-    n1 += w * grads_c[f * 3 + 1];
-    n2 += w * grads_c[f * 3 + 2];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    wsum += __shfl_xor_sync(PSDF_FULL_MASK, wsum, off);
-    c0 += __shfl_xor_sync(PSDF_FULL_MASK, c0, off);
-    c1 += __shfl_xor_sync(PSDF_FULL_MASK, c1, off);
-    c2 += __shfl_xor_sync(PSDF_FULL_MASK, c2, off);
-    n0 += __shfl_xor_sync(PSDF_FULL_MASK, n0, off);
-    n1 += __shfl_xor_sync(PSDF_FULL_MASK, n1, off);
-    n2 += __shfl_xor_sync(PSDF_FULL_MASK, n2, off);
-  }
-  if (lane == 0) {
-    weights_sum[ray] = wsum;
-    if (nr == 0) bg_T[ray] = 1.0f;
-    rgb_int[ray * 3 + 0] = c0;
-    rgb_int[ray * 3 + 1] = c1;
-    rgb_int[ray * 3 + 2] = c2;
-    grad_int[ray * 3 + 0] = n0;
-    grad_int[ray * 3 + 1] = n1;
-    grad_int[ray * 3 + 2] = n2;
-  }
-}
+  lod_store(weights + ray * S, m.T, S * 4);
 
-// Kernel D2''s shared memory per ray, in bytes: the fine rows' slot ids
-// (int64), sdf, integration terms, gradients and rgb (the sdf, gradient and
-// rgb buffers then take their cotangents); the carried sdf, cos_fd, dt,
-// the weight cotangents (then their totals), alpha, T, the rows' sums of
-// terms (then the reverse recurrence's S) and the representative row at S
-// slots; the mask.
-__host__ __device__ inline int mixed_bwd_warp_bytes(int S, int KE) {
-  return 16 * psdf_pad4(KE) + 8 * psdf_pad4(3 * KE) + 32 * psdf_pad4(S) +
-         psdf_pad16(S);
+  // the fine rows at valid slots, a row per lane
+#pragma unroll 1
+  for (int k = lane; k < KE; k += 32) {
+    const int slot = (int)m.sel[k];
+    if (m.mask[slot] == 0) continue;
+    const float w = m.T[slot];
+    a[1] += w * m.rgbc[3 * k];
+    a[2] += w * m.rgbc[3 * k + 1];
+    a[3] += w * m.rgbc[3 * k + 2];
+    a[4] += w * m.gradc[3 * k];
+    a[5] += w * m.gradc[3 * k + 1];
+    a[6] += w * m.gradc[3 * k + 2];
+  }
+  const float v = transpose_reduce8(a, lane);  // lane 4 v: the total of a[v]
+  if ((lane & 3) == 0 && lane < 28) {
+    const int k = lane >> 2;
+    if (k == 0) {
+      weights_sum[ray] = v;
+    } else if (k <= 3) {
+      rgb_int[ray * 3 + k - 1] = v;
+    } else {
+      grad_int[ray * 3 + k - 4] = v;
+    }
+  }
+  if (lane == 0) bg_T[ray] = bg;
 }
 
 // The affine map of the backward's reverse recurrence at slot j: S_j = b +
@@ -902,34 +974,12 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
   const int warp = threadIdx.x >> 5;
   const long long ray = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (ray >= R) return;  // whole warps leave together; no block barrier below
-  long long* s_sel = reinterpret_cast<long long*>(
-      psdf_dynamic_smem<uint8_t>() +
-      (size_t)warp * mixed_bwd_warp_bytes(S, KE));
-  float* s_sdfc = reinterpret_cast<float*>(s_sel + psdf_pad4(KE));
-  float* s_term = s_sdfc + psdf_pad4(KE);
-  float* s_gradc = s_term + psdf_pad4(KE);
-  float* s_rgbc = s_gradc + psdf_pad4(3 * KE);
-  float* s_sdf = s_rgbc + psdf_pad4(3 * KE);
-  float* s_cos = s_sdf + psdf_pad4(S);
-  float* s_dt = s_cos + psdf_pad4(S);
-  float* s_Gw = s_dt + psdf_pad4(S);  // g_weights, then the total cotangent
-  float* s_alpha = s_Gw + psdf_pad4(S);
-  float* s_T = s_alpha + psdf_pad4(S);
-  float* s_sum = s_T + psdf_pad4(S);  // the rows' terms, then the S_i
-  int* s_rep = reinterpret_cast<int*>(s_sum + psdf_pad4(S));
-  uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_rep + psdf_pad4(S));
-  const long long row = ray * S, fine = ray * KE;
+  uint8_t* base = psdf_dynamic_smem<uint8_t>() + (size_t)warp * mixed_warp_bytes(S, KE);
+  const MixedRows m = mixed_rows(base, S, KE);
 
   // every input of the ray, all in flight at once
-  lod_stage(s_sel, sel + fine, KE * 8);
-  lod_stage(s_sdfc, sdf_c + fine, KE * 4);
-  lod_stage(s_gradc, grads_c + fine * 3, KE * 12);
-  lod_stage(s_rgbc, rgb_c + fine * 3, KE * 12);
-  lod_stage(s_sdf, sdf_carried + row, S * 4);
-  lod_stage(s_cos, cos_fd + row, S * 4);
-  lod_stage(s_dt, dt + row, S * 4);
-  lod_stage(s_Gw, g_weights + row, S * 4);
-  lod_stage(s_mask, mask + row, S);
+  mixed_stage(base, ray, S, KE, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c, dt, mask);
+  lod_stage(m.Gw, g_weights + ray * S, S * 4);
   const float d0 = dirs[ray * 3 + 0], d1 = dirs[ray * 3 + 1],
               d2 = dirs[ray * 3 + 2];
   const float gg0 = g_grad[ray * 3 + 0], gg1 = g_grad[ray * 3 + 1],
@@ -938,97 +988,33 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
               gr2 = g_rgb[ray * 3 + 2];
   const float gws = g_wsum[ray];
   const float gbg = g_bgT[ray];
-#pragma unroll 1
-  for (int i = lane; i < S; i += 32) {
-    s_rep[i] = -1;
-    s_sum[i] = 0.f;
-  }
   psdf_stage_wait();
 
-  // the fine rows, a row per lane: each row's integration term, each valid
-  // slot's sum of its rows' terms in row order and its representative row
-  // (the last that selects it)
+  // each fine row's integration term; the forward again (D2's chain, with
+  // each valid slot's sum of its rows' terms); then the total weight
+  // cotangent of every valid slot
 #pragma unroll 1
-  for (int base = 0; base < KE; base += 32) {
-    const int k = base + lane;
-    int slot = -1;
-    if (k < KE) {
-      slot = (int)s_sel[k];
-      const float* cc = s_rgbc + 3 * k;
-      const float* gc = s_gradc + 3 * k;
-      s_term[k] = ((gr0 * cc[0] + gr1 * cc[1]) + gr2 * cc[2]) +
-                  ((gg0 * gc[0] + gg1 * gc[1]) + gg2 * gc[2]);
-    }
-    const unsigned same = __match_any_sync(PSDF_FULL_MASK, (unsigned)slot);
-    __syncwarp();
-    if (k < KE && s_mask[slot] != 0 && (same >> lane) == 1u) {
-      float acc = s_sum[slot];  // the earlier chunks' rows of this slot
-#pragma unroll 1
-      for (unsigned m = same; m != 0u; m &= m - 1u)
-        acc = acc + s_term[base + __ffs(m) - 1];
-      s_sum[slot] = acc;
-      s_rep[slot] = k;
-    }
-    __syncwarp();
+  for (int k = lane; k < KE; k += 32) {
+    const float* cc = m.rgbc + 3 * k;
+    const float* gc = m.gradc + 3 * k;
+    m.term[k] = ((gr0 * cc[0] + gr1 * cc[1]) + gr2 * cc[2]) +
+                ((gg0 * gc[0] + gg1 * gc[1]) + gg2 * gc[2]);
   }
-
-  // alpha and the total weight cotangent of every slot (the mixed chain:
-  // the representative row's sdf and cos, else the carried ones)
-  int cnt = 0;
-#pragma unroll 1
-  for (int i = lane; i < S; i += 32) {
-    float alpha = 0.f, Gw = 0.f;
-    if (s_mask[i] != 0) {
-      const int rep = s_rep[i];
-      float v, c;
-      if (rep >= 0) {
-        v = s_sdfc[rep];
-        c = (d0 * s_gradc[3 * rep] + d1 * s_gradc[3 * rep + 1]) +
-            d2 * s_gradc[3 * rep + 2];
-      } else {
-        v = s_sdf[i];
-        c = s_cos[i];
-      }
-      alpha = neus_alpha(v, s_dt[i], c, inv_s, cos_anneal_ratio).alpha;
-      Gw = (s_Gw[i] + gws) + s_sum[i];
-      ++cnt;
-    }
-    s_alpha[i] = alpha;
-    s_Gw[i] = Gw;
-  }
-  const int nr = (int)__reduce_add_sync(PSDF_FULL_MASK, (unsigned)cnt);
   __syncwarp();
-
-  // this lane's run [i0, i1): the product of its transmittance factors,
-  // one exclusive scan of the runs' products, then T along the run
+  const int nr = mixed_chain(base, S, KE, true, d0, d1, d2, inv_s, cos_anneal_ratio);
+#pragma unroll 1
+  for (int i = lane; i < S; i += 32)
+    m.Gw[i] = m.mask[i] != 0 ? (m.Gw[i] + gws) + m.sum[i] : 0.f;
+  __syncwarp();
   const int per = (S + 31) / 32;
   const int i0 = min(lane * per, S), i1 = min(i0 + per, S);
-  float prod = 1.0f;
-#pragma unroll 1
-  for (int i = i0; i < i1; ++i)
-    if (s_mask[i] != 0) prod = prod * (1.0f - s_alpha[i] + 1e-7f);
-  float incl = prod;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(PSDF_FULL_MASK, incl, off);
-    if (lane >= off) incl = y * incl;
-  }
-  float T = __shfl_up_sync(PSDF_FULL_MASK, incl, 1);
-  if (lane == 0) T = 1.0f;
-#pragma unroll 1
-  for (int i = i0; i < i1; ++i) {
-    const bool valid = s_mask[i] != 0;
-    s_T[i] = valid ? T : 0.f;
-    if (valid) T = T * (1.0f - s_alpha[i] + 1e-7f);
-  }
-
   // the reverse recurrence: the run's maps composed (A, B), one suffix scan
   // of the runs' maps, then S_i down the run
   float A = 1.f, B = 0.f;
 #pragma unroll 1
   for (int i = i1 - 1; i >= i0; --i) {
     float a, b;
-    reverse_map(s_alpha, s_Gw, i, nr, gbg, a, b);
+    reverse_map(m.alpha, m.Gw, i, nr, gbg, a, b);
     B = b + a * B;
     A = a * A;
   }
@@ -1046,9 +1032,9 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
 #pragma unroll 1
   for (int i = i1 - 1; i >= i0; --i) {
     float a, b;
-    reverse_map(s_alpha, s_Gw, i, nr, gbg, a, b);
+    reverse_map(m.alpha, m.Gw, i, nr, gbg, a, b);
     s_next = b + a * s_next;
-    s_sum[i] = s_next;
+    m.sum[i] = s_next;
   }
   __syncwarp();
 
@@ -1057,20 +1043,20 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
   // take their cotangents, then go out in whole vectors
 #pragma unroll 1
   for (int k = lane; k < KE; k += 32) {
-    const int slot = (int)s_sel[k];
+    const int slot = (int)m.sel[k];
     float dv = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f, c0 = 0.f, c1 = 0.f,
           c2 = 0.f;
-    if (s_mask[slot] != 0) {
-      const float Ts = s_T[slot];
-      const float w = s_alpha[slot] * Ts;
+    if (m.mask[slot] != 0) {
+      const float Ts = m.T[slot];
+      const float w = m.alpha[slot] * Ts;
       float dcos = 0.f;
-      if (s_rep[slot] == k) {
-        const float dalpha = Ts * (s_Gw[slot] - s_sum[slot]);
-        const float dist = s_dt[slot];
-        const float c = (d0 * s_gradc[3 * k] + d1 * s_gradc[3 * k + 1]) +
-                        d2 * s_gradc[3 * k + 2];
+      if (m.rep[slot] == k) {
+        const float dalpha = Ts * (m.Gw[slot] - m.sum[slot]);
+        const float dist = m.dt[slot];
+        const float c = (d0 * m.gradc[3 * k] + d1 * m.gradc[3 * k + 1]) +
+                        d2 * m.gradc[3 * k + 2];
         const AlphaParts ap =
-            neus_alpha(s_sdfc[k], dist, c, inv_s, cos_anneal_ratio);
+            neus_alpha(m.sdfc[k], dist, c, inv_s, cos_anneal_ratio);
         neus_alpha_vjp(ap, dalpha, dist, inv_s, cos_anneal_ratio, dv, dcos);
       }
       g0 = dcos * d0 + w * gg0;
@@ -1080,18 +1066,18 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
       c1 = w * gr1;
       c2 = w * gr2;
     }
-    s_sdfc[k] = dv;
-    s_gradc[3 * k + 0] = g0;
-    s_gradc[3 * k + 1] = g1;
-    s_gradc[3 * k + 2] = g2;
-    s_rgbc[3 * k + 0] = c0;
-    s_rgbc[3 * k + 1] = c1;
-    s_rgbc[3 * k + 2] = c2;
+    m.sdfc[k] = dv;
+    m.gradc[3 * k + 0] = g0;
+    m.gradc[3 * k + 1] = g1;
+    m.gradc[3 * k + 2] = g2;
+    m.rgbc[3 * k + 0] = c0;
+    m.rgbc[3 * k + 1] = c1;
+    m.rgbc[3 * k + 2] = c2;
   }
   __syncwarp();
-  lod_store(d_sdf_c + fine, s_sdfc, KE * 4);
-  lod_store(d_grads_c + fine * 3, s_gradc, KE * 12);
-  lod_store(d_rgb_c + fine * 3, s_rgbc, KE * 12);
+  lod_store(d_sdf_c + ray * KE, m.sdfc, KE * 4);
+  lod_store(d_grads_c + ray * KE * 3, m.gradc, KE * 12);
+  lod_store(d_rgb_c + ray * KE * 3, m.rgbc, KE * 12);
 }
 
 }  // namespace
@@ -1147,10 +1133,10 @@ extern "C" int psdf_render_weights_bwd(
   return (int)cudaGetLastError();
 }
 
-// Kernels L and D2' run LOD_RAYS rays a block (a warp each; at the lever
-// step's shapes 1, 2 and 4 measured within 2.5%, 4 the fastest: PERF.md
-// §6), fewer where a block's shared memory would not fit; above 48 KB the
-// kernel opts in.
+// Kernels L, D2 and D2' run LOD_RAYS rays a block (a warp each; at the
+// lever step's shapes 1, 2 and 4 measured within 2.5% for L and D2', 4 the
+// fastest: PERF.md §6), fewer where a block's shared memory would not fit;
+// above 48 KB the kernel opts in.
 constexpr int LOD_RAYS = 4;
 
 template <class Kernel>
@@ -1180,6 +1166,31 @@ static int launch_train_lod_select(int rays, int R, int S, int K, int E,
   return (int)cudaGetLastError();
 }
 
+static int launch_render_mixed(int rays, int R, int S, int KE,
+                               const void* sdf_carried, const void* cos_fd,
+                               const void* sel, const void* sdf_c,
+                               const void* grads_c, const void* rgb_c,
+                               const void* dirs, const void* dt,
+                               const void* mask, float inv_s,
+                               float cos_anneal_ratio, void* weights,
+                               void* weights_sum, void* bg_T, void* rgb_int,
+                               void* grad_int, void* stream) {
+  if (R <= 0) return 0;
+  size_t smem;
+  const int err = lod_block_shape(render_mixed_kernel,
+                                  mixed_warp_bytes(S, KE), rays, smem);
+  if (err != 0) return err;
+  PSDF_LAUNCH(render_mixed_kernel, psdf_blocks(R, rays), 32 * rays, smem,
+              stream, R, S, KE, (const float*)sdf_carried,
+              (const float*)cos_fd, (const long long*)sel,
+              (const float*)sdf_c, (const float*)grads_c,
+              (const float*)rgb_c, (const float*)dirs, (const float*)dt,
+              (const uint8_t*)mask, inv_s, cos_anneal_ratio, (float*)weights,
+              (float*)weights_sum, (float*)bg_T, (float*)rgb_int,
+              (float*)grad_int);
+  return (int)cudaGetLastError();
+}
+
 static int launch_render_mixed_bwd(
     int rays, int R, int S, int KE, const void* sdf_carried,
     const void* cos_fd, const void* sel, const void* sdf_c,
@@ -1191,7 +1202,7 @@ static int launch_render_mixed_bwd(
   if (R <= 0) return 0;
   size_t smem;
   const int err = lod_block_shape(render_mixed_bwd_kernel,
-                                  mixed_bwd_warp_bytes(S, KE), rays, smem);
+                                  mixed_warp_bytes(S, KE), rays, smem);
   if (err != 0) return err;
   PSDF_LAUNCH(render_mixed_bwd_kernel, psdf_blocks(R, rays), 32 * rays, smem,
               stream, R, S, KE, (const float*)sdf_carried,
@@ -1222,18 +1233,10 @@ extern "C" int psdf_render_mixed(int R, int S, int KE, const void* sdf_carried,
                                  float cos_anneal_ratio, void* weights,
                                  void* weights_sum, void* bg_T, void* rgb_int,
                                  void* grad_int, void* stream) {
-  const int block = 128;  // 4 rays per block
-  const int grid = psdf_blocks((long long)R * 32, block);
-  if (grid == 0) return 0;
-  const size_t smem = (size_t)(block / 32) * (2 * S + KE) * sizeof(float);
-  PSDF_LAUNCH(render_mixed_kernel, grid, block, smem, stream, R, S, KE,
-              (const float*)sdf_carried, (const float*)cos_fd,
-              (const long long*)sel, (const float*)sdf_c,
-              (const float*)grads_c, (const float*)rgb_c, (const float*)dirs,
-              (const float*)dt, (const uint8_t*)mask, inv_s, cos_anneal_ratio,
-              (float*)weights, (float*)weights_sum, (float*)bg_T,
-              (float*)rgb_int, (float*)grad_int);
-  return (int)cudaGetLastError();
+  return launch_render_mixed(LOD_RAYS, R, S, KE, sdf_carried, cos_fd, sel,
+                             sdf_c, grads_c, rgb_c, dirs, dt, mask, inv_s,
+                             cos_anneal_ratio, weights, weights_sum, bg_T,
+                             rgb_int, grad_int, stream);
 }
 
 extern "C" int psdf_render_mixed_bwd(

@@ -13,7 +13,8 @@ the SDF is evaluated at the bucket's positions (kernel A and the MLP) and
 kernel J2 updates the state in place: the step ``t + s * mult``, the
 convergence test, the chained empty-space jumps through the Chebyshev
 field (kernel J0, ``ops/occupancy_grid.py``) and the death past the bound.
-Kernel J1 is the jump-only prepass before round 0. The host fetches two
+Kernel J1 is the jump-only prepass before round 0; its second launch
+lists round 0's bucket, so round 0 runs no H0. The host fetches two
 counts per round and nothing else. The plain PyTorch versions of J1 and J2
 below are the CPU path and the kernels' reference.
 
@@ -53,11 +54,13 @@ from permuto_sdf_tpu_torch import kernels
 from permuto_sdf_tpu_torch.models.fields import SDFEval, _c2f_t, _sdf_levels
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
-from permuto_sdf_tpu_torch.ops.compaction import nonzero_static
+from permuto_sdf_tpu_torch.ops.compaction import nonzero_static, nonzero_static_plain
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 
 # The distance field's cap: also the largest empty-space jump, in voxels.
 _EMPTY_DIST_CAP = 63
+# Kernel J1's rows a block (kJumpRows in csrc/sphere_trace.cu).
+PREPASS_ROWS = 256
 
 
 def pow2_bucket(n: int, lo: int = 256, hi: int = 1 << 22) -> int:
@@ -116,35 +119,47 @@ def _check_state(what, dev, floats=(), flags=()):
 # ---------------------------------------------------------------------------
 
 def jump_prepass_plain(dist_field, origins_f, dirs_f, texit_f, t_f, alive_f, grid_cfg,
-                       jumps: int):
+                       jumps: int, list_size: Optional[int] = None):
     """Plain version of kernel J1, in place on ``t_f`` and ``alive_f`` ->
-    the alive count of the rows below R ([] int32)."""
+    (the alive count of the rows below R [] int32, round 0's list
+    [list_size] int64: those rows in ascending order, then the fill R).
+    ``list_size`` (default R) is at least R."""
+    R = t_f.shape[0] - 1
     t = t_f
     for _ in range(jumps):
         t = _jump(grid_cfg, dist_field, origins_f, dirs_f, t, alive_f)
     t_f.copy_(t)
     alive_f &= t_f <= texit_f
-    return alive_f[:-1].sum().to(torch.int32)
+    idx, count = nonzero_static_plain(alive_f[:R], R if list_size is None else list_size, R)
+    return count, idx
 
 
 def jump_prepass_cuda(dist_field, origins_f, dirs_f, texit_f, t_f, alive_f, grid_cfg,
-                      jumps: int):
-    """Kernel J1 launch. Counts launches in ``jump_prepass_cuda.launches``."""
+                      jumps: int, list_size: Optional[int] = None):
+    """Kernel J1's launches (the jumps, then round 0's list from their tile
+    counts): same returns as :func:`jump_prepass_plain`. Counts its calls
+    (two kernel launches each) in ``jump_prepass_cuda.launches``."""
     dev = t_f.device
     _check_state("jump prepass", dev, (origins_f, dirs_f, texit_f, t_f), (alive_f,))
     if dist_field.dtype != torch.uint8 or dist_field.device != dev:
         raise ValueError("jump prepass: the distance field must be uint8 on the state's device")
     n_rows = t_f.shape[0]
-    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    R = n_rows - 1
+    list_size = R if list_size is None else int(list_size)
+    if list_size < R or max(n_rows, list_size) >= 2 ** 31:
+        raise ValueError("jump prepass: the list holds at least the R rows, fewer than 2^31")
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    idx = torch.empty((list_size,), dtype=torch.int64, device=dev)
+    tile_counts = torch.empty((-(-n_rows // PREPASS_ROWS),), dtype=torch.int32, device=dev)
     lib = kernels.load("sphere_trace")
     err = lib.psdf_jump_prepass(
-        n_rows, n_rows - 1, kernels.ptr(dist_field.contiguous()), *_grid_scalars(grid_cfg),
+        n_rows, R, list_size, kernels.ptr(dist_field.contiguous()), *_grid_scalars(grid_cfg),
         _EMPTY_DIST_CAP, kernels.ptr(origins_f), kernels.ptr(dirs_f), kernels.ptr(texit_f),
         kernels.ptr(t_f), kernels.ptr(alive_f), int(jumps), kernels.ptr(count),
-        kernels.current_stream(dev))
+        kernels.ptr(idx), kernels.ptr(tile_counts), kernels.current_stream(dev))
     kernels.check(lib, err, "sphere-trace jump prepass (kernel J1)")
     jump_prepass_cuda.launches += 1
-    return count.reshape(())
+    return count.reshape(()), idx
 
 
 jump_prepass_cuda.launches = 0
@@ -585,17 +600,20 @@ def _trace_rounds_impl(sdf_eval, ctx, origins_f, dirs_f, texit_f, dist_field,
                        t_f, alive_f, conv_f, sdf_f, grid_cfg,
                        iters: int, bucket: int, sdf_multiplier: float,
                        sdf_converged_tresh: float, time_val,
-                       jump_substeps: int = 1, jump_gate: float = 0.0):
+                       jump_substeps: int = 1, jump_gate: float = 0.0, idx=None):
     """``iters`` trace steps on a host-sized bucket of the active rays
     (alive, not converged), in place on the full-size state: one launch of
     kernel J2f on the card when ``sdf_eval`` is an :class:`SDFEval`, else
     ``iters`` times the SDF and kernel J2. Returns the state and the
     bucket's counts [2] (still active, converged and alive): every active
     ray is in the bucket, so the first is the frame's active count; the
-    frame's hits are the second plus those before the round."""
+    frame's hits are the second plus those before the round. ``idx`` is
+    the round's bucket when the caller has it already (round 0's from the
+    prepass, kernel J1), else H0 lists it."""
     _check_time(time_val)
     R = t_f.shape[0] - 1
-    idx, _ = nonzero_static(alive_f[:R] & ~conv_f[:R], bucket, fill_value=R)
+    if idx is None:
+        idx, _ = nonzero_static(alive_f[:R] & ~conv_f[:R], bucket, fill_value=R)
     if grid_cfg is None:
         dist_field = None
     if isinstance(sdf_eval, SDFEval):  # the flagship SDF: one launch of J2f on the card
@@ -610,13 +628,16 @@ def _trace_rounds_impl(sdf_eval, ctx, origins_f, dirs_f, texit_f, dist_field,
 
 
 def _jump_prepass_impl(dist_field, origins_f, dirs_f, texit_f, t_f, alive_f,
-                       grid_cfg, jumps: int):
+                       grid_cfg, jumps: int, list_size: Optional[int] = None):
     """``jumps`` chained empty-space jumps on every alive ray, no SDF
     evaluation: a ray parks at the occupied shell or leaves the bound and
-    dies. In place; returns (t_f, alive_f, the alive count [] int32)."""
+    dies. In place; returns (t_f, alive_f, the alive count [] int32, the
+    alive rays in ascending order then the fill R [list_size]: round 0's
+    bucket is its head)."""
     fn = kernels.dispatch(t_f.device, jump_prepass_cuda, jump_prepass_plain)
-    count = fn(dist_field, origins_f, dirs_f, texit_f, t_f, alive_f, grid_cfg, jumps)
-    return t_f, alive_f, count
+    count, idx = fn(dist_field, origins_f, dirs_f, texit_f, t_f, alive_f, grid_cfg, jumps,
+                    list_size)
+    return t_f, alive_f, count, idx
 
 
 def _refresh_sdf_impl(sdf_eval, ctx, pos_f, mask_f, sdf_f, bucket: int, time_val):
@@ -680,9 +701,11 @@ def sphere_trace_adaptive(
     conv_f = torch.zeros_like(alive_f)
     sdf_f = torch.zeros_like(t_f)
 
+    first_idx = None  # round 0's bucket, written by the prepass
     if prepass_jumps > 0 and dist_field is not None:
-        t_f, alive_f, n_act = _jump_prepass_impl(dist_field, origins_f, dirs_f, texit_f, t_f,
-                                                 alive_f, grid_cfg, prepass_jumps)
+        t_f, alive_f, n_act, first_idx = _jump_prepass_impl(
+            dist_field, origins_f, dirs_f, texit_f, t_f, alive_f, grid_cfg, prepass_jumps,
+            max(min_bucket, R))
         n_active = int(n_act)
     else:
         n_active = int(alive_f[:R].sum())
@@ -698,7 +721,8 @@ def sphere_trace_adaptive(
         bucket = pow2_bucket(n_active, lo=min_bucket, hi=max(min_bucket, R))
         t_f, alive_f, conv_f, sdf_f, counts = _trace_rounds_impl(
             ev, ctx, origins_f, dirs_f, texit_f, dist_field, t_f, alive_f, conv_f, sdf_f,
-            grid_cfg, iters_per_round, bucket, **trace)
+            grid_cfg, iters_per_round, bucket, **trace,
+            idx=first_idx[:bucket] if rnd == 0 and first_idx is not None else None)
         n_active, new_hits = counts.tolist()  # the round's one host fetch
         n_hit += new_hits
         if stats_out is not None:

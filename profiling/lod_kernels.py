@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Kernels L and D2' alone, at the lever step's shapes, on one GPU: their
-block shapes, where a launch's time goes, and their code size.
+"""Kernels L, D2 and D2' alone, at the lever step's shapes, on one GPU:
+their block shapes, where a launch's time goes, and their code size.
 
     python3 profiling/lod_kernels.py [--rays 512] [--parts shapes,phases,sass]
                                      [--root DIR] [--out FILE]
 
 On a batch made from a seed (R rays, S = 96 with every slot valid, as on the
 flagship step's all-occupied grid, K + E = 24 + 8, the fine rows random):
-- shapes: L and D2' at 1, 2 and 4 rays a block (``lod_block_shapes.cu``,
+- shapes: L, D2 and D2' at 1, 2 and 4 rays a block (``lod_block_shapes.cu``,
   which launches the port's kernels), each checked against the port's own
   launch bit for bit and timed (CUDA-event ms per call over 50 calls, device
   ms per launch among the profiler's records), the shapes in turns, three
@@ -16,7 +16,8 @@ flagship step's all-occupied grid, K + E = 24 + 8, the fine rows random):
   phases (a copy of ``volume_rendering.cu`` built with a return after each
   phase, chosen at run time), so the differences are the phases' times;
   the two last phases include the output stores;
-- sass: the SASS instruction count of kernels L, D2 and D2' (and D, D') in
+- sass: the SASS instruction count of kernels L, D2 and D2' (and D, D',
+  and the shared device functions ``mixed_stage`` and ``mixed_chain``) in
   the ``volume_rendering`` library of the tree at ``--root`` (default: this
   checkout; any tree of the port, e.g. a parent unpacked with
   ``git archive``), from ``cuobjdump``.
@@ -51,22 +52,27 @@ PHASES = {
           ("top-K sort", "  long long* sel_r"),
           ("top K out, extras' keys", "  warp_sort_desc(s_key, P, lane);\n#pragma unroll 1\n"
                                       "  for (int k = lane; k < E")),
-    "D2'": (("staged", "  // the fine rows, a row per lane: each row's"),
-            ("rows mapped to slots", "  // alpha and the total weight cotangent"),
-            ("alpha and cotangents", "  // this lane's run [i0, i1): the product"),
-            ("forward scan and T", "  // the reverse recurrence: the run's maps"),
+    "D2": (("staged", "  const int nr = mixed_chain(base, S, KE, false"),
+           ("the mixed chain (rows to slots, alpha, the scan)", "  // the weights (in place of T)"),
+           ("weights stored", "  // the fine rows at valid slots, a row per lane")),
+    "D2'": (("staged", "  // each fine row's integration term; the forward again"),
+            ("terms, the mixed chain again", "#pragma unroll 1\n  for (int i = lane; i < S; "
+                                             "i += 32)\n    m.Gw[i] ="),
+            ("weight cotangents", "  // the reverse recurrence: the run's maps"),
             ("reverse recurrence", "  // the fine rows, a row per lane: the integration")),
 }
 KERNEL_START = {"L": "__global__ void __launch_bounds__(128) train_lod_select_kernel(",
+                "D2": "__global__ void __launch_bounds__(128) render_mixed_kernel(",
                 "D2'": "__global__ void __launch_bounds__(128) render_mixed_bwd_kernel("}
 SASS_KERNELS = {"L": "train_lod_select_kernel", "D2": "render_mixed_kernel",
                 "D2'": "render_mixed_bwd_kernel", "D": "render_weights_kernel",
-                "D'": "render_weights_bwd_kernel"}
+                "D'": "render_weights_bwd_kernel", "mixed_chain": "mixed_chain",
+                "mixed_stage": "mixed_stage"}
 
 
 def _phase_source(src: str) -> str:
     """volume_rendering.cu with `if (lod_stop == n) return;` before the end
-    of phase n of L and D2', and psdf_set_lod_stop(n) to choose n."""
+    of phase n of L, D2 and D2', and psdf_set_lod_stop(n) to choose n."""
     for kernel, phases in PHASES.items():
         start = src.index(KERNEL_START[kernel])
         end = src.index("\n}\n", start)
@@ -98,8 +104,11 @@ def _shapes_lib(kernels):
     lib = _nvcc(kernels, SHAPES_SOURCE, "lod_block_shapes")
     sig = kernels.SIGNATURES["volume_rendering"]
     lib.psdf_train_lod_select_rays.argtypes = [ctypes.c_int] + sig["psdf_train_lod_select"]
+    lib.psdf_render_mixed_rays.argtypes = [ctypes.c_int] + sig["psdf_render_mixed"]
     lib.psdf_render_mixed_bwd_rays.argtypes = [ctypes.c_int] + sig["psdf_render_mixed_bwd"]
-    lib.psdf_train_lod_select_rays.restype = lib.psdf_render_mixed_bwd_rays.restype = ctypes.c_int
+    for fn in (lib.psdf_train_lod_select_rays, lib.psdf_render_mixed_rays,
+               lib.psdf_render_mixed_bwd_rays):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -197,6 +206,7 @@ def main(argv=None) -> int:
     inv_s, car = 400.0, 0.6
     cos_fd, sel = vr.train_lod_select_cuda(smp, sdf, inv_s, car, scores, K, E)
     margs = (smp, sdf, cos_fd, sel, sdf_c, grads_c, rgb_c, inv_s, car)
+    d2 = vr.neus_render_mixed_cuda(*margs)
     d2b = vr.neus_render_mixed_bwd_cuda(*margs, *cots)
     out.update(R=R, S=S, K=K, E=E)
     ok = True
@@ -214,6 +224,14 @@ def main(argv=None) -> int:
             kernels.check(lib, err, f"L, {rays} rays a block")
             return c, s
 
+        def run_d2(rays):
+            outs = [torch.empty_like(t) for t in d2]
+            err = lib.psdf_render_mixed_rays(
+                rays, R, S, K + E, *vr._mixed_ptrs(ins), inv_s, car,
+                *(kernels.ptr(t) for t in outs), stream)
+            kernels.check(lib, err, f"D2, {rays} rays a block")
+            return outs
+
         def run_d2b(rays):
             outs = [torch.empty_like(t) for t in d2b]
             err = lib.psdf_render_mixed_bwd_rays(
@@ -224,7 +242,8 @@ def main(argv=None) -> int:
             return outs
 
         out["shapes"] = {}
-        for name, fn, want in (("L", run_l, (cos_fd, sel)), ("D2'", run_d2b, d2b)):
+        for name, fn, want in (("L", run_l, (cos_fd, sel)), ("D2", run_d2, d2),
+                               ("D2'", run_d2b, d2b)):
             equal = {r: all(torch.equal(a, b) for a, b in zip(fn(r), want)) for r in SHAPES}
             ok &= all(equal.values())
             times = {r: {"ms": [], "device_ms": []} for r in SHAPES}
@@ -247,6 +266,7 @@ def main(argv=None) -> int:
         kernels.load = lambda name: lib
         try:
             calls = {"L": lambda: vr.train_lod_select_cuda(smp, sdf, inv_s, car, scores, K, E),
+                     "D2": lambda: vr.neus_render_mixed_cuda(*margs),
                      "D2'": lambda: vr.neus_render_mixed_bwd_cuda(*margs, *cots)}
             out["phases"] = {}
             for name, fn in calls.items():

@@ -47,7 +47,9 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   its operating point: ``--frames`` timed frames after a warm-up, then
   under torch.profiler twice: first with the distance field cache emptied
   (the first frame after a grid refresh, which builds the field with J0),
-  then the next frame;
+  then the next frame, with J1's, H0's, J2f's and A's device ms per launch;
+  then kernel J1 alone on the 400² view's padded state (CUDA-event ms per
+  call and device ms per call);
 - train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in;
   interleaved-table copies per step) and one flagship step under
   torch.profiler;
@@ -73,7 +75,7 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   device ms in it).
 
 Each profile gives the device ms and the launches of kernels A, B, C, C3,
-D, E1, E2, F, G, J0, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' (the device µs per launch
+D, E1, E2, F, G, H0, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' (the device µs per launch
 is their ratio), and the count of every device activity of the window
 (kernels, memsets and copies: ``device_launches``). Each
 path also
@@ -99,8 +101,8 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "J0", "J2", "J2f", "J3", "J3f", "M1",
-            "M2", "L", "D2", "D2'")
+PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "H0", "J0", "J1", "J2", "J2f", "J3",
+            "J3f", "M1", "M2", "L", "D2", "D2'")
 LOD_REPS = 20
 PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
          "nerf", "mesh")
@@ -142,7 +144,8 @@ def _kernel_stats(cs, prof):
               if str(getattr(e, "device_type", "")).endswith("CUDA")]
     for k in PROFILED:
         sym = _own_chip_smoke().KERNEL_SYMBOLS[k]
-        hits = [e for e in events if sym in e.key]
+        sym = sym if isinstance(sym, tuple) else (sym,)
+        hits = [e for e in events if any(x in e.key for x in sym)]
         dev_us = sum(getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0) for e in hits)
         out[f"{k}_ms"] = dev_us / 1e3
@@ -442,7 +445,8 @@ def plain_path(cs, device, cfg, frames):
 def sphere_path(cs, device, cfg, frames):
     """``frames`` timed sphere-traced frames after a warm-up; then the first
     frame after a grid refresh (the distance field built by J0) and the
-    next one, each under torch.profiler."""
+    next one, each under torch.profiler, with J1's and H0's device ms per
+    launch in them; then kernel J1 alone (``_prepass_alone``)."""
     import torch
 
     from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
@@ -468,12 +472,58 @@ def sphere_path(cs, device, cfg, frames):
     first = _profiled(cs, device, "sphere_first_frame", frame)
     peak = _peak_mib(device)
     nxt = _profiled(cs, device, "sphere_frame", frame)
+    for prof in (first, nxt):
+        for k in ("J1", "H0", "J2f", "A"):  # J1: once a frame, one or two launches by the tree
+            if prof and prof[f"{k}_launches"]:
+                prof[f"{k}_ms_per_launch"] = prof[f"{k}_ms"] / prof[f"{k}_launches"]
     print(f"[sphere frame] timed {[round(t, 1) for t in times]} ms, median "
           f"{statistics.median(times):.1f}; the profiled frame's wall "
           f"{nxt['wall_ms'] if nxt else None} ms, busy {nxt['device_busy_ms'] if nxt else None} "
           f"ms, {nxt['device_launches'] if nxt else None} device launches", flush=True)
     return {"ms_all": times, "ms_median": statistics.median(times), "first_frame": first,
-            "next_frame": nxt, "peak_mib": peak}
+            "next_frame": nxt, "peak_mib": peak,
+            "J1_alone": _prepass_alone(cs, device, cfg, grid)}
+
+
+def _prepass_alone(cs, device, cfg, grid, reps=20):
+    """Kernel J1 alone on the padded state of the 400² view (as chip_smoke's
+    sphere phase builds it, 16 jumps), from a restored state: CUDA-event ms
+    per call (the restore's own time subtracted) and device ms per call
+    among the profiler's records (one launch a call, or two)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    gcfg = cfg.grid
+    field = tps._cached_dist_field(gcfg, grid)
+    K, tf = cs.camera_k(cs.WIDTH, cs.HEIGHT)
+    o, d = rays_from_frame(K, tf, cs.WIDTH, cs.HEIGHT, device=device)
+    R = st.pow2_bucket(o.shape[0], lo=256, hi=1 << 21)
+    pad = R - o.shape[0]
+    o = torch.cat([o, torch.tensor([[10.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+    d = torch.cat([d, torch.tensor([[1.0, 0.0, 0.0]], device=device).expand(pad, 3)])
+    _, te, _, tx, hit = tps.BOUND.ray_intersection(o, d)
+    state0 = [st._padded(o), st._padded(d), st._padded(tx[:, 0]), st._padded(te[:, 0]),
+              st._padded(hit[:, 0], False)]
+    work = [v.clone() for v in state0]
+
+    def restore():
+        for w, v in zip(work, state0):
+            w.copy_(v)
+
+    def run():
+        restore()
+        st.jump_prepass_cuda(field, *work, gcfg, 16)
+
+    # a tree whose J1 launches two kernels names both symbols
+    two = isinstance(cs.KERNEL_SYMBOLS["J1"], tuple)
+    out = {"R": R, "ms": cs.time_ms(run, reps, device) - cs.time_ms(restore, reps, device),
+           "device_ms_per_call": cs.device_ms(run, "J1", device, reps=reps, per_launch=True,
+                                              **({"launches": 2} if two else {}))}
+    print(f"[J1 alone] {json.dumps(out)}", flush=True)
+    return out
 
 
 def lever_path(cs, device, cfg, params, grid, reel):

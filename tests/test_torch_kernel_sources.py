@@ -495,10 +495,11 @@ def test_kernels_J1_J2_source_match_plain(emulated):
     ks = {k: v.clone() for k, v in s0.items()}
     ps = {k: v.clone() for k, v in s0.items()}
     args = lambda s: (field, s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"], s["alive_f"])  # noqa: E731
-    n_k = st.jump_prepass_cuda(*args(ks), cfg, 16)
-    n_p = st.jump_prepass_plain(*args(ps), cfg, 16)
+    n_k, idx_k = st.jump_prepass_cuda(*args(ks), cfg, 16)
+    n_p, idx_p = st.jump_prepass_plain(*args(ps), cfg, 16)
     for k in ks:
         np.testing.assert_array_equal(ks[k].numpy(), ps[k].numpy())
+    np.testing.assert_array_equal(idx_k.numpy(), idx_p.numpy())
     assert int(n_k) == int(n_p) and 0 < int(n_p) < int(s0["alive_f"].sum())
     assert not torch.equal(ks["t_f"], s0["t_f"])
 
@@ -521,6 +522,55 @@ def test_kernels_J1_J2_source_match_plain(emulated):
             for k in ks:
                 np.testing.assert_array_equal(ks[k].numpy(), ps[k].numpy())
     assert 0 < int(ps["conv_f"].sum()) and int((~ps["alive_f"][:R] & s0["alive_f"][:R]).sum()) > 0
+
+
+def _out_of_grid_lookups(cfg, field, s, jumps):
+    """Rays whose chain of jumps reads the field inside the grid, then looks
+    up a point outside it (where J1 reads nothing and jumps the cap)."""
+    t, allow = s["t_f"].clone(), s["alive_f"].clone()
+    inside_before = torch.zeros_like(allow)
+    leaves = torch.zeros_like(allow)
+    for _ in range(jumps):
+        lin, inb = og.point_to_lin_idx(cfg, s["origins_f"] + t[:, None] * s["dirs_f"])
+        leaves |= allow & ~inb & inside_before
+        inside_before |= allow & inb
+        k = torch.where(inb, field[lin.clamp(0, field.numel() - 1)].to(torch.int32), 63)
+        allow = allow & (k > 1)
+        t = torch.where(allow, t + (k - 1).to(t.dtype) * cfg.voxel_size, t)
+    return int(leaves.sum())
+
+
+@pytest.mark.parametrize("grid", ["shell", "leaves_grid"])
+def test_kernel_J1_source_matches_plain(emulated, grid):
+    """Kernel J1 against its plain version: t, the alive flags and the count
+    bit for bit, and round 0's list (written by the same launch: a scan of
+    the tiles' counts with look-back) equal to ``nonzero_static``'s at a
+    bucket below, at and above the count, and past R (the fill R); on the
+    shell grid, and on a grid smaller than the bound and moved off its
+    centre, so that chains leave the grid and jump the cap."""
+    cfg, _, field, s0 = _trace_state(n=600, seed=4)
+    if grid == "leaves_grid":
+        cfg = og.OccupancyGridConfig(nr_voxels_per_dim=32, grid_extent=0.8,
+                                     grid_translation=(0.05, 0.0, -0.03))
+        assert _out_of_grid_lookups(cfg, field, s0, 16) > 20
+    R = s0["t_f"].shape[0] - 1
+    for list_size in (R, R + 37):
+        ks = {k: v.clone() for k, v in s0.items()}
+        ps = {k: v.clone() for k, v in s0.items()}
+        args = lambda s: (field, s["origins_f"], s["dirs_f"], s["texit_f"], s["t_f"],  # noqa: E731
+                          s["alive_f"], cfg, 16, list_size)
+        n_k, idx_k = st.jump_prepass_cuda(*args(ks))
+        n_p, idx_p = st.jump_prepass_plain(*args(ps))
+        for k in ks:
+            np.testing.assert_array_equal(ks[k].numpy(), ps[k].numpy())
+        count = int(n_p)
+        assert int(n_k) == count and 0 < count < int(s0["alive_f"].sum())
+        assert idx_k.shape == (list_size,)
+        mask = ps["alive_f"][:R]
+        for size in (count // 2, count, st.pow2_bucket(count, lo=64, hi=R), list_size):
+            want, _ = compaction.nonzero_static_plain(mask, size, R)
+            np.testing.assert_array_equal(idx_k[:size].numpy(), want.numpy())
+        np.testing.assert_array_equal(idx_k.numpy(), idx_p.numpy())
 
 
 def test_sphere_trace_through_the_kernel_sources_matches_plain(emulated, monkeypatch):
@@ -983,6 +1033,39 @@ def test_kernels_D2_source_match_plain(emulated, S, K, E, seed):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5 * float(b.abs().max()),
                                    rtol=0)
         assert float(a[~valid].abs().max()) == 0.0
+
+
+def test_kernel_D2_sharp_crossing_matches_float64(emulated):
+    """Kernel D2 and its plain version each against a float64 evaluation of
+    the same chain (the same float32 inputs), to 1e-6: the (96, 24, 8) batch
+    at seed 21 has a sharp crossing (ray 27, slot 3) where float32
+    conditioning moves a weight by ~8e-7 either way. The weights, their sum,
+    bg_T and the rgb integral (rgb in [0, 1]) are held to 1e-6; the
+    gradient integral to 1e-6 times the largest |gradient| entry (the
+    weights' 1e-6 carried through its sum: at the crossing both float32
+    versions are ~1.4-1.9e-6 off there, with gradients up to ~3.5)."""
+    rng = np.random.default_rng(21)
+    R, S, K, E = 41, 96, 24, 8
+    smp, sdf, scores = _lod_batch(rng, R, S)
+    cos_fd, sel = vr.train_lod_select_plain(smp, sdf, 400.0, 0.6, scores, K, E)
+    n = R * (K + E)
+    sdf_c = torch.from_numpy(rng.uniform(-0.05, 0.05, (n, 1)).astype(np.float32))
+    grads_c = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    rgb_c = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32))
+    args = (smp, sdf, cos_fd, sel, sdf_c, grads_c, rgb_c, 400.0, 0.6)
+    got = vr.neus_render_mixed_cuda(*args)
+    plain = vr.neus_render_mixed_plain(*args)
+    f64 = lambda t: t.to(torch.float64)  # noqa: E731
+    smp64 = RaySamples(origins=f64(smp.origins), dirs=f64(smp.dirs), z=f64(smp.z),
+                       dt=f64(smp.dt), mask=smp.mask, ray_fixed_dt=f64(smp.ray_fixed_dt))
+    want = vr.neus_render_mixed_plain(smp64, f64(sdf), f64(cos_fd), sel, f64(sdf_c),
+                                      f64(grads_c), f64(rgb_c), 400.0, 0.6)
+    assert float((plain[0] - want[0]).abs()[27, 3]) > 1e-7  # the crossing is there
+    limits = (1e-6,) * 4 + (1e-6 * float(grads_c.abs().max()),)
+    for outs in (got, plain):
+        for a, b, tol in zip(outs, want, limits):
+            np.testing.assert_allclose(a.to(torch.float64).numpy(),
+                                       b.reshape(a.shape).numpy(), atol=tol, rtol=0)
 
 
 def _kernel_m_matches_plain(v, origin, spacing):

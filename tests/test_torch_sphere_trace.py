@@ -224,7 +224,7 @@ def test_jump_prepass_matches_jax():
     with jax.disable_jit():
         t_j, alive_j, n_j = jst._jump_prepass_impl(field, *map(jnp.asarray, args), jcfg, 16)
     targs = [torch.from_numpy(np.array(a)) for a in args]
-    t_t, alive_t, n_t = tst._jump_prepass_impl(
+    t_t, alive_t, n_t, _ = tst._jump_prepass_impl(
         torch.from_numpy(np.asarray(field).astype(np.uint8)), *targs,
         tog.OccupancyGridConfig(nr_voxels_per_dim=V), 16)
     np.testing.assert_array_equal(alive_t.numpy(), np.asarray(alive_j))
