@@ -15,7 +15,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    between the bound sphere's entry and exit), F, G, D' and I at the shapes
    of the flagship training step (F and G at its fg and background counts
    on three point sets, random, ray-ordered and clustered, each with every
-   level and with parity, device ms and bound for each); time the
+   level and with parity, device ms and bound for each; D' also at the
+   other mode's S, at S = 70 and on masks that are not prefixes); time the
    interleaved [L, C, 2] copy of one table that A, B and G read;
 3. render 400x400 frames of the full-width flagship model (random weights
    from a seed, plus a planted plane SDF so the frame has a surface) with
@@ -43,7 +44,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``sphere_init_step`` s, its grid refreshed over every voxel) and the
    planted-plane scene on a full grid; kernels J0, J1, J2 and H0 against
    their plain versions at the shapes of one 400x400 chunk of
-   ``render_image_sphere_traced_fast``;
+   ``render_image_sphere_traced_fast`` (H0 also with each second-mask mode,
+   timed beside ``torch.nonzero_static``);
 8. sphere-traced frames at the interactive viewer's operating point
    (ST_KW): 400x400 on both scenes (ST_FRAMES timed frames after a warm-up)
    and 1920x1080 on the sphere scene (ST_FRAMES_1080), with the launch
@@ -337,6 +339,29 @@ def device_ms(fn, kernel: str, device, reps: int = 10, per_launch: bool = False,
     return None
 
 
+def device_ms_all(fn, device, reps: int = 10):
+    """(the card's ms per call of ``fn`` in all its device activities,
+    kernels, memsets and copies; their number a call): a library call's,
+    whose kernels have no symbols of the port; (None, None) if three
+    profiled runs recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0]
+        us = sum(_dev_us(e) for e in events)
+        if us > 0:
+            return us / 1e3 / reps, sum(e.count for e in events) / reps
+    return None, None
+
+
 def bound_ms(nbytes: float, ops: float):
     """(least ms, which side bounds it, ms of the bytes side, ms of the
     operations side)."""
@@ -586,6 +611,11 @@ def _report(name, err, tol, ms, plain_ms, bound):
     print(f"[kernel {name}] max_err={err:.3e} tol={tol:.1e} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bound[0]:.3g} ({bound[1]}; bytes side "
           f"{bound[2]:.3g} ms, operations side {bound[3]:.3g} ms)", flush=True)
+    _gate(name, err, tol)
+
+
+def _gate(name, err, tol):
+    """Fail if a kernel's error is above its tolerance; keep its worst."""
     if not err <= tol:
         fail(f"kernel {name}: error {err:.3e} above tolerance {tol:.1e}")
     key = name.split()[0].split(":")[0]
@@ -822,7 +852,6 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
     from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
     from permuto_sdf_tpu_torch.ops import volume_rendering as vr
-    from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
 
     rng = np.random.default_rng(SEED + 1)
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -887,42 +916,8 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
         _fg_case(name, label, base, g, u, (0, 1), uniq, reps, plain_reps, device,
                  with_device_ms=False)
 
-    # --- D': the backward of kernel D, NeuS (fg) and NeRF (bg) mode
-    timing = None
-    for mode, S in ((0, S_fg), (1, cfg.nr_samples_bg)):
-        nr = torch.from_numpy(rng.integers(0, S + 1, R)).to(device)
-        mask = prefix_mask(nr, S) if mode == 0 else torch.ones((R, S), dtype=torch.bool,
-                                                               device=device)
-        dirs = torch.nn.functional.normalize(tensor(rng.normal(size=(R, 3))), dim=-1)
-        smp = RaySamples(origins=dirs, dirs=dirs, z=torch.zeros((R, S), device=device),
-                         dt=tensor(rng.uniform(0, 0.02, (R, S))), mask=mask,
-                         ray_fixed_dt=torch.zeros(R, device=device))
-        rgb = tensor(rng.uniform(size=(R * S, 3)))
-        if mode == 0:
-            val = tensor(rng.uniform(-0.01, 0.01, (R, S)))
-            grads = tensor(rng.normal(size=(R * S, 3)))
-        else:
-            val, grads = tensor(rng.uniform(0, 80, (R, S))), None
-        cots = [tensor(rng.normal(size=shape)) for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
-        if mode == 1:
-            cots[4] = None
-        args = (mode, smp, val, grads, rgb, 2981.0, 1.0, *cots)
-        got, want = vr.render_weights_bwd_cuda(*args), vr.render_weights_bwd_plain(*args)
-        err = max(((a - b.reshape(a.shape)).abs().max() / b.abs().max()).item()
-                  for a, b in zip(got, want) if b is not None)
-        ms = time_ms(lambda: vr.render_weights_bwd_cuda(*args), reps, device)
-        pms = time_ms(lambda: vr.render_weights_bwd_plain(*args), plain_reps, device)
-        per_sample = (4 + 4 + 1 + 12 + 4 + 4 + 12) + (24 if mode == 0 else 0)
-        nbytes = R * S * per_sample + R * (12 + 4 + 4 + 12 + 12)
-        b = bound_ms(nbytes, OPS_PER_SAMPLE_DB * R * S)
-        _report(f"D':{'neus' if mode == 0 else 'nerf'} R={R} S={S} (relative)", err, TOL_DB,
-                ms, pms, b)
-        if mode == 0:
-            dms = device_ms(lambda: vr.render_weights_bwd_cuda(*args), "D'", device)
-            timing = (ms, pms, b, max((a - b_.reshape(a.shape)).abs().max().item()
-                                      for a, b_ in zip(got, want) if b_ is not None))
-    results["D'"] = dict(max_abs_err=timing[3], ms=timing[0], plain_ms=timing[1],
-                         bound_ms=timing[2][0], bound_by=timing[2][1], device_ms=dms)
+    # --- D': the backward of kernel D
+    results["D'"] = weights_bwd_phase(device, cfg, reps, plain_reps)
 
     # --- I: the occupancy refresh (probe ids and centers; the grid update)
     gcfg = cfg.grid
@@ -1602,6 +1597,135 @@ def _jump_lookups(field, gcfg, o, d, t, allow, jumps):
     return int(per_row.sum()), int(torch.unique(torch.cat(voxels)).numel()), per_row
 
 
+def weights_bwd_phase(device, cfg, reps=20, plain_reps=3):
+    """Kernel D' (the backward of kernel D) against its plain version at the
+    flagship step's R: NeuS (fg) and NeRF (bg) mode at the step's S (fg 96,
+    bg 32), each mode at the other S, at S = 70 (rows not 16-byte aligned:
+    the 4-byte stores), and on random masks that are not prefixes. Returns
+    the numbers of NeuS mode at S = 96."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+    from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
+
+    rng = np.random.default_rng(SEED + 2)
+    R, S_fg = cfg.nr_rays, cfg.samples_per_ray
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+
+    timing, d_rows = None, {}
+    for mode, S, masks in ((0, S_fg, "prefix"), (1, cfg.nr_samples_bg, "ones"),
+                           (0, cfg.nr_samples_bg, "prefix"), (1, S_fg, "ones"),
+                           (0, 70, "prefix"), (1, 70, "ones"), (0, S_fg, "random"),
+                           (1, cfg.nr_samples_bg, "random")):
+        nr = torch.from_numpy(rng.integers(0, S + 1, R)).to(device)
+        if masks == "prefix":
+            mask = prefix_mask(nr, S)
+        elif masks == "ones":
+            mask = torch.ones((R, S), dtype=torch.bool, device=device)
+        else:
+            mask = torch.from_numpy(rng.uniform(size=(R, S)) < 0.6).to(device)
+        dirs = torch.nn.functional.normalize(tensor(rng.normal(size=(R, 3))), dim=-1)
+        smp = RaySamples(origins=dirs, dirs=dirs, z=torch.zeros((R, S), device=device),
+                         dt=tensor(rng.uniform(0, 0.02, (R, S))), mask=mask,
+                         ray_fixed_dt=torch.zeros(R, device=device))
+        rgb = tensor(rng.uniform(size=(R * S, 3)))
+        if mode == 0:
+            val = tensor(rng.uniform(-0.01, 0.01, (R, S)))
+            grads = tensor(rng.normal(size=(R * S, 3)))
+        else:
+            val, grads = tensor(rng.uniform(0, 80, (R, S))), None
+        cots = [tensor(rng.normal(size=shape)) for shape in ((R, S), (R, 1), (R,), (R, 3), (R, 3))]
+        if mode == 1:
+            cots[4] = None
+        args = (mode, smp, val, grads, rgb, 2981.0, 1.0, *cots)
+        launches = vr.render_weights_bwd_cuda.launches
+        got, want = vr.render_weights_bwd_cuda(*args), vr.render_weights_bwd_plain(*args)
+        if vr.render_weights_bwd_cuda.launches != launches + 1:
+            fail("kernel D': a wrapper call did not count one launch")
+        err = max(((a - b.reshape(a.shape)).abs().max() / b.abs().max()).item()
+                  for a, b in zip(got, want) if b is not None)
+        label = f"D':{'neus' if mode == 0 else 'nerf'} R={R} S={S} {masks}"
+        if masks == "random" or S == 70:
+            print(f"[kernel {label} (relative)] max_err={err:.3e} tol={TOL_DB:.1e}", flush=True)
+            _gate(label, err, TOL_DB)
+            continue
+        ms = time_ms(lambda: vr.render_weights_bwd_cuda(*args), reps, device)
+        pms = time_ms(lambda: vr.render_weights_bwd_plain(*args), plain_reps, device)
+        per_sample = (4 + 4 + 1 + 12 + 4 + 4 + 12) + (24 if mode == 0 else 0)
+        nbytes = R * S * per_sample + R * (12 + 4 + 4 + 12 + 12)
+        b = bound_ms(nbytes, OPS_PER_SAMPLE_DB * R * S)
+        _report(f"{label} (relative)", err, TOL_DB, ms, pms, b)
+        dms = device_ms(lambda: vr.render_weights_bwd_cuda(*args), "D'", device, per_launch=True,
+                        launches=1)
+        d_rows[label] = dict(ms=ms, plain_ms=pms, bound_ms=b[0], device_ms=dms)
+        if (mode, S) == (0, S_fg):
+            timing = (ms, pms, b, dms, max((a - b_.reshape(a.shape)).abs().max().item()
+                                           for a, b_ in zip(got, want) if b_ is not None))
+    print(f"[D' cases] {json.dumps(d_rows)}", flush=True)
+    return dict(max_abs_err=timing[4], ms=timing[0], plain_ms=timing[1], bound_ms=timing[2][0],
+                bound_by=timing[2][1], device_ms=timing[3])
+
+
+def compaction_phase(device, alive, conv, reps=20, plain_reps=3):
+    """Kernel H0 against its plain version on the tracer's round-0 masks
+    (the rays ``alive`` after the prepass, ``conv`` [R] bool): alive & ~conv
+    formed first and fused into the kernel's loads, below, at and above the
+    count; each mode on ``alive`` and a random second mask; then timed
+    beside ``torch.nonzero_static``. Returns H0's numbers."""
+    import numpy as np
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+
+    alive, conv = alive.contiguous(), conv.contiguous()
+    R = alive.shape[0]
+    mask = (alive & ~conv).contiguous()
+    count = int(mask.sum())
+    bucket = st.pow2_bucket(count, lo=256, hi=R)
+    other = torch.from_numpy(np.random.default_rng(SEED + 17).uniform(size=R) < 0.5).to(device)
+    cases = [("alive&~conv", mask, {}),
+             ("alive&~conv fused", alive, dict(other=conv, negate_other=True)),
+             ("alive&other", alive, dict(other=other)),
+             ("alive&~other", alive, dict(other=other, negate_other=True))]
+    for label, m, kw in cases:
+        c = int(compaction.nonzero_static_plain(m, 0, R, **kw)[1])
+        for size in (c // 2, c, st.pow2_bucket(max(c, 1), lo=256, hi=R)):
+            launches = compaction.nonzero_static_cuda.launches
+            gi, gc = compaction.nonzero_static_cuda(m, size, R, **kw)
+            wi, wc = compaction.nonzero_static_plain(m, size, R, **kw)
+            if compaction.nonzero_static_cuda.launches != launches + 1:
+                fail("kernel H0: a wrapper call did not count one launch")
+            if not torch.equal(gi, wi) or int(gc) != int(wc):
+                fail(f"kernel H0 ({label}): size {size}: {(gi != wi).sum().item()} ids differ, "
+                     f"count {int(gc)} vs {int(wc)}")
+    fused = dict(other=conv, negate_other=True)
+    ms = time_ms(lambda: compaction.nonzero_static_cuda(mask, bucket, R), reps, device)
+    pms = time_ms(lambda: compaction.nonzero_static_plain(mask, bucket, R), plain_reps, device)
+    fused_ms = time_ms(lambda: compaction.nonzero_static_cuda(alive, bucket, R, **fused), reps,
+                       device)
+    lib = lambda: torch.nonzero_static(mask, size=bucket, fill_value=R)  # noqa: E731
+    if not torch.equal(lib().reshape(-1), compaction.nonzero_static_plain(mask, bucket, R)[0]):
+        fail("torch.nonzero_static differs from H0's plain version")
+    lib_ms = time_ms(lib, reps, device)
+    lib_dms, lib_launches = device_ms_all(lib, device)
+    b = bound_ms(R + 8 * bucket + 4, 2 * R)
+    _report(f"H0 n={R} count={count} bucket={bucket} (fused alive & ~conv {fused_ms:.4f} ms; "
+            f"library torch.nonzero_static {lib_ms:.4f} ms, device {lib_dms} ms in "
+            f"{lib_launches} launches a call)", 0.0, 0.0, ms, pms, b)
+    # per call: H0 is two launches
+    dms = device_ms(lambda: compaction.nonzero_static_cuda(mask, bucket, R), "H0", device,
+                    per_launch=True, launches=2)
+    fused_dms = device_ms(lambda: compaction.nonzero_static_cuda(alive, bucket, R, **fused), "H0",
+                          device, per_launch=True, launches=2)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                library_ms=lib_ms, library_device_ms=lib_dms, library_launches=lib_launches,
+                device_ms=dms, fused_ms=fused_ms, fused_device_ms=fused_dms)
+
+
 def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
     """Kernels J0, J1, J2 and H0 against their plain versions on the sphere
     scene, at the shapes of one 400x400 chunk of the sphere-traced render
@@ -1725,26 +1849,12 @@ def sphere_kernel_phases(device, cfg, params, grid, reps=20, plain_reps=3):
                          device_ms=dms, longest_chain=chain, chained_lookup_us=lookup_us,
                          chain_floor_ms=chain_ms)
 
-    # --- H0: the round-0 bucket of the parked rays; below, at and above the count
+    # --- H0: the round-0 bucket of the parked rays
     state1 = ps  # after the prepass
+    results["H0"] = compaction_phase(device, state1["alive_f"][:R], state1["conv_f"][:R], reps,
+                                     plain_reps)
     mask = (state1["alive_f"] & ~state1["conv_f"])[:R].contiguous()
-    count = int(mask.sum())
-    bucket = st.pow2_bucket(count, lo=256, hi=R)
-    for size in (count // 2, count, bucket):
-        gi, gc = compaction.nonzero_static_cuda(mask, size, R)
-        wi, wc = compaction.nonzero_static_plain(mask, size, R)
-        if not torch.equal(gi, wi) or int(gc) != int(wc):
-            fail(f"kernel H0: size {size}: {(gi != wi).sum().item()} ids differ, count "
-                 f"{int(gc)} vs {int(wc)}")
-    ms = time_ms(lambda: compaction.nonzero_static_cuda(mask, bucket, R), reps, device)
-    pms = time_ms(lambda: compaction.nonzero_static_plain(mask, bucket, R), plain_reps, device)
-    lib_ms = time_ms(lambda: torch.nonzero(mask), reps, device)
-    b = bound_ms(R + 8 * bucket + 4, 2 * R)
-    _report(f"H0 n={R} count={count} bucket={bucket} (library torch.nonzero {lib_ms:.4f} ms)",
-            0.0, 0.0, ms, pms, b)
-    dms = device_ms(lambda: compaction.nonzero_static_cuda(mask, bucket, R), "H0", device)
-    results["H0"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-                         library_ms=lib_ms, device_ms=dms)
+    bucket = st.pow2_bucket(int(mask.sum()), lo=256, hi=R)
 
     # --- J2: one iteration of round 0 (LOD 6) on that bucket, 4 chained jumps
     idx, _ = compaction.nonzero_static_plain(mask, bucket, R)

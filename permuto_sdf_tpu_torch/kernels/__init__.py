@@ -96,7 +96,7 @@ SIGNATURES = {
                             + [_I, _I] + [_F] * 3 + [_I] + [_P] * 2,
     },
     "compaction": {
-        "psdf_compact": [_I, _P, _I, _L] + [_P] * 4,
+        "psdf_compact": [_I, _P, _P, _I, _I, _L] + [_P] * 4,
         "psdf_take_rows": [RowArrays, _P, _I, _L, _P],
         "psdf_scatter_rows": [RowArrays, _P, _I, _L, _P],
     },

@@ -1,24 +1,32 @@
-// Kernel H0: order-preserving stream compaction of a boolean mask.
+// Kernel H0: order-preserving stream compaction of a boolean mask, or of
+// the mask combined with a second one (mask & other, mask & ~other).
 //
 // Replaces: `jnp.nonzero(mask, size=size, fill_value=len(mask))`, which the
 // JAX package calls at permuto_sdf_tpu/ops/sphere_trace.py:328 and :425 and
 // permuto_sdf_tpu/train/train_permuto_sdf.py:436 (`_compact_idx`) and :1699
 // (`_shade_hits_compact`); XLA lowers it to a cumulative sum and a scatter.
+// The tracer's masks `alive & ~conv` and `conv & alive` are formed there
+// by elementwise ops first; here the loads form them.
 // Out: idx [size] int64, the first `size` true positions in ascending order
-// with len(mask) in the unused slots, and the number of true entries.
+// with the fill value in the unused slots, and the number of true entries.
 //
-// What bounds it on an H100: bytes. It reads the n-byte mask twice (once
-// per pass; the second read mostly hits L2) and writes 8 bytes per output
-// slot; the arithmetic is a few integer adds per element.
+// What bounds it on an H100: bytes, n mask bytes (2n with a second mask)
+// read and 8 bytes per output slot written; a few integer ops per element.
+// At the tracers' sizes (n ~ 2e5 bytes, ~0.1 us of traffic) a call is the
+// latency of its two launches.
 //
 // Design: tiles of 2048 elements (256 threads x 8 consecutive elements).
-// Pass 1 counts the true entries of each tile. Pass 2 runs one block per
-// tile: the block sums the counts of the tiles before its own (its offset)
-// and of all tiles (the total) with a block reduction, scans its threads'
-// counts (a warp scan, then the warp totals), and writes the positions of
-// its true entries that fall below `size`, in order. Slots [total, size)
-// get the fill value, spread over all threads of the grid. No atomics, so
-// the result is the same on every run; no host synchronisation.
+// The first launch counts the true entries of each tile; the second runs
+// one block per tile: the block sums the counts of the tiles before its own
+// (its offset) and of all tiles (the total) with a block reduction, scans
+// its threads' counts (a warp scan, then the warp totals), and writes the
+// positions of its true entries that fall below `size`, in order. Slots
+// [total, size) get the fill value, spread over all threads of the grid.
+// Both launches form the combined mask from the two masks' bytes. No
+// atomics, so the result is the same on every run; no host
+// synchronisation. One launch of a thread-block cluster, whose blocks
+// exchange their counts through distributed shared memory, was measured
+// slower at every n (PERF.md §6, PR 17; profiling/h0_variants.cu).
 #include "common.cuh"
 
 // The arrays kernels H1 and H2 move (below), passed by value.
@@ -33,25 +41,52 @@ struct RowArrays {
 
 namespace {
 
+// How the second mask combines with the first.
+enum CompactMode { kMaskOnly = 0, kAnd = 1, kAndNot = 2 };
+
+// Element i of the combined mask, read as bytes.
+__device__ __forceinline__ bool combined_at(const uint8_t* __restrict__ a,
+                                            const uint8_t* __restrict__ b, int mode,
+                                            long long i) {
+  return a[i] != 0 && (mode == kMaskOnly || ((b[i] != 0) == (mode == kAnd)));
+}
+
+// The top bit of each byte of w that is nonzero.
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+}
+
+// Four bytes of each mask, combined -> 4 bits, byte k at bit k.
+__device__ __forceinline__ unsigned word_bits(unsigned a, unsigned b, int mode) {
+  unsigned t = nonzero_bytes(a);
+  if (mode == kAnd) t &= nonzero_bytes(b);
+  if (mode == kAndNot) t &= ~nonzero_bytes(b);
+  return ((t >> 7) & 1u) | ((t >> 14) & 2u) | ((t >> 21) & 4u) | ((t >> 28) & 8u);
+}
+
 constexpr int kThreads = 256;
 constexpr int kPerThread = 8;
 constexpr int kTile = kThreads * kPerThread;
 constexpr int kWarps = kThreads / 32;
 
+// The thread's kPerThread elements from base of the combined mask as bits
+// (element base + k at bit k) -> their count: one 8-byte load of each mask
+// where both are 8-byte aligned and the run lies inside them, else bytes.
 __device__ __forceinline__ int thread_count(int n, const uint8_t* __restrict__ mask,
+                                            const uint8_t* __restrict__ other, int mode,
                                             long long base, unsigned* bits) {
-  int c = 0;
+  const uint8_t* second = mode == kMaskOnly ? mask : other;
   unsigned b = 0;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const long long i = base + k;
-    if (i < n && mask[i] != 0) {
-      ++c;
-      b |= 1u << k;
-    }
+  if (base + kPerThread <= n && (((uintptr_t)mask | (uintptr_t)second) & 7) == 0) {
+    const uint2 x = *reinterpret_cast<const uint2*>(mask + base);
+    const uint2 y = *reinterpret_cast<const uint2*>(second + base);
+    b = word_bits(x.x, y.x, mode) | word_bits(x.y, y.y, mode) << 4;
+  } else {
+    for (int k = 0; k < kPerThread && base + k < n; ++k)
+      b |= (unsigned)combined_at(mask, second, mode, base + k) << k;
   }
   *bits = b;
-  return c;
+  return __popc(b);
 }
 
 // Sum of v over the block; `red` holds kWarps ints of shared memory.
@@ -67,18 +102,19 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
 }
 
 __global__ void __launch_bounds__(kThreads) compact_count_kernel(
-    int n, const uint8_t* __restrict__ mask, int* __restrict__ tile_counts) {
+    int n, const uint8_t* __restrict__ mask, const uint8_t* __restrict__ other, int mode,
+    int* __restrict__ tile_counts) {
   int* red = psdf_dynamic_smem<int>();
   unsigned bits;
   const long long base = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kPerThread;
-  const int total = block_sum(thread_count(n, mask, base, &bits), red);
+  const int total = block_sum(thread_count(n, mask, other, mode, base, &bits), red);
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
 }
 
 __global__ void __launch_bounds__(kThreads) compact_write_kernel(
-    int n, const uint8_t* __restrict__ mask, const int* __restrict__ tile_counts,
-    int nr_tiles, int size, long long fill, long long* __restrict__ idx,
-    int* __restrict__ count) {
+    int n, const uint8_t* __restrict__ mask, const uint8_t* __restrict__ other, int mode,
+    const int* __restrict__ tile_counts, int nr_tiles, int size, long long fill,
+    long long* __restrict__ idx, int* __restrict__ count) {
   int* smem = psdf_dynamic_smem<int>();
   int* red_before = smem;
   int* red_all = smem + kWarps;
@@ -97,7 +133,8 @@ __global__ void __launch_bounds__(kThreads) compact_write_kernel(
 
   unsigned bits = 0;
   const long long base = (long long)blockIdx.x * kTile + (long long)threadIdx.x * kPerThread;
-  const int c = blockIdx.x < (unsigned)nr_tiles ? thread_count(n, mask, base, &bits) : 0;
+  const int c = blockIdx.x < (unsigned)nr_tiles ? thread_count(n, mask, other, mode, base, &bits)
+                                                : 0;
   int incl = c;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -211,20 +248,26 @@ extern "C" int psdf_scatter_rows(RowArrays arrays, const void* ray_idx, int B, l
   return (int)cudaGetLastError();
 }
 
-// mask [n] bool -> idx [size] int64, count [1] int32; tile_counts: scratch
-// of max(1, ceil(n / 2048)) ints.
-extern "C" int psdf_compact(int n, const void* mask, int size, long long fill,
-                            void* tile_counts, void* idx, void* count, void* stream) {
-  if (n < 0 || size < 0) return (int)cudaErrorInvalidValue;
+// Kernel H0: mask [n] bool, combined with other [n] bool by mode (0 the
+// mask alone, 1 mask & other, 2 mask & ~other) -> idx [size] int64 (the
+// fill in the unused slots), count [1] int32; tile_counts: scratch of
+// max(1, ceil(n / 2048)) ints.
+extern "C" int psdf_compact(int n, const void* mask, const void* other, int mode, int size,
+                            long long fill, void* tile_counts, void* idx, void* count,
+                            void* stream) {
+  if (n < 0 || size < 0 || mode < kMaskOnly || mode > kAndNot ||
+      (mode != kMaskOnly && other == nullptr && n > 0))
+    return (int)cudaErrorInvalidValue;
   const int nr_tiles = psdf_blocks(n, kTile);
   if (nr_tiles > 0) {
-    PSDF_LAUNCH(compact_count_kernel, nr_tiles, kThreads, kWarps * sizeof(int), stream, n,
-                (const uint8_t*)mask, (int*)tile_counts);
+    PSDF_LAUNCH(compact_count_kernel, nr_tiles, kThreads, kWarps * sizeof(int), stream,
+                n, (const uint8_t*)mask, (const uint8_t*)other, mode, (int*)tile_counts);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
   PSDF_LAUNCH(compact_write_kernel, nr_tiles > 0 ? nr_tiles : 1, kThreads,
               3 * kWarps * sizeof(int), stream, n, (const uint8_t*)mask,
-              (const int*)tile_counts, nr_tiles, size, fill, (long long*)idx, (int*)count);
+              (const uint8_t*)other, mode, (const int*)tile_counts, nr_tiles, size, fill,
+              (long long*)idx, (int*)count);
   return (int)cudaGetLastError();
 }

@@ -29,70 +29,34 @@
 // shared memory in 16-byte stores. Results differ from a serial cumprod
 // by the association of the product (~1e-7 absolute on a weight).
 //
-// D' recomputes the forward into shared memory (alpha, T and the total
-// weight cotangent per sample), then walks the ray backwards: the cotangent of each factor
-// tau_j = 1 - alpha_j + 1e-7 is T_j S_j with the reverse linear recurrence
-// S_j = Gw_{j+1} alpha_{j+1} + tau_{j+1} S_{j+1} (plus the bg_T cotangent at
-// the last valid sample), done as a reverse warp scan of affine maps per
-// 32-sample chunk with a carry. It never divides by tau, which can be
-// 1e-7.
+// D' (one warp per ray, four rays a block) stages the same rows and the
+// weight cotangents once in the same way where a lane's run is longer than
+// two samples (S > 64); below, each lane reads its own samples' rows
+// directly, also in one trip, which measured faster there (PERF.md §6,
+// PR 17). After that it reads no device memory but the ray's own
+// cotangents. It recomputes the forward as D does (each lane's run, one
+// warp scan of the runs' products: the same T as D's) while forming each
+// sample's total weight cotangent Gw and the two coefficients of its
+// alpha's VJP, which is linear in the alpha cotangent (so the sigmoids and
+// divisions run once a sample, off the reverse walk's chain). The
+// cotangent of each factor tau_j = 1 - alpha_j + 1e-7 is then T_j S_j with
+// the reverse linear recurrence S_j = [j+1 valid] Gw_{j+1} alpha_{j+1} +
+// tau'_{j+1} S_{j+1} (tau' = 1 at an invalid sample; plus the bg_T
+// cotangent at j + 1 = nr - 1), which holds for any mask. Each lane
+// composes its run's affine maps, one reverse warp scan of the composed
+// maps gives each run's S at its end, and the lane walks its run backwards
+// scaling the coefficients by each sample's alpha cotangent. It never
+// divides by tau, which can be 1e-7. The three outputs go into the staged
+// val, gradient and rgb rows' places and back in 16-byte stores where the
+// rows are aligned. D' runs twice a step after ~1,000 other launches, so
+// its code stays small: rolled loops, one noinline copy of the staging and
+// the stores.
 #include "common.cuh"
 
 namespace {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// One 32-sample chunk of the transmittance: the exclusive product of the
-// factors x = 1 - alpha + 1e-7 (1 at invalid samples) before each lane's
-// sample in the ray. `carry` holds the product over the earlier chunks and
-// is advanced past this one.
-__device__ __forceinline__ float transmittance_chunk(float x, int lane,
-                                                     float& carry) {
-  float incl = x;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(PSDF_FULL_MASK, incl, off);
-    if (lane >= off) incl = y * incl;
-  }
-  float excl = __shfl_up_sync(PSDF_FULL_MASK, incl, 1);
-  if (lane == 0) excl = 1.0f;
-  const float T = carry * excl;
-  carry = carry * __shfl_sync(PSDF_FULL_MASK, incl, 31);
-  return T;
-}
-
-// One 32-sample chunk (lane = i - chunk start) of the backward's reverse
-// recurrence S_j = B_j + A_j S_{j+1} with A_j = tau_{j+1} = 1 - alpha_{j+1}
-// + 1e-7 and B_j = Gw_{j+1} alpha_{j+1} (+ g_bgT at j + 1 = nr - 1) for j
-// < nr - 1, and S_{nr-1} = 0: a suffix scan of the affine maps. `next` is
-// S at the first index of the chunk after this one and is advanced to this
-// chunk's first. Returns S_i.
-__device__ __forceinline__ float reverse_affine_chunk(const float* s_alpha,
-                                                      const float* s_Gw,
-                                                      int i, int nr,
-                                                      float gbg, int lane,
-                                                      float& next) {
-  float A = 0.f, B = 0.f;
-  if (i < nr - 1) {
-    const float a1 = s_alpha[i + 1];
-    A = 1.0f - a1 + 1e-7f;
-    B = s_Gw[i + 1] * a1;
-    if (i + 1 == nr - 1) B = B + gbg;
-  }
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float A2 = __shfl_down_sync(PSDF_FULL_MASK, A, off);
-    const float B2 = __shfl_down_sync(PSDF_FULL_MASK, B, off);
-    if (lane + off < 32) {
-      B = B + A * B2;
-      A = A * A2;
-    }
-  }
-  const float Sj = B + A * next;
-  next = __shfl_sync(PSDF_FULL_MASK, Sj, 0);
-  return Sj;
 }
 
 // The warp's totals of eight per-lane values a[0..7], in 9 shuffles (a
@@ -252,8 +216,18 @@ __global__ void __launch_bounds__(128) render_weights_kernel(
   }
 }
 
-// One sample's NeuS alpha (mode 0) or NeRF alpha (mode 1), as kernel D
-// forms it; also returns the unclipped NeuS ratio and the sigmoids.
+// psdf_warp_stage and psdf_warp_copy, one copy each for every row of D',
+// L, D2 and D2' (see above and below).
+__device__ __attribute__((noinline)) void row_stage(void* dst, const void* src, int nbytes) {
+  psdf_warp_stage(dst, src, nbytes);
+}
+
+__device__ __attribute__((noinline)) void row_store(void* dst, const void* src, int nbytes) {
+  psdf_warp_copy(dst, src, nbytes);
+}
+
+// One sample's NeuS alpha as kernel D forms it, with the unclipped ratio,
+// the sigmoids and the cos it came from.
 struct AlphaParts {
   float alpha, raw, p, q, cos;
 };
@@ -274,21 +248,6 @@ __device__ __forceinline__ AlphaParts neus_alpha(float v, float dist,
   a.q = sigmoid(est_next * inv_s);
   a.raw = (a.p - a.q + 1e-5f) / (a.p + 1e-5f);
   a.alpha = fminf(fmaxf(a.raw, 0.f), 1.f);
-  return a;
-}
-
-__device__ __forceinline__ AlphaParts sample_alpha(
-    int mode, float v, float dist, float gx, float gy, float gz, float d0,
-    float d1, float d2, float inv_s, float cos_anneal_ratio) {
-  AlphaParts a;
-  if (mode == 0) {
-    a = neus_alpha(v, dist, (d0 * gx + d1 * gy) + d2 * gz, inv_s,
-                   cos_anneal_ratio);
-  } else {
-    a.alpha = 1.0f - expf(-v * dist);
-    a.raw = a.alpha;
-    a.p = a.q = a.cos = 0.f;
-  }
   return a;
 }
 
@@ -320,12 +279,58 @@ __device__ __forceinline__ void neus_alpha_vjp(const AlphaParts& a,
   dcos = d_ic * slope;
 }
 
+// Kernel D''s shared memory per ray, in floats: kernel D's rows (val, dt,
+// alpha, rgb, grads in mode 0, the mask), then the weight cotangents (then
+// their totals Gw) and T at S slots.
+__host__ __device__ inline int render_weights_bwd_warp_floats(int mode, int S) {
+  return render_weights_warp_floats(mode, S) + 2 * psdf_pad4(S);
+}
+
+// Starts the staging of a ray's rows for D' into its shared memory at
+// `base` (kernel D's layout, then g_weights), all in flight at once.
+__device__ __attribute__((noinline)) void weights_bwd_stage(
+    float* base, int mode, int S, long long ray, const float* __restrict__ val,
+    const float* __restrict__ dt, const uint8_t* __restrict__ mask,
+    const float* __restrict__ rgb, const float* __restrict__ grads,
+    const float* __restrict__ g_weights) {
+  const long long row = ray * S;
+  float* sc = base + 3 * psdf_pad4(S);
+  float* sg = sc + psdf_pad4(3 * S);
+  uint8_t* sm = reinterpret_cast<uint8_t*>(sg + (mode == 0 ? psdf_pad4(3 * S) : 0));
+  row_stage(base, val + row, S * 4);
+  row_stage(base + psdf_pad4(S), dt + row, S * 4);
+  row_stage(sm, mask + row, S);
+  row_stage(sc, rgb + row * 3, S * 12);
+  if (mode == 0) row_stage(sg, grads + row * 3, S * 12);
+  row_stage(sm + psdf_pad16(S), g_weights + row, S * 4);
+}
+
+// The affine map of D''s reverse recurrence at sample j: S_j = b + a
+// S_{j+1} with a = 1 - alpha_{j+1} + 1e-7 and b = Gw_{j+1} alpha_{j+1} where
+// sample j + 1 is valid, a = 1 and b = 0 where it is not or j + 1 = S, and
+// the bg_T cotangent added to b at j + 1 = nr - 1.
+__device__ __forceinline__ void weights_reverse_map(const float* s_alpha,
+                                                    const float* s_Gw,
+                                                    const uint8_t* s_mask, int j,
+                                                    int S, int nr, float gbg,
+                                                    float& a, float& b) {
+  a = 1.f;
+  b = 0.f;
+  if (j + 1 < S && s_mask[j + 1] != 0) {
+    const float a1 = s_alpha[j + 1];
+    a = 1.0f - a1 + 1e-7f;
+    b = s_Gw[j + 1] * a1;
+  }
+  if (j + 1 == nr - 1) b = b + gbg;
+}
+
 // Kernel D'. Cotangents in: g_weights [R,S], g_wsum [R], g_bgT [R],
 // g_rgb [R,3], g_grad [R,3] (NeuS only). Out: d_val [R,S] (sdf or
 // density), d_grads [R,S,3] (NeuS only), d_rgb [R,S,3]; zero at invalid
 // samples. The clip of the NeuS alpha passes half the cotangent at a
 // bound that is hit exactly and none outside it, and relu passes none at
-// 0, as JAX's derivatives do.
+// 0, as JAX's derivatives do. One warp per ray, blockDim.x / 32 rays per
+// block.
 __global__ void __launch_bounds__(128) render_weights_bwd_kernel(
     int mode, int R, int S, const float* __restrict__ val,
     const float* __restrict__ grads, const float* __restrict__ dirs,
@@ -337,20 +342,26 @@ __global__ void __launch_bounds__(128) render_weights_bwd_kernel(
     float* __restrict__ d_grads, float* __restrict__ d_rgb) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long ray =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long ray = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (ray >= R) return;  // whole warps leave together; no block barrier below
-  float* s_alpha = psdf_dynamic_smem<float>() + (long long)warp * 3 * S;
-  float* s_T = s_alpha + S;
-  float* s_Gw = s_T + S;
-  const long long base_rs = ray * S;
+  float* sv = psdf_dynamic_smem<float>() +
+              (size_t)warp * render_weights_bwd_warp_floats(mode, S);
+  float* sd = sv + psdf_pad4(S);
+  float* sw = sd + psdf_pad4(S);  // alpha
+  float* sc = sw + psdf_pad4(S);  // rgb
+  float* sg = sc + psdf_pad4(3 * S);  // grads (mode 0)
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      sg + (mode == 0 ? psdf_pad4(3 * S) : 0));
+  float* sG = reinterpret_cast<float*>(sm + psdf_pad16(S));  // g_weights, then Gw
+  float* sT = sG + psdf_pad4(S);
+  const long long row = ray * S;
 
-  int nr = 0;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool valid = i < S && mask[base_rs + i] != 0;
-    nr += __popc(__ballot_sync(PSDF_FULL_MASK, valid));
-  }
+  // every row of the ray in flight at once, then the ray's cotangents; a
+  // lane's run of one or two samples (S <= 64) reads its own rows directly
+  // instead, in one trip as well, and skips the staging's cost (PERF.md
+  // §6, PR 17)
+  const bool staged = S > 64;
+  if (staged) weights_bwd_stage(sv, mode, S, ray, val, dt, mask, rgb, grads, g_weights);
   float d0 = 0.f, d1 = 0.f, d2 = 0.f, gg0 = 0.f, gg1 = 0.f, gg2 = 0.f;
   if (mode == 0) {
     d0 = dirs[ray * 3 + 0];
@@ -364,84 +375,119 @@ __global__ void __launch_bounds__(128) render_weights_bwd_kernel(
               gr2 = g_rgb[ray * 3 + 2];
   const float gws = g_wsum[ray];
   const float gbg = g_bgT[ray];
+  psdf_stage_wait();
+  const float* in_v = staged ? sv : val + row;
+  const float* in_d = staged ? sd : dt + row;
+  const uint8_t* in_m = staged ? sm : mask + row;
+  const float* in_c = staged ? sc : rgb + row * 3;
+  const float* in_g = mode != 0 ? nullptr : staged ? sg : grads + row * 3;
+  const float* in_G = staged ? sG : g_weights + row;
 
-  // forward again: alpha, T and the total cotangent of each weight
-  float carry = 1.0f;
-  for (int base = 0; base < S; base += 32) {
-    const int i = base + lane;
-    const bool in_row = i < S;
-    const bool valid = in_row && mask[base_rs + i] != 0;
-    float alpha = 0.f, Gw = 0.f;
+  // the forward again on this lane's run [i0, i1): each sample's alpha,
+  // total cotangent Gw and the coefficients of its alpha's VJP (linear in
+  // the alpha cotangent: d val = kv dalpha, d cos = kc dalpha, which take
+  // the places of val and dt), the valid count and the run's product of
+  // factors; one warp scan of the products, then T down the run
+  const int per = (S + 31) / 32;
+  const int i0 = min(lane * per, S), i1 = min(i0 + per, S);
+  int cnt = 0;
+  float prod = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i) {
+    const bool valid = in_m[i] != 0;
+    const float v = in_v[i], dist = in_d[i], gw = in_G[i];
+    const float c0 = in_c[3 * i], c1 = in_c[3 * i + 1], c2 = in_c[3 * i + 2];
+    float gx = 0.f, gy = 0.f, gz = 0.f;
+    if (mode == 0) {
+      gx = in_g[3 * i];
+      gy = in_g[3 * i + 1];
+      gz = in_g[3 * i + 2];
+    }
+    float alpha = 0.f, Gw = 0.f, kv = 0.f, kc = 0.f;
     if (valid) {
-      float gx = 0.f, gy = 0.f, gz = 0.f;
+      Gw = (gw + gws) + ((gr0 * c0 + gr1 * c1) + gr2 * c2);
       if (mode == 0) {
-        gx = grads[(base_rs + i) * 3 + 0];
-        gy = grads[(base_rs + i) * 3 + 1];
-        gz = grads[(base_rs + i) * 3 + 2];
+        const AlphaParts ap =
+            neus_alpha(v, dist, (d0 * gx + d1 * gy) + d2 * gz, inv_s, cos_anneal_ratio);
+        alpha = ap.alpha;
+        neus_alpha_vjp(ap, 1.0f, dist, inv_s, cos_anneal_ratio, kv, kc);
+        Gw = Gw + ((gg0 * gx + gg1 * gy) + gg2 * gz);
+      } else {
+        const float e = expf(-v * dist);
+        alpha = 1.0f - e;
+        kv = e * dist;
       }
-      alpha = sample_alpha(mode, val[base_rs + i], dt[base_rs + i], gx, gy,
-                           gz, d0, d1, d2, inv_s, cos_anneal_ratio)
-                  .alpha;
-      const float* c = rgb + (base_rs + i) * 3;
-      Gw = g_weights[base_rs + i] + gws +
-           ((gr0 * c[0] + gr1 * c[1]) + gr2 * c[2]) +
-           ((gg0 * gx + gg1 * gy) + gg2 * gz);
+      prod = prod * (1.0f - alpha + 1e-7f);
+      ++cnt;
     }
-    const float x = valid ? (1.0f - alpha + 1e-7f) : 1.0f;
-    const float T = transmittance_chunk(x, lane, carry);
-    if (in_row) {
-      s_alpha[i] = alpha;
-      s_T[i] = valid ? T : 0.f;
-      s_Gw[i] = Gw;
-    }
+    sm[i] = valid;
+    sw[i] = alpha;
+    sG[i] = Gw;
+    sv[i] = kv;
+    sd[i] = kc;
+  }
+  const int nr = (int)__reduce_add_sync(PSDF_FULL_MASK, (unsigned)cnt);
+  float incl = prod;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(PSDF_FULL_MASK, incl, off);
+    if (lane >= off) incl = y * incl;
+  }
+  float T = __shfl_up_sync(PSDF_FULL_MASK, incl, 1);
+  if (lane == 0) T = 1.0f;
+#pragma unroll 1
+  for (int i = i0; i < i1; ++i) {
+    const bool valid = sm[i] != 0;
+    sT[i] = valid ? T : 0.f;
+    if (valid) T = T * (1.0f - sw[i] + 1e-7f);
   }
   __syncwarp();
 
-  // backward: the reverse recurrence of the affine maps, chunk by chunk
-  float next = 0.f;  // S at the first index of the chunk after this one
-  for (int base = ((S - 1) / 32) * 32; base >= 0; base -= 32) {
-    const int i = base + lane;
-    const float Sj =
-        reverse_affine_chunk(s_alpha, s_Gw, i, nr, gbg, lane, next);
-    if (i >= S) continue;
-    const bool valid = mask[base_rs + i] != 0;
-    float dv = 0.f, dg0 = 0.f, dg1 = 0.f, dg2 = 0.f, dr0 = 0.f, dr1 = 0.f,
-          dr2 = 0.f;
-    if (valid) {
-      const float T = s_T[i];
-      const float alpha = s_alpha[i];
-      const float w = alpha * T;
-      const float dalpha = T * (s_Gw[i] - Sj);
-      const float v = val[base_rs + i];
-      const float dist = dt[base_rs + i];
-      dr0 = w * gr0;
-      dr1 = w * gr1;
-      dr2 = w * gr2;
-      if (mode == 0) {
-        const float gx = grads[(base_rs + i) * 3 + 0];
-        const float gy = grads[(base_rs + i) * 3 + 1];
-        const float gz = grads[(base_rs + i) * 3 + 2];
-        const AlphaParts a = sample_alpha(mode, v, dist, gx, gy, gz, d0, d1,
-                                          d2, inv_s, cos_anneal_ratio);
-        float dcos;
-        neus_alpha_vjp(a, dalpha, dist, inv_s, cos_anneal_ratio, dv, dcos);
-        dg0 = dcos * d0 + w * gg0;
-        dg1 = dcos * d1 + w * gg1;
-        dg2 = dcos * d2 + w * gg2;
-      } else {
-        dv = dalpha * expf(-v * dist) * dist;
-      }
-    }
-    d_val[base_rs + i] = dv;
-    if (d_grads != nullptr) {
-      d_grads[(base_rs + i) * 3 + 0] = dg0;
-      d_grads[(base_rs + i) * 3 + 1] = dg1;
-      d_grads[(base_rs + i) * 3 + 2] = dg2;
-    }
-    d_rgb[(base_rs + i) * 3 + 0] = dr0;
-    d_rgb[(base_rs + i) * 3 + 1] = dr1;
-    d_rgb[(base_rs + i) * 3 + 2] = dr2;
+  // the reverse recurrence: the run's maps composed (A, B), one suffix scan
+  // of the runs' maps, then S_i down the run and each sample's cotangents
+  // from its coefficients; the outputs overwrite the lane's own rows
+  float A = 1.f, B = 0.f;
+#pragma unroll 1
+  for (int i = i1 - 1; i >= i0; --i) {
+    float a, b;
+    weights_reverse_map(sw, sG, sm, i, S, nr, gbg, a, b);
+    B = b + a * B;
+    A = a * A;
   }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float A2 = __shfl_down_sync(PSDF_FULL_MASK, A, off);
+    const float B2 = __shfl_down_sync(PSDF_FULL_MASK, B, off);
+    if (lane + off < 32) {
+      B = B + A * B2;
+      A = A * A2;
+    }
+  }
+  float s_next = __shfl_down_sync(PSDF_FULL_MASK, B, 1);  // S at i1
+  if (lane == 31) s_next = 0.f;
+#pragma unroll 1
+  for (int i = i1 - 1; i >= i0; --i) {
+    float a, b;
+    weights_reverse_map(sw, sG, sm, i, S, nr, gbg, a, b);
+    s_next = b + a * s_next;  // S_i
+    const float Ti = sT[i];
+    const float w = sw[i] * Ti;
+    const float dalpha = Ti * (sG[i] - s_next);  // 0 at an invalid sample
+    const float dcos = dalpha * sd[i];
+    sv[i] = dalpha * sv[i];
+    if (mode == 0) {
+      sg[3 * i + 0] = dcos * d0 + w * gg0;
+      sg[3 * i + 1] = dcos * d1 + w * gg1;
+      sg[3 * i + 2] = dcos * d2 + w * gg2;
+    }
+    sc[3 * i + 0] = w * gr0;
+    sc[3 * i + 1] = w * gr1;
+    sc[3 * i + 2] = w * gr2;
+  }
+  __syncwarp();
+  row_store(d_val + row, sv, S * 4);
+  if (mode == 0) row_store(d_grads + row * 3, sg, S * 12);
+  row_store(d_rgb + row * 3, sc, S * 12);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,18 +529,6 @@ __global__ void __launch_bounds__(128) render_weights_bwd_kernel(
 // lane. All write their outputs from shared memory in 16-byte stores where
 // the rows are aligned.
 // ---------------------------------------------------------------------------
-
-// psdf_warp_stage and psdf_warp_copy, one copy each for every row of L, D2
-// and D2' (see above).
-__device__ __attribute__((noinline)) void lod_stage(void* dst, const void* src,
-                                                    int nbytes) {
-  psdf_warp_stage(dst, src, nbytes);
-}
-
-__device__ __attribute__((noinline)) void lod_store(void* dst, const void* src,
-                                                    int nbytes) {
-  psdf_warp_copy(dst, src, nbytes);
-}
 
 // The sort's width: the next power of two of S, at least one tile of 128.
 __host__ __device__ inline int lod_sort_width(int S) {
@@ -645,10 +679,10 @@ __global__ void __launch_bounds__(128) train_lod_select_kernel(
   uint8_t* s_top = s_mask + psdf_pad16(S);
   const long long row = ray * S;
 
-  lod_stage(s_sdf, sdf + row, S * 4);
-  lod_stage(s_dt, dt + row, S * 4);
-  lod_stage(s_mask, mask + row, S);
-  if (E > 0) lod_stage(s_sc, scores + row, S * 4);
+  row_stage(s_sdf, sdf + row, S * 4);
+  row_stage(s_dt, dt + row, S * 4);
+  row_stage(s_mask, mask + row, S);
+  if (E > 0) row_stage(s_sc, scores + row, S * 4);
 #pragma unroll 1
   for (int i = lane; i < S; i += 32) s_top[i] = 0;
   psdf_stage_wait();
@@ -665,7 +699,7 @@ __global__ void __launch_bounds__(128) train_lod_select_kernel(
                      : 0.f;
   }
   __syncwarp();
-  lod_store(cos_fd + row, s_cos, S * 4);
+  row_store(cos_fd + row, s_cos, S * 4);
 
   // this lane's run [i0, i1): the product of its transmittance factors,
   // one exclusive scan of the runs' products, then the ranking keys
@@ -767,14 +801,14 @@ __device__ __attribute__((noinline)) void mixed_stage(
     const float* __restrict__ dt, const uint8_t* __restrict__ mask) {
   const MixedRows m = mixed_rows(base, S, KE);
   const long long row = ray * S, fine = ray * KE;
-  lod_stage(m.sel, sel + fine, KE * 8);
-  lod_stage(m.sdfc, sdf_c + fine, KE * 4);
-  lod_stage(m.gradc, grads_c + fine * 3, KE * 12);
-  lod_stage(m.rgbc, rgb_c + fine * 3, KE * 12);
-  lod_stage(m.sdf, sdf_carried + row, S * 4);
-  lod_stage(m.cos, cos_fd + row, S * 4);
-  lod_stage(m.dt, dt + row, S * 4);
-  lod_stage(m.mask, mask + row, S);
+  row_stage(m.sel, sel + fine, KE * 8);
+  row_stage(m.sdfc, sdf_c + fine, KE * 4);
+  row_stage(m.gradc, grads_c + fine * 3, KE * 12);
+  row_stage(m.rgbc, rgb_c + fine * 3, KE * 12);
+  row_stage(m.sdf, sdf_carried + row, S * 4);
+  row_stage(m.cos, cos_fd + row, S * 4);
+  row_stage(m.dt, dt + row, S * 4);
+  row_stage(m.mask, mask + row, S);
 }
 
 // The mixed chain of the ray staged at `base`, D2's forward and D2''s recompute (one
@@ -903,7 +937,7 @@ __global__ void __launch_bounds__(128) render_mixed_kernel(
     a[0] += w;
   }
   __syncwarp();
-  lod_store(weights + ray * S, m.T, S * 4);
+  row_store(weights + ray * S, m.T, S * 4);
 
   // the fine rows at valid slots, a row per lane
 #pragma unroll 1
@@ -979,7 +1013,7 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
 
   // every input of the ray, all in flight at once
   mixed_stage(base, ray, S, KE, sdf_carried, cos_fd, sel, sdf_c, grads_c, rgb_c, dt, mask);
-  lod_stage(m.Gw, g_weights + ray * S, S * 4);
+  row_stage(m.Gw, g_weights + ray * S, S * 4);
   const float d0 = dirs[ray * 3 + 0], d1 = dirs[ray * 3 + 1],
               d2 = dirs[ray * 3 + 2];
   const float gg0 = g_grad[ray * 3 + 0], gg1 = g_grad[ray * 3 + 1],
@@ -1075,9 +1109,9 @@ __global__ void __launch_bounds__(128) render_mixed_bwd_kernel(
     m.rgbc[3 * k + 2] = c2;
   }
   __syncwarp();
-  lod_store(d_sdf_c + ray * KE, m.sdfc, KE * 4);
-  lod_store(d_grads_c + ray * KE * 3, m.gradc, KE * 12);
-  lod_store(d_rgb_c + ray * KE * 3, m.rgbc, KE * 12);
+  row_store(d_sdf_c + ray * KE, m.sdfc, KE * 4);
+  row_store(d_grads_c + ray * KE * 3, m.gradc, KE * 12);
+  row_store(d_rgb_c + ray * KE * 3, m.rgbc, KE * 12);
 }
 
 }  // namespace
@@ -1112,6 +1146,40 @@ extern "C" int psdf_render_weights(int mode, int R, int S, const void* val,
   return (int)cudaGetLastError();
 }
 
+// Kernel D' at `rays` rays a block (a warp each), fewer where a block's
+// rows would not fit; above 48 KB the kernel opts in.
+static int launch_render_weights_bwd(
+    int rays, int mode, int R, int S, const void* val, const void* grads,
+    const void* dirs, const void* dt, const void* mask, const void* rgb,
+    float inv_s, float cos_anneal_ratio, const void* g_weights,
+    const void* g_wsum, const void* g_bgT, const void* g_rgb,
+    const void* g_grad, void* d_val, void* d_grads, void* d_rgb,
+    void* stream) {
+  if (R <= 0) return 0;
+  const size_t per_ray =
+      (size_t)render_weights_bwd_warp_floats(mode, S) * sizeof(float);
+  while (rays > 1 && rays * per_ray > 232448) rays >>= 1;
+  const size_t smem = rays * per_ray;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        render_weights_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  PSDF_LAUNCH(render_weights_bwd_kernel, psdf_blocks(R, rays), 32 * rays,
+              smem, stream, mode, R, S, (const float*)val,
+              (const float*)grads, (const float*)dirs, (const float*)dt,
+              (const uint8_t*)mask, (const float*)rgb, inv_s,
+              cos_anneal_ratio, (const float*)g_weights,
+              (const float*)g_wsum, (const float*)g_bgT, (const float*)g_rgb,
+              (const float*)g_grad, (float*)d_val, (float*)d_grads,
+              (float*)d_rgb);
+  return (int)cudaGetLastError();
+}
+
+// Kernel D' runs WEIGHTS_BWD_RAYS rays a block (PERF.md §6, PR 17).
+constexpr int WEIGHTS_BWD_RAYS = 4;
+
 extern "C" int psdf_render_weights_bwd(
     int mode, int R, int S, const void* val, const void* grads,
     const void* dirs, const void* dt, const void* mask, const void* rgb,
@@ -1119,18 +1187,11 @@ extern "C" int psdf_render_weights_bwd(
     const void* g_wsum, const void* g_bgT, const void* g_rgb,
     const void* g_grad, void* d_val, void* d_grads, void* d_rgb,
     void* stream) {
-  const int block = 128;  // 4 rays per block
-  const int grid = psdf_blocks((long long)R * 32, block);
-  if (grid == 0) return 0;
-  const size_t smem = (size_t)(block / 32) * 3 * S * sizeof(float);
-  PSDF_LAUNCH(render_weights_bwd_kernel, grid, block, smem, stream, mode, R,
-              S, (const float*)val, (const float*)grads, (const float*)dirs,
-              (const float*)dt, (const uint8_t*)mask, (const float*)rgb,
-              inv_s, cos_anneal_ratio, (const float*)g_weights,
-              (const float*)g_wsum, (const float*)g_bgT, (const float*)g_rgb,
-              (const float*)g_grad, (float*)d_val, (float*)d_grads,
-              (float*)d_rgb);
-  return (int)cudaGetLastError();
+  return launch_render_weights_bwd(WEIGHTS_BWD_RAYS, mode, R, S, val, grads,
+                                   dirs, dt, mask, rgb, inv_s,
+                                   cos_anneal_ratio, g_weights, g_wsum, g_bgT,
+                                   g_rgb, g_grad, d_val, d_grads, d_rgb,
+                                   stream);
 }
 
 // Kernels L, D2 and D2' run LOD_RAYS rays a block (a warp each; at the

@@ -3,9 +3,11 @@ list: the counterpart of ``jnp.nonzero(mask, size=size, fill_value=n)``,
 which the JAX package calls to pick the sphere tracer's buckets, the lit
 rays it shades and the training step's sample budget.
 
-On the card this is kernel H0 (``kernels/csrc/compaction.cu``); the plain
-PyTorch version below is the CPU path and the kernel's reference. Neither
-synchronises with the host: the count comes back as a device tensor.
+On the card this is kernel H0 (``kernels/csrc/compaction.cu``), which can
+combine the mask with a second one in its loads (the tracers' ``alive &
+~conv`` and ``conv & alive``); the plain PyTorch version below is the CPU
+path and the kernel's reference. Neither synchronises with the host: the
+count comes back as a device tensor.
 
 Kernels H1 and H2 (same file) move whole rows of per-ray arrays between a
 ray batch and a bucket of its rays listed by such a compaction: the
@@ -21,10 +23,21 @@ import torch
 from permuto_sdf_tpu_torch import kernels
 
 _TILE = 2048  # mask entries per block of the kernel
+# How kernel H0 combines the second mask with the first (``CompactMode`` in
+# ``kernels/csrc/compaction.cu``)
+_MASK_ONLY, _AND, _AND_NOT = 0, 1, 2
 
 
-def nonzero_static_plain(mask: torch.Tensor, size: int, fill_value=None):
+def _combined(mask, other, negate_other: bool):
+    if other is None:
+        return mask
+    return mask & (~other if negate_other else other)
+
+
+def nonzero_static_plain(mask: torch.Tensor, size: int, fill_value=None, other=None,
+                         negate_other: bool = False):
     """Plain version of kernel H0 -> (idx [size] int64, count [] int32)."""
+    mask = _combined(mask, other, negate_other)
     n = mask.shape[0]
     fill = n if fill_value is None else int(fill_value)
     pos = torch.cumsum(mask.to(torch.int64), 0) - 1
@@ -35,22 +48,28 @@ def nonzero_static_plain(mask: torch.Tensor, size: int, fill_value=None):
     return idx[:size], mask.sum().to(torch.int32)
 
 
-def nonzero_static_cuda(mask: torch.Tensor, size: int, fill_value=None):
+def nonzero_static_cuda(mask: torch.Tensor, size: int, fill_value=None, other=None,
+                        negate_other: bool = False):
     """Kernel H0 launch -> (idx [size] int64, count [] int32). Counts
     launches in ``nonzero_static_cuda.launches``."""
     n = mask.shape[0]
-    if mask.dtype != torch.bool or mask.dim() != 1 or not mask.is_contiguous():
-        raise ValueError("compaction: mask must be a contiguous 1-D bool tensor")
+    for m in (mask,) if other is None else (mask, other):
+        if m.dtype != torch.bool or m.dim() != 1 or not m.is_contiguous():
+            raise ValueError("compaction: masks must be contiguous 1-D bool tensors")
+    if other is not None and (other.shape != mask.shape or other.device != mask.device):
+        raise ValueError("compaction: the second mask must match the first")
     if size < 0 or n >= 2 ** 31 or size >= 2 ** 31:
         raise ValueError("compaction: sizes must fit in int32")
+    mode = _MASK_ONLY if other is None else (_AND_NOT if negate_other else _AND)
     fill = n if fill_value is None else int(fill_value)
     dev = mask.device
     idx = torch.empty((size,), dtype=torch.int64, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
     tiles = torch.empty((max(1, -(-n // _TILE)),), dtype=torch.int32, device=dev)
     lib = kernels.load("compaction")
-    err = lib.psdf_compact(n, kernels.ptr(mask), int(size), fill, kernels.ptr(tiles),
-                           kernels.ptr(idx), kernels.ptr(count), kernels.current_stream(dev))
+    err = lib.psdf_compact(n, kernels.ptr(mask), kernels.ptr(other), mode, int(size), fill,
+                           kernels.ptr(tiles), kernels.ptr(idx), kernels.ptr(count),
+                           kernels.current_stream(dev))
     kernels.check(lib, err, "compaction (kernel H0)")
     nonzero_static_cuda.launches += 1
     return idx, count.reshape(())
@@ -59,12 +78,16 @@ def nonzero_static_cuda(mask: torch.Tensor, size: int, fill_value=None):
 nonzero_static_cuda.launches = 0
 
 
-def nonzero_static(mask: torch.Tensor, size: int, fill_value=None):
+def nonzero_static(mask: torch.Tensor, size: int, fill_value=None, other=None,
+                   negate_other: bool = False):
     """The first ``size`` true positions of the 1-D ``mask`` in ascending
     order, ``fill_value`` (default ``len(mask)``) in the unused slots ->
-    (idx [size] int64, number of true entries [] int32)."""
+    (idx [size] int64, number of true entries [] int32). With ``other``
+    (1-D bool, the mask's length) the positions of ``mask & other``, or of
+    ``mask & ~other`` with ``negate_other``, formed inside kernel H0."""
     fn = kernels.dispatch(mask.device, nonzero_static_cuda, nonzero_static_plain)
-    return fn(mask.contiguous(), size, fill_value)
+    return fn(mask.contiguous(), size, fill_value,
+              None if other is None else other.contiguous(), negate_other)
 
 
 # ---------------------------------------------------------------------------

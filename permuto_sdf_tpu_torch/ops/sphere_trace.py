@@ -577,7 +577,8 @@ def sphere_trace_compacted(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
     bucket = first_bucket
     for _ in range(nr_rounds):
         bucket = min(bucket, R)
-        idx, _ = nonzero_static(alive_f[:R] & ~conv_f[:R], bucket, fill_value=R)
+        idx, _ = nonzero_static(alive_f[:R], bucket, fill_value=R, other=conv_f[:R],
+                                negate_other=True)
         loop(sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field, grid_cfg,
              iters_per_round, sdf_multiplier, sdf_converged_tresh, bound)
         bucket = bucket // 2
@@ -585,7 +586,8 @@ def sphere_trace_compacted(sdf_fn, ray_origins, ray_dirs, boundary_primitive,
     if final_sdf:
         # the final sdf of the converged rays that fit one first-size bucket
         # (the rest keep their last evaluated sdf, as in the JAX op)
-        idx, _ = nonzero_static((conv_f & alive_f)[:R], min(first_bucket, R), fill_value=R)
+        idx, _ = nonzero_static(conv_f[:R], min(first_bucket, R), fill_value=R,
+                                other=alive_f[:R])
         s = sdf_eval(ctx, pos_f[idx]).reshape(-1)
         sdf_f[idx] = torch.where(idx < R, s, sdf_f[idx])
         sdf = sdf_f[:R]
@@ -613,7 +615,8 @@ def _trace_rounds_impl(sdf_eval, ctx, origins_f, dirs_f, texit_f, dist_field,
     _check_time(time_val)
     R = t_f.shape[0] - 1
     if idx is None:
-        idx, _ = nonzero_static(alive_f[:R] & ~conv_f[:R], bucket, fill_value=R)
+        idx, _ = nonzero_static(alive_f[:R], bucket, fill_value=R, other=conv_f[:R],
+                                negate_other=True)
     if grid_cfg is None:
         dist_field = None
     if isinstance(sdf_eval, SDFEval):  # the flagship SDF: one launch of J2f on the card

@@ -1,7 +1,8 @@
-// Kernels L, D2 and D2' (volume_rendering.cu) launched at a given number of
-// rays a block, for measurement only: the port launches LOD_RAYS; these
-// entry points launch the same kernels at 1, 2 or 4 rays a block (a warp
-// each), so every shape gives the port's outputs bit for bit. Built and
+// Kernels L, D2, D2' and D' (volume_rendering.cu) launched at a given number
+// of rays a block, for measurement only: the port launches LOD_RAYS (L, D2,
+// D2') and WEIGHTS_BWD_RAYS (D'); these entry points launch the same kernels
+// at 1, 2 or 4 rays a block (a warp each), so every shape gives the port's
+// outputs bit for bit. Built and
 // timed by profiling/lod_kernels.py; no path of the port calls them.
 #include "volume_rendering.cu"
 
@@ -41,4 +42,17 @@ extern "C" int psdf_render_mixed_bwd_rays(
                                  cos_anneal_ratio, g_weights, g_wsum, g_bgT,
                                  g_rgb, g_grad, d_sdf_c, d_grads_c, d_rgb_c,
                                  stream);
+}
+
+extern "C" int psdf_render_weights_bwd_rays(
+    int rays, int mode, int R, int S, const void* val, const void* grads,
+    const void* dirs, const void* dt, const void* mask, const void* rgb,
+    float inv_s, float cos_anneal_ratio, const void* g_weights,
+    const void* g_wsum, const void* g_bgT, const void* g_rgb,
+    const void* g_grad, void* d_val, void* d_grads, void* d_rgb,
+    void* stream) {
+  return launch_render_weights_bwd(rays, mode, R, S, val, grads, dirs, dt,
+                                   mask, rgb, inv_s, cos_anneal_ratio,
+                                   g_weights, g_wsum, g_bgT, g_rgb, g_grad,
+                                   d_val, d_grads, d_rgb, stream);
 }

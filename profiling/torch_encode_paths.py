@@ -47,12 +47,15 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   its operating point: ``--frames`` timed frames after a warm-up, then
   under torch.profiler twice: first with the distance field cache emptied
   (the first frame after a grid refresh, which builds the field with J0),
-  then the next frame, with J1's, H0's, J2f's and A's device ms per launch;
+  then the next frame, with each kernel's device ms per launch;
   then kernel J1 alone on the 400² view's padded state (CUDA-event ms per
-  call and device ms per call);
+  call and device ms per call), and kernel H0 alone on the alive rays it
+  leaves (the mask alone, fused with a second mask where the tree's H0
+  takes one, and after the tree's elementwise ops);
 - train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in;
   interleaved-table copies per step) and one flagship step under
-  torch.profiler;
+  torch.profiler (D''s device ms per launch in it, as every kernel's);
+  then kernel D' alone at the step's shapes (``_weights_bwd_alone``);
 - lever: LEVER_STEPS steps of chip_smoke's recommended profile past its
   gate (the train-time LOD, parity alternating) on the trained state, host
   clock per step, and one step under torch.profiler; then kernels L, D2
@@ -75,8 +78,8 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   device ms in it).
 
 Each profile gives the device ms and the launches of kernels A, B, C, C3,
-D, E1, E2, F, G, H0, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' (the device µs per launch
-is their ratio), and the count of every device activity of the window
+D, D', E1, E2, F, G, H0, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' and their ratio,
+the device ms per launch, and the count of every device activity of the window
 (kernels, memsets and copies: ``device_launches``). Each
 path also
 records the peak of ``torch.cuda.max_memory_allocated``.
@@ -101,8 +104,8 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "C", "C3", "D", "E1", "E2", "F", "G", "H0", "J0", "J1", "J2", "J2f", "J3",
-            "J3f", "M1", "M2", "L", "D2", "D2'")
+PROFILED = ("A", "B", "C", "C3", "D", "D'", "E1", "E2", "F", "G", "H0", "J0", "J1", "J2", "J2f",
+            "J3", "J3f", "M1", "M2", "L", "D2", "D2'")
 LOD_REPS = 20
 PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
          "nerf", "mesh")
@@ -150,6 +153,8 @@ def _kernel_stats(cs, prof):
                      or getattr(e, "self_cuda_time_total", 0) for e in hits)
         out[f"{k}_ms"] = dev_us / 1e3
         out[f"{k}_launches"] = sum(e.count for e in hits)
+        if out[f"{k}_launches"]:
+            out[f"{k}_ms_per_launch"] = out[f"{k}_ms"] / out[f"{k}_launches"]
     return out
 
 
@@ -472,17 +477,14 @@ def sphere_path(cs, device, cfg, frames):
     first = _profiled(cs, device, "sphere_first_frame", frame)
     peak = _peak_mib(device)
     nxt = _profiled(cs, device, "sphere_frame", frame)
-    for prof in (first, nxt):
-        for k in ("J1", "H0", "J2f", "A"):  # J1: once a frame, one or two launches by the tree
-            if prof and prof[f"{k}_launches"]:
-                prof[f"{k}_ms_per_launch"] = prof[f"{k}_ms"] / prof[f"{k}_launches"]
     print(f"[sphere frame] timed {[round(t, 1) for t in times]} ms, median "
           f"{statistics.median(times):.1f}; the profiled frame's wall "
           f"{nxt['wall_ms'] if nxt else None} ms, busy {nxt['device_busy_ms'] if nxt else None} "
           f"ms, {nxt['device_launches'] if nxt else None} device launches", flush=True)
+    j1, alive = _prepass_alone(cs, device, cfg, grid)
     return {"ms_all": times, "ms_median": statistics.median(times), "first_frame": first,
-            "next_frame": nxt, "peak_mib": peak,
-            "J1_alone": _prepass_alone(cs, device, cfg, grid)}
+            "next_frame": nxt, "peak_mib": peak, "J1_alone": j1,
+            "H0_alone": _compact_alone(cs, device, alive)}
 
 
 def _prepass_alone(cs, device, cfg, grid, reps=20):
@@ -523,6 +525,50 @@ def _prepass_alone(cs, device, cfg, grid, reps=20):
            "device_ms_per_call": cs.device_ms(run, "J1", device, reps=reps, per_launch=True,
                                               **({"launches": 2} if two else {}))}
     print(f"[J1 alone] {json.dumps(out)}", flush=True)
+    return out, work[-1][:R].clone()
+
+
+def _compact_alone(cs, device, alive, reps=20):
+    """Kernel H0 alone (two launches a call) on the alive rays after the
+    prepass (round 0's mask, the second mask all false as conv is there):
+    CUDA-event ms per call and device ms per call among the profiler's
+    records, on the mask alone and,
+    where the tree's H0 takes a second mask, with ``alive & ~conv`` fused
+    in; beside the tree's way of forming that mask first (two elementwise
+    ops and H0: all device activities of a call)."""
+    import inspect
+
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import sphere_trace as st
+
+    R = alive.shape[0]
+    conv = torch.zeros_like(alive)
+    bucket = st.pow2_bucket(int(alive.sum()), lo=256, hi=R)
+    # a tree whose H0 takes a second mask forms alive & ~conv in its loads
+    fused = "other" in inspect.signature(compaction.nonzero_static_cuda).parameters
+
+    def alone():
+        compaction.nonzero_static_cuda(alive, bucket, R)
+
+    def with_ops():
+        compaction.nonzero_static_cuda((alive & ~conv).contiguous(), bucket, R)
+
+    out = {"R": R, "bucket": bucket, "ms": cs.time_ms(alone, reps, device),
+           "device_ms_per_call": cs.device_ms(alone, "H0", device, reps=reps, per_launch=True,
+                                              launches=2),
+           "ops_then_h0_ms": cs.time_ms(with_ops, reps, device)}
+    if hasattr(cs, "device_ms_all"):
+        out["ops_then_h0_device_ms"] = cs.device_ms_all(with_ops, device, reps=reps)[0]
+    if fused:
+        def run_fused():
+            compaction.nonzero_static_cuda(alive, bucket, R, other=conv, negate_other=True)
+
+        out["fused_ms"] = cs.time_ms(run_fused, reps, device)
+        out["fused_device_ms_per_call"] = cs.device_ms(run_fused, "H0", device, reps=reps,
+                                                       per_launch=True, launches=2)
+    print(f"[H0 alone] {json.dumps(out)}", flush=True)
     return out
 
 
@@ -668,7 +714,28 @@ def train_path(cs, device, cfg):
     return params, grid, reel, {
         "ms_all": summary["ms_per_step_all"], "ms_median": summary["ms_per_step_median"],
         "peak_mib": peak, "interleave_copies_per_step": summary.get("interleave_copies_per_step"),
-        "profile": prof}
+        "profile": prof, "D'_alone": _weights_bwd_alone(cs, device)}
+
+
+def _weights_bwd_alone(cs, device, R=512, reps=20):
+    """Kernel D' alone at the flagship step's shapes (R rays, NeuS at S = 96
+    and NeRF at S = 32) on ``lod_kernels.weights_bwd_batch`` (made from a
+    seed): CUDA-event ms per call and device ms per launch among the
+    profiler's records."""
+    from permuto_sdf_tpu_torch.ops import volume_rendering as vr
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lod_kernels
+
+    out = {}
+    for label, mode, S in (("neus_96", 0, 96), ("nerf_32", 1, 32)):
+        args = lod_kernels.weights_bwd_batch(R, device, mode=mode, S_bwd=S)
+        fn = lambda args=args: vr.render_weights_bwd_cuda(*args)  # noqa: E731
+        out[f"{label}_ms"] = cs.time_ms(fn, reps, device)
+        out[f"{label}_device_ms_per_launch"] = cs.device_ms(fn, "D'", device, reps=reps,
+                                                            per_launch=True)
+    print(f"[D' alone] {json.dumps(out)}", flush=True)
+    return out
 
 
 def sdf_from_mesh_path(cs, device):

@@ -10,8 +10,12 @@
 // (__ffs is the compiler's builtin, __float_as_uint a memcpy; __fns, positive offsets only, a loop
 // over the bits), __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
-// psdf_dynamic_smem are redefined for that (float2 is a plain pair, float4
-// and uint4 four plain words, so a 16-byte vector load is a struct copy; cp.async
+// psdf_dynamic_smem are redefined for that (a launch of thread-block
+// clusters runs a cluster's blocks together: PSDF_LAUNCH_CLUSTER, the
+// cluster barrier, whole or in halves, and another block's shared memory by
+// rank, under the names psdf_cluster_* that the card's build of
+// profiling/h0_variants.cu gives them) (float2 is a plain pair, float4
+// uint2 and uint4 two and four plain words, so a vector load is a struct copy; cp.async
 // is a synchronous memcpy; cudaFuncSetAttribute accepts any shared-memory
 // size). It checks the
 // kernels' logic, not their speed or the GPU's own float rounding.
@@ -22,6 +26,7 @@
 #include <cstdint>
 #include <cstring>
 #include <memory>
+#include <optional>
 #include <thread>
 #include <vector>
 using std::min; using std::max;
@@ -33,6 +38,7 @@ inline int cudaGetLastError() { return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline const char* cudaGetErrorString(int) { return "emulated"; }
 #define __global__
@@ -100,25 +106,64 @@ template <class T> T atomicMin(T* p, T v) {
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T> T __ldcg(const T* p) { return std::atomic_ref<T>(*const_cast<T*>(p)).load(); }
-template <class F> void emu_launch(int grid, int block, size_t smem, F&& body) {
-  for (int b = 0; b < grid; ++b) {
-    std::vector<unsigned char> sm(smem + 16);
+// A launch runs the blocks of one cluster at a time, all their threads at
+// once (a plain launch: clusters of one block). Each block has its own
+// shared memory, warps and block barrier; the cluster has one barrier of
+// all its threads (psdf_cluster_sync) and the list of its blocks' shared
+// memory (psdf_cluster_map).
+struct EmuCluster { std::unique_ptr<std::barrier<>> bar; std::vector<unsigned char*> smem; };
+inline thread_local EmuCluster* emu_cluster;
+inline thread_local unsigned emu_cluster_rank;
+template <class F> void emu_launch_cluster(int grid, int block, int cluster, size_t smem, F&& body) {
+  for (int c0 = 0; c0 < grid; c0 += cluster) {
+    const int nb = std::min(cluster, grid - c0);
+    std::vector<std::vector<unsigned char>> sm(nb, std::vector<unsigned char>(smem + 16));
     int nw = (block + 31) / 32;
-    std::vector<EmuWarp> warps(nw);
-    for (auto& w : warps) w.bar = std::make_unique<std::barrier<>>(32);
-    std::barrier<> block_bar(block);
+    std::vector<std::vector<EmuWarp>> warps(nb);
+    std::vector<std::unique_ptr<std::barrier<>>> block_bars;
+    EmuCluster cl;
+    cl.bar = std::make_unique<std::barrier<>>(nb * block);
+    for (int r = 0; r < nb; ++r) {
+      warps[r] = std::vector<EmuWarp>(nw);
+      for (auto& w : warps[r]) w.bar = std::make_unique<std::barrier<>>(32);
+      block_bars.push_back(std::make_unique<std::barrier<>>(block));
+      cl.smem.push_back(sm[r].data());
+    }
     std::vector<std::thread> ts;
-    for (int t = 0; t < block; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t; blockIdx.x = b; blockDim.x = block; gridDim.x = grid;
-        emu_smem = sm.data(); emu_warp = &warps[t / 32]; emu_block_bar = &block_bar;
-        body();
-        // a thread that returns early leaves the block's later barriers
-        block_bar.arrive_and_drop();
-      });
+    for (int r = 0; r < nb; ++r)
+      for (int t = 0; t < block; ++t)
+        ts.emplace_back([&, r, t] {
+          threadIdx.x = t; blockIdx.x = c0 + r; blockDim.x = block; gridDim.x = grid;
+          emu_smem = sm[r].data(); emu_warp = &warps[r][t / 32];
+          emu_block_bar = block_bars[r].get(); emu_cluster = &cl; emu_cluster_rank = r;
+          body();
+          // a thread that returns early leaves the block's and the
+          // cluster's later barriers
+          emu_block_bar->arrive_and_drop();
+          cl.bar->arrive_and_drop();
+        });
     for (auto& th : ts) th.join();
   }
 }
+template <class F> void emu_launch(int grid, int block, size_t smem, F&& body) {
+  emu_launch_cluster(grid, block, 1, smem, body);
+}
+#define PSDF_CLUSTER
+inline unsigned psdf_cluster_rank() { return emu_cluster_rank; }
+inline unsigned psdf_cluster_blocks() { return (unsigned)emu_cluster->smem.size(); }
+inline thread_local std::optional<std::barrier<>::arrival_token> emu_cluster_token;
+inline void psdf_cluster_arrive() { emu_cluster_token.emplace(emu_cluster->bar->arrive()); }
+inline void psdf_cluster_wait() {
+  emu_cluster->bar->wait(std::move(*emu_cluster_token));
+  emu_cluster_token.reset();
+}
+inline void psdf_cluster_sync() { emu_cluster->bar->arrive_and_wait(); }
+template <class T> T* psdf_cluster_map(T* p, unsigned rank) {
+  return reinterpret_cast<T*>(emu_cluster->smem[rank] +
+                              (reinterpret_cast<unsigned char*>(p) - emu_smem));
+}
+#define PSDF_LAUNCH_CLUSTER(kernel, grid, block, cluster, smem, stream, ...) \
+  (emu_launch_cluster((grid), (block), (cluster), (smem), [&] { kernel(__VA_ARGS__); }), 0)
 #define PSDF_LAUNCH(kernel, grid, block, smem, stream, ...) \
   emu_launch((grid), (block), (smem), [&] { kernel(__VA_ARGS__); })
 #define PSDF_DYNAMIC_SMEM

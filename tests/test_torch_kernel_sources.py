@@ -1,5 +1,6 @@
 """The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2 (its three
-forms), L, D2, D2', M, C3, J3, J3f, J2f, C2 and I2,
+forms), L, D2, D2', M, C3, J3, J3f, J2f, C2 and I2 (and H0's one-launch cluster
+form, ``profiling/h0_variants.cu``, which the port measured and did not keep),
 compiled for the CPU with g++ against a small CUDA stand-in
 (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
 own kernel wrappers, against the plain PyTorch versions.
@@ -35,6 +36,9 @@ from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
 
 _EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_cpu_emulation")
+# kernel H0's one-launch cluster form, measured and not kept by the port
+_H0_VARIANTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "profiling", "h0_variants.cu")
 
 
 @pytest.fixture(scope="module")
@@ -45,18 +49,21 @@ def cpu_kernels(tmp_path_factory):
         pytest.skip("g++ not available: cannot compile the kernel sources for the CPU")
     out = tmp_path_factory.mktemp("cpu_kernels")
 
-    def build(name):
+    def build(source):
+        name = os.path.splitext(os.path.basename(source))[0]
         lib = out / f"lib{name}.so"
         cmd = [gxx, "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                "-Wno-unknown-pragmas", "-I", _EMU, "-I", str(kernels.CSRC), "-o", str(lib),
-               str(kernels.CSRC / f"{name}.cu")]
+               source]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         assert res.returncode == 0, res.stderr
         return name, lib
 
-    with ThreadPoolExecutor(len(kernels.LIBRARIES)) as ex:
-        libs = dict(ex.map(build, kernels.LIBRARIES))
-    return {name: kernels.declare(ctypes.CDLL(str(path)), name) for name, path in libs.items()}
+    sources = [str(kernels.CSRC / f"{name}.cu") for name in kernels.LIBRARIES] + [_H0_VARIANTS]
+    with ThreadPoolExecutor(len(sources)) as ex:
+        libs = dict(ex.map(build, sources))
+    return {name: (kernels.declare(ctypes.CDLL(str(path)), name) if name in kernels.LIBRARIES
+                   else ctypes.CDLL(str(path))) for name, path in libs.items()}
 
 
 @pytest.fixture
@@ -316,17 +323,35 @@ def test_kernels_F_G_source_match_plain(emulated, d, K, window, N, clustered):
         launches[0] + 1, launches[1] + 1)
 
 
-@pytest.mark.parametrize("mode", [0, 1])
-def test_kernel_D_backward_source_matches_plain(emulated, mode):
-    """Kernel D' (reverse warp scan of the transmittance recurrence, three
-    32-sample chunks, the last partial) against the plain backward (autograd
-    of the plain forward), with random cotangents on every output; to 1e-5
-    of each gradient's largest |value|."""
-    rng = np.random.default_rng(11 + mode)
-    R, S = 50, 70
+@pytest.mark.parametrize("mode,S,masks", [
+    pytest.param(0, 70, "prefix", id="0"), pytest.param(1, 70, "ones", id="1"),
+    (0, 96, "prefix"), (1, 96, "ones"), (0, 32, "prefix"), (1, 32, "ones"),
+    (0, 70, "random"), (1, 96, "random"), (0, 32, "random")])
+def test_kernel_D_backward_source_matches_plain(emulated, mode, S, masks):
+    """Kernel D' (each ray's rows staged once, one warp scan of the runs'
+    transmittance products, one reverse warp scan of the runs' composed
+    affine maps) against the plain backward (autograd of the plain
+    forward), with random cotangents on every output; to 1e-5 of each
+    gradient's largest |value|. S = 70 gives runs of 3 with the last lanes
+    empty and rows that are not 16-byte aligned (the 4-byte stores), S = 96
+    whole 16-byte rows, S = 32 a sample a lane read without the staging
+    (as up to S = 64);
+    prefix masks as the samplers make them, full ones, and random masks
+    that are not prefixes (invalid samples inside a ray, valid ones past
+    nr - 1)."""
+    seed = 11 + mode + (0 if S == 70 else S) + (7 if masks == "random" else 0)
+    rng = np.random.default_rng(seed)  # the first two cases' seeds as before
+    R = 50
     nr = torch.from_numpy(rng.integers(0, S + 1, R))
     nr[0], nr[1], nr[2] = 0, S, 1
-    mask = prefix_mask(nr, S) if mode == 0 else torch.ones((R, S), dtype=torch.bool)
+    if masks == "prefix":
+        mask = prefix_mask(nr, S)
+    elif masks == "ones":
+        mask = torch.ones((R, S), dtype=torch.bool)
+    else:
+        mask = torch.from_numpy(rng.uniform(size=(R, S)) < rng.uniform(0.2, 0.9, (R, 1)))
+        mask[0] = False
+        assert not torch.equal(mask, prefix_mask(mask.sum(1), S))
     dt = torch.from_numpy(rng.uniform(0, 0.02, (R, S)).astype(np.float32))
     dirs = torch.nn.functional.normalize(
         torch.from_numpy(rng.normal(size=(R, 3)).astype(np.float32)), dim=-1)
@@ -442,21 +467,66 @@ def test_kernel_J0_source_matches_plain(emulated, V, cap, kind):
         assert 0 == int(want.min()) < 3 < int(want.max())
 
 
+@pytest.fixture(scope="module")
+def h0_cluster_variant(cpu_kernels):
+    """The one-launch (thread-block cluster) form of kernel H0 that the port
+    measured and did not keep (``profiling/h0_variants.cu``), built for the
+    CPU with the kernels: the emulation runs a cluster's blocks together."""
+    lib = cpu_kernels["h0_variants"]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.psdf_compact_shape.argtypes = [I, I, I, I, P, P, I, I, ctypes.c_longlong, P, P, P]
+    lib.psdf_compact_shape.restype = I
+    return lib
+
+
 @pytest.mark.parametrize("n,p,sizes", [(5000, 0.3, (100, 1500, 1523, 6000)), (0, 0.0, (0, 256)),
-                                       (2048, 1.0, (2048,)), (777, 0.01, (256, 3))])
-def test_kernel_H0_source_matches_plain(emulated, n, p, sizes):
-    """Kernel H0 (tile counts, then the offsets and the in-block scan)
-    against the plain version: the same indices in the same order, the fill
-    value in the unused slots, and the true count; buckets below, at and
-    above the count, and a mask shorter than a tile."""
-    mask = torch.from_numpy(np.random.default_rng(n).uniform(size=n) < p)
-    count = int(mask.sum())
-    for size in sizes + (count,):
-        for fill in (None, n + 5):
-            got = compaction.nonzero_static_cuda(mask, size, fill)
-            want = compaction.nonzero_static_plain(mask, size, fill)
-            np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
-            assert int(got[1]) == int(want[1]) == count
+                                       (2048, 1.0, (2048,)), (777, 0.01, (256, 3)),
+                                       (6500, 0.5, (64, 4095, 6501)),
+                                       (3077, 0.7, (1, 2100, 3500))])
+def test_kernel_H0_source_matches_plain(emulated, h0_cluster_variant, n, p, sizes):
+    """Kernel H0 (tile counts, then the offsets and the in-block scan) and
+    its one-launch cluster form (``profiling/h0_variants.cu``, clusters of 4
+    blocks of 32 threads here, 2,048 elements a pass: n = 3,077 takes 2
+    passes and 6,500 takes 4) against the plain version: the same indices
+    in the same order, the fill value in the unused slots, and the true
+    count; buckets below, at and above the count, a mask shorter than a
+    tile, a ragged tail, the fill value n + 5 and the default, and the
+    second mask fused in (mask & other, mask & ~other; one fill value a size
+    in turns); and masks that do not start on an 8- or 16-byte boundary
+    (the byte loads: the first size of each mode, all sizes for the
+    cluster form)."""
+    rng = np.random.default_rng(n)
+    base = torch.from_numpy(rng.uniform(size=n + 1) < p)
+    second = torch.from_numpy(rng.uniform(size=n + 1) < 0.5)
+    for offset in (0, 1):
+        mask, other = base[offset:offset + n], second[offset:offset + n]
+        assert mask.is_contiguous() and mask.numel() == n
+        for fused in (None, False, True):
+            kw = {} if fused is None else dict(other=other, negate_other=fused)
+            mode = 0 if fused is None else (2 if fused else 1)
+            combined = mask if fused is None else mask & (~other if fused else other)
+            count = int(combined.sum())
+            for k, size in enumerate(sizes + (count,)):
+                both = offset == 0 and fused is None
+                for fill in (None, n + 5) if both else ((None, n + 5)[(k + offset) % 2],):
+                    want = compaction.nonzero_static_plain(mask, size, fill, **kw)
+                    assert int(want[1]) == count
+                    np.testing.assert_array_equal(
+                        want[0].numpy(), compaction.nonzero_static_plain(combined, size, fill)[0])
+                    if offset == 0 or k == 0:
+                        launches = compaction.nonzero_static_cuda.launches
+                        got = compaction.nonzero_static_cuda(mask, size, fill, **kw)
+                        assert compaction.nonzero_static_cuda.launches == launches + 1
+                        np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+                        assert int(got[1]) == count
+                    idx = torch.full((size,), -1, dtype=torch.int64)
+                    cnt = torch.zeros((1,), dtype=torch.int32)
+                    assert h0_cluster_variant.psdf_compact_shape(
+                        32, 1, 4, n, kernels.ptr(mask), kernels.ptr(other) if fused is not None
+                        else None, mode, size, n if fill is None else fill, kernels.ptr(idx),
+                        kernels.ptr(cnt), None) == 0
+                    np.testing.assert_array_equal(idx.numpy(), want[0].numpy())
+                    assert int(cnt) == count
 
 
 def _shell(V):
