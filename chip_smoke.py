@@ -16,8 +16,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    of the flagship training step (F and G at its fg and background counts
    on three point sets, random, ray-ordered and clustered, each with every
    level and with parity, device ms and bound for each; D' also at the
-   other mode's S, at S = 70 and on masks that are not prefixes); time the
-   interleaved [L, C, 2] copy of one table that A, B and G read;
+   other mode's S, at S = 70 and on masks that are not prefixes; I's two
+   entries, and If, the flagship refresh in one launch: 262,144 probes of
+   the 256^3 grid, the SDF on 14 of 24 levels at IF_C2F_ITER, random
+   weights, against its plain version within TOL_IF, timed beside the
+   unfused refresh it replaced); time the interleaved [L, C, 2] copy of one
+   table that A, B and G read;
 3. render 400x400 frames of the full-width flagship model (random weights
    from a seed, plus a planted plane SDF so the frame has a surface) with
    ``render_image`` on a fully occupied grid and on a sparse shell grid,
@@ -33,7 +37,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the train state at iteration nr_iter_sphere_fit + TRAIN_FROM (every SDF
    level open, curvature on, the lr past warm-up), then ``train`` resumed
    from it for TRAIN_STEPS steps (3 occupancy refreshes), with the launch
-   counts reset before and read after; ms/step, rays/s, launches per step,
+   counts reset before and read after (every grid refresh one launch of
+   If and none of I's entries); ms/step, rays/s, launches per step,
    at most one interleaved-table copy per hash table per step, every
    parameter group changed and finite; one more step profiled;
 6. one full-width training step on the card and on the CPU with the same
@@ -42,7 +47,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    sign on the two sides counted);
 7. the sphere scene (the full-width model after SPHERE_INIT_STEPS
    ``sphere_init_step`` s, its grid refreshed over every voxel) and the
-   planted-plane scene on a full grid; kernels J0, J1, J2 and H0 against
+   planted-plane scene on a full grid; If on the scene's trained SDF
+   against its plain version, and one ``occupancy_update`` on the card
+   against the same call on the CPU (same parameters and jitter: one If
+   launch, values within TOL_IF); kernels J0, J1, J2 and H0 against
    their plain versions at the shapes of one 400x400 chunk of
    ``render_image_sphere_traced_fast`` (H0 also with each second-mask mode,
    timed beside ``torch.nonzero_static``);
@@ -62,7 +70,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 10. kernels E1 and E2 (the importance stage) against their plain versions
    on one chunk's samples (rounds at S = 64 and 80, no jitter) and one
    training batch's (jitter on), H1 and H2 (the hit-ray take and scatter,
-   and H2's backward) at the training step's shapes; the exact frames of
+   and H2's backward) at the training step's shapes (H1 also on its arrays
+   based at an odd element and on rows of odd widths, one launch a call,
+   device ms a launch); the exact frames of
    phase 3 launch E1 and E2 twice per chunk each;
 11. LOD frames (``render_image(lod=(12, 32))``, the viewer's volumetric
    mode) at 400x400 on the sphere and the plane scene, timed, against the
@@ -175,6 +185,14 @@ TOL_G = 1e-4  # G's table gradient per level as F; its feature cotangent is a ga
 # another association; relative to each gradient's largest |value|.
 TOL_DB = 1e-4
 TOL_I = 0.0  # voxel ids, centers, values and occupancy: identical float ops
+# Kernel If (the refresh in one launch) vs its plain version, and a card
+# refresh vs a CPU refresh: the MLP's sums in fmaf order against the
+# matmuls' blocking move the sdf by float rounding (as J3f's TOL_FUSED); a
+# voxel's flag may differ only where the threshold lies between the two
+# values' densities, on at most max(FUSED_MAX_ROWS, FUSED_SHARE of the
+# probes) voxels, and every voxel no probe visits stays as it was.
+TOL_IF = 1e-5
+IF_C2F_ITER = 2000  # the flagship's c2f window still closes levels here (10,000 iterations)
 # Card vs CPU render of the same samples: matmul summation order (cuBLAS
 # vs CPU BLAS) moves sdf by ~1e-7, which NeuS alphas amplify by inv_s ~ 3e3.
 TOL_CROSS = 2e-3
@@ -603,7 +621,8 @@ ERR_KIND = {"A": "abs", "B": "rel", "C": "abs", "D": "abs", "F": "rel_level",
             "G": "rel_level", "D'": "rel", "I": "abs", "J0": "abs", "J1": "abs", "J2": "abs",
             "H0": "abs", "E1": "abs", "E2": "abs", "H1": "abs", "H2": "abs",
             "L": "rel_floor1", "D2": "abs", "D2'": "rel", "M1": "abs", "M2": "ulp",
-            "C3": "ulp", "J3": "abs", "C2": "abs", "I2": "abs", "J3f": "abs", "J2f": "abs"}
+            "C3": "ulp", "J3": "abs", "C2": "abs", "I2": "abs", "J3f": "abs", "J2f": "abs",
+            "If": "abs"}
 GATED = {}  # kernel -> (largest gated error over its checks, tolerance)
 
 
@@ -954,10 +973,189 @@ def train_kernel_phases(device, cfg, reps=20, plain_reps=3):
     b = bound_ms(nbytes, OPS_PER_PROBE_I * n)
     _report(f"I n={n} grid={gcfg.nr_voxels_per_dim}^3 (both entries; "
             f"{int((~grids[0].occupancy).sum())} voxels emptied)", err, TOL_I, ms, pms, b)
-    dms = device_ms(run_k, "I", device)
+    dms = device_ms(run_k, "I", device, per_launch=True, launches=2)
     results["I"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
                         device_ms=dms)
+
+    # --- If: the refresh in one launch, random weights at a c2f-active iteration
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    params = tps.init_params(SEED, cfg, device=device)
+    params["sdf"]["encoding"]["lattice_values"].mul_(1e3)  # a trained table's magnitude
+    results["If"] = refresh_case(device, cfg, params["sdf"], IF_C2F_ITER, "random_c2f", reps,
+                                 plain_reps)
     return results
+
+
+def _random_grid(gcfg, device, seed):
+    """A grid of random values and flags: a refresh's writes to voxels no
+    probe visits would show."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    gen = torch.Generator().manual_seed(seed)
+    return og.OccupancyGridState(
+        values=torch.randn(gcfg.nr_voxels, generator=gen).to(device),
+        occupancy=(torch.rand(gcfg.nr_voxels, generator=gen) < 0.5).to(device))
+
+
+def _refresh_compare(label, gcfg, got, want, base, lin, inv_s, thresh):
+    """A refreshed grid against another (kernel If against its plain
+    version, or the card against the CPU), both from ``base``: the probed
+    voxels' values and flags (a flag may differ only where the threshold
+    lies between the two values' densities, on at most max(FUSED_MAX_ROWS,
+    FUSED_SHARE of the probes) voxels), every other voxel unchanged ->
+    (the largest value gap, summary)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    probed = torch.zeros(gcfg.nr_voxels, dtype=torch.bool, device=base.values.device)
+    probed[lin.long().to(probed.device)] = True
+    for name, g in (("the kernel", got), ("the plain version", want)):
+        if not (torch.equal(g.values[~probed], base.values[~probed])
+                and torch.equal(g.occupancy[~probed], base.occupancy[~probed])):
+            fail(f"{label}: {name} changed a voxel no probe visits")
+    vk, vp = got.values[probed], want.values[probed]
+    x = lambda v: torch.clamp(v.abs() - gcfg.half_diagonal, 0.0, 1e10)  # noqa: E731
+    dk = og._logistic_density(x(vk), torch.tensor(inv_s))
+    dp = og._logistic_density(x(vp), torch.tensor(inv_s))
+    differ = got.occupancy[probed] != want.occupancy[probed]
+    between = (torch.minimum(dk, dp) <= thresh) & (thresh <= torch.maximum(dk, dp))
+    n = int(probed.sum())
+    summary = {"probes": n, "flags_differ": int(differ.sum()),
+               "flags_differ_outside_the_tie": int((differ & ~between).sum()),
+               "occupied": int(want.occupancy[probed].sum()),
+               "max_value_gap": (vk - vp).abs().max().item()}
+    limit = max(FUSED_MAX_ROWS, FUSED_SHARE * n)
+    if summary["flags_differ_outside_the_tie"] or summary["flags_differ"] > limit:
+        fail(f"{label}: {summary} (flags may differ only at the threshold, on at most "
+             f"{limit:g} voxels)")
+    return summary["max_value_gap"], summary
+
+
+def refresh_bound(params_sdf, sdf_cfg, K, lin, centers):
+    """The least time of kernel If over this refresh's work: the bytes of
+    the jitter, the distinct 32-byte table sectors the probes' K levels
+    gather, the staged weights and the 32-byte sectors of the scattered
+    value and flag stores; the operations of the evaluations (K levels of
+    lattice math, the MLP and its GELUs) and of the probes' ids, centers and
+    densities -> (bound_ms(...), work)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    enc = params_sdf["encoding"]
+    scales, E, _ = pe.encoding_constants(sdf_cfg.encoding, None, centers.device)
+    sectors = [torch.zeros((0,), dtype=torch.int64, device=centers.device)]
+    for part in centers.split(32768):  # 4 slots of 8 bytes a sector
+        ids = pe.flat_slot_ids(part, enc["lattice_values"], enc["shift_per_level"], scales, E, K)
+        sectors.append((ids // 4).unique())
+    table_sectors = int(torch.cat(sectors).unique().numel())
+    lin = lin.long()
+    store_sectors = int((lin // 8).unique().numel() + (lin // 32).unique().numel())
+    n, n_in = int(lin.numel()), 2 * K + 3
+    mlp_ops = 2 * (n_in * 32 + 2 * 32 * 32 + 32) + 3 * 32 * OPS_PER_GELU
+    per_probe = K * OPS_PER_POINT_LEVEL_A + mlp_ops + OPS_PER_PROBE_I
+    nbytes = (12 * n + 32 * table_sectors + 4 * (n_in * 32 + 2 * 32 * 32 + 4 * 32 + 1)
+              + 32 * store_sectors)
+    work = {"probes": n, "table_sectors": table_sectors, "store_sectors": store_sectors,
+            "ops_per_probe": per_probe}
+    return bound_ms(nbytes, n * per_probe), work
+
+
+def refresh_case(device, cfg, params_sdf, it, label, reps=20, plain_reps=3):
+    """Kernel If at the flagship refresh (grid_nr_random_samples probes of
+    the grid, the SDF on grid_update_max_levels levels at iteration ``it``)
+    against its plain version on the card, from a random grid, then timed
+    beside the plain version and the unfused refresh it replaced (entry 1,
+    ``sdf_apply``'s kernel A and matmuls, entry 2: CUDA-event ms, device
+    busy ms and launches a call). Returns the kernel row's numbers."""
+    import torch
+
+    from permuto_sdf_tpu_torch.models.fields import SDFEval
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    gcfg, n, K = cfg.grid, cfg.grid_nr_random_samples, cfg.grid_update_max_levels
+    upd = 2501  # an update index past the first 64 (the ids wrap the grid)
+    jitter = (torch.rand((n, 3), generator=torch.Generator().manual_seed(SEED + 3)) - 0.5).to(
+        device)
+    args = (SDFEval(cfg.sdf_model, K), (params_sdf, it), n, upd, jitter, INV_S_TRAINED,
+            cfg.grid_occupancy_thresh)
+    base = _random_grid(gcfg, device, SEED + 4)
+    grids = [og.OccupancyGridState(values=base.values.clone(), occupancy=base.occupancy.clone())
+             for _ in range(3)]
+    og.grid_refresh_cuda(gcfg, grids[0], *args)
+    og.grid_refresh_plain(gcfg, grids[1], *args)
+    centers, lin = og.grid_points_plain(gcfg, n, upd, jitter, device)
+    err, summary = _refresh_compare(f"kernel If ({label})", gcfg, grids[0], grids[1], base, lin,
+                                    INV_S_TRAINED, cfg.grid_occupancy_thresh)
+
+    def run_k():
+        og.grid_refresh_cuda(gcfg, grids[0], *args)
+
+    def unfused():
+        og._refresh_through(og.grid_points_cuda, og.grid_update_cuda, gcfg, grids[2], *args)
+
+    ms = time_ms(run_k, reps, device)
+    pms = time_ms(lambda: og.grid_refresh_plain(gcfg, grids[1], *args), plain_reps, device)
+    b, work = refresh_bound(params_sdf, cfg.sdf_model, K, lin, centers)
+    _report(f"If:{label} n={n} grid={gcfg.nr_voxels_per_dim}^3 K={K} of {cfg.nr_levels} "
+            f"it={it} (flags {summary}; library ms: none)", err, TOL_IF, ms, pms, b)
+    dms = device_ms(run_k, "If", device, per_launch=True)
+    ums = time_ms(unfused, reps, device)
+    ubusy, ulaunches = device_ms_all(unfused, device)
+    print(f"[kernel If:{label}] device ms a launch {dms}; the unfused refresh it replaced: "
+          f"ms={ums:.4f}, device busy ms {ubusy}, {ulaunches} device launches a call",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                device_ms=dms, library_ms=None, unfused_ms=ums, unfused_device_busy_ms=ubusy,
+                unfused_device_launches=ulaunches, work=work, compare=summary)
+
+
+def refresh_cross_check(device, cfg, params):
+    """One flagship ``occupancy_update`` on the card against the same call
+    on the CPU, with the same parameters and jitter, from the same random
+    grid: the card's call launches If once and neither entry of I; the
+    grids agree as ``_refresh_compare`` says, within TOL_IF."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    n = cfg.grid_nr_random_samples
+    jitter = torch.rand((n, 3), generator=torch.Generator().manual_seed(SEED + 13)) - 0.5
+    it = ITER + 5 * cfg.grid_update_every + 3
+    base = _random_grid(cfg.grid, torch.device("cpu"), SEED + 14)
+    card = og.OccupancyGridState(values=base.values.to(device), occupancy=base.occupancy.to(device))
+    cpu = og.OccupancyGridState(values=base.values.clone(), occupancy=base.occupancy.clone())
+    cpu_params = _tree_map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t,
+                           params)
+    before = (og.grid_refresh_cuda.launches, og.grid_points_cuda.launches,
+              og.grid_update_cuda.launches)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    tps.occupancy_update(params, card, jitter, it, INV_S_TRAINED, cfg)
+    torch.cuda.synchronize(device)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    after = (og.grid_refresh_cuda.launches, og.grid_points_cuda.launches,
+             og.grid_update_cuda.launches)
+    if after != (before[0] + 1, before[1], before[2]):
+        fail(f"refresh card vs CPU: launches If, I entry 1, I entry 2 {before} -> {after}, "
+             f"expected one of If alone")
+    t0 = time.perf_counter()
+    tps.occupancy_update(cpu_params, cpu, jitter, it, INV_S_TRAINED, cfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    _, lin = og.grid_points_plain(cfg.grid, n, it // cfg.grid_update_every)
+    got = og.OccupancyGridState(values=card.values.cpu(), occupancy=card.occupancy.cpu())
+    err, summary = _refresh_compare("refresh card vs CPU", cfg.grid, got, cpu, base, lin,
+                                    INV_S_TRAINED, cfg.grid_occupancy_thresh)
+    if not err <= TOL_IF:
+        fail(f"refresh card vs CPU: values {err:.3e} apart, above {TOL_IF:.1e}")
+    out = {"max_value_gap": err, "tol": TOL_IF, "card_ms": card_ms, "cpu_ms": cpu_ms, **summary}
+    print(f"[refresh card vs CPU] occupancy_update at iteration {it}: {out}", flush=True)
+    return out
 
 
 def counters():
@@ -984,11 +1182,11 @@ def counters():
             "M2": (mc.mt_emit_cuda,), "C3": (og.first_occupied_cuda,),
             "J3": (st.trace_step_pos_cuda,), "C2": (rs.samples_fg_cuda,),
             "I2": (og.density_update_cuda,), "J3f": (st.trace_loop_pos_cuda,),
-            "J2f": (st.trace_round_cuda,)}
+            "J2f": (st.trace_round_cuda,), "If": (og.grid_refresh_cuda,)}
 
 
 RENDER_KERNELS = ("A", "B", "C", "D", "E1", "E2")
-TRAIN_KERNELS = ("A", "B", "C", "D", "E1", "E2", "F", "G", "D'", "I")
+TRAIN_KERNELS = ("A", "B", "C", "D", "E1", "E2", "F", "G", "D'", "If")
 SPHERE_KERNELS = ("J0", "J1", "J2f", "H0", "A", "B")
 
 
@@ -1051,7 +1249,8 @@ def slice_phase(device, cfg, params, grids, width, height, chunk, frames=N_FRAME
 KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "C": "probe_sampler_kernel", "D": "render_weights_kernel",
                   "F": "encode_table_grad_kernel", "G": "encode_double_backward_kernel",
-                  "D'": "render_weights_bwd_kernel", "I": "grid_",
+                  "D'": "render_weights_bwd_kernel",
+                  "I": ("grid_points_kernel", "grid_update_kernel"), "If": "grid_refresh_kernel",
                   "J0": "chebyshev_pass_kernel",
                   "J1": ("jump_prepass_kernel", "jump_prepass_list_kernel"),
                   "J2": "trace_step_kernel", "H0": "compact_",
@@ -1241,11 +1440,12 @@ def train_phase(device, cfg):
         fail(f"sphere init: the loss did not fall ({losses})")
     start = cfg.nr_iter_sphere_fit + TRAIN_FROM
     before = {k: [t.clone() for t in v] for k, v in _param_groups(params).items()}
-    times, nr_samples = [], []
+    times, nr_samples, iters = [], [], []
 
     def on_step(it, loss, aux, params, grid):
         torch.cuda.synchronize(device)
         times.append(time.perf_counter())
+        iters.append(it)
         if not math.isfinite(float(loss)):
             fail(f"train: non-finite loss at iteration {it}")
         nr_samples.append(float(aux["nr_samples"]))
@@ -1266,6 +1466,11 @@ def train_phase(device, cfg):
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"train: the training path launched no kernel {missing}")
+    # every grid refresh is one launch of If, and neither entry of I
+    refreshes = sum(1 for it in iters if it % cfg.grid_update_every == 0)
+    if counts["If"] != refreshes or counts["I"] != 0:
+        fail(f"train: {refreshes} grid refreshes launched If {counts['If']} and I "
+             f"{counts['I']} times, expected {refreshes} and 0")
     # the importance stage of the reference profile: E1, then E2 in form c
     if not counts["E1"] == counts["E2"] == len(times) - 1:
         fail(f"train: E1/E2 launches {counts['E1']}/{counts['E2']} in {len(times) - 1} steps, "
@@ -1288,6 +1493,7 @@ def train_phase(device, cfg):
         "valid_samples_per_step_mean": samples,
         "valid_samples_per_s_median": samples / med * 1e3,
         "launches_per_step": {k: counts[k] / TRAIN_STEPS for k in TRAIN_KERNELS},
+        "grid_refreshes": refreshes,
         "interleave_copies_per_step": counts["copies"] / TRAIN_STEPS,
         "sphere_init_losses": losses, "final_loss": hist[-1][1],
         "occupied_share": float(grid.occupancy.float().mean()),
@@ -2438,13 +2644,45 @@ def hit_ray_kernel_phases(device, cfg, reps=20, plain_reps=3):
           bound_ms(B * 8 + B * row_out + R * row_out, 0))
     _report(f"H1 R={R} S={S} bucket={B} hits={hits} (8 arrays)", 0.0, 0.0, *t1)
     _report(f"H2 R={R} bucket={B} (4 arrays; backward = H1, exact)", 0.0, 0.0, *t2)
+
+    # H1 on narrower chunks: the same arrays based at an odd element (4- and
+    # 1-byte chunks), and rows of odd widths (3-byte bool rows, 3 floats,
+    # int64 pairs); bit for bit, one launch a call, device ms a launch
+    def at_odd(a):
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=device)
+        flat[1:] = a.reshape(-1)
+        return flat[1:].view(a.shape)
+
+    cases = {"step": arrays, "odd_base": [at_odd(a) for a in arrays],
+             "odd_width": [mask[:, :3].contiguous(), at_odd(mask[:, :3].contiguous()),
+                           f32(R, 3), at_odd(f32(R, 3)),
+                           torch.from_numpy(rng.integers(0, 2 ** 40, (R, 2))).to(device)]}
+    h1_cases = {}
+    for label, arrs in cases.items():
+        launches = compaction.take_rows_cuda.launches
+        got = compaction.take_rows_cuda(arrs, idx)
+        if compaction.take_rows_cuda.launches != launches + 1:
+            fail(f"kernel H1 ({label}): not one launch a call")
+        for k, (a, b) in enumerate(zip(got, compaction.take_rows_plain(arrs, idx))):
+            if not torch.equal(a, b):
+                fail(f"kernel H1 ({label}): array {k} differs from the plain version")
+        fn = lambda arrs=arrs: compaction.take_rows_cuda(arrs, idx)  # noqa: E731
+        rb = sum(a[0].numel() * a.element_size() for a in arrs)
+        h1_cases[label] = {
+            "ms": time_ms(fn, reps, device), "device_ms": device_ms(fn, "H1", device,
+                                                                    per_launch=True),
+            "chunk_bytes": [compaction._row_arrays(arrs, got).chunk[k]
+                            for k in range(len(arrs))],
+            "bound_ms": bound_ms(B * 8 + int((idx < R).sum()) * rb + B * rb, 0)[0]}
+    print(f"[kernel H1] cases (bit for bit, one launch each): {json.dumps(h1_cases)}",
+          flush=True)
     return {"H1": dict(max_abs_err=0.0, ms=t1[0], plain_ms=t1[1], bound_ms=t1[2][0],
-                       bound_by=t1[2][1], device_ms=device_ms(
-                           lambda: compaction.take_rows_cuda(arrays, idx), "H1", device)),
+                       bound_by=t1[2][1], device_ms=h1_cases["step"]["device_ms"],
+                       cases=h1_cases),
             "H2": dict(max_abs_err=0.0, ms=t2[0], plain_ms=t2[1], bound_ms=t2[2][0],
                        bound_by=t2[2][1], device_ms=device_ms(
                            lambda: compaction.scatter_rows_cuda(xs, idx, R, fills), "H2",
-                           device))}
+                           device, per_launch=True))}
 
 
 LOD = (12, 32)  # the interactive viewer's volumetric mode (interactive.py:127-134)
@@ -4540,7 +4778,7 @@ def gridfree_phase(device, cfg, params, grid, reel):
                       "valid_samples_per_step_mean": samples,
                       "valid_samples_per_s_median": samples / med * 1e3,
                       "launches_per_step": {k: run["launches"][k] / TRAIN_STEPS
-                                            for k in GRIDFREE_KERNELS + ("C", "I")}}
+                                            for k in GRIDFREE_KERNELS + ("C", "I", "If")}}
         print(f"[gridfree] {label}: {TRAIN_STEPS} steps from iteration {start + 1}: median "
               f"{med:.1f} ms/step (min {min(timed):.1f}, max {max(timed):.1f}), "
               f"{out[label]['rays_per_s_median']:.0f} rays/s, "
@@ -4548,9 +4786,9 @@ def gridfree_phase(device, cfg, params, grid, reel):
               f"{ {k: round(v, 2) for k, v in out[label]['launches_per_step'].items()} }",
               flush=True)
     counts = run["launches"]
-    if counts["C"] or counts["I"] or counts["C2"] != TRAIN_STEPS:
-        fail(f"grid-free train: launches C {counts['C']}, I {counts['I']}, C2 {counts['C2']} "
-             f"(expected 0, 0, {TRAIN_STEPS})")
+    if counts["C"] or counts["I"] or counts["If"] or counts["C2"] != TRAIN_STEPS:
+        fail(f"grid-free train: launches C {counts['C']}, I {counts['I']}, If {counts['If']}, "
+             f"C2 {counts['C2']} (expected 0, 0, 0, {TRAIN_STEPS})")
     missing = [k for k in GRIDFREE_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"grid-free train: no launch of kernel {missing}")
@@ -4653,6 +4891,10 @@ def main() -> int:
 
     # 7. the sphere scene and the plane scene; J0-J2 and H0 against their plain versions
     sphere_params, sphere_grid, scene_summary = sphere_scene(device, cfg)
+    # kernel If on the scene's trained SDF, and one refresh card against CPU
+    scene_summary["refresh_kernel"] = refresh_case(device, cfg, sphere_params["sdf"], ITER,
+                                                   "sphere_scene")
+    scene_summary["refresh_cross_check"] = refresh_cross_check(device, cfg, sphere_params)
     st_results, field = sphere_kernel_phases(device, cfg, sphere_params, sphere_grid)
     results.update(st_results)
     results["E1"]["sharp"] = importance_sharp_phase(device, cfg, sphere_params, sphere_grid)
@@ -4786,6 +5028,9 @@ def main() -> int:
                 "permuto_sdf_tpu/ops/sphere_trace.py:88"),
         "J2f": ("sphere_trace_round", "permuto_sdf_tpu_torch/kernels/csrc/sphere_trace.cu",
                 "permuto_sdf_tpu/ops/sphere_trace.py:337"),
+        "If": ("occupancy_grid_refresh_fused",
+               "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
+               "permuto_sdf_tpu/train/train_permuto_sdf.py:776"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():

@@ -44,16 +44,8 @@ class RowArrays(ctypes.Structure):
 
     _fields_ = [("src", _P * MAX_ROW_ARRAYS), ("dst", _P * MAX_ROW_ARRAYS),
                 ("row_bytes", _L * MAX_ROW_ARRAYS), ("fill", _U * MAX_ROW_ARRAYS),
-                ("count", _I)]
-
-
-class SdfNet(ctypes.Structure):
-    """The flagship SDF's tensors that kernels J2f and J3f read, passed by
-    value (``SdfNet`` in ``csrc/sphere_trace.cu``)."""
-
-    _fields_ = [(name, _P) for name in ("table", "shift", "scales", "window", "E", "w0", "b0",
-                                        "w1", "b1", "w2", "b2", "w3", "b3")] + [
-        ("capacity", _I), ("L", _I), ("K", _I), ("w3_cols", _I), ("concat_scaling", _F)]
+                ("chunk", _I * MAX_ROW_ARRAYS), ("first_chunk", _I * MAX_ROW_ARRAYS),
+                ("row_chunks", _I), ("count", _I)]
 
 
 # The C signature of each library's exported launch functions; each returns
@@ -74,6 +66,7 @@ SIGNATURES = {
         "psdf_grid_update": [_I, _P, _P] + [_F] * 3 + [_P] * 3,
         "psdf_first_occupied": [_I] + [_P] * 6 + [_I] + [_F] * 5 + [_I] + [_P] * 3,
         "psdf_density_update": [_I, _P, _P, _F, _F] + [_P] * 3,
+        "psdf_grid_refresh": [_I, _U, _I] + [_F] * 5 + [_P] * 2 + [_F] * 3 + [_P] * 3,
     },
     "volume_rendering": {
         "psdf_render_weights": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 6,
@@ -90,9 +83,9 @@ SIGNATURES = {
                            + [_I] + [_P] * 3,
         "psdf_trace_step_pos": [_I, _I] + [_P] * 8 + [_I] + [_F] * 5 + [_I] + [_F] * 7
                                + [_P] * 2,
-        "psdf_trace_loop_pos": [_I, _I, _P, SdfNet] + [_P] * 6 + [_I] + [_F] * 5
+        "psdf_trace_loop_pos": [_I, _I] + [_P] * 8 + [_I] + [_F] * 5
                                + [_I, _I] + [_F] * 7 + [_P],
-        "psdf_trace_round": [_I, _I, _P, SdfNet] + [_P] * 8 + [_I] + [_F] * 5
+        "psdf_trace_round": [_I, _I] + [_P] * 10 + [_I] + [_F] * 5
                             + [_I, _I] + [_F] * 3 + [_I] + [_P] * 2,
     },
     "compaction": {

@@ -36,6 +36,9 @@ struct RowArrays {
   void* dst[kMaxArrays];
   long long row_bytes[kMaxArrays];
   unsigned fill[kMaxArrays];  // a 4-byte pattern (H2's fills; 0 for H1)
+  int chunk[kMaxArrays];      // H1: the bytes a thread moves at once, 16, 8, 4 or 1
+  int first_chunk[kMaxArrays];  // H1: the array's first chunk in a row's chunks
+  int row_chunks;             // H1: the chunks of a row, all arrays
   int count;
 };
 
@@ -174,16 +177,32 @@ __global__ void __launch_bounds__(kThreads) compact_write_kernel(
 // distinct. H2's backward is H1 on the cotangents.
 //
 // What bounds them on an H100: bytes, each row read once and written once.
+// At the training step's bucket (256 rows of ~0.9 KB, 8 arrays) that is
+// ~0.46 MB, ~0.1 us of traffic: a launch is its latency.
 //
-// Design: H1 runs one block per bucket row, its threads striding over the
-// 4-byte words of each array's row (bytes where a row is not a whole number
-// of aligned words). H2 runs one thread per destination row, which finds
-// its bucket row by a binary search of the ascending ids (or writes the
-// fills), so every destination row is written once, in one launch. The
-// arrays travel in one parameter struct.
+// Design of H1: one flat space of (bucket row, array, chunk). The host
+// gives each array a chunk width, the widest of 16, 8, 4 or 1 bytes that
+// its base pointers and its row bytes allow (16 for the step's sample
+// rows, 4 for a row of 3 floats, 1 for a 3-byte bool row or an odd base),
+// and its first chunk in a row. A block loads the ids of the rows its
+// chunks fall in once, into shared memory; each thread then issues the
+// read-only loads of its kPer chunks (up to 16 bytes each) before any of
+// its stores, so a row costs one round trip to memory and not one per
+// array. kPer is 1, 2 or 4, the most that still launches a block per
+// streaming multiprocessor. It replaced one 64-thread block per bucket row
+// whose threads walked the arrays one after another in 4- or 1-byte
+// copies, each array's loads behind the previous array's stores: 0.00325
+// device ms a launch at the step's bucket against 0.00230, and 0.00334
+// against 0.00268 in the hit-ray step (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py, profiling/torch_encode_paths.py --paths train).
+//
+// Design of H2: one thread per destination row, which finds its bucket row
+// by a binary search of the ascending ids (or writes the fills), so every
+// destination row is written once, in one launch. The arrays travel in one
+// parameter struct.
 // ---------------------------------------------------------------------------
 
-constexpr int kRowThreads = 64;
+constexpr int kTakeThreads = 128;
 constexpr int kScatterThreads = 256;
 
 // Row src_row of array k to row dst_row (its fill pattern instead with
@@ -202,13 +221,79 @@ __device__ __forceinline__ void copy_row(const RowArrays& a, int k, long long sr
   }
 }
 
-__global__ void __launch_bounds__(kRowThreads) take_rows_kernel(
-    RowArrays a, const long long* __restrict__ ray_idx, long long n) {
-  const long long b = blockIdx.x;
-  const long long i = ray_idx[b];
-  const bool valid = i >= 0 && i < n;
-  for (int k = 0; k < a.count; ++k)
-    copy_row(a, k, valid ? i : 0, b, !valid, threadIdx.x, blockDim.x);
+// A chunk of `width` bytes at p, read through the read-only path.
+__device__ __forceinline__ uint4 load_chunk(const uint8_t* __restrict__ p, int width) {
+  uint4 v{0u, 0u, 0u, 0u};
+  if (width == 16) {
+    v = __ldg(reinterpret_cast<const uint4*>(p));
+  } else if (width == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    v.x = u.x;
+    v.y = u.y;
+  } else if (width == 4) {
+    v.x = __ldg(reinterpret_cast<const unsigned*>(p));
+  } else {
+    v.x = __ldg(p);
+  }
+  return v;
+}
+
+__device__ __forceinline__ void store_chunk(uint8_t* __restrict__ p, int width, uint4 v) {
+  if (width == 16) {
+    *reinterpret_cast<uint4*>(p) = v;
+  } else if (width == 8) {
+    uint2 u;
+    u.x = v.x;
+    u.y = v.y;
+    *reinterpret_cast<uint2*>(p) = u;
+  } else if (width == 4) {
+    *reinterpret_cast<unsigned*>(p) = v.x;
+  } else {
+    *p = (uint8_t)v.x;
+  }
+}
+
+// Kernel H1: chunks [g0, g0 + kTakeThreads kPer) of the flat space, chunk g
+// of bucket row g / row_chunks; thread t takes chunks g0 + t + m
+// kTakeThreads. A row whose id is not below n is zeros. Shared memory:
+// kTakeThreads kPer ids.
+template <int kPer>
+__global__ void __launch_bounds__(kTakeThreads) take_rows_kernel(
+    RowArrays a, const long long* __restrict__ ray_idx, long long total, long long n) {
+  long long* src_row = psdf_dynamic_smem<long long>();  // a row's source, or -1: zeros
+  const long long rc = a.row_chunks;
+  const long long g0 = (long long)blockIdx.x * kTakeThreads * kPer;
+  const long long g_end = min(g0 + kTakeThreads * kPer, total);
+  const long long b0 = g0 / rc;
+  const int rows = (int)((g_end - 1) / rc - b0 + 1);
+  for (int r = threadIdx.x; r < rows; r += kTakeThreads) {
+    const long long i = __ldg(ray_idx + b0 + r);
+    src_row[r] = i >= 0 && i < n ? i : -1;
+  }
+  __syncthreads();
+  uint4 v[kPer];
+  uint8_t* dst[kPer];
+  int width[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {  // every load before any store
+    const long long g = g0 + m * kTakeThreads + threadIdx.x;
+    dst[m] = nullptr;
+    if (g >= g_end) continue;
+    const long long b = g / rc;
+    const int c = (int)(g - b * rc);
+    int k = 0;
+    while (k + 1 < a.count && c >= a.first_chunk[k + 1]) ++k;
+    const int w = a.chunk[k];
+    const long long off = (long long)(c - a.first_chunk[k]) * w;
+    const long long i = src_row[b - b0];
+    width[m] = w;
+    dst[m] = (uint8_t*)a.dst[k] + b * a.row_bytes[k] + off;
+    v[m] = i >= 0 ? load_chunk((const uint8_t*)a.src[k] + i * a.row_bytes[k] + off, w)
+                  : uint4{0u, 0u, 0u, 0u};
+  }
+#pragma unroll
+  for (int m = 0; m < kPer; ++m)
+    if (dst[m] != nullptr) store_chunk(dst[m], width[m], v[m]);
 }
 
 __global__ void __launch_bounds__(kScatterThreads) scatter_rows_kernel(
@@ -227,12 +312,32 @@ __global__ void __launch_bounds__(kScatterThreads) scatter_rows_kernel(
 
 }  // namespace
 
-// H1: B bucket rows gathered from n source rows by ray_idx [B] int64.
+// H1: B bucket rows gathered from n source rows by ray_idx [B] int64, in
+// one launch (none for B = 0 or rows of no chunks).
 extern "C" int psdf_take_rows(RowArrays arrays, const void* ray_idx, int B, long long n,
                               void* stream) {
-  if (B < 0 || arrays.count < 0 || arrays.count > kMaxArrays) return (int)cudaErrorInvalidValue;
-  if (B == 0) return (int)cudaSuccess;
-  PSDF_LAUNCH(take_rows_kernel, B, kRowThreads, 0, stream, arrays, (const long long*)ray_idx, n);
+  if (B < 0 || arrays.count < 0 || arrays.count > kMaxArrays || arrays.row_chunks < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)B * arrays.row_chunks;
+  if (total == 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != 0) return err;
+  // chunks a thread: the most that still gives every streaming multiprocessor a block
+  const long long per_sm = total / ((long long)kTakeThreads * max(sms, 1));
+  const int per = per_sm >= 4 ? 4 : per_sm >= 2 ? 2 : 1;
+  const int grid = psdf_blocks(total, kTakeThreads * per);
+  const auto* ids = (const long long*)ray_idx;
+  if (per == 4)
+    PSDF_LAUNCH(take_rows_kernel<4>, grid, kTakeThreads, kTakeThreads * 4 * 8, stream,
+                arrays, ids, total, n);
+  else if (per == 2)
+    PSDF_LAUNCH(take_rows_kernel<2>, grid, kTakeThreads, kTakeThreads * 2 * 8, stream,
+                arrays, ids, total, n);
+  else
+    PSDF_LAUNCH(take_rows_kernel<1>, grid, kTakeThreads, kTakeThreads * 1 * 8, stream,
+                arrays, ids, total, n);
   return (int)cudaGetLastError();
 }
 

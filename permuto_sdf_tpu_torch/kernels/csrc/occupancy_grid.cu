@@ -2,6 +2,8 @@
 // Kernel C3: the first occupied probe segment of a ray (the plain sphere
 // tracers' seed).
 // Kernel I: the occupancy refresh from SDF probes.
+// Kernel If: the same refresh in one launch, the flagship SDF of the probes
+// evaluated inside it.
 // Kernel I2: the occupancy refresh from density probes (NeRF).
 //
 // Replaces: permuto_sdf_tpu/ops/occupancy_grid.py:226
@@ -10,7 +12,9 @@
 // the same `_probe_occupancy`) -- kernel C3 --, :138
 // `compute_stratified_sample_of_grid_points` with :179
 // `update_with_sdf_random_sample` -- kernel I, two entry points around the
-// SDF evaluation of the probes -- and :193
+// SDF evaluation of the probes; kernel If: both entries and the SDF between
+// them, permuto_sdf_tpu/train/train_permuto_sdf.py:776-791
+// `_occupancy_update_impl` -- and :193
 // `update_with_density_random_sample` -- kernel I2, after the density
 // evaluation of the same probes. The JAX package leaves them to XLA.
 //
@@ -85,7 +89,29 @@
 // op's gather of the old values followed by its scatter. Ids that repeat
 // within one launch are not supported (the JAX op's result would then
 // depend on the scatter order as well).
-#include "common.cuh"
+//
+// Design of If: the refresh of the flagship trainer is entry 1, the proxy
+// SDF (models/fields.py `sdf_apply` on the K coarsest levels: kernel A, a
+// cat, four matmuls, bias adds and GELUs, a dozen launches) and entry 2.
+// If computes all of it in one launch, with sdf_net.cuh's evaluation (the
+// code J3f and J2f run). What bounds it is operations: ~9.3 kFLOP a probe
+// at K = 14 (the lattice and the MLP), 2.4 GFLOP for the 262,144 probes;
+// the bytes are the jitter, the scattered stores' sectors and the coarse
+// levels' table, which stays in L2. One block of 8 warps takes a tile of
+// 32 probes (lane = probe), stages the ~12 KB of weights and splits the
+// evaluation as J3f does; warp 0 stores. A probe is evaluated once, so at
+// the flagship the 8,192 blocks stage ~100 MB of weights, all of it L2
+// hits. Persistent blocks (as many as fit, each staging once and striding
+// over the tiles) were measured 1.5-2.5% slower: the 8,192 tiles leave
+// them 15 or 16 tiles each, a tail the per-tile blocks do not have
+// (0.2299-0.2333 against 0.2243-0.2277 device ms; 4 warps a tile
+// 0.259-0.268; NVIDIA H100 80GB HBM3, 700 W, profiling/
+// grid_refresh_designs.py, which launches those shapes through the
+// kernel's tile stride). The probe ids and
+// centers are entry 1's float operations (grid_probe), the occupancy test
+// entry 2's (grid_flag), so with the same sdf the stores are entry 2's bit
+// for bit.
+#include "sdf_net.cuh"
 
 namespace {
 
@@ -351,6 +377,36 @@ __global__ void __launch_bounds__(128) first_occupied_kernel(
   }
 }
 
+// Probe k of update `update_idx` of n probes: its voxel id (the Weyl map)
+// and its center, moved by jitter [n, 3] in [-0.5, 0.5) voxels (or not,
+// for a null jitter).
+__device__ __forceinline__ uint32_t grid_probe(int k, int n, uint32_t update_idx, int V,
+                                               uint32_t lin_mask, float voxel_size,
+                                               float half_extent, float tx, float ty, float tz,
+                                               const float* __restrict__ jitter, float (&c)[3]) {
+  const uint32_t i = update_idx * (uint32_t)n + (uint32_t)k;
+  const uint32_t lin = (i * 2654435761u + 340573321u) & lin_mask;
+  const uint32_t vv = (uint32_t)V * (uint32_t)V;
+  const float ijk[3] = {(float)(lin / vv), (float)((lin / (uint32_t)V) % V),
+                        (float)(lin % (uint32_t)V)};
+  const float t[3] = {tx, ty, tz};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    c[j] = ((ijk[j] + 0.5f) * voxel_size - half_extent) + t[j];
+    if (jitter != nullptr) c[j] = c[j] + jitter[(long long)k * 3 + j] * voxel_size;
+  }
+  return lin;
+}
+
+// Whether a voxel of sdf v is occupied: the NeuS logistic density of
+// clip(|v| - half_diag, 0, 1e10) at inv_s is above thresh.
+__device__ __forceinline__ bool grid_flag(float v, float inv_s, float half_diag, float thresh) {
+  const float x = fminf(fmaxf(fabsf(v) - half_diag, 0.f), 1e10f);
+  const float e = expf(-inv_s * x);
+  const float density = inv_s * e / ((1.0f + e) * (1.0f + e));
+  return density > thresh;
+}
+
 // Kernel I, entry 1: voxel ids and (jittered) centers of the n probes of
 // update `update_idx`. jitter [n, 3] in [-0.5, 0.5) voxels, or null.
 __global__ void __launch_bounds__(256) grid_points_kernel(
@@ -360,24 +416,15 @@ __global__ void __launch_bounds__(256) grid_points_kernel(
     float* __restrict__ centers) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
-  const uint32_t i = update_idx * (uint32_t)n + (uint32_t)k;
-  const uint32_t lin = (i * 2654435761u + 340573321u) & lin_mask;
-  const uint32_t vv = (uint32_t)V * (uint32_t)V;
-  const float ijk[3] = {(float)(lin / vv), (float)((lin / (uint32_t)V) % V),
-                        (float)(lin % (uint32_t)V)};
-  const float t[3] = {tx, ty, tz};
-  lin_out[k] = (int)lin;
+  float c[3];
+  lin_out[k] = (int)grid_probe(k, n, update_idx, V, lin_mask, voxel_size, half_extent, tx, ty,
+                               tz, jitter, c);
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    float c = ((ijk[j] + 0.5f) * voxel_size - half_extent) + t[j];
-    if (jitter != nullptr) c = c + jitter[(long long)k * 3 + j] * voxel_size;
-    centers[(long long)k * 3 + j] = c;
-  }
+  for (int j = 0; j < 3; ++j) centers[(long long)k * 3 + j] = c[j];
 }
 
-// Kernel I, entry 2: values[lin] = sdf and occupancy[lin] = the NeuS
-// logistic density of clip(|sdf| - half_diag, 0, 1e10) at inv_s is above
-// thresh. The probes' voxels are distinct (see above): plain stores.
+// Kernel I, entry 2: values[lin] = sdf and occupancy[lin] = grid_flag. The
+// probes' voxels are distinct (see above): plain stores.
 __global__ void __launch_bounds__(256) grid_update_kernel(
     int n, const int* __restrict__ lin, const float* __restrict__ sdf,
     float inv_s, float half_diag, float thresh, float* __restrict__ values,
@@ -387,11 +434,41 @@ __global__ void __launch_bounds__(256) grid_update_kernel(
   const float v = sdf[k];
   const int at = lin[k];
   values[at] = v;
-  const float x = fminf(fmaxf(fabsf(v) - half_diag, 0.f), 1e10f);
-  const float e = expf(-inv_s * x);
-  const float density = inv_s * e / ((1.0f + e) * (1.0f + e));
-  occupancy[at] = density > thresh ? 1 : 0;
+  occupancy[at] = grid_flag(v, inv_s, half_diag, thresh) ? 1 : 0;
 }
+
+// Kernel If: entry 1, the SDF of net at the probe's center and entry 2 for
+// the n probes of update `update_idx`, in blocks of kWarps warps that stage
+// the weights and take tiles of 32 probes (lane = probe), block b the tiles
+// b, b + gridDim.x, ... (the port launches one block a tile).
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32) grid_refresh_kernel(
+    int n, uint32_t update_idx, int V, uint32_t lin_mask, float voxel_size, float half_extent,
+    float tx, float ty, float tz, const float* __restrict__ jitter, SdfNet net, int n_in,
+    float inv_s, float half_diag, float thresh, float* __restrict__ values,
+    uint8_t* __restrict__ occupancy) {
+  float* sw = psdf_dynamic_smem<float>();
+  stage_net(net, n_in, sw);
+  float* xt = sw + net_floats(n_in);
+  const int n_tiles = (n + 31) / 32;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {  // block-uniform
+    const int k = tile * 32 + (threadIdx.x & 31);
+    const bool real = k < n;
+    float p[3] = {0.f, 0.f, 0.f};
+    uint32_t lin = 0;
+    if (real)
+      lin = grid_probe(k, n, update_idx, V, lin_mask, voxel_size, half_extent, tx, ty, tz,
+                       jitter, p);
+    const float s = sdf_at<kWarps>(net, n_in, sw, xt, p, real);
+    if (real && threadIdx.x < 32) {
+      values[lin] = s;
+      occupancy[lin] = grid_flag(s, inv_s, half_diag, thresh) ? 1 : 0;
+    }
+  }
+}
+
+// Kernel If's warps a block (a tile of 32 probes): 8 measured faster than 4.
+constexpr int kRefreshWarps = 8;
 
 // Kernel I2: at the probes' (distinct) voxels, value = max(density,
 // old * decay) and occupied = value > thresh. A NaN on either side gives a
@@ -464,6 +541,48 @@ extern "C" int psdf_grid_update(int n, const void* lin, const void* sdf,
               (const float*)sdf, inv_s, half_diag, thresh, (float*)values,
               (uint8_t*)occupancy);
   return (int)cudaGetLastError();
+}
+
+// Kernel If's launch: kWarps warps a block, `grid` blocks (0: one a tile).
+template <int kWarps>
+static int launch_grid_refresh(int n, unsigned int update_idx, int V, float voxel_size,
+                               float half_extent, float tx, float ty, float tz,
+                               const void* jitter, const SdfNet* net_ptr, float inv_s,
+                               float half_diag, float thresh, void* values, void* occupancy,
+                               int grid, void* stream) {
+  const long long nv = (long long)V * V * V;
+  if ((nv & (nv - 1)) != 0 || nv > (1ll << 31) || n < 0 || n > nv || grid < 0 ||
+      net_ptr == nullptr || !net_ok(*net_ptr))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = psdf_blocks(n, 32);
+  if (n_tiles == 0) return 0;
+  const SdfNet net = *net_ptr;
+  const int n_in = 2 * net.K + 3;
+  const auto kernel = grid_refresh_kernel<kWarps>;
+  const size_t smem = net_smem_bytes(n_in);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+  }
+  PSDF_LAUNCH(kernel, grid > 0 ? min(grid, n_tiles) : n_tiles, kWarps * 32, smem, stream, n,
+              (uint32_t)update_idx, V, (uint32_t)(nv - 1), voxel_size, half_extent, tx, ty, tz,
+              (const float*)jitter, net, n_in, inv_s, half_diag, thresh, (float*)values,
+              (uint8_t*)occupancy);
+  return (int)cudaGetLastError();
+}
+
+// Kernel If: the grid refresh of update `update_idx` (n probes, jitter
+// [n, 3] or null) with the SDF of *net, in place on values [V^3] float and
+// occupancy [V^3] uint8.
+extern "C" int psdf_grid_refresh(int n, unsigned int update_idx, int V, float voxel_size,
+                                 float half_extent, float tx, float ty, float tz,
+                                 const void* jitter, const SdfNet* net, float inv_s,
+                                 float half_diag, float thresh, void* values, void* occupancy,
+                                 void* stream) {
+  return launch_grid_refresh<kRefreshWarps>(n, update_idx, V, voxel_size, half_extent, tx, ty,
+                                            tz, jitter, net, inv_s, half_diag, thresh, values,
+                                            occupancy, 0, stream);  // one block a tile
 }
 
 extern "C" int psdf_first_occupied(int R, const void* origins, const void* dirs,

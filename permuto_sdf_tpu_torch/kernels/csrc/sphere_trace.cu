@@ -90,51 +90,21 @@
 // at the card's launch floor (~1 us), wedged between SDF evaluations of a
 // dozen launches each (A, a cat of W0's rows, four matmuls, biases, GELUs),
 // all of them on the host's clock. J3f and J2f run the loop in one launch.
-// Their own work is the SDF: per evaluation K levels of A's lattice math
-// and 4 gathers of 8 bytes, and the MLP's ~7.4 kFLOP (51 x 32 + 2 x 32 x 32
-// + 32 products); float32 on the SIMT units (TF32 stays off, as for the
-// plain version's matmuls). Design of J3f and J2f: a block of 8 warps
-// takes a tile of 32 rays (lane = ray) and keeps their state in registers
-// for all the iterations; it stages the MLP's weights in shared memory once
-// (W0's 2K + 3 rows, W1, W2, the biases and W3's column 0: ~15 KB), and the
-// weights are read as shared-memory broadcasts, four units a 16-byte load.
-// The warps split the levels, then each layer's hidden units (4 a warp),
-// which pass through shared memory (two buffers, four block barriers an
-// evaluation); every warp repeats the last layer and the update on the
-// same values, so the warps take the same branches and stop together. The
-// encoding is kernel A's code (permuto_lattice.cuh), so its features are
-// A's bit for bit; the MLP sums each unit's products in order with fmaf,
-// which the plain version's matmuls block differently (float rounding
-// only). A tile whose rays are all inactive (dead or converged) stops: an
-// inactive row is a fixed point of both updates. Of the designs with 1
-// warp a tile (a lane's levels and 32 hidden units in registers) and with
-// 4, only 4 was faster, on J2f's round 0 alone (PERF.md, PR 14);
-// profiling/trace_fused_variant.cu keeps both measurable.
-#include "permuto_lattice.cuh"
-
-// The flagship SDF of models/fields.py::sdf_apply(...)[0] on the K coarsest
-// levels: the encoding (d = 3, 2 features a level, times the c2f window),
-// the point columns times concat_scaling, then the MLP [2L + 3, 32, 32, 32,
-// w3_cols] with tanh GELU, of which W0's rows [0, 2K) and [2L, 2L + 3) and
-// the last layer's column 0 are read. Mirrored by
-// ops/sphere_trace.py::SdfNetArgs.
-struct SdfNet {
-  const float2* table;  // the interleaved [L, C, 2] copy of the table
-  const float* shift;   // [L, 3]
-  const float* scales;  // [L]
-  const float* window;  // [L], or null
-  const float* E;       // [4, 3]
-  const float* w0;      // [2L + 3, 32]
-  const float* b0;      // [32]
-  const float* w1;      // [32, 32]
-  const float* b1;      // [32]
-  const float* w2;      // [32, 32]
-  const float* b2;      // [32]
-  const float* w3;      // [32, w3_cols]
-  const float* b3;      // [w3_cols]
-  int capacity, L, K, w3_cols;
-  float concat_scaling;
-};
+// Their own work is the SDF (sdf_net.cuh, shared with the grid refresh's
+// kernel If): per evaluation K levels of A's lattice math and 4 gathers of
+// 8 bytes, and the MLP's ~7.4 kFLOP. Design of J3f and J2f: a block of 8
+// warps takes a tile of 32 rays (lane = ray) and keeps their state in
+// registers for all the iterations; it stages the MLP's weights in shared
+// memory once (W0's 2K + 3 rows, W1, W2, the biases and W3's column 0:
+// ~15 KB), and the warps split each evaluation (sdf_at, 4 hidden units a
+// warp); every warp repeats the update on the same values, so the warps
+// take the same branches and stop together. A tile whose rays are all
+// inactive (dead or converged) stops: an inactive row is a fixed point of
+// both updates. Of the designs with 1 warp a tile (a lane's levels and 32
+// hidden units in registers) and with 4, only 4 was faster, on J2f's round
+// 0 alone (PERF.md); profiling/trace_fused_variant.cu keeps both
+// measurable.
+#include "sdf_net.cuh"
 
 namespace {
 
@@ -540,133 +510,7 @@ __global__ void __launch_bounds__(256) trace_step_pos_kernel(
 // Kernels J3f and J2f: the trace loops with the SDF evaluated in the launch
 // ---------------------------------------------------------------------------
 
-constexpr int kHid = 32;        // the MLP's hidden width
 constexpr int kTraceWarps = 8;  // a block's warps, which share one tile of 32 rays
-constexpr int kUnits = kHid / kTraceWarps;  // the hidden units of a layer a warp computes
-
-// Shared floats of the staged weights: W0's n_in = 2K + 3 rows, W1, W2,
-// b0, b1, b2, W3's column 0, b3 (padded to 16 bytes).
-__host__ __device__ __forceinline__ int net_floats(int n_in) {
-  return n_in * kHid + 2 * kHid * kHid + 4 * kHid + 4;
-}
-
-// Shared floats of a block's ray tile: the inputs [n_in][32] and two
-// buffers of hidden units [2][32][32], one column per lane.
-__host__ __device__ __forceinline__ int tile_floats(int n_in) {
-  return n_in * 32 + 2 * kHid * 32;
-}
-
-// GELU, tanh form (torch.nn.functional.gelu(approximate="tanh")).
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.0f + tanhf(inner));
-}
-
-// Stages the block's copy of the weights (every thread of the block).
-__device__ __forceinline__ void stage_net(const SdfNet& net, int n_in, float* __restrict__ sw) {
-  float* w0 = sw;
-  float* w1 = w0 + n_in * kHid;
-  float* w2 = w1 + kHid * kHid;
-  float* b0 = w2 + kHid * kHid;
-  for (int i = threadIdx.x; i < n_in * kHid; i += blockDim.x) {
-    const int row = i / kHid;
-    const int src = row < 2 * net.K ? row : 2 * net.L + (row - 2 * net.K);
-    w0[i] = net.w0[src * kHid + (i - row * kHid)];
-  }
-  for (int i = threadIdx.x; i < kHid * kHid; i += blockDim.x) {
-    w1[i] = net.w1[i];
-    w2[i] = net.w2[i];
-  }
-  for (int i = threadIdx.x; i < kHid; i += blockDim.x) {
-    b0[i] = net.b0[i];
-    b0[kHid + i] = net.b1[i];
-    b0[2 * kHid + i] = net.b2[i];
-    b0[3 * kHid + i] = net.w3[i * net.w3_cols];
-  }
-  if (threadIdx.x == 0) b0[4 * kHid] = net.b3[0];
-  __syncthreads();
-}
-
-// The calling warp's kUnits units of one layer for the calling lane: h[u] =
-// gelu(sum_i x_i W[i][u0 + u] + b[u0 + u]), the sum over i in order (fmaf);
-// x_i = in[i * 32 + lane], the weights read as shared-memory broadcasts,
-// 4 units a load.
-__device__ __forceinline__ void layer_units(const float* __restrict__ in, int n, int lane,
-                                            const float* __restrict__ W,
-                                            const float* __restrict__ b, int u0,
-                                            float (&h)[kUnits]) {
-  float acc[kUnits];
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u) acc[u] = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const float x = in[i * 32 + lane];
-    const float4* wr = reinterpret_cast<const float4*>(W + i * kHid + u0);
-#pragma unroll
-    for (int q = 0; q < kUnits / 4; ++q) {
-      const float4 v = wr[q];
-      acc[4 * q] = fmaf(x, v.x, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(x, v.y, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(x, v.z, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(x, v.w, acc[4 * q + 3]);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u) h[u] = gelu_tanh(acc[u] + b[u0 + u]);
-}
-
-// The SDF at the calling lane's point p, called by every warp of the block
-// with the same points: the warps split the levels and then each layer's
-// hidden units, which pass through the tile's two buffers (four block
-// barriers an evaluation), and every warp sums the last layer. Lanes that
-// are not `active` skip the encoding (the MLP runs for all 32); their value
-// is not used. Every warp returns the same value.
-__device__ __forceinline__ float sdf_at(const SdfNet& net, int n_in, const float* __restrict__ sw,
-                                        float* __restrict__ xt, const float (&p)[3],
-                                        bool active) {
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const float* w0 = sw;
-  const float* w1 = w0 + n_in * kHid;
-  const float* w2 = w1 + kHid * kHid;
-  const float* b0 = w2 + kHid * kHid;
-  const float* b1 = b0 + kHid;
-  const float* b2 = b1 + kHid;
-  const float* w3 = b2 + kHid;
-  const float b3 = w3[kHid];
-  float* h0 = xt + n_in * 32;
-  float* h1 = h0 + kHid * 32;
-  if (active) {
-    for (int l = w; l < net.K; l += kTraceWarps) {
-      float f0, f1;
-      encode_level<3>(p, net.table, net.capacity, net.shift, net.scales, net.window, net.E, l,
-                      f0, f1);
-      xt[(2 * l) * 32 + lane] = f0;
-      xt[(2 * l + 1) * 32 + lane] = f1;
-    }
-    if (w == kTraceWarps - 1) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) xt[(2 * net.K + c) * 32 + lane] = p[c] * net.concat_scaling;
-    }
-  }
-  __syncthreads();
-  const int u0 = w * kUnits;
-  float h[kUnits];
-  layer_units(xt, n_in, lane, w0, b0, u0, h);
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u) h0[(u0 + u) * 32 + lane] = h[u];
-  __syncthreads();
-  layer_units(h0, kHid, lane, w1, b1, u0, h);
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u) h1[(u0 + u) * 32 + lane] = h[u];
-  __syncthreads();
-  layer_units(h1, kHid, lane, w2, b2, u0, h);
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u) h0[(u0 + u) * 32 + lane] = h[u];
-  __syncthreads();
-  float s = 0.f;
-  for (int i = 0; i < kHid; ++i) s = fmaf(h0[i * 32 + lane], w3[i], s);
-  return s + b3;
-}
 
 // Kernel J3f: `iters` iterations of J3 on slot j's row r = idx[j] (or j
 // without idx; fill slots, r >= R, do nothing), the SDF evaluated in the
@@ -701,7 +545,7 @@ __global__ void __launch_bounds__(kTraceWarps * 32) trace_loop_pos_kernel(
   bool active = alive && !conv;
   for (int it = 0; it < iters; ++it) {
     if (!__any_sync(PSDF_FULL_MASK, active)) break;  // the same vote in every warp
-    const float s = sdf_at(net, n_in, sw, xt, p, active);
+    const float s = sdf_at<kTraceWarps>(net, n_in, sw, xt, p, active);
     if (!active) continue;
     sdf = s;
     const float m = s * mult;
@@ -761,7 +605,7 @@ __global__ void __launch_bounds__(kTraceWarps * 32) trace_round_kernel(
   for (int it = 0; it < iters; ++it) {
     if (!__any_sync(PSDF_FULL_MASK, active)) break;
     const float p[3] = {o[0] + t * d[0], o[1] + t * d[1], o[2] + t * d[2]};
-    const float s = sdf_at(net, n_in, sw, xt, p, active);
+    const float s = sdf_at<kTraceWarps>(net, n_in, sw, xt, p, active);
     if (!active) continue;
     sdf = s;
     conv = fabsf(s) < thr;
@@ -915,11 +759,12 @@ extern "C" int psdf_trace_step_pos(int B, int R, const void* idx, const void* s,
 
 // Kernels J3f and J2f: the shared memory of a block (the staged weights and
 // its ray tile), and the launch: a block of kTraceWarps warps per 32 slots.
+// Their entry points take the SDF's tensors as a pointer to an SdfNet.
 template <typename Kernel, typename... Args>
 static int launch_trace(Kernel kernel, int B, int n_in, void* stream, Args... args) {
   const int grid = psdf_blocks(B, 32);
   if (grid == 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)(net_floats(n_in) + tile_floats(n_in));
+  const size_t smem = net_smem_bytes(n_in);
   if (smem > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               (int)smem);
@@ -929,18 +774,14 @@ static int launch_trace(Kernel kernel, int B, int n_in, void* stream, Args... ar
   return (int)cudaGetLastError();
 }
 
-static bool net_ok(const SdfNet& net) {
-  return net.K >= 1 && net.K <= net.L && net.w3_cols >= 1 && net.capacity > 0 &&
-         (net.capacity & (net.capacity - 1)) == 0;
-}
-
-extern "C" int psdf_trace_loop_pos(int B, int R, const void* idx, SdfNet net, const void* dirs,
-                                   void* pos, void* alive, void* conv, void* sdf,
+extern "C" int psdf_trace_loop_pos(int B, int R, const void* idx, const SdfNet* net_ptr,
+                                   const void* dirs, void* pos, void* alive, void* conv, void* sdf,
                                    const void* field, int V, float half_extent, float tx,
                                    float ty, float tz, float voxel_size, int cap, int iters,
                                    float mult, float thr, float gate, float cx, float cy,
                                    float cz, float r2, void* stream) {
-  if (!net_ok(net)) return (int)cudaErrorInvalidValue;
+  if (net_ptr == nullptr || !net_ok(*net_ptr)) return (int)cudaErrorInvalidValue;
+  const SdfNet net = *net_ptr;
   const int n_in = 2 * net.K + 3;
   const GridArgs g = grid_args(V, half_extent, tx, ty, tz, voxel_size, cap);
   return launch_trace(trace_loop_pos_kernel, B, n_in, stream, B, (long long)R,
@@ -949,13 +790,15 @@ extern "C" int psdf_trace_loop_pos(int B, int R, const void* idx, SdfNet net, co
                       iters, mult, thr, gate, cx, cy, cz, r2);
 }
 
-extern "C" int psdf_trace_round(int B, int R, const void* idx, SdfNet net, const void* origins,
-                                const void* dirs, const void* t_exit, void* t, void* alive,
-                                void* conv, void* sdf, const void* field, int V,
-                                float half_extent, float tx, float ty, float tz,
+extern "C" int psdf_trace_round(int B, int R, const void* idx, const SdfNet* net_ptr,
+                                const void* origins, const void* dirs, const void* t_exit,
+                                void* t, void* alive, void* conv, void* sdf,
+                                const void* field, int V, float half_extent, float tx,
+                                float ty, float tz,
                                 float voxel_size, int cap, int iters, float mult, float thr,
                                 float gate, int substeps, void* counts, void* stream) {
-  if (!net_ok(net)) return (int)cudaErrorInvalidValue;
+  if (net_ptr == nullptr || !net_ok(*net_ptr)) return (int)cudaErrorInvalidValue;
+  const SdfNet net = *net_ptr;
   const int n_in = 2 * net.K + 3;
   const GridArgs g = grid_args(V, half_extent, tx, ty, tz, voxel_size, cap);
   return launch_trace(trace_round_kernel, B, n_in, stream, B, (long long)R,

@@ -16,6 +16,7 @@ trainer's hit-ray ``_take_rays`` and ``_scatter_rays``.
 
 from __future__ import annotations
 
+import math
 import struct
 
 import torch
@@ -96,19 +97,35 @@ def nonzero_static(mask: torch.Tensor, size: int, fill_value=None, other=None,
 # `_scatter_rays`
 # ---------------------------------------------------------------------------
 
+def _chunk_bytes(*addrs) -> int:
+    """The widest of 16, 8, 4 and 1 bytes that divides every address and
+    size in ``addrs``: kernel H1's chunk of an array."""
+    a = 0
+    for x in addrs:
+        a |= x
+    return next(w for w in (16, 8, 4, 1) if a % w == 0)
+
+
 def _row_arrays(srcs, dsts, fills=None) -> kernels.RowArrays:
+    """The arrays' struct: their pointers, row bytes and H2's fills, and
+    for H1 each array's chunk width and first chunk in a row."""
     if len(srcs) > kernels.MAX_ROW_ARRAYS:
         raise ValueError(f"rows: at most {kernels.MAX_ROW_ARRAYS} arrays per launch")
     a = kernels.RowArrays()
+    chunks = 0
     for k, (s, d) in enumerate(zip(srcs, dsts)):
         if not (s.is_contiguous() and d.is_contiguous()) or s.dtype != d.dtype:
             raise ValueError("rows: contiguous arrays of one dtype each")
         a.src[k], a.dst[k] = s.data_ptr(), d.data_ptr()
-        a.row_bytes[k] = d[0].numel() * d.element_size() if d.shape[0] else 0
+        a.row_bytes[k] = row_bytes = math.prod(d.shape[1:]) * d.element_size()
         fill = 0.0 if fills is None else float(fills[k])
         if fill != 0.0 and d.dtype != torch.float32:
             raise ValueError("rows: a nonzero fill needs a float32 array")
         a.fill[k] = struct.unpack("<I", struct.pack("<f", fill))[0]
+        a.chunk[k] = width = _chunk_bytes(s.data_ptr(), d.data_ptr(), row_bytes)
+        a.first_chunk[k] = chunks
+        chunks += row_bytes // width
+    a.row_chunks = chunks
     a.count = len(srcs)
     return a
 
@@ -128,8 +145,8 @@ def take_rows_plain(arrays, ray_idx):
 
 def take_rows_cuda(arrays, ray_idx):
     """Kernel H1 launch: same returns as :func:`take_rows_plain`, for arrays
-    that share their first dimension. Counts launches in
-    ``take_rows_cuda.launches``."""
+    that share their first dimension, in one launch (none when there is no
+    byte to move). Counts launches in ``take_rows_cuda.launches``."""
     _check_idx(ray_idx)
     arrays = [a.contiguous() for a in arrays]
     n = arrays[0].shape[0]
@@ -137,8 +154,11 @@ def take_rows_cuda(arrays, ray_idx):
         raise ValueError("rows: the arrays share their first dimension and the ids' device")
     B = ray_idx.shape[0]
     outs = [torch.empty((B,) + a.shape[1:], dtype=a.dtype, device=a.device) for a in arrays]
+    rows = _row_arrays(arrays, outs)
+    if B == 0 or rows.row_chunks == 0:
+        return outs
     lib = kernels.load("compaction")
-    err = lib.psdf_take_rows(_row_arrays(arrays, outs), kernels.ptr(ray_idx), B, n,
+    err = lib.psdf_take_rows(rows, kernels.ptr(ray_idx), B, n,
                              kernels.current_stream(ray_idx.device))
     kernels.check(lib, err, "take rows (kernel H1)")
     take_rows_cuda.launches += 1

@@ -8,7 +8,11 @@ The sampler ``compute_samples_in_occupied_regions`` is kernel C on the card
 file, the same probes, runs of them ruled out by the grid's distance
 field); ``compute_stratified_sample_of_grid_points``
 and ``update_with_sdf_random_sample`` are the two entry points of kernel
-I, ``update_with_density_random_sample`` (NeRF's refresh) is kernel I2;
+I, and ``refresh_with_sdf`` is the flagship trainer's refresh: on the card
+kernel If (both entries and the SDF between them in one launch) for an SDF
+the fused kernels evaluate (``ops/sdf_net.py``), else the two entries
+around the SDF; ``update_with_density_random_sample`` (NeRF's refresh) is
+kernel I2;
 ``chebyshev_empty_distance`` is kernel J0 (``kernels/csrc/sphere_trace.cu``).
 Their plain PyTorch versions below are the CPU path and the kernels'
 reference. ``compute_random_sample_of_grid_points``, ``mip_config``,
@@ -25,6 +29,7 @@ change.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -32,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from permuto_sdf_tpu_torch import kernels
+from permuto_sdf_tpu_torch.models.fields import SDFEval
+from permuto_sdf_tpu_torch.ops import sdf_net as sn
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
 
 
@@ -389,6 +396,90 @@ def update_with_sdf_random_sample(cfg: OccupancyGridConfig, grid: OccupancyGridS
     ``grid`` in place and returns it."""
     fn = kernels.dispatch(grid.values.device, grid_update_cuda, grid_update_plain)
     return fn(cfg, grid, lin_indices, sdf, inv_s, occupancy_thresh)
+
+
+# ---------------------------------------------------------------------------
+# Kernel If: the flagship trainer's grid refresh in one launch
+# ---------------------------------------------------------------------------
+
+def _refresh_through(points_fn, update_fn, cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                     sdf_eval, ctx, nr_points: int, update_idx: int, jitter, inv_s: float,
+                     occupancy_thresh: float):
+    """Entry 1 (``points_fn``), the SDF ``sdf_eval(ctx, centers)``, entry 2
+    (``update_fn``), in place."""
+    centers, lin = points_fn(cfg, nr_points, update_idx, jitter, grid.values.device)
+    with torch.no_grad():
+        sdf = sdf_eval(ctx, centers)
+    return update_fn(cfg, grid, lin, sdf, inv_s, occupancy_thresh)
+
+
+def grid_refresh_plain(cfg: OccupancyGridConfig, grid: OccupancyGridState, sdf_eval, ctx,
+                       nr_points: int, update_idx: int, jitter, inv_s: float,
+                       occupancy_thresh: float):
+    """Plain version of kernel If (in place): entry 1's plain version, the
+    SDF ``sdf_eval(ctx, centers)`` of the probes, entry 2's plain version."""
+    return _refresh_through(grid_points_plain, grid_update_plain, cfg, grid, sdf_eval, ctx,
+                            nr_points, update_idx, jitter, inv_s, occupancy_thresh)
+
+
+def grid_refresh_cuda(cfg: OccupancyGridConfig, grid: OccupancyGridState, sdf_eval: SDFEval,
+                      ctx, nr_points: int, update_idx: int, jitter, inv_s: float,
+                      occupancy_thresh: float):
+    """Kernel If launch (in place): the probes of update ``update_idx``,
+    the SDF of ``sdf_eval`` (an :class:`SDFEval` with ``ctx = (params_sdf,
+    iter_nr)``) at their centers and the update, in one launch. Counts
+    launches in ``grid_refresh_cuda.launches``."""
+    dev = grid.values.device
+    if (grid.values.dtype != torch.float32 or grid.occupancy.dtype != torch.bool
+            or grid.occupancy.device != dev or not grid.values.is_contiguous()
+            or not grid.occupancy.is_contiguous()):
+        raise ValueError("grid refresh: float32 values and bool occupancy, contiguous, on one "
+                         "device")
+    if cfg.nr_voxels & (cfg.nr_voxels - 1):
+        raise ValueError("the stratified grid sample needs a power-of-2 voxel count")
+    if jitter is not None:
+        jitter = jitter.contiguous()
+        if (jitter.shape != (nr_points, 3) or jitter.dtype != torch.float32
+                or jitter.device != dev):
+            raise ValueError("grid refresh: jitter must be float32 [n, 3] on the grid's device")
+    net, keep = sn.sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
+    lib = kernels.load("occupancy_grid")
+    tx, ty, tz = (float(v) for v in cfg.grid_translation)
+    err = lib.psdf_grid_refresh(
+        nr_points, int(update_idx) & 0xFFFFFFFF, cfg.nr_voxels_per_dim, cfg.voxel_size,
+        cfg.grid_extent / 2.0, tx, ty, tz, kernels.ptr(jitter), ctypes.byref(net),
+        float(inv_s), float(cfg.half_diagonal), float(occupancy_thresh),
+        kernels.ptr(grid.values), kernels.ptr(grid.occupancy), kernels.current_stream(dev))
+    kernels.check(lib, err, "occupancy grid refresh (kernel If)")
+    grid_refresh_cuda.launches += 1
+    for t in (grid.values, grid.occupancy):
+        torch.autograd.graph.increment_version(t)
+    return grid
+
+
+grid_refresh_cuda.launches = 0
+
+
+def refresh_with_sdf(cfg: OccupancyGridConfig, grid: OccupancyGridState, sdf_eval, ctx,
+                     nr_points: int, update_idx: int, jitter, inv_s: float,
+                     occupancy_thresh: float = 1e-4) -> OccupancyGridState:
+    """The SDF-based refresh of ``nr_points`` voxels of update
+    ``update_idx`` (jitter [n, 3] in [-0.5, 0.5) voxels, or None), in place:
+    values[lin] = the SDF at the probe, occupancy[lin] = its logistic
+    density at ``inv_s`` > thresh. For an :class:`SDFEval` that the fused
+    kernels evaluate (``sdf_net.fused_sdf_supported``: every flagship
+    config) kernel If on the card; otherwise entry 1, ``sdf_eval(ctx,
+    centers)`` and entry 2. The CPU runs the plain versions. The route comes
+    from the SDF's config and shapes, before any launch."""
+    if isinstance(sdf_eval, SDFEval) and sn.fused_sdf_supported(sdf_eval.cfg, ctx[0]):
+        fn = kernels.dispatch(grid.values.device, grid_refresh_cuda, grid_refresh_plain)
+        return fn(cfg, grid, sdf_eval, ctx, nr_points, update_idx, jitter, inv_s,
+                  occupancy_thresh)
+    dev = grid.values.device
+    return _refresh_through(kernels.dispatch(dev, grid_points_cuda, grid_points_plain),
+                            kernels.dispatch(dev, grid_update_cuda, grid_update_plain), cfg,
+                            grid, sdf_eval, ctx, nr_points, update_idx, jitter, inv_s,
+                            occupancy_thresh)
 
 
 # ---------------------------------------------------------------------------

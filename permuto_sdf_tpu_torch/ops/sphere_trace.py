@@ -45,15 +45,16 @@ kernels' reference.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
 import torch
 
 from permuto_sdf_tpu_torch import kernels
-from permuto_sdf_tpu_torch.models.fields import SDFEval, _c2f_t, _sdf_levels
+from permuto_sdf_tpu_torch.models.fields import SDFEval
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
-from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+from permuto_sdf_tpu_torch.ops import sdf_net as sn
 from permuto_sdf_tpu_torch.ops.compaction import nonzero_static, nonzero_static_plain
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 
@@ -323,39 +324,6 @@ trace_step_pos_cuda.launches = 0
 # Kernels J3f and J2f: the trace loops with the flagship SDF inside the launch
 # ---------------------------------------------------------------------------
 
-def _sdf_net(sdf_eval: SDFEval, ctx, dev):
-    """The kernels' view of the SDF ``sdf_eval`` with ``ctx = (params_sdf,
-    iter_nr)`` -> (``kernels.SdfNet``, the tensors it points at). Raises for
-    what the kernels do not evaluate: d != 3, other MLP widths than [2L + 3,
-    32, 32, 32, 1 + G]."""
-    cfg = sdf_eval.cfg
-    params_sdf, it = ctx
-    spec, L = cfg.encoding, cfg.nr_levels
-    if cfg.in_channels != 3 or spec.nr_feat_per_level != 2:
-        raise NotImplementedError("the fused trace kernels (J2f, J3f) evaluate the SDF of 3-D "
-                                  "points with 2 features a level")
-    mlp = params_sdf["mlp_sdf"]
-    widths = [tuple(layer["w"].shape) for layer in mlp]
-    want = [(2 * L + 3, 32), (32, 32), (32, 32), (32, 1 + cfg.geom_feat_size_out)]
-    if widths != want or any(tuple(layer["b"].shape) != (w[1],) for layer, w in zip(mlp, want)):
-        raise NotImplementedError(f"the fused trace kernels (J2f, J3f) evaluate the SDF MLP "
-                                  f"{want}, not {widths}")
-    K = _sdf_levels(cfg, sdf_eval.max_levels) or L
-    window = pe.coarse2fine_window(_c2f_t(it, cfg.nr_iters_for_c2f), L)
-    scales, E, window = pe.encoding_constants(spec, window, dev)
-    enc = params_sdf["encoding"]
-    tensors = [pe.interleaved_table(enc["lattice_values"]), enc["shift_per_level"].detach(),
-               scales, window, E] + [layer[k].detach() for layer in mlp for k in ("w", "b")]
-    tensors = [t.contiguous() for t in tensors]
-    for t in tensors:
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError("the fused trace kernels: the SDF's tensors must be float32 on the "
-                             "state's device")
-    net = kernels.SdfNet(*(t.data_ptr() for t in tensors), capacity=spec.capacity, L=L, K=K,
-                         w3_cols=want[3][1], concat_scaling=float(spec.concat_points_scaling))
-    return net, tensors
-
-
 def _trace_loop_pos(step, sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f, sdf_f, dist_field,
                     grid_cfg, iters: int, sdf_multiplier: float, sdf_converged_tresh: float,
                     bound):
@@ -396,11 +364,11 @@ def trace_loop_pos_cuda(sdf_eval, ctx, idx, dirs_f, pos_f, alive_f, conv_f, sdf_
         raise ValueError("fused plain trace: the distance field must be uint8 on the state's "
                          "device")
     B = idx.shape[0] if idx is not None else R
-    net, keep = _sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
+    net, keep = sn.sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
     (cx, cy, cz), r2 = bound
     lib = kernels.load("sphere_trace")
     err = lib.psdf_trace_loop_pos(
-        B, R, kernels.ptr(idx.contiguous() if idx is not None else None), net,
+        B, R, kernels.ptr(idx.contiguous() if idx is not None else None), ctypes.byref(net),
         kernels.ptr(dirs_f), kernels.ptr(pos_f),
         kernels.ptr(alive_f), kernels.ptr(conv_f), kernels.ptr(sdf_f),
         kernels.ptr(dist_field.contiguous() if dist_field is not None else None),
@@ -454,11 +422,11 @@ def trace_round_cuda(sdf_eval, ctx, idx, origins_f, dirs_f, texit_f, t_f, alive_
     if dist_field is not None and (dist_field.dtype != torch.uint8 or dist_field.device != dev):
         raise ValueError("fused trace round: the distance field must be uint8 on the state's "
                          "device")
-    net, keep = _sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
+    net, keep = sn.sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
     counts = torch.zeros((2,), dtype=torch.int32, device=dev)
     lib = kernels.load("sphere_trace")
     err = lib.psdf_trace_round(
-        idx.shape[0], t_f.shape[0] - 1, kernels.ptr(idx.contiguous()), net,
+        idx.shape[0], t_f.shape[0] - 1, kernels.ptr(idx.contiguous()), ctypes.byref(net),
         kernels.ptr(origins_f), kernels.ptr(dirs_f),
         kernels.ptr(texit_f), kernels.ptr(t_f), kernels.ptr(alive_f), kernels.ptr(conv_f),
         kernels.ptr(sdf_f),

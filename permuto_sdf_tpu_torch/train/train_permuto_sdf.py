@@ -719,24 +719,22 @@ def train_step(params, opt_state, grid, reel: TensorReel, draws, iter_nr,
 def occupancy_update(params, grid, draws, iter_nr_anneal, inv_s,
                      cfg: PermutoSDFTrainConfig):
     """SDF-based occupancy refresh of ``grid_nr_random_samples`` voxels
-    (kernel I around a proxy SDF of ``grid_update_max_levels`` levels), in
-    place. ``draws`` is a generator or the in-voxel jitter [n, 3] in
+    around a proxy SDF of ``grid_update_max_levels`` levels, in place: on
+    the card one launch of kernel If for the flagship SDF (entries 1 and 2
+    of kernel I around ``sdf_apply`` for an SDF the fused kernels do not
+    evaluate). ``draws`` is a generator or the in-voxel jitter [n, 3] in
     [-0.5, 0.5)."""
     device = grid.values.device
     n = cfg.grid_nr_random_samples
     jitter = (torch.rand((n, 3), generator=draws) - 0.5
               if isinstance(draws, torch.Generator) else draws)
     update_idx = int(iter_nr_anneal) // cfg.grid_update_every
-    centers, lin = og.compute_stratified_sample_of_grid_points(
-        cfg.grid, n, update_idx, jitter.to(device), device)
     max_levels = cfg.grid_update_max_levels
     if max_levels is None:
         max_levels = cfg.imp_sampling_max_levels
-    with torch.no_grad():
-        sdf, _ = sdf_apply(params["sdf"], centers, iter_nr_anneal, cfg.sdf_model,
-                           max_levels=max_levels)
-    return og.update_with_sdf_random_sample(cfg.grid, grid, lin, sdf, inv_s,
-                                            cfg.grid_occupancy_thresh)
+    return og.refresh_with_sdf(cfg.grid, grid, SDFEval(cfg.sdf_model, max_levels),
+                               (params["sdf"], iter_nr_anneal), n, update_idx,
+                               jitter.to(device), inv_s, cfg.grid_occupancy_thresh)
 
 
 # ---------------------------------------------------------------------------

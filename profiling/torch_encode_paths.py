@@ -3,7 +3,7 @@
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
                                             [--paths host,events,fg,grid,plain,frame,sphere,
-                                                     train,lever,sdf,nerf,mesh]
+                                                     train,lever,sdf,nerf,mesh,refresh]
     python3 profiling/torch_encode_paths.py --summarize FILE.json ...
 
 Imports ``permuto_sdf_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
@@ -54,11 +54,13 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   takes one, and after the tree's elementwise ops);
 - train: chip_smoke's ``train_phase`` (24 steps resumed past the ease-in;
   interleaved-table copies per step) and one flagship step under
-  torch.profiler (D''s device ms per launch in it, as every kernel's);
+  torch.profiler (D''s device ms per launch in it, as every kernel's), and
+  one with hit-ray compaction at HIT_FRAC (H1's and H2's launches in it);
   then kernel D' alone at the step's shapes (``_weights_bwd_alone``);
 - lever: LEVER_STEPS steps of chip_smoke's recommended profile past its
   gate (the train-time LOD, parity alternating) on the trained state, host
-  clock per step, and one step under torch.profiler; then kernels L, D2
+  clock per step, and one step under torch.profiler (and one with hit-ray
+  compaction at HIT_FRAC, for H1 and H2); then kernels L, D2
   and D2' on their own at the next step's shapes (R = nr_rays, S = 96,
   K + E = 24 + 8): CUDA-event ms per call and device ms per launch among
   the profiler's records (``device_ms(per_launch=True)``), and a hash of
@@ -69,6 +71,10 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   trained field's 512³ mesh three times (grid SDF and marching tetrahedra);
 - nerf: ``train_nerf.train`` at ``NerfTrainConfig()`` for 2 and 26 steps
   (ms/step from the difference) and one step under torch.profiler;
+- refresh: one flagship ``occupancy_update`` (262,144 probes, the SDF on 14
+  levels; random weights): host ms per call, one call profiled (device busy
+  ms, device launches, If's or I's and A's device ms), and the host ms of
+  drawing its jitter on the CPU and copying it to the card;
 - mesh: chip_smoke's sphere scene and its grid SDF at 256³ and 512³ (host
   clock, median of the calls after the first); on each grid, CUDA-event ms per call of the tree's own pieces of kernel M
   (M1, M2, the welding glue that follows M2, and the whole of
@@ -78,7 +84,8 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   device ms in it).
 
 Each profile gives the device ms and the launches of kernels A, B, C, C3,
-D, D', E1, E2, F, G, H0, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' and their ratio,
+D, D', E1, E2, F, G, H0, H1, H2, I, If, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' and
+their ratio,
 the device ms per launch, and the count of every device activity of the window
 (kernels, memsets and copies: ``device_launches``). Each
 path also
@@ -104,11 +111,13 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "C", "C3", "D", "D'", "E1", "E2", "F", "G", "H0", "J0", "J1", "J2", "J2f",
-            "J3", "J3f", "M1", "M2", "L", "D2", "D2'")
+PROFILED = ("A", "B", "C", "C3", "D", "D'", "E1", "E2", "F", "G", "H0", "H1", "H2", "I", "If",
+            "J0", "J1", "J2", "J2f", "J3", "J3f", "M1", "M2", "L", "D2", "D2'")
 LOD_REPS = 20
 PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
-         "nerf", "mesh")
+         "nerf", "mesh", "refresh")
+HIT_FRAC = 0.5  # the hit-ray step's bucket fraction, so that its profile holds H1 and H2
+REFRESH_CALLS, REFRESH_ITER = 10, 2000  # the flagship's c2f window still closes levels here
 M_RES = (256, 512)
 M_HOST_CALLS = 10
 M_GRID_CALLS = 4
@@ -605,6 +614,8 @@ def lever_path(cs, device, cfg, params, grid, reel):
     steps = times[LEVER_WARMUP:]
     return {"ms_all": steps, "ms_median": statistics.median(steps), "peak_mib": peak,
             "interleave_copies_per_step": copies, "profile": prof,
+            "profile_hit": _hit_step_profile(cs, device, lcfg, params, grid, reel, it + 2,
+                                             "lever_hit_step"),
             "kernels": lever_kernels(cs, device, cfg, params, grid, reel, it + 1)}
 
 
@@ -714,7 +725,69 @@ def train_path(cs, device, cfg):
     return params, grid, reel, {
         "ms_all": summary["ms_per_step_all"], "ms_median": summary["ms_per_step_median"],
         "peak_mib": peak, "interleave_copies_per_step": summary.get("interleave_copies_per_step"),
-        "profile": prof, "D'_alone": _weights_bwd_alone(cs, device)}
+        "profile": prof, "profile_hit": _hit_step_profile(cs, device, cfg, params, grid, reel,
+                                                          it + 2, "hit_step"),
+        "D'_alone": _weights_bwd_alone(cs, device)}
+
+
+def _hit_step_profile(cs, device, cfg, params, grid, reel, it, what):
+    """One step of ``cfg`` with hit-ray compaction at HIT_FRAC (H1 takes the
+    bucket's rays, H2 scatters them back, H1 again in its backward) under
+    torch.profiler, after a warm-up step."""
+    import dataclasses
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    hcfg = dataclasses.replace(cfg, hit_ray_frac=HIT_FRAC)
+    optimizer = tps.make_optimizer(hcfg)
+    opt_state = optimizer.init(params)
+    draws = tps.draw_train_step(tps.step_generators(cs.SEED, it)[0], hcfg, reel)
+    tps.train_step(params, opt_state, grid, reel, draws, it, hcfg, optimizer)  # warm-up
+    return _profiled(cs, device, what, lambda: tps.train_step(
+        params, opt_state, grid, reel, draws, it + 1, hcfg, optimizer))
+
+
+def refresh_path(cs, device, cfg):
+    """The flagship grid refresh: ``occupancy_update`` with random weights
+    from chip_smoke's seed at REFRESH_ITER (the jitter drawn from a CPU
+    generator and copied to the card, as ``train`` does), host clock per
+    call (median of REFRESH_CALLS after two warm-up calls), one call under
+    torch.profiler (device busy ms, device launches, each kernel's ms and
+    launches), and the jitter's draw and copy alone (host clock)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    params = tps.init_params(cs.SEED, cfg, device=device)
+    params["sdf"]["encoding"]["lattice_values"].mul_(1e3)  # a trained table's magnitude
+    grid = og.make_occupancy_grid(cfg.grid, device=device)
+    n = cfg.grid_nr_random_samples
+
+    def call(i):
+        tps.occupancy_update(params, grid, torch.Generator().manual_seed(cs.SEED + i),
+                             REFRESH_ITER + i * cfg.grid_update_every, cs.INV_S_TRAINED, cfg)
+
+    def draw(i):
+        return (torch.rand((n, 3), generator=torch.Generator().manual_seed(cs.SEED + i))
+                - 0.5).to(device)
+
+    host, jitter = [], []
+    for i in range(REFRESH_CALLS + 2):
+        for fn, out in ((call, host), (draw, jitter)):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize(device)
+            out.append((time.perf_counter() - t0) * 1e3)
+    host, jitter = host[2:], jitter[2:]
+    prof = _profiled(cs, device, "refresh", lambda: call(REFRESH_CALLS + 2))
+    out = {"host_ms_all": host, "host_ms_median": statistics.median(host),
+           "jitter_host_ms_all": jitter, "jitter_host_ms_median": statistics.median(jitter),
+           "profile": prof}
+    print(f"[refresh] {json.dumps({k: v for k, v in out.items() if k != 'profile'})}",
+          flush=True)
+    return out
 
 
 def _weights_bwd_alone(cs, device, R=512, reps=20):
@@ -992,6 +1065,8 @@ def main(argv=None) -> int:
         res["sdf_from_mesh"] = sdf_from_mesh_path(cs, device)
     if "mesh" in paths:
         res["mesh"] = mesh_path(cs, device, cfg)
+    if "refresh" in paths:
+        res["refresh"] = refresh_path(cs, device, cfg)
     line = json.dumps({"encode_paths": res})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -31,7 +31,7 @@ SOURCE = os.path.join(ROOT, "profiling", "trace_fused_variant.cu")
 DESIGNS = (8, 1, 4)  # warps a tile; 8 is the port's kernel
 
 
-def _build(kernels):
+def _build(kernels, sdf_net):
     """The variant's shared library (built once per source hash)."""
     out = kernels.build_dir() / "libtrace_fused_variant.so"
     if not out.is_file():
@@ -43,9 +43,9 @@ def _build(kernels):
             raise RuntimeError("nvcc failed on the fused designs:\n" + res.stdout + res.stderr)
     lib = ctypes.CDLL(str(out))
     _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.psdf_trace_loop_pos_design.argtypes = ([_I, _I, _P, kernels.SdfNet, _I] + [_P] * 6
+    lib.psdf_trace_loop_pos_design.argtypes = ([_I, _I, _P, sdf_net.SdfNet, _I] + [_P] * 6
                                                + [_I] + [_F] * 5 + [_I, _I] + [_F] * 7 + [_P])
-    lib.psdf_trace_round_design.argtypes = ([_I, _I, _P, kernels.SdfNet, _I] + [_P] * 8 + [_I]
+    lib.psdf_trace_round_design.argtypes = ([_I, _I, _P, sdf_net.SdfNet, _I] + [_P] * 8 + [_I]
                                             + [_F] * 5 + [_I, _I] + [_F] * 3 + [_I] + [_P] * 2)
     lib.psdf_trace_loop_pos_design.restype = lib.psdf_trace_round_design.restype = _I
     return lib
@@ -67,12 +67,13 @@ def main(argv=None) -> int:
     from permuto_sdf_tpu_torch.datasets.tensor_reel import rays_from_frame
     from permuto_sdf_tpu_torch.models.fields import SDFEval
     from permuto_sdf_tpu_torch.ops import compaction
+    from permuto_sdf_tpu_torch.ops import sdf_net as sn
     from permuto_sdf_tpu_torch.ops import sphere_trace as st
     from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
 
     device = torch.device("cuda:0")
     kernels.build()
-    lib = _build(kernels)
+    lib = _build(kernels, sn)
     cs.KERNEL_SYMBOLS["J3f_design"] = "trace_loop_pos_design_kernel"
     cs.KERNEL_SYMBOLS["J2f_design"] = "trace_round_design_kernel"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -88,7 +89,7 @@ def main(argv=None) -> int:
     grid_args = (*st._grid_scalars(gcfg), st._EMPTY_DIST_CAP)
 
     def loop_design(warps, dirs_f, s):
-        net, keep = st._sdf_net(full, ctx, device)  # keep: the tensors net points at
+        net, keep = sn.sdf_net(full, ctx, device)  # keep: the tensors net points at
         err = lib.psdf_trace_loop_pos_design(
             dirs_f.shape[0], dirs_f.shape[0], None, net, warps, kernels.ptr(dirs_f),
             kernels.ptr(s["pos_f"]), kernels.ptr(s["alive_f"]), kernels.ptr(s["conv_f"]), None,
@@ -97,7 +98,7 @@ def main(argv=None) -> int:
         kernels.check(lib, err, f"J3f, {warps} warps a tile")
 
     def round_design(warps, ev, iters, idx, s):
-        net, keep = st._sdf_net(ev, ctx, device)
+        net, keep = sn.sdf_net(ev, ctx, device)
         counts = torch.zeros((2,), dtype=torch.int32, device=device)
         err = lib.psdf_trace_round_design(
             idx.shape[0], s["t_f"].shape[0] - 1, kernels.ptr(idx), net, warps,

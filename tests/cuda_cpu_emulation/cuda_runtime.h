@@ -17,7 +17,8 @@
 // profiling/h0_variants.cu gives them) (float2 is a plain pair, float4
 // uint2 and uint4 two and four plain words, so a vector load is a struct copy; cp.async
 // is a synchronous memcpy; cudaFuncSetAttribute accepts any shared-memory
-// size). It checks the
+// size; the device reports 2 streaming multiprocessors that hold one block
+// each). It checks the
 // kernels' logic, not their speed or the GPU's own float rounding.
 #include <algorithm>
 #include <atomic>
@@ -34,8 +35,17 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetLastError() { return 0; }
 template <class F> int cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+// A small card: 2 streaming multiprocessors, one block each, so a
+// persistent kernel's blocks stride over several tiles.
+inline int cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return cudaSuccess; }
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };

@@ -36,9 +36,11 @@ from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
 
 _EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_cpu_emulation")
-# kernel H0's one-launch cluster form, measured and not kept by the port
+# kernel H0's one-launch cluster form and kernel If's persistent shapes,
+# measured and not kept by the port
 _H0_VARIANTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "profiling", "h0_variants.cu")
+_REFRESH_VARIANT = os.path.join(os.path.dirname(_H0_VARIANTS), "grid_refresh_variant.cu")
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +61,8 @@ def cpu_kernels(tmp_path_factory):
         assert res.returncode == 0, res.stderr
         return name, lib
 
-    sources = [str(kernels.CSRC / f"{name}.cu") for name in kernels.LIBRARIES] + [_H0_VARIANTS]
+    sources = [str(kernels.CSRC / f"{name}.cu") for name in kernels.LIBRARIES] + [
+        _H0_VARIANTS, _REFRESH_VARIANT]
     with ThreadPoolExecutor(len(sources)) as ex:
         libs = dict(ex.map(build, sources))
     return {name: (kernels.declare(ctypes.CDLL(str(path)), name) if name in kernels.LIBRARIES
@@ -666,9 +669,12 @@ def test_sphere_trace_through_the_kernel_sources_matches_plain(emulated, monkeyp
 
 
 def test_kernel_I_launch_bumps_the_grid_version(emulated):
-    """The refresh kernel writes the grid through ctypes, so its wrapper
-    bumps the tensors' version counters by hand (the distance-field cache
-    keys on them); the plain path's index writes bump them as well."""
+    """The refresh kernels (I's entry 2, If) write the grid through ctypes,
+    so their wrappers bump the tensors' version counters by hand (the
+    distance-field cache keys on them); the plain paths' index writes bump
+    them as well."""
+    from permuto_sdf_tpu_torch.models.fields import SDFEval
+
     cfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
     lin = torch.arange(100, dtype=torch.int32)
     sdf = torch.full((100,), 0.5)
@@ -678,6 +684,13 @@ def test_kernel_I_launch_bumps_the_grid_version(emulated):
         fn(cfg, grid, lin, sdf, 300.0, 1e-4)
         assert grid.occupancy._version > before
         assert not grid.occupancy[:100].any()
+    sdf_cfg, params = _planted_sdf(4)
+    for fn in (og.grid_refresh_cuda, og.grid_refresh_plain):
+        grid = og.make_occupancy_grid(cfg, device="cpu")
+        versions = (grid.values._version, grid.occupancy._version)
+        fn(cfg, grid, SDFEval(sdf_cfg), (params, 50), 64, 3, None, 300.0, 1e-4)
+        assert grid.values._version > versions[0] and grid.occupancy._version > versions[1]
+        assert int((grid.values != 0).sum()) == 64 and not grid.occupancy.all()
 
 
 def _imp_batch(rng, R, S, nr):
@@ -878,7 +891,10 @@ def test_kernels_H1_H2_source_match_plain(emulated):
     """Kernels H1 (take) and H2 (scatter, and its backward through H1)
     against the plain index ops, exactly: a bucket with fill slots, a
     bucket that overflows (fewer slots than hits), rows of floats, bools
-    (4-byte and odd row widths) and int64."""
+    (4-byte and odd row widths) and int64; then H1 on every chunk width
+    (16, 8, 4 and 1 bytes), bases at an odd element, the most arrays a
+    launch takes and buckets of 0 to 130 rows, one launch a call (none for
+    an empty bucket)."""
     rng = np.random.default_rng(4)
     n = 30
     arrays = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)),
@@ -912,6 +928,36 @@ def test_kernels_H1_H2_source_match_plain(emulated):
         for leaf, c in zip(leaves, cots):
             want = torch.cat([c, torch.zeros((1,) + c.shape[1:])])[idx]
             np.testing.assert_array_equal(leaf.grad.numpy(), want.numpy())
+    # H1's chunks: rows of 1, 3, 12, 96 and 384 bytes and of int64, each
+    # also based at an odd element (12 arrays, the most a launch takes); B =
+    # 0, 1, 5 (2 chunks a thread), 37 and 130 (4; not a multiple of a block),
+    # ids repeated and at n (the fill)
+    n = 50
+
+    def odd(a):
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype)
+        flat[1:] = a.reshape(-1)
+        return flat[1:].view(a.shape)
+
+    base = [torch.from_numpy(rng.uniform(size=(n, 1)) < 0.5),
+            torch.from_numpy(rng.uniform(size=(n, 3)) < 0.5),
+            torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(n, 24)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(n, 96)).astype(np.float32)),
+            torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, (n, 2)))]
+    arrays = base + [odd(a) for a in base]
+    assert len(arrays) == kernels.MAX_ROW_ARRAYS
+    widths = {compaction._row_arrays(arrays, arrays).chunk[k] for k in range(len(arrays))}
+    assert widths == {1, 4, 8, 16}
+    for B in (0, 1, 5, 37, 130):
+        idx = torch.from_numpy(rng.integers(0, n + 1, B))
+        idx[: B // 4] = n
+        launches = compaction.take_rows_cuda.launches
+        got = compaction.take_rows_cuda(arrays, idx)
+        assert compaction.take_rows_cuda.launches == launches + (B > 0)
+        for g, w in zip(got, compaction.take_rows_plain(arrays, idx)):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 @pytest.mark.parametrize("carry", [False, True])
@@ -1724,3 +1770,154 @@ def test_fused_trace_kernels_refuse_other_sdfs(emulated):
         st.sphere_trace(_sdf_eval(cfg), o, d, Sphere(), 2, time_val=0.5, ctx=(params, 50))
     with pytest.raises(NotImplementedError, match="time_val"):
         st.sphere_trace_adaptive(_sdf_eval(cfg), (params, 50), o, d, Sphere(), time_val=0.5)
+
+
+# Kernel If: the flagship trainer's grid refresh in one launch. Its values
+# are the fused SDF's (the MLP's sums in fmaf order against the plain
+# version's matmuls: TOL_FUSED_POS); a voxel's flag may differ only where
+# the threshold lies between the densities of the two values, on at most
+# FUSED_FLAG_ROWS voxels.
+_IF_INV_S = 300.0  # the occupied band: |sdf| below ~1.7 voxels of the 16^3 grid
+
+
+def _if_grid(V, seed):
+    """A grid of random values and flags, so that writes to voxels no probe
+    visits would show."""
+    rng = np.random.default_rng(seed)
+    return og.OccupancyGridState(
+        values=torch.from_numpy(rng.normal(size=V ** 3).astype(np.float32)),
+        occupancy=torch.from_numpy(rng.uniform(size=V ** 3) < 0.5))
+
+
+def _assert_refresh_close(gcfg, got, want, before, lin, thresh):
+    """A refreshed grid against the plain version's: the probed voxels'
+    values within TOL_FUSED_POS, their flags equal but where the threshold
+    lies between the two values' densities, the other voxels unchanged."""
+    probed = torch.zeros(gcfg.nr_voxels, dtype=torch.bool)
+    probed[lin.long()] = True
+    for a, b in ((got.values, before.values), (got.occupancy, before.occupancy)):
+        np.testing.assert_array_equal(a[~probed].numpy(), b[~probed].numpy())
+    vk, vp = got.values[probed], want.values[probed]
+    assert float((vk - vp).abs().max()) <= TOL_FUSED_POS
+    flags_differ = got.occupancy[probed] != want.occupancy[probed]
+    x = lambda v: torch.clamp(v.abs() - gcfg.half_diagonal, 0.0, 1e10)  # noqa: E731
+    dk = og._logistic_density(x(vk), torch.tensor(_IF_INV_S))
+    dp = og._logistic_density(x(vp), torch.tensor(_IF_INV_S))
+    between = (torch.minimum(dk, dp) <= thresh) & (thresh <= torch.maximum(dk, dp))
+    assert not bool((flags_differ & ~between).any())
+    assert int(flags_differ.sum()) <= FUSED_FLAG_ROWS
+
+
+def _launch_counts():
+    return (og.grid_refresh_cuda.launches, og.grid_points_cuda.launches,
+            og.grid_update_cuda.launches, pe.encode_fwd_cuda.launches)
+
+
+@pytest.mark.parametrize("K,c2f_active,wrap,jitter", [(6, True, False, True),
+                                                      (4, False, True, True),
+                                                      (6, False, True, False),
+                                                      (4, True, False, False)])
+def test_kernel_If_source_matches_plain(emulated, monkeypatch, K, c2f_active, wrap, jitter):
+    """Kernel If (the refresh's probes, the flagship SDF at their centers and
+    the update, in one launch) against its plain version (entry 1, the SDF,
+    entry 2) on the planted plane over a 16^3 grid, where many probes lie
+    near the occupancy threshold: on all L = 6 levels and on K = 4 < L, a
+    c2f window that is active and one that is fully open, update 0 and one
+    whose probe index wraps the uint32, with and without jitter. The jittered
+    cases run through the trainer's ``occupancy_update``, the others through
+    ``refresh_with_sdf``: one launch of If, none of entry 1, entry 2 or A."""
+    from permuto_sdf_tpu_torch.models.fields import SDFEval, _c2f_t
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    n, every = 512, 8
+    update_idx = 2 ** 23 + 1 if wrap else 0  # 2^23 x 512 probes: the index wraps
+    it = update_idx * every + 3
+    tcfg = tps.PermutoSDFTrainConfig(
+        capacity=2 ** 12, nr_levels=6, grid_nr_voxels_per_dim=16, grid_nr_random_samples=n,
+        grid_update_every=every, grid_update_max_levels=K if K < 6 else None,
+        sdf_nr_iters_for_c2f=4 * it + 100 if c2f_active else 1)
+    assert (pe.coarse2fine_window(_c2f_t(it, tcfg.sdf_nr_iters_for_c2f), 6).min() < 1.0) == (
+        c2f_active)
+    _, params = _planted_sdf(6)
+    gcfg = tcfg.grid
+    sdf_eval = SDFEval(tcfg.sdf_model,
+                       tcfg.grid_update_max_levels or tcfg.imp_sampling_max_levels)
+    rng = np.random.default_rng(K + 2 * wrap)
+    jit = (torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)) if jitter
+           else None)
+    before = _if_grid(16, K)
+    want = og.grid_refresh_plain(gcfg, _if_grid(16, K), sdf_eval, (params, it), n, update_idx,
+                                 jit, _IF_INV_S, 1e-4)
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    counts = _launch_counts()
+    got = _if_grid(16, K)
+    if jitter:
+        tps.occupancy_update({"sdf": params}, got, jit, it, _IF_INV_S, tcfg)
+    else:
+        og.refresh_with_sdf(gcfg, got, sdf_eval, (params, it), n, update_idx, None, _IF_INV_S,
+                            1e-4)
+    assert _launch_counts() == (counts[0] + 1,) + counts[1:]
+    _, lin = og.grid_points_plain(gcfg, n, update_idx, jit)
+    _assert_refresh_close(gcfg, got, want, before, lin, 1e-4)
+    near = want.values[lin.long()].abs() < 0.15
+    assert int(near.sum()) > 50 and 10 < int(want.occupancy[lin.long()].sum()) < n - 10
+
+
+def test_grid_refresh_of_other_sdfs_takes_the_unfused_route(emulated, monkeypatch):
+    """An SDF whose MLP has other widths than the fused kernels evaluate
+    (a hidden layer of 64) is refreshed by entry 1, the SDF (kernel A and
+    the MLP) and entry 2, one launch each and none of If, exactly as the
+    plain version; the route is chosen before any launch."""
+    from permuto_sdf_tpu_torch.models.fields import SDFEval
+    from permuto_sdf_tpu_torch.models.mlp import init_mlp
+    from permuto_sdf_tpu_torch.ops import sdf_net as sn
+
+    cfg, params = _planted_sdf(4)
+    params = {**params, "mlp_sdf": init_mlp(torch.Generator().manual_seed(5),
+                                            [2 * 4 + 3, 64, 32, 32, 33])}
+    assert not sn.fused_sdf_supported(cfg, params)
+    gcfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    jit = torch.from_numpy(np.random.default_rng(9).uniform(-0.5, 0.5, (256, 3)).astype(
+        np.float32))
+    args = (SDFEval(cfg), (params, 50), 256, 7, jit, _IF_INV_S, 1e-4)
+    want = og.grid_refresh_plain(gcfg, _if_grid(16, 1), *args)
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    counts = _launch_counts()
+    got = og.refresh_with_sdf(gcfg, _if_grid(16, 1), *args)
+    assert _launch_counts() == (counts[0], counts[1] + 1, counts[2] + 1, counts[3] + 1)
+    for a, b in ((got.values, want.values), (got.occupancy, want.occupancy)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    with pytest.raises(NotImplementedError, match="MLP"):
+        og.grid_refresh_cuda(gcfg, _if_grid(16, 1), *args)
+
+
+@pytest.mark.parametrize("warps,per_sm", [(4, -1), (8, 0), (4, 0), (8, 2)])
+def test_kernel_If_shapes_match_the_port(emulated, cpu_kernels, warps, per_sm):
+    """The shapes kernel If was measured against
+    (``profiling/grid_refresh_variant.cu``: 4 warps a tile, persistent
+    blocks that stride over the tiles; the emulation reports 2 streaming
+    multiprocessors) write the port's grid bit for bit."""
+    from permuto_sdf_tpu_torch.models.fields import SDFEval
+    from permuto_sdf_tpu_torch.ops import sdf_net as sn
+
+    lib = cpu_kernels["grid_refresh_variant"]
+    _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.psdf_grid_refresh_design.argtypes = ([_I, _U, _I] + [_F] * 5 + [_P] * 2 + [_F] * 3
+                                             + [_P] * 2 + [_I, _I, _P])
+    cfg, params = _planted_sdf(6)
+    gcfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    n, upd = 300, 5  # a ragged last tile
+    jit = torch.from_numpy(np.random.default_rng(2).uniform(-0.5, 0.5, (n, 3)).astype(
+        np.float32))
+    sdf_eval = SDFEval(cfg, 4)
+    want = og.grid_refresh_cuda(gcfg, _if_grid(16, 3), sdf_eval, (params, 30), n, upd, jit,
+                                _IF_INV_S, 1e-4)
+    got = _if_grid(16, 3)
+    net, keep = sn.sdf_net(sdf_eval, (params, 30), torch.device("cpu"))
+    err = lib.psdf_grid_refresh_design(
+        n, upd, 16, gcfg.voxel_size, gcfg.grid_extent / 2.0, 0.0, 0.0, 0.0, kernels.ptr(jit),
+        ctypes.byref(net), _IF_INV_S, gcfg.half_diagonal, 1e-4, kernels.ptr(got.values),
+        kernels.ptr(got.occupancy), warps, per_sm, None)
+    assert err == 0
+    np.testing.assert_array_equal(got.values.numpy(), want.values.numpy())
+    np.testing.assert_array_equal(got.occupancy.numpy(), want.occupancy.numpy())

@@ -389,6 +389,61 @@ def test_grid_refresh_matches_jax():
     assert changed.sum() > 10
 
 
+def test_occupancy_update_matches_jax():
+    """The flagship refresh ``occupancy_update`` (on the CPU: entry 1's
+    plain version, the SDF on grid_update_max_levels = 3 of 4 levels under
+    an active c2f window, entry 2's plain version) against JAX's from the
+    same parameters and jitter (replayed from JAX's key): the probed values
+    within 2e-6 (float32 sums in another order; the SDF reaches ~0.2 here),
+    the flags equal but where the threshold lies between the two values'
+    densities, the other voxels unchanged."""
+    cfg_kw = dict(_TINY, grid_update_max_levels=3, sdf_nr_iters_for_c2f=1000)
+    cfg_j, cfg_t = jt.PermutoSDFTrainConfig(**cfg_kw), tt.PermutoSDFTrainConfig(**cfg_kw)
+    pj = jax.tree_util.tree_map(np.asarray, jt.init_params(jax.random.PRNGKey(7), cfg_j, 1))
+    pj["sdf"]["encoding"]["lattice_values"] = pj["sdf"]["encoding"]["lattice_values"] * 1e4
+    it, inv_s, n = 101, 400.0, cfg_t.grid_nr_random_samples
+    assert _c2f_window_active(it, cfg_t)
+    key = jax.random.PRNGKey(8)
+    rng = np.random.default_rng(3)
+    occ0 = rng.uniform(size=16 ** 3) < 0.5
+    vals0 = rng.normal(size=16 ** 3).astype(np.float32)
+    want = jt.occupancy_update(
+        jax.tree_util.tree_map(jnp.asarray, pj),
+        jog.OccupancyGridState(values=jnp.asarray(vals0), occupancy=jnp.asarray(occ0)), key, it,
+        inv_s, cfg_j)
+    jitter = torch.from_numpy(np.array(jax.random.uniform(key, (n, 3), minval=-0.5,
+                                                          maxval=0.5)))
+    grid_t = tog.OccupancyGridState(values=torch.from_numpy(vals0.copy()),
+                                    occupancy=torch.from_numpy(occ0.copy()))
+    got = tt.occupancy_update(params_from_jax(pj, "cpu"), grid_t, jitter, it, inv_s, cfg_t)
+    assert got is grid_t  # in place
+    _, lin = tog.grid_points_plain(cfg_t.grid, n, it // cfg_t.grid_update_every)
+    probed = np.zeros(16 ** 3, dtype=bool)
+    probed[lin.numpy()] = True
+    v_t, v_j = got.values.numpy(), np.asarray(want.values)
+    o_t, o_j = got.occupancy.numpy(), np.asarray(want.occupancy)
+    np.testing.assert_array_equal(v_t[~probed], vals0[~probed])
+    np.testing.assert_array_equal(o_t[~probed], occ0[~probed])
+    np.testing.assert_array_equal(o_j[~probed], occ0[~probed])
+    np.testing.assert_allclose(v_t[probed], v_j[probed], atol=2e-6, rtol=0)
+    x = lambda v: np.clip(np.abs(v) - cfg_t.grid.half_diagonal, 0.0, 1e10)  # noqa: E731
+    d_t, d_j = (tog._logistic_density(torch.from_numpy(x(v[probed])), torch.tensor(inv_s))
+                for v in (v_t, v_j))
+    thresh = cfg_t.grid_occupancy_thresh
+    between = ((torch.minimum(d_t, d_j) <= thresh) & (thresh <= torch.maximum(d_t, d_j))).numpy()
+    differ = o_t[probed] != o_j[probed]
+    assert not (differ & ~between).any()
+    assert 20 < int(o_j[probed].sum()) < n - 20
+
+
+def _c2f_window_active(it, cfg):
+    """Whether the SDF's coarse-to-fine window still closes a level."""
+    from permuto_sdf_tpu_torch.models.fields import _c2f_t
+    from permuto_sdf_tpu_torch.ops.permuto_encoding import coarse2fine_window
+
+    return coarse2fine_window(_c2f_t(it, cfg.sdf_nr_iters_for_c2f), cfg.nr_levels).min() < 1.0
+
+
 def test_synthetic_reel_matches_jax():
     """The port's sphere-traced sphere+torus views equal JAX's: the masks
     agree but for a few silhouette pixels, the colours within 1e-3
