@@ -70,9 +70,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 10. kernels E1 and E2 (the importance stage) against their plain versions
    on one chunk's samples (rounds at S = 64 and 80, no jitter) and one
    training batch's (jitter on), H1 and H2 (the hit-ray take and scatter,
-   and H2's backward) at the training step's shapes (H1 also on its arrays
-   based at an odd element and on rows of odd widths, one launch a call,
-   device ms a launch); the exact frames of
+   and H2's backward) at the training step's shapes (both also on their
+   arrays based at an odd element and on rows of odd widths, H2 with
+   nonzero fills; one launch a call, device ms a launch); the exact frames of
    phase 3 launch E1 and E2 twice per chunk each;
 11. LOD frames (``render_image(lod=(12, 32))``, the viewer's volumetric
    mode) at 400x400 on the sphere and the plane scene, timed, against the
@@ -135,15 +135,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    with the launch counts read per path (J3 exactly PT_TRACES per chunk);
    1024 plain-traced rays card against CPU at the sphere-frame gates of
    phase 9;
-17. slice 7, sampling without the grid and NeRF: kernels C2 (uniform fg
-   samples) and I2 (the density refresh) against their plain versions at
-   the NeRF step's shapes (exact); ``train_nerf.train`` at
+17. slice 7, sampling without the grid and NeRF: kernels C2 (the bound
+   sphere's intersection and the uniform fg samples in one launch, also on
+   a batch with misses, bit for bit: TOL_C2_ULP, TOL_C2) and I2 (the
+   density refresh) against their plain versions at the NeRF step's
+   shapes (exact); ``train_nerf.train`` at
    ``NerfTrainConfig()`` on the synthetic reel (NERF_STEPS steps, 3 grid
    refreshes, ms/step from the difference with a NERF_SHORT-step run;
    rays/s, valid fg samples/s, launches per step), ``render_image`` of one
    view, one NeRF step card against CPU (TOL_LOSS_CROSS, TOL_GRAD_CROSS),
    ``main(["--smoke"])`` in process; and TRAIN_STEPS flagship steps with
-   ``use_occupancy_grid=False`` (C2 once per step, C and I never);
+   ``use_occupancy_grid=False`` (C2 once per step, C and I never, no
+   plain bound intersection), then one step of each window under
+   torch.profiler (device launches a step, device busy ms, idle share);
 18. print ``render``, ``fg_sets``, ``train``, ``sphere_traced``, ``lod``,
    ``hit_ray_train``, ``levers``, ``mesh``, ``plain_traced``, ``nerf`` and
    ``kernels`` JSON lines, then as the last line
@@ -1180,7 +1184,8 @@ def counters():
             "L": (vr.train_lod_select_cuda,), "D2": (vr.neus_render_mixed_cuda,),
             "D2'": (vr.neus_render_mixed_bwd_cuda,), "M1": (mc.mt_count_cuda,),
             "M2": (mc.mt_emit_cuda,), "C3": (og.first_occupied_cuda,),
-            "J3": (st.trace_step_pos_cuda,), "C2": (rs.samples_fg_cuda,),
+            "J3": (st.trace_step_pos_cuda,),
+            "C2": (rs.samples_fg_sphere_cuda,),
             "I2": (og.density_update_cuda,), "J3f": (st.trace_loop_pos_cuda,),
             "J2f": (st.trace_round_cuda,), "If": (og.grid_refresh_cuda,)}
 
@@ -1259,7 +1264,8 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "L": "train_lod_select_kernel", "D2": "render_mixed_kernel",
                   "D2'": "render_mixed_bwd_kernel", "M1": "mt_count_kernel",
                   "M2": "mt_emit_kernel", "C3": "first_occupied_kernel",
-                  "J3": "trace_step_pos_kernel", "C2": "samples_fg_kernel",
+                  "J3": "trace_step_pos_kernel",
+                  "C2": "samples_fg_kernel",
                   "I2": "density_update_kernel", "J3f": "trace_loop_pos_kernel",
                   "J2f": "trace_round_kernel"}
 
@@ -2676,13 +2682,41 @@ def hit_ray_kernel_phases(device, cfg, reps=20, plain_reps=3):
             "bound_ms": bound_ms(B * 8 + int((idx < R).sum()) * rb + B * rb, 0)[0]}
     print(f"[kernel H1] cases (bit for bit, one launch each): {json.dumps(h1_cases)}",
           flush=True)
+
+    # H2 on the same chunk widths: the step's bucket arrays, the same based
+    # at an odd element, and bucket rows of odd widths, with nonzero fills
+    # on the float arrays; bit for bit, one launch a call, device ms a launch
+    h2_sets = {"step": (xs, fills), "odd_base": ([at_odd(x) for x in xs], fills),
+               "odd_width": ([(torch.from_numpy(rng.uniform(size=(B, 3)) < 0.5)).to(device),
+                              at_odd(torch.from_numpy(rng.uniform(size=(B, 3)) < 0.5).to(device)),
+                              f32(B, 3), at_odd(f32(B, 3)),
+                              torch.from_numpy(rng.integers(0, 2 ** 40, (B, 2))).to(device)],
+                             (0.0, 0.0, 0.5, -2.0, 0.0))}
+    h2_cases = {}
+    for label, (arrs, fl) in h2_sets.items():
+        launches = compaction.scatter_rows_cuda.launches
+        got = compaction.scatter_rows_cuda(arrs, idx, R, fl)
+        if compaction.scatter_rows_cuda.launches != launches + 1:
+            fail(f"kernel H2 ({label}): not one launch a call")
+        for k, (a, b) in enumerate(zip(got, compaction.scatter_rows_plain(arrs, idx, R, fl))):
+            if not torch.equal(a, b):
+                fail(f"kernel H2 ({label}): array {k} differs from the plain version")
+        fn = lambda arrs=arrs, fl=fl: compaction.scatter_rows_cuda(arrs, idx, R, fl)  # noqa: E731
+        rb = sum(a[0].numel() * a.element_size() for a in arrs)
+        h2_cases[label] = {
+            "ms": time_ms(fn, reps, device), "device_ms": device_ms(fn, "H2", device,
+                                                                    per_launch=True),
+            "chunk_bytes": [compaction._row_arrays(arrs, got).chunk[k]
+                            for k in range(len(arrs))],
+            "bound_ms": bound_ms(B * 8 + int((idx < R).sum()) * rb + R * rb, 0)[0]}
+    print(f"[kernel H2] cases (bit for bit, one launch each): {json.dumps(h2_cases)}",
+          flush=True)
     return {"H1": dict(max_abs_err=0.0, ms=t1[0], plain_ms=t1[1], bound_ms=t1[2][0],
                        bound_by=t1[2][1], device_ms=h1_cases["step"]["device_ms"],
                        cases=h1_cases),
             "H2": dict(max_abs_err=0.0, ms=t2[0], plain_ms=t2[1], bound_ms=t2[2][0],
-                       bound_by=t2[2][1], device_ms=device_ms(
-                           lambda: compaction.scatter_rows_cuda(xs, idx, R, fills), "H2",
-                           device, per_launch=True))}
+                       bound_by=t2[2][1], device_ms=h2_cases["step"]["device_ms"],
+                       cases=h2_cases)}
 
 
 LOD = (12, 32)  # the interactive viewer's volumetric mode (interactive.py:127-134)
@@ -3092,9 +3126,8 @@ def lever_kernel_phases(device, cfg, params, grid, reel, reps=20, plain_reps=3):
     ita = it - cfg.nr_iter_sphere_fit
     draws = tps.draw_train_step(tps.step_generators(SEED, it)[0], lcfg, reel).to(device)
     o, d, _, _, _ = random_rays_from_reel(reel, lcfg.nr_rays, indices=draws.ray_indices)
-    _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
     with torch.no_grad():
-        smp, _ = tps._create_fg_samples(params, grid, o, d, te, tx, ita, lcfg, draws)
+        smp = tps._create_fg_samples(params, grid, o, d, ita, lcfg, draws)[0]
     R, S = smp.mask.shape
     K, E = tps._train_lod(lcfg)
     car = tps._map_range_f32(ita, 0.0, cfg.forced_variance_finish_iter, 0.0, 1.0)
@@ -3868,6 +3901,12 @@ FUSED_SHARE = 0.0005
 FUSED_MAX_GAP = 0.01
 OPS_PER_GELU = 15  # tanh and the polynomial
 OPS_PER_SAMPLE_C2 = 20  # C2's per-slot count, spacing, z, clip and dt
+OPS_PER_RAY_SPHERE = 36  # the bound sphere's intersection of a ray (in C2)
+# C2 against its plain version (the same float operations in the same
+# order, `--fmad=false`): t_entry and t_exit in ulp, and z, dt,
+# ray_fixed_dt, t_entry and t_exit absolute; masks and counts exact
+TOL_C2_ULP = 0
+TOL_C2 = 0.0
 OPS_PER_PROBE_I2 = 3  # I2's decay, max and threshold
 NERF_SHORT = 2  # the short run whose time the window's run subtracts
 NERF_STEPS = 24  # the NeRF window: 3 grid refreshes (every 8 iterations)
@@ -4562,11 +4601,63 @@ def fused_trace_phases(device, cfg, scenes, reps=10, plain_reps=2):
     return results, summary
 
 
+def _ulp_gap(a, b) -> int:
+    """The largest distance in float32 units in the last place between a
+    and b (both finite, of one sign or zero)."""
+    import torch
+
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    gap = torch.where(a == b, 0, (ia - ib).abs())  # -0 == 0
+    return int(gap.max()) if a.numel() else 0
+
+
+def _c2_rays(device, R):
+    """R rays made from SEED against the unit-diameter bound: from outside
+    (crossing, missing, grazing, pointing away: both t < 0) and from
+    inside (t_entry clamped to 0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 19)
+    o = rng.normal(size=(R, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * rng.uniform(0.0, 1.5, (R, 1))
+    d = rng.uniform(-0.4, 0.4, (R, 3)) - o
+    d[-R // 8:] = o[-R // 8:]
+    o[:3] = [[0.5, 0.0, -2.0], [0.5 + 3e-8, 0.0, -2.0], [0.5 - 3e-8, 0.0, -2.0]]
+    d[:3] = [0.0, 0.0, 1.0]
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)).to(device),
+            torch.from_numpy(d.astype(np.float32)).to(device))
+
+
+def _c2_check(label, got, want):
+    """C2 against its plain version: masks, counts and does_intersect
+    exactly, t_entry and t_exit within TOL_C2_ULP, z, dt, ray_fixed_dt and
+    the t within TOL_C2 -> (largest absolute difference, t's ulp gap)."""
+    import torch
+
+    for i, what in ((2, "masks"), (6, "does_intersect")):
+        if not torch.equal(got[i], want[i]):
+            fail(f"kernel C2 ({label}): {what} differ in "
+                 f"{(got[i] != want[i]).sum().item()} places")
+    ulp = max(_ulp_gap(got[4], want[4]), _ulp_gap(got[5], want[5]))
+    if ulp > TOL_C2_ULP:
+        fail(f"kernel C2 ({label}): t_entry/t_exit {ulp} ulp from the plain version")
+    err = max((got[i] - want[i]).abs().max().item() for i in (0, 1, 3, 4, 5))
+    if not err <= TOL_C2:
+        fail(f"kernel C2 ({label}): values {err:.3e} from the plain version")
+    return err, ulp
+
+
 def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
     """Kernels C2 and I2 against their plain versions at the NeRF step's
-    shapes (``NerfTrainConfig()``): C2 on one step's rays (R = 512, S = 64,
-    the jitter on), I2 on one refresh's probes (n = 65,536 of the 64^3
-    grid, the density of the initial field). Both exact. I2 is timed from a
+    shapes (``NerfTrainConfig()``): C2, the sphere's intersection and the
+    samples in one launch, on one step's rays (R = 512, S = 64, the jitter
+    on; the flagship step's shapes too) and on a batch of 512 rays with
+    misses, grazes and starts inside and beyond the sphere. I2 on one
+    refresh's probes (n = 65,536 of the 64^3 grid, the density of the
+    initial field). All exact (C2: TOL_C2_ULP, TOL_C2). I2 is timed from a
     restored copy of the grid, the restore's own time subtracted. Returns
     {kernel: numbers}."""
     import torch
@@ -4582,21 +4673,32 @@ def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
     draws = tn.draw_train_step(tps.step_generators(SEED, 0)[0], ncfg, reel).to(device)
     o, d, _, _, _ = random_rays_from_reel(reel, ncfg.nr_rays, indices=draws.ray_indices,
                                           apply_mask=False)
-    _, te, _, tx, _ = tn.BOUND.ray_intersection(o, d)
     R, S = o.shape[0], ncfg.max_nr_samples_per_ray
-    cargs = (te, tx, ncfg.min_dist_between_samples, S, draws.fg_start)
-    got = rs.samples_fg_cuda(*cargs)
-    want = rs.samples_fg_plain(*cargs)
-    if not torch.equal(got[2], want[2]):
-        fail(f"kernel C2: masks differ in {(got[2] != want[2]).sum().item()} slots")
-    err = max((got[i] - want[i]).abs().max().item() for i in (0, 1, 3))
-    ms = time_ms(lambda: rs.samples_fg_cuda(*cargs), reps, device)
-    pms = time_ms(lambda: rs.samples_fg_plain(*cargs), plain_reps, device)
-    b = bound_ms(R * 12 + R * S * 9 + R * 4, R * S * OPS_PER_SAMPLE_C2)
-    _report(f"C2 R={R} S={S} (valid {int(want[2].sum())})", err, 0.0, ms, pms, b)
-    dms = device_ms(lambda: rs.samples_fg_cuda(*cargs), "C2", device)
-    results["C2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
-                         device_ms=dms)
+    md, start = ncfg.min_dist_between_samples, draws.fg_start
+    sphere = tn.BOUND
+    bargs = (o, d, sphere, md, S, start)
+    want = rs.samples_fg_sphere_plain(*bargs)
+    launches = rs.samples_fg_sphere_cuda.launches
+    got = rs.samples_fg_sphere_cuda(*bargs)
+    if rs.samples_fg_sphere_cuda.launches != launches + 1:
+        fail("kernel C2: not one launch a call")
+    err, ulp = _c2_check("step", got, want)
+    o_m, d_m = _c2_rays(device, 512)
+    margs = (o_m, d_m, sphere, 2.0 / S, S, None)
+    want_m = rs.samples_fg_sphere_plain(*margs)
+    err_m, ulp_m = _c2_check("misses", rs.samples_fg_sphere_cuda(*margs), want_m)
+    ms = time_ms(lambda: rs.samples_fg_sphere_cuda(*bargs), reps, device)
+    pms = time_ms(lambda: rs.samples_fg_sphere_plain(*bargs), plain_reps, device)
+    b = bound_ms(R * (24 + 4) + R * S * 9 + R * (4 + 9),
+                 R * S * OPS_PER_SAMPLE_C2 + R * OPS_PER_RAY_SPHERE)
+    _report(f"C2 R={R} S={S} (valid {int(want[2].sum())}; t within "
+            f"{max(ulp, ulp_m)} ulp)", max(err, err_m), TOL_C2, ms, pms, b)
+    dms = device_ms(lambda: rs.samples_fg_sphere_cuda(*bargs), "C2", device, per_launch=True)
+    print(f"[kernel C2] device ms {dms}; misses batch: "
+          f"{int((~want_m[6]).sum())} of 512 miss, {int(want_m[2].sum())} valid samples, "
+          f"err {err_m:.3e}, t within {ulp_m} ulp", flush=True)
+    results["C2"] = dict(max_abs_err=max(err, err_m), ms=ms, plain_ms=pms, bound_ms=b[0],
+                         bound_by=b[1], device_ms=dms)
 
     gcfg, n = ncfg.grid, ncfg.grid_nr_random_samples
     jitter = (torch.rand((n, 3), generator=torch.Generator().manual_seed(SEED)) - 0.5).to(device)
@@ -4753,21 +4855,83 @@ def _nerf_cross_check(device, ncfg, params, grid, reel, it):
     return summary
 
 
+class _CountedIntersection:
+    """Counts the calls of the plain ``Sphere.ray_intersection`` while
+    active (``calls``)."""
+
+    def __enter__(self):
+        from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
+
+        self.calls, self.plain = 0, Sphere.ray_intersection
+
+        def counted(sphere, *args):
+            self.calls += 1
+            return self.plain(sphere, *args)
+
+        Sphere.ray_intersection = counted
+        return self
+
+    def __exit__(self, *exc):
+        from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
+
+        Sphere.ray_intersection = self.plain
+
+
+def _step_device_launches(device, run_cfg, params, grid, reel, it, label):
+    """One step of ``run_cfg`` at iteration ``it`` (after a warm-up step at
+    it - 1) under torch.profiler: device busy ms, idle share, the device
+    launches (kernels, memsets and copies) and C2's device ms a launch, and
+    the calls of the plain bound intersection in the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    optimizer = tps.make_optimizer(run_cfg)
+    opt_state = optimizer.init(params)
+    draws = [tps.draw_train_step(tps.step_generators(SEED, i)[0], run_cfg, reel)
+             for i in (it - 1, it)]
+    tps.train_step(params, opt_state, grid, reel, draws[0], it - 1, run_cfg, optimizer)
+    torch.cuda.synchronize(device)
+    with _CountedIntersection() as plain, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tps.train_step(params, opt_state, grid, reel, draws[1], it, run_cfg, optimizer)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = _profile_summary(prof, wall_ms, label) or {}
+    c2 = _kernel_events(prof, "C2")
+    c2_n = sum(e.count for e in c2)
+    return {"wall_ms": wall_ms, "device_busy_ms": summary.get("device_busy_ms"),
+            "device_idle_share": summary.get("device_idle_share"),
+            "device_launches": sum(e.count for e in prof.key_averages()
+                                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                                   and _dev_us(e) > 0) if summary else None,
+            "C2_device_ms_per_launch": (sum(_dev_us(e) for e in c2) / 1e3 / c2_n
+                                        if c2_n else None),
+            "plain_intersection_calls": plain.calls}
+
+
 def gridfree_phase(device, cfg, params, grid, reel):
     """The flagship with ``use_occupancy_grid=False``: ``train`` resumed at
     the training phase's state for TRAIN_STEPS steps (no refresh, no
-    offsurface loss, the fg samples from C2), right after a window of the
-    same steps with the grid (the host's speed drifts over the script, so
-    the two are compared within this phase): ms/step, rays/s, valid
-    samples/s and launches per step; C2 once per step, C and I never.
-    Returns (summary, counts of the grid-free window)."""
+    offsurface loss, the fg samples from C2), right after a
+    window of the same steps with the grid (the host's speed drifts over
+    the script, so the two are compared within this phase): ms/step,
+    rays/s, valid samples/s and launches per step; C2 once per step, C and
+    I never, and the plain bound intersection never in the grid-free
+    window. Then one step of each under torch.profiler: device launches a
+    step, device busy ms and idle share. Returns (summary, counts of the
+    grid-free window)."""
     import dataclasses
 
     start = cfg.nr_iter_sphere_fit + TRAIN_FROM
     out = {}
-    for label, run_cfg in (("grid", cfg),
-                           ("gridfree", dataclasses.replace(cfg, use_occupancy_grid=False))):
-        _, run = _train_window(device, label, run_cfg, params, grid, reel, start, TRAIN_STEPS)
+    runs = {"grid": cfg, "gridfree": dataclasses.replace(cfg, use_occupancy_grid=False)}
+    for label, run_cfg in runs.items():
+        with _CountedIntersection() as plain:
+            _, run = _train_window(device, label, run_cfg, params, grid, reel, start,
+                                   TRAIN_STEPS)
         _check_importance_launches(label, run)
         timed = [r["ms"] for r in run["per_step"][WARMUP_STEPS:]]
         med = statistics.median(timed)
@@ -4778,13 +4942,14 @@ def gridfree_phase(device, cfg, params, grid, reel):
                       "valid_samples_per_step_mean": samples,
                       "valid_samples_per_s_median": samples / med * 1e3,
                       "launches_per_step": {k: run["launches"][k] / TRAIN_STEPS
-                                            for k in GRIDFREE_KERNELS + ("C", "I", "If")}}
+                                            for k in GRIDFREE_KERNELS + ("C", "I", "If")},
+                      "plain_intersection_calls_per_step": plain.calls / TRAIN_STEPS}
         print(f"[gridfree] {label}: {TRAIN_STEPS} steps from iteration {start + 1}: median "
               f"{med:.1f} ms/step (min {min(timed):.1f}, max {max(timed):.1f}), "
               f"{out[label]['rays_per_s_median']:.0f} rays/s, "
               f"{out[label]['valid_samples_per_s_median']:.0f} valid samples/s, launches/step "
-              f"{ {k: round(v, 2) for k, v in out[label]['launches_per_step'].items()} }",
-              flush=True)
+              f"{ {k: round(v, 2) for k, v in out[label]['launches_per_step'].items()} }, "
+              f"plain intersections/step {plain.calls / TRAIN_STEPS:.2f}", flush=True)
     counts = run["launches"]
     if counts["C"] or counts["I"] or counts["If"] or counts["C2"] != TRAIN_STEPS:
         fail(f"grid-free train: launches C {counts['C']}, I {counts['I']}, If {counts['If']}, "
@@ -4792,9 +4957,25 @@ def gridfree_phase(device, cfg, params, grid, reel):
     missing = [k for k in GRIDFREE_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"grid-free train: no launch of kernel {missing}")
+    if out["gridfree"]["plain_intersection_calls_per_step"]:
+        fail("grid-free train: the step still runs the plain bound intersection on the card")
     out["gridfree_over_grid"] = (out["gridfree"]["ms_per_step_median"]
                                  / out["grid"]["ms_per_step_median"])
+    it = start + TRAIN_STEPS + 2
+    for label, run_cfg in runs.items():
+        step = _step_device_launches(device, run_cfg, _tree_map(_clone, params),
+                                     grid if label == "grid" else None, reel, it,
+                                     f"{label}_step")
+        out[label]["step_profile"] = step
+        print(f"[gridfree] {label}: one step under torch.profiler: "
+              f"{json.dumps(step)}", flush=True)
+    if out["gridfree"]["step_profile"]["plain_intersection_calls"]:
+        fail("grid-free step: the plain bound intersection ran on the card")
     return out, counts
+
+
+def _clone(t):
+    return t.clone() if hasattr(t, "clone") else t
 
 
 def _tree_map(fn, tree):

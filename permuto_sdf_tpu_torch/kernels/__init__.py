@@ -103,7 +103,7 @@ SIGNATURES = {
                         + [_P] * 3,
     },
     "ray_sampler": {
-        "psdf_samples_fg": [_I, _I, _P, _P, _P, _F] + [_P] * 5,
+        "psdf_samples_fg": [_I, _I, _P, _P, _P] + [_F] * 5 + [_P] * 8,
     },
 }
 

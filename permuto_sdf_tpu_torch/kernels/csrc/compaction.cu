@@ -36,9 +36,9 @@ struct RowArrays {
   void* dst[kMaxArrays];
   long long row_bytes[kMaxArrays];
   unsigned fill[kMaxArrays];  // a 4-byte pattern (H2's fills; 0 for H1)
-  int chunk[kMaxArrays];      // H1: the bytes a thread moves at once, 16, 8, 4 or 1
-  int first_chunk[kMaxArrays];  // H1: the array's first chunk in a row's chunks
-  int row_chunks;             // H1: the chunks of a row, all arrays
+  int chunk[kMaxArrays];      // the bytes a thread moves at once, 16, 8, 4 or 1
+  int first_chunk[kMaxArrays];  // the array's first chunk in a row's chunks
+  int row_chunks;             // the chunks of a row, all arrays
   int count;
 };
 
@@ -196,30 +196,26 @@ __global__ void __launch_bounds__(kThreads) compact_write_kernel(
 // against 0.00268 in the hit-ray step (NVIDIA H100 80GB HBM3, 700 W;
 // chip_smoke.py, profiling/torch_encode_paths.py --paths train).
 //
-// Design of H2: one thread per destination row, which finds its bucket row
-// by a binary search of the ascending ids (or writes the fills), so every
-// destination row is written once, in one launch. The arrays travel in one
-// parameter struct.
+// Design of H2: H1's flat space, over (destination row, array, chunk).
+// A block first resolves the source rows of its destination rows once,
+// into a shared table: the bucket rows whose ids fall in the block's row
+// range lie in a run of at most that many rows from the first id at or
+// above its first row. While the candidate range of that first id is
+// longer than kScatterScan ids, the block narrows it kTakeThreads-fold a
+// round (each thread tests one evenly spaced id; their count of ids below
+// the row is the prefix the range keeps). At the step's bucket (256 ids)
+// no round runs: the threads read every id once, in parallel, and write
+// the table's entries for those in the range. Then each thread issues the
+// loads of its kPer chunks before any store, and a row that no id names
+// gets its arrays' fills (a repeated 4-byte pattern, so any chunk width
+// takes it). It replaced one thread per destination row that ran a
+// binary search of the ids in global memory (8 dependent loads at a
+// bucket of 256) and then copied the arrays one after another in 4- or
+// 1-byte words (PERF.md §6).
 // ---------------------------------------------------------------------------
 
 constexpr int kTakeThreads = 128;
-constexpr int kScatterThreads = 256;
-
-// Row src_row of array k to row dst_row (its fill pattern instead with
-// `fill`), words first..: step apart.
-__device__ __forceinline__ void copy_row(const RowArrays& a, int k, long long src_row,
-                                         long long dst_row, bool fill, int first, int step) {
-  const long long nb = a.row_bytes[k];
-  const uint8_t* s = (const uint8_t*)a.src[k] + src_row * nb;
-  uint8_t* d = (uint8_t*)a.dst[k] + dst_row * nb;
-  if (nb % 4 == 0 && ((uintptr_t)a.src[k] | (uintptr_t)a.dst[k]) % 4 == 0) {
-    for (long long w = first; w < nb / 4; w += step)
-      ((unsigned*)d)[w] = fill ? a.fill[k] : ((const unsigned*)s)[w];
-  } else {
-    for (long long w = first; w < nb; w += step)
-      d[w] = fill ? (uint8_t)(a.fill[k] & 0xffu) : s[w];
-  }
-}
+constexpr int kScatterScan = 4 * kTakeThreads;  // ids a block scans without narrowing
 
 // A chunk of `width` bytes at p, read through the read-only path.
 __device__ __forceinline__ uint4 load_chunk(const uint8_t* __restrict__ p, int width) {
@@ -296,18 +292,94 @@ __global__ void __launch_bounds__(kTakeThreads) take_rows_kernel(
     if (dst[m] != nullptr) store_chunk(dst[m], width[m], v[m]);
 }
 
-__global__ void __launch_bounds__(kScatterThreads) scatter_rows_kernel(
-    RowArrays a, const long long* __restrict__ ray_idx, int B, long long n) {
-  const long long r = (long long)blockIdx.x * kScatterThreads + threadIdx.x;
-  if (r >= n) return;
-  int lo = 0, hi = B;  // the first b with ray_idx[b] >= r
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ray_idx[mid] < r) lo = mid + 1;
-    else hi = mid;
+// Kernel H2: chunks [g0, g0 + kTakeThreads kPer) of the flat space, chunk
+// g of destination row g / row_chunks; thread t takes chunks g0 + t + m
+// kTakeThreads. Shared memory: 1 + kTakeThreads kPer ints (a count, then
+// the table).
+template <int kPer>
+__global__ void __launch_bounds__(kTakeThreads) scatter_rows_kernel(
+    RowArrays a, const long long* __restrict__ ray_idx, int B, long long total) {
+  int* below = psdf_dynamic_smem<int>();  // a narrowing round's count
+  int* src_row = below + 1;  // a destination row's bucket row, or -1: its fills
+  const long long rc = a.row_chunks;
+  const long long g0 = (long long)blockIdx.x * kTakeThreads * kPer;
+  const long long g_end = min(g0 + kTakeThreads * kPer, total);
+  const long long r0 = g0 / rc;
+  const int rows = (int)((g_end - 1) / rc - r0 + 1);
+  int lo = 0, hi = B;  // the first b with ray_idx[b] >= r0 lies in [lo, hi]
+  while (hi - lo > kScatterScan) {
+    const int stride = (hi - lo + kTakeThreads - 1) / kTakeThreads;
+    const int p = lo + (int)threadIdx.x * stride;
+    if (threadIdx.x == 0) *below = 0;
+    __syncthreads();
+    if (p < hi && __ldg(ray_idx + p) < r0) atomicAdd(below, 1);
+    __syncthreads();
+    const int c = *below;  // the tested ids below r0: a prefix, as the ids ascend
+    __syncthreads();
+    if (c == 0) {
+      hi = lo;
+    } else {
+      hi = min(hi, lo + c * stride);
+      lo += (c - 1) * stride + 1;
+    }
   }
-  const bool hit = lo < B && ray_idx[lo] == r;
-  for (int k = 0; k < a.count; ++k) copy_row(a, k, hit ? lo : 0, r, !hit, 0, 1);
+  // the ids of rows [r0, r0 + rows) lie at [first, first + rows)
+  const int end = (int)min((long long)B, (long long)hi + rows);
+  for (int b0 = lo; b0 < end; b0 += kScatterScan) {
+    long long id[kScatterScan / kTakeThreads];
+#pragma unroll
+    for (int m = 0; m < kScatterScan / kTakeThreads; ++m) {
+      const int b = b0 + m * kTakeThreads + (int)threadIdx.x;
+      id[m] = b < end ? __ldg(ray_idx + b) : -1;
+    }
+    if (b0 == lo) {  // the table's default, while the first ids load
+      for (int r = threadIdx.x; r < rows; r += kTakeThreads) src_row[r] = -1;
+      __syncthreads();
+    }
+#pragma unroll
+    for (int m = 0; m < kScatterScan / kTakeThreads; ++m)
+      if (id[m] >= r0 && id[m] < r0 + rows)
+        src_row[id[m] - r0] = b0 + m * kTakeThreads + (int)threadIdx.x;
+  }
+  if (lo >= end) {
+    for (int r = threadIdx.x; r < rows; r += kTakeThreads) src_row[r] = -1;
+  }
+  __syncthreads();
+  uint4 v[kPer];
+  uint8_t* dst[kPer];
+  int width[kPer];
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {  // every load before any store
+    const long long g = g0 + m * kTakeThreads + threadIdx.x;
+    dst[m] = nullptr;
+    if (g >= g_end) continue;
+    const long long r = g / rc;
+    const int c = (int)(g - r * rc);
+    int k = 0;
+    while (k + 1 < a.count && c >= a.first_chunk[k + 1]) ++k;
+    const int w = a.chunk[k];
+    const long long off = (long long)(c - a.first_chunk[k]) * w;
+    const int b = src_row[r - r0];
+    const unsigned f = a.fill[k];
+    width[m] = w;
+    dst[m] = (uint8_t*)a.dst[k] + r * a.row_bytes[k] + off;
+    v[m] = b >= 0 ? load_chunk((const uint8_t*)a.src[k] + b * a.row_bytes[k] + off, w)
+                  : uint4{f, f, f, f};
+  }
+#pragma unroll
+  for (int m = 0; m < kPer; ++m)
+    if (dst[m] != nullptr) store_chunk(dst[m], width[m], v[m]);
+}
+
+// Chunks a thread for `total` chunks: the most of 4, 2 and 1 that still
+// gives every streaming multiprocessor a block (0 on an error, in *err).
+inline int chunks_per_thread(long long total, int* err) {
+  int dev = 0, sms = 0;
+  *err = (int)cudaGetDevice(&dev);
+  if (*err == 0) *err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err != 0) return 0;
+  const long long per_sm = total / ((long long)kTakeThreads * max(sms, 1));
+  return per_sm >= 4 ? 4 : per_sm >= 2 ? 2 : 1;
 }
 
 }  // namespace
@@ -320,13 +392,9 @@ extern "C" int psdf_take_rows(RowArrays arrays, const void* ray_idx, int B, long
     return (int)cudaErrorInvalidValue;
   const long long total = (long long)B * arrays.row_chunks;
   if (total == 0) return (int)cudaSuccess;
-  int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err == 0) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int err = 0;
+  const int per = chunks_per_thread(total, &err);
   if (err != 0) return err;
-  // chunks a thread: the most that still gives every streaming multiprocessor a block
-  const long long per_sm = total / ((long long)kTakeThreads * max(sms, 1));
-  const int per = per_sm >= 4 ? 4 : per_sm >= 2 ? 2 : 1;
   const int grid = psdf_blocks(total, kTakeThreads * per);
   const auto* ids = (const long long*)ray_idx;
   if (per == 4)
@@ -341,15 +409,30 @@ extern "C" int psdf_take_rows(RowArrays arrays, const void* ray_idx, int B, long
   return (int)cudaGetLastError();
 }
 
-// H2: n destination rows, each the bucket row that ray_idx [B] (ascending)
-// sends there or else its fills.
+// H2: n destination rows, each the bucket row that ray_idx [B] (ascending,
+// the valid ids distinct) sends there or else its fills, in one launch
+// (none for n = 0 or rows of no chunks).
 extern "C" int psdf_scatter_rows(RowArrays arrays, const void* ray_idx, int B, long long n,
                                  void* stream) {
-  if (B < 0 || n < 0 || n >= (1LL << 31) || arrays.count < 0 || arrays.count > kMaxArrays)
+  if (B < 0 || n < 0 || n >= (1LL << 31) || arrays.count < 0 || arrays.count > kMaxArrays ||
+      arrays.row_chunks < 0)
     return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
-  PSDF_LAUNCH(scatter_rows_kernel, psdf_blocks(n, kScatterThreads), kScatterThreads, 0, stream,
-              arrays, (const long long*)ray_idx, B, n);
+  const long long total = n * arrays.row_chunks;
+  if (total == 0) return (int)cudaSuccess;
+  int err = 0;
+  const int per = chunks_per_thread(total, &err);
+  if (err != 0) return err;
+  const int grid = psdf_blocks(total, kTakeThreads * per);
+  const auto* ids = (const long long*)ray_idx;
+  if (per == 4)
+    PSDF_LAUNCH(scatter_rows_kernel<4>, grid, kTakeThreads, (1 + kTakeThreads * 4) * 4, stream,
+                arrays, ids, B, total);
+  else if (per == 2)
+    PSDF_LAUNCH(scatter_rows_kernel<2>, grid, kTakeThreads, (1 + kTakeThreads * 2) * 4, stream,
+                arrays, ids, B, total);
+  else
+    PSDF_LAUNCH(scatter_rows_kernel<1>, grid, kTakeThreads, (1 + kTakeThreads * 1) * 4, stream,
+                arrays, ids, B, total);
   return (int)cudaGetLastError();
 }
 

@@ -99,7 +99,7 @@ def nonzero_static(mask: torch.Tensor, size: int, fill_value=None, other=None,
 
 def _chunk_bytes(*addrs) -> int:
     """The widest of 16, 8, 4 and 1 bytes that divides every address and
-    size in ``addrs``: kernel H1's chunk of an array."""
+    size in ``addrs``: kernel H1's and H2's chunk of an array."""
     a = 0
     for x in addrs:
         a |= x
@@ -107,8 +107,8 @@ def _chunk_bytes(*addrs) -> int:
 
 
 def _row_arrays(srcs, dsts, fills=None) -> kernels.RowArrays:
-    """The arrays' struct: their pointers, row bytes and H2's fills, and
-    for H1 each array's chunk width and first chunk in a row."""
+    """The arrays' struct: their pointers, row bytes, H2's fills, and each
+    array's chunk width and first chunk in a row."""
     if len(srcs) > kernels.MAX_ROW_ARRAYS:
         raise ValueError(f"rows: at most {kernels.MAX_ROW_ARRAYS} arrays per launch")
     a = kernels.RowArrays()
@@ -188,15 +188,19 @@ def scatter_rows_plain(arrays, ray_idx, n: int, fills):
 def scatter_rows_cuda(arrays, ray_idx, n: int, fills):
     """Kernel H2 launch: same returns as :func:`scatter_rows_plain`, for
     ``ray_idx`` ascending with its valid ids distinct (as a compaction lists
-    them). Counts launches in ``scatter_rows_cuda.launches``."""
+    them), in one launch (none when there is no byte to move). Counts
+    launches in ``scatter_rows_cuda.launches``."""
     _check_idx(ray_idx)
     arrays = [a.contiguous() for a in arrays]
     B = ray_idx.shape[0]
     if any(a.shape[0] != B or a.device != ray_idx.device for a in arrays):
         raise ValueError("rows: the bucket arrays share the ids' length and device")
     outs = [torch.empty((n,) + a.shape[1:], dtype=a.dtype, device=a.device) for a in arrays]
+    rows = _row_arrays(arrays, outs, fills)
+    if n == 0 or rows.row_chunks == 0:
+        return outs
     lib = kernels.load("compaction")
-    err = lib.psdf_scatter_rows(_row_arrays(arrays, outs, fills), kernels.ptr(ray_idx), B, n,
+    err = lib.psdf_scatter_rows(rows, kernels.ptr(ray_idx), B, n,
                                 kernels.current_stream(ray_idx.device))
     kernels.check(lib, err, "scatter rows (kernel H2)")
     scatter_rows_cuda.launches += 1

@@ -6,10 +6,11 @@ background on the NeRF++ 4D parameterisation (d = 4), a 64^3 occupancy grid
 refreshed from the density every 8 iterations (kernel I's stratified
 probes, then kernel I2: decay 0.7, threshold 1e-3), the fg samples placed
 through the grid (kernel C) or, with ``use_occupancy_grid=False``,
-uniformly (kernel C2), NeRF weights and integration (kernel D in NeRF mode,
-its backward D'), an MSE rgb loss masked by the bound intersection, the
-optional mask BCE, per-image colour calibration and Adam (betas 0.9/0.99,
-eps 1e-15) at a constant lr.
+uniformly (kernel C2, the bound's intersection in its launch), NeRF
+weights and integration (kernel D in NeRF mode, its backward D'), an MSE
+rgb loss masked by the bound intersection, the optional mask BCE,
+per-image colour calibration and Adam (betas 0.9/0.99, eps 1e-15) at a
+constant lr.
 
 JAX draws its randomness from keys split inside the step; the port takes
 the same draws as tensors (:class:`NerfDraws`), made from the
@@ -37,7 +38,7 @@ from permuto_sdf_tpu_torch.models.fields import (
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
-from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg, compute_samples_fg
+from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg, compute_samples_fg_in_sphere
 from permuto_sdf_tpu_torch.train import checkpoint as ckpt
 from permuto_sdf_tpu_torch.train.optimizers import ManualAdam
 from permuto_sdf_tpu_torch.train.train_permuto_sdf import _grads_of, _with_grad, step_generators
@@ -151,17 +152,17 @@ def _render_rays(params, grid, origins, dirs, img_indices, iter_nr, cfg: NerfTra
     render. ``draws`` carries the jitter (None: none); ``img_indices [R]``
     switch on the colour calibration. -> (pred_rgb [R,3], pred_rgb_bg [R,3]
     or None, weights_sum [R,1], does_intersect [R,1])."""
-    _, t_entry, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
     start = draws.fg_start if draws is not None else None
     with torch.no_grad():
         if cfg.use_occupancy_grid and grid is not None:
+            _, t_entry, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
             samples = og.compute_samples_in_occupied_regions(
                 cfg.grid, grid, origins, dirs, t_entry, t_exit, cfg.min_dist_between_samples,
                 cfg.max_nr_samples_per_ray, start=start)
-        else:
-            samples = compute_samples_fg(origins, dirs, t_entry, t_exit,
-                                         cfg.min_dist_between_samples,
-                                         cfg.max_nr_samples_per_ray, start=start)
+        else:  # the bound's intersection inside kernel C2's launch
+            samples, _, t_exit, does_intersect = compute_samples_fg_in_sphere(
+                origins, dirs, BOUND, cfg.min_dist_between_samples,
+                cfg.max_nr_samples_per_ray, start=start)
     R, S = samples.mask.shape
     colorcal = params.get("colorcal")
     cc = colorcal if (colorcal is not None and img_indices is not None) else None

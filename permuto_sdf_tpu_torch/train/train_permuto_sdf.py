@@ -15,13 +15,14 @@ recommended training profile: the train-time LOD (``train_lod_top_k``,
 (``lever_start_iter``); slice 7 the plain sphere-traced frame
 (:func:`render_image_sphere_traced` and the compacted ray renderer) and
 training and rendering without the occupancy grid
-(``use_occupancy_grid=False``: the uniform fg sampler, no grid refresh and
-no offsurface loss). JAX draws its randomness from keys
-split inside the step; the port takes the same draws as tensors
-(:class:`TrainDraws`), made from a ``torch.Generator`` that :func:`train`
-derives from ``(seed, iteration)``, so a resumed run sees the draws of an
-uninterrupted one. Knobs and branches not ported yet raise
-``NotImplementedError`` naming what they wait for.
+(``use_occupancy_grid=False``: the uniform fg sampler, the bound's
+intersection in its launch, no grid refresh and no offsurface loss). JAX
+draws its randomness from keys split inside the step; the port takes the
+same draws as tensors (:class:`TrainDraws`), made from a
+``torch.Generator`` that :func:`train` derives from ``(seed, iteration)``,
+so a resumed run sees the draws of an uninterrupted one. Knobs and
+branches not ported yet raise ``NotImplementedError`` naming what they
+wait for.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from permuto_sdf_tpu_torch.ops import volume_rendering as vr
 from permuto_sdf_tpu_torch.ops.compaction import nonzero_static, scatter_rows, take_rows
 from permuto_sdf_tpu_torch.ops.importance_sampling import importance_sampling_sdf_model
 from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
-from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg, compute_samples_fg
+from permuto_sdf_tpu_torch.ops.ray_sampler import compute_samples_bg, compute_samples_fg_in_sphere
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples
 from permuto_sdf_tpu_torch.ops.sphere_trace import (
     _grid_distance_field, pow2_bucket, sphere_trace, sphere_trace_adaptive,
@@ -418,31 +419,35 @@ def _masked_sdf_value(params_sdf, pts_flat, flat_mask, iter_nr, sdf_cfg, budget,
 
 
 @torch.no_grad()
-def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
-                       iter_nr_anneal, cfg: PermutoSDFTrainConfig, draws=None,
-                       img_indices=None):
-    """Occupancy sampling (kernel C; without the grid, or with
-    ``use_occupancy_grid=False``, uniform sampling, kernel C2) + importance
-    sampling (constants for the losses, as JAX's stop_gradient makes them).
-    ``draws`` None: no jitter. Returns
-    (samples, hit): with early hit-ray compaction (``hit_ray_frac`` < 1 and
-    ``hit_ray_compact_early``) the rays are compacted after the occupancy
-    sampler, the importance stage runs on the bucket, and ``hit`` is the
-    dict of :func:`_hit_bucket`; else ``hit`` is None."""
+def _create_fg_samples(params, grid, origins, dirs, iter_nr_anneal,
+                       cfg: PermutoSDFTrainConfig, draws=None, img_indices=None):
+    """The rays' span in the bound, occupancy sampling (kernel C after the
+    plain bound intersection; without the grid, or with
+    ``use_occupancy_grid=False``, uniform sampling, kernel C2, with the
+    intersection in its launch) + importance sampling (constants for the
+    losses, as JAX's stop_gradient makes them). ``draws`` None: no jitter.
+    Returns (samples, hit, t_exit [R, 1], does_intersect [R, 1]): with early
+    hit-ray compaction (``hit_ray_frac`` < 1 and ``hit_ray_compact_early``)
+    the rays are compacted after the occupancy sampler, the importance
+    stage runs on the bucket, and ``hit`` is the dict of :func:`_hit_bucket`;
+    else ``hit`` is None. ``t_exit`` and ``does_intersect`` are every
+    ray's."""
     start = draws.fg_start if draws is not None else None
     if cfg.use_occupancy_grid and grid is not None:
+        _, t_entry, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
         samples = og.compute_samples_in_occupied_regions(
             cfg.grid, grid, origins, dirs, t_entry, t_exit,
             cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray, start=start)
     else:
-        samples = compute_samples_fg(origins, dirs, t_entry, t_exit,
-                                     cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray,
-                                     start=start)
+        samples, _, t_exit, does_intersect = compute_samples_fg_in_sphere(
+            origins, dirs, BOUND, cfg.min_dist_between_samples, cfg.max_nr_samples_per_ray,
+            start=start)
+    t_exit_imp = t_exit
     hit = None
     if _hit_compaction(cfg) and cfg.hit_ray_compact_early:
         samples, hit = _hit_bucket(samples, t_exit, img_indices, cfg,
                                    draws.lod_scores if draws is not None else None)
-        t_exit = hit["t_exit"]
+        t_exit_imp = hit["t_exit"]
     if cfg.do_importance_sampling:
         def sdf_fn(pts, flat_mask):
             return _masked_sdf_value(params["sdf"], pts, flat_mask, iter_nr_anneal,
@@ -450,10 +455,10 @@ def _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
                                      max_levels=cfg.imp_sampling_max_levels)
 
         samples = importance_sampling_sdf_model(
-            sdf_fn, samples, t_exit, cfg.nr_samples_imp_sampling,
+            sdf_fn, samples, t_exit_imp, cfg.nr_samples_imp_sampling,
             jitter=draws.imp_jitter if draws is not None else None,
             carry_sdf=_train_lod(cfg) is not None)
-    return samples, hit
+    return samples, hit, t_exit, does_intersect
 
 
 def run_net(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
@@ -470,11 +475,12 @@ def run_net(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_ratio,
     they are then compacted late, after sampling). With ``hit_ray_frac`` the
     fg samples and ``compact`` are the hit-ray bucket's. ``grid`` None (or
     ``use_occupancy_grid=False``) samples without the grid."""
-    _, t_entry, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
-    samples, hit = fg_samples, None
-    if samples is None:
-        samples, hit = _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
-                                          iter_nr_anneal, cfg, draws, img_indices)
+    if fg_samples is None:
+        samples, hit, t_exit, does_intersect = _create_fg_samples(
+            params, grid, origins, dirs, iter_nr_anneal, cfg, draws, img_indices)
+    else:
+        samples, hit = fg_samples, None
+        _, _, _, t_exit, does_intersect = BOUND.ray_intersection(origins, dirs)
     out = render_samples(params, samples, t_exit, iter_nr_anneal, cos_anneal_ratio,
                          forced_variance, cfg, img_indices=img_indices,
                          bg_rand=draws.bg_rand if draws is not None else None, hit=hit,
@@ -952,9 +958,7 @@ def _lod_coarse_select(params, grid, origins, dirs, iter_nr_anneal, cos_anneal_r
     jitter), their sdf and gradient on the ``coarse_levels`` coarsest levels
     (kernels A, B), their NeuS weights (kernel D) and the ``top_k`` heaviest
     samples of each ray. Returns a dict of ray-leading tensors."""
-    _, t_entry, _, t_exit, _ = BOUND.ray_intersection(origins, dirs)
-    samples, _ = _create_fg_samples(params, grid, origins, dirs, t_entry, t_exit,
-                                    iter_nr_anneal, cfg)
+    samples, _, t_exit, _ = _create_fg_samples(params, grid, origins, dirs, iter_nr_anneal, cfg)
     R, S = samples.mask.shape
     pos = samples.flat_positions()
     K = min(top_k, S)

@@ -3,7 +3,8 @@
 
     python3 profiling/torch_encode_paths.py [--root DIR] [--frames 5] [--out FILE]
                                             [--paths host,events,fg,grid,plain,frame,sphere,
-                                                     train,lever,sdf,nerf,mesh,refresh]
+                                                     train,gridfree,lever,sdf,nerf,mesh,
+                                                     refresh]
     python3 profiling/torch_encode_paths.py --summarize FILE.json ...
 
 Imports ``permuto_sdf_tpu_torch`` and ``chip_smoke`` from ``--root`` (default:
@@ -57,6 +58,11 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   torch.profiler (D''s device ms per launch in it, as every kernel's), and
   one with hit-ray compaction at HIT_FRAC (H1's and H2's launches in it);
   then kernel D' alone at the step's shapes (``_weights_bwd_alone``);
+- gridfree: one flagship step with ``use_occupancy_grid=False`` (the fg
+  samples from kernel C2, in the tree's form: after the plain bound
+  intersection, or with it inside C2's launch) under torch.profiler after
+  a warm-up step, on the train path's state: device busy ms, idle share,
+  device launches and C2's device ms a launch;
 - lever: LEVER_STEPS steps of chip_smoke's recommended profile past its
   gate (the train-time LOD, parity alternating) on the trained state, host
   clock per step, and one step under torch.profiler (and one with hit-ray
@@ -83,7 +89,7 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   one whole call under torch.profiler (device busy ms; M1's and M2's
   device ms in it).
 
-Each profile gives the device ms and the launches of kernels A, B, C, C3,
+Each profile gives the device ms and the launches of kernels A, B, C, C2, C3,
 D, D', E1, E2, F, G, H0, H1, H2, I, If, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' and
 their ratio,
 the device ms per launch, and the count of every device activity of the window
@@ -100,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import json
 import os
 import statistics
@@ -111,11 +118,11 @@ NERF_SHORT, NERF_STEPS = 2, 26
 MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
-PROFILED = ("A", "B", "C", "C3", "D", "D'", "E1", "E2", "F", "G", "H0", "H1", "H2", "I", "If",
+PROFILED = ("A", "B", "C", "C2", "C3", "D", "D'", "E1", "E2", "F", "G", "H0", "H1", "H2", "I", "If",
             "J0", "J1", "J2", "J2f", "J3", "J3f", "M1", "M2", "L", "D2", "D2'")
 LOD_REPS = 20
-PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "lever", "sdf",
-         "nerf", "mesh", "refresh")
+PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "gridfree",
+         "lever", "sdf", "nerf", "mesh", "refresh")
 HIT_FRAC = 0.5  # the hit-ray step's bucket fraction, so that its profile holds H1 and H2
 REFRESH_CALLS, REFRESH_ITER = 10, 2000  # the flagship's c2f window still closes levels here
 M_RES = (256, 512)
@@ -657,9 +664,13 @@ def lever_kernels(cs, device, cfg, params, grid, reel, it):
     ita = it - cfg.nr_iter_sphere_fit
     draws = tps.draw_train_step(tps.step_generators(cs.SEED, it)[0], lcfg, reel).to(device)
     o, d, _, _, _ = random_rays_from_reel(reel, lcfg.nr_rays, indices=draws.ray_indices)
-    _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
     with torch.no_grad():
-        smp, _ = tps._create_fg_samples(params, grid, o, d, te, tx, ita, lcfg, draws)
+        if "t_entry" in inspect.signature(tps._create_fg_samples).parameters:
+            # a tree whose sampler takes the bound's range from its caller
+            _, te, _, tx, _ = tps.BOUND.ray_intersection(o, d)
+            smp = tps._create_fg_samples(params, grid, o, d, te, tx, ita, lcfg, draws)[0]
+        else:
+            smp = tps._create_fg_samples(params, grid, o, d, ita, lcfg, draws)[0]
     R, S = smp.mask.shape
     K, E = tps._train_lod(lcfg)
     car = tps._map_range_f32(ita, 0.0, cfg.forced_variance_finish_iter, 0.0, 1.0)
@@ -745,6 +756,22 @@ def _hit_step_profile(cs, device, cfg, params, grid, reel, it, what):
     tps.train_step(params, opt_state, grid, reel, draws, it, hcfg, optimizer)  # warm-up
     return _profiled(cs, device, what, lambda: tps.train_step(
         params, opt_state, grid, reel, draws, it + 1, hcfg, optimizer))
+
+
+def gridfree_path(cs, device, cfg, params, reel, it):
+    """One flagship step with ``use_occupancy_grid=False`` under
+    torch.profiler, after a warm-up step."""
+    import dataclasses
+
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    gcfg = dataclasses.replace(cfg, use_occupancy_grid=False)
+    optimizer = tps.make_optimizer(gcfg)
+    opt_state = optimizer.init(params)
+    draws = tps.draw_train_step(tps.step_generators(cs.SEED, it)[0], gcfg, reel)
+    tps.train_step(params, opt_state, None, reel, draws, it, gcfg, optimizer)  # warm-up
+    return _profiled(cs, device, "gridfree_step", lambda: tps.train_step(
+        params, opt_state, None, reel, draws, it + 1, gcfg, optimizer))
 
 
 def refresh_path(cs, device, cfg):
@@ -1055,8 +1082,11 @@ def main(argv=None) -> int:
         res["frame"] = frame_path(cs, device, cfg, args.frames)
     if "sphere" in paths:
         res["sphere"] = sphere_path(cs, device, cfg, args.frames)
-    if paths & {"train", "lever", "nerf"}:
+    if paths & {"train", "gridfree", "lever", "nerf"}:
         params, grid, reel, res["train"] = train_path(cs, device, cfg)
+        if "gridfree" in paths:
+            res["gridfree"] = gridfree_path(cs, device, cfg, params, reel,
+                                            cfg.nr_iter_sphere_fit + cs.TRAIN_FROM + 110)
         if "lever" in paths:
             res["lever"] = lever_path(cs, device, cfg, params, grid, reel)
         if "nerf" in paths:

@@ -1,6 +1,7 @@
 """The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2 (its three
 forms), L, D2, D2', M, C3, J3, J3f, J2f, C2 and I2 (and H0's one-launch cluster
-form, ``profiling/h0_variants.cu``, which the port measured and did not keep),
+form, ``profiling/h0_variants.cu``, and If's shapes, which the port measured
+and did not keep),
 compiled for the CPU with g++ against a small CUDA stand-in
 (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
 own kernel wrappers, against the plain PyTorch versions.
@@ -891,10 +892,11 @@ def test_kernels_H1_H2_source_match_plain(emulated):
     """Kernels H1 (take) and H2 (scatter, and its backward through H1)
     against the plain index ops, exactly: a bucket with fill slots, a
     bucket that overflows (fewer slots than hits), rows of floats, bools
-    (4-byte and odd row widths) and int64; then H1 on every chunk width
-    (16, 8, 4 and 1 bytes), bases at an odd element, the most arrays a
-    launch takes and buckets of 0 to 130 rows, one launch a call (none for
-    an empty bucket)."""
+    (4-byte and odd row widths) and int64; then H1 and H2 on every chunk
+    width (16, 8, 4 and 1 bytes), bases at an odd element, the most arrays
+    a launch takes, nonzero fills (H2) and buckets of 0 to 130 rows, one
+    launch a call (none for an empty bucket, or for H2 no rows); then H2 on
+    buckets long enough that its blocks narrow the ids' range first."""
     rng = np.random.default_rng(4)
     n = 30
     arrays = [torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)),
@@ -957,6 +959,38 @@ def test_kernels_H1_H2_source_match_plain(emulated):
         assert compaction.take_rows_cuda.launches == launches + (B > 0)
         for g, w in zip(got, compaction.take_rows_plain(arrays, idx)):
             assert g.shape == w.shape and g.dtype == w.dtype
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        # H2 back to the n rows: ascending distinct ids, a quarter of the
+        # bucket (and all it holds beyond n rows) at n, dropped
+        valid = min(B - B // 4, n)
+        idx = torch.from_numpy(np.concatenate([np.sort(rng.choice(n, valid, replace=False)),
+                                               np.full(B - valid, n)]))
+        xs = [a[:B] if a.shape[0] >= B else torch.cat([a] * (B // n + 1))[:B] for a in arrays]
+        xs = [odd(x.contiguous()) if k >= len(base) else x.contiguous()
+              for k, x in enumerate(xs)]
+        fills = [-2.5 if x.dtype == torch.float32 and k % 2 else
+                 (1.0 if x.dtype == torch.float32 else 0.0) for k, x in enumerate(xs)]
+        launches = compaction.scatter_rows_cuda.launches
+        got = compaction.scatter_rows_cuda(xs, idx, n, fills)
+        assert compaction.scatter_rows_cuda.launches == launches + 1
+        for g, w in zip(got, compaction.scatter_rows_plain(xs, idx, n, fills)):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert compaction._row_arrays(xs, got).row_chunks > 0
+    launches = compaction.scatter_rows_cuda.launches
+    assert [g.shape for g in compaction.scatter_rows_cuda(xs[:0] + [xs[2][:0]], idx[:0], 0,
+                                                          (0.0,))] == [(0, 3)]
+    assert compaction.scatter_rows_cuda.launches == launches
+    # H2's narrowing rounds: 2,000 and 1,200 ids (beyond the 512 a block
+    # scans at once) of 3,001 rows, the second all in the first half
+    n = 3001
+    for B, top in ((2000, n), (1200, n // 2)):
+        idx = torch.from_numpy(np.concatenate([np.sort(rng.choice(top, B - 7, replace=False)),
+                                               np.full(7, n)]))
+        xs = [torch.from_numpy(rng.normal(size=(B, 1)).astype(np.float32)),
+              torch.from_numpy(rng.uniform(size=(B, 3)) < 0.5)]
+        got = compaction.scatter_rows_cuda(xs, idx, n, (0.5, 0.0))
+        for g, w in zip(got, compaction.scatter_rows_plain(xs, idx, n, (0.5, 0.0))):
             np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
@@ -1487,29 +1521,126 @@ def test_kernel_J3_source_matches_plain(emulated):
 
 @pytest.mark.parametrize("jitter", [False, True])
 def test_kernel_C2_source_matches_plain(emulated, jitter):
-    """Kernel C2 (a thread per sample slot) against its plain version:
-    z, dt, mask and ray_fixed_dt exactly, on rays planted with 0, 1, 2 and
-    S samples (and one at exactly 3), random ranges and misses."""
-    S, md = 16, 0.05
+    """Kernel C2 (the bound sphere's intersection and the uniform samples,
+    a thread per sample slot) against its plain version, bit for bit: z,
+    dt, mask, ray_fixed_dt, t_entry, t_exit and does_intersect, one launch
+    a call, on rays from outside that cross, miss, graze (disc 0 and a
+    rounding either side), start inside (t_entry clamped to 0) and start
+    past the sphere (both t < 0), rays planted with chords of 0, 1, 2, 3
+    and S samples, S a multiple of 4 or not. The plain version's span is
+    ``Sphere.ray_intersection``'s: does_intersect equal, the t within the
+    CPU float32 root's rounding."""
     rng = np.random.default_rng(7 + jitter)
     R = 70
-    te = rng.uniform(0.0, 0.4, R).astype(np.float32)
-    dist = rng.uniform(0.0, 1.2, R).astype(np.float32)
-    dist[:6] = [0.0, 0.04, 0.07, 0.12, 0.151, 2.0]  # nr 0, 0, 1, 2, 3, S
-    te[6] = 0.0  # a miss: t_entry = t_exit = 0
-    dist[6] = 0.0
-    tx = (te + dist).astype(np.float32)
-    te_t, tx_t = torch.from_numpy(te)[:, None], torch.from_numpy(tx)[:, None]
     start = torch.from_numpy(rng.uniform(size=(R, 1)).astype(np.float32)) if jitter else None
-    launches = rs.samples_fg_cuda.launches
-    got = rs.samples_fg_cuda(te_t, tx_t, md, S, start)
-    assert rs.samples_fg_cuda.launches == launches + 1
-    want = rs.samples_fg_plain(te_t, tx_t, md, S, start)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
-    counts = want[2].sum(dim=1)
-    assert counts[:6].tolist() == [0, 0, 0, 0, 3, S]
-    assert int((counts == S).sum()) > 10
+    o = rng.normal(size=(R, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * rng.uniform(0.0, 1.5, (R, 1))
+    d = rng.uniform(-0.4, 0.4, (R, 3)).astype(np.float32) - o
+    o[-10:] *= 1.2 / np.linalg.norm(o[-10:], axis=-1, keepdims=True)
+    d[-10:] = o[-10:]  # outside, away from the sphere: both t < 0
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o[:4] = [[0.5, 0.0, -2.0], [0.5 + 3e-8, 0.0, -2.0], [0.5 - 3e-8, 0.0, -2.0], [0.6, 0, -2]]
+    d[:9] = [0.0, 0.0, 1.0]
+    sphere = Sphere(0.5, (0.0, 0.0, 0.0))
+    for S in (16, 18):
+        md = 0.9 / S
+        # chords of 0.8, 1.4, 2.4 and 3.1 steps (nr 0, 1, 2, 3) and the diameter (S)
+        chord = np.append(np.array([0.8, 1.4, 2.4, 3.1]) * md, 1.0)
+        o[4:9, 0] = np.sqrt(0.25 - (chord / 2) ** 2)
+        o[4:9, 1:] = [0.0, -2.0]
+        o_t, d_t = torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+        launches = rs.samples_fg_sphere_cuda.launches
+        got = rs.samples_fg_sphere_cuda(o_t, d_t, sphere, md, S, start)
+        assert rs.samples_fg_sphere_cuda.launches == launches + 1
+        want = rs.samples_fg_sphere_plain(o_t, d_t, sphere, md, S, start)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        _, te_s, _, tx_s, hit_s = sphere.ray_intersection(o_t, d_t)
+        np.testing.assert_array_equal(want[6].numpy(), hit_s.numpy())
+        np.testing.assert_allclose(want[4].numpy(), te_s.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(want[5].numpy(), tx_s.numpy(), rtol=0, atol=1e-6)
+        counts = want[2].sum(dim=1)
+        assert counts[4:9].tolist() == [0, 0, 0, 3, S]
+        te_w, tx_w, hit_w = (t[:, 0] for t in want[4:])
+        assert hit_w[0] and not hit_w[3] and bool((tx_w[-10:] < 0).all())
+        assert not want[2][-10:].any()
+        assert (hit_w & (tx_w > 0) & (te_w == 0)).sum() > 5  # from inside
+        assert (hit_w & (te_w > 0)).sum() > 5 and int((counts == S).sum()) > 5
+
+
+def test_gridfree_paths_through_kernel_C2_match_plain(emulated, monkeypatch):
+    """The flagship's grid-free ``run_net`` (with the step's jitter, and the
+    eval render without it) and NeRF's grid-free ``_render_rays`` at the
+    NeRF tests' tiny config (capacity 2^10, 4 levels, 32 rays), with kernel
+    C2 routed to its CPU-compiled source and every other op
+    on its plain version: every output equals the plain route's bit for
+    bit, each run takes C2 once, and neither route calls
+    ``Sphere.ray_intersection`` besides."""
+    from permuto_sdf_tpu_torch.datasets import synthetic as tsyn
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tt
+
+    tiny = dict(capacity=2 ** 10, nr_levels=4, nr_rays=32, max_nr_samples_per_ray=16,
+                nr_samples_bg=4, use_occupancy_grid=False)
+    cfg = tt.PermutoSDFTrainConfig(**tiny, nr_samples_imp_sampling=4,
+                                   imp_sampling_max_levels=2, nr_iter_sphere_fit=20)
+    ncfg = tn.NerfTrainConfig(**tiny)
+    reel = tsyn.make_synthetic_reel(nr_views=2, width=16, height=16, device="cpu")
+    rng = np.random.default_rng(11)
+    o = rng.normal(size=(32, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 1.2
+    d = rng.uniform(-0.5, 0.5, (32, 3)) - o
+    o_t = torch.from_numpy(o.astype(np.float32))
+    d_t = torch.from_numpy((d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32))
+    params = tt.init_params(0, cfg, device="cpu")
+    nparams = tn.init_params(0, ncfg, reel.rgb.shape[0], device="cpu")
+    draws = tt.draw_train_step(torch.Generator().manual_seed(1), cfg, reel)
+    ndraws = tn.draw_train_step(torch.Generator().manual_seed(1), ncfg, reel)
+    img = torch.zeros(32, dtype=torch.int64)
+
+    runs = {
+        "train": lambda: tt.run_net(params, None, o_t, d_t, 100, 0.5, 0.3, cfg, draws),
+        "eval": lambda: tt.run_net(params, None, o_t, d_t, 100, 1.0, 0.8, tt._eval_cfg(cfg)),
+        "nerf": lambda: tn._render_rays(nparams, None, o_t, d_t, img, 100, ncfg, ndraws)}
+    calls = {"intersection": 0, "plain": 0}
+    plain_intersection, plain_c2 = Sphere.ray_intersection, rs.samples_fg_sphere_plain
+
+    def counted_intersection(self, *a):
+        calls["intersection"] += 1
+        return plain_intersection(self, *a)
+
+    def counted_plain(*a):
+        calls["plain"] += 1
+        return plain_c2(*a)
+
+    monkeypatch.setattr(Sphere, "ray_intersection", counted_intersection)
+    monkeypatch.setattr(rs, "samples_fg_sphere_plain", counted_plain)
+    want = {k: fn() for k, fn in runs.items()}
+    assert calls == {"intersection": 0, "plain": 3}
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: (
+        cuda_fn if cuda_fn is rs.samples_fg_sphere_cuda else plain_fn))
+    launches = rs.samples_fg_sphere_cuda.launches
+    got = {k: fn() for k, fn in runs.items()}
+    assert calls == {"intersection": 0, "plain": 3}
+    assert rs.samples_fg_sphere_cuda.launches == launches + 3
+
+    def flat(out):
+        if isinstance(out, dict):
+            return [t for k in sorted(out) for t in flat(out[k])]
+        if isinstance(out, (list, tuple)):
+            return [t for x in out for t in flat(x)]
+        if isinstance(out, RaySamples):
+            return flat([getattr(out, f) for f in ("z", "dt", "mask", "ray_fixed_dt")])
+        return [out] if isinstance(out, torch.Tensor) else []
+
+    for k in runs:
+        a, b = flat(got[k]), flat(want[k])
+        assert len(a) == len(b) >= 4
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x.detach().numpy(), y.detach().numpy(), err_msg=k)
+    assert int(want["train"][3]["does_intersect"].sum()) > 10
+    assert int(want["train"][3]["samples"].mask.sum()) > 50
 
 
 def test_kernel_I2_source_matches_plain(emulated):

@@ -229,9 +229,8 @@ def test_gridfree_sampling_stage_matches_jax(steps, reels):
     draws = jax_step_draws(jax.random.PRNGKey(12), jt.PermutoSDFTrainConfig(**_GRIDFREE),
                            reels[0])
     o, d = (torch.from_numpy(np.array(a)) for a in g["rays"])
-    _, te, _, tx, _ = tt.BOUND.ray_intersection(o, d)
-    got, _ = tt._create_fg_samples(params_from_jax(g["pj"], "cpu"), None, o, d, te, tx,
-                                   _STEP_ITER - cfg_t.nr_iter_sphere_fit, cfg_t, draws)
+    got = tt._create_fg_samples(params_from_jax(g["pj"], "cpu"), None, o, d,
+                                _STEP_ITER - cfg_t.nr_iter_sphere_fit, cfg_t, draws)[0]
     mask = np.asarray(g["samples"].mask)
     np.testing.assert_array_equal(got.mask.numpy(), mask)
     assert mask.sum() > 100

@@ -245,10 +245,9 @@ def test_sampling_stage_with_jitter_matches_jax(step, reels):
     stage then inverts a CDF a rounding apart)."""
     cfg_t, draws = step["cfg_t"], step["draws"]
     o, d = (torch.from_numpy(np.array(a)) for a in step["rays_j"])
-    _, te, _, tx, _ = tt.BOUND.ray_intersection(o, d)
     pt = params_from_jax(step["pj"], "cpu")
-    got, hit = tt._create_fg_samples(pt, step["grid_t"], o, d, te, tx,
-                                     _STEP_ITER - cfg_t.nr_iter_sphere_fit, cfg_t, draws)
+    got, hit, _, _ = tt._create_fg_samples(pt, step["grid_t"], o, d,
+                                           _STEP_ITER - cfg_t.nr_iter_sphere_fit, cfg_t, draws)
     assert hit is None
     want = step["samples_j"]
     mask = np.asarray(want.mask)
