@@ -174,6 +174,7 @@ CHUNK = 2048
 CROSS_RAYS = 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM data sheet, TF32 on the tensor cores (dense)
 
 # Tolerances of kernel vs plain version on the card (same inputs).
 TOL_A = 1e-6  # features ~1e-4: same lattice float order (--fmad=false), only the blend-sum order differs
@@ -619,14 +620,15 @@ def probe_sampler_ops(t_entry, t_exit, mask, P: int) -> int:
 # largest absolute difference of the timed case): "abs" the largest absolute
 # difference; "rel" that over the output's largest |plain value|; "rel_level"
 # that per level of a [L, 2, C] table gradient, G's feature cotangent "rel";
-# "rel_floor1" elementwise |diff| / max(|plain|, 1); "ulp" float32 units in
+# "rel_floor1" elementwise |diff| / max(|plain|, 1); "rel_elem" elementwise
+# |diff| / |plain|; "ulp" float32 units in
 # the last place.
 ERR_KIND = {"A": "abs", "B": "rel", "C": "abs", "D": "abs", "F": "rel_level",
             "G": "rel_level", "D'": "rel", "I": "abs", "J0": "abs", "J1": "abs", "J2": "abs",
             "H0": "abs", "E1": "abs", "E2": "abs", "H1": "abs", "H2": "abs",
             "L": "rel_floor1", "D2": "abs", "D2'": "rel", "M1": "abs", "M2": "ulp",
             "C3": "ulp", "J3": "abs", "C2": "abs", "I2": "abs", "J3f": "abs", "J2f": "abs",
-            "If": "abs"}
+            "If": "abs", "I2f": "rel_elem"}
 GATED = {}  # kernel -> (largest gated error over its checks, tolerance)
 
 
@@ -1005,12 +1007,15 @@ def _random_grid(gcfg, device, seed):
 
 
 def _refresh_compare(label, gcfg, got, want, base, lin, inv_s, thresh):
-    """A refreshed grid against another (kernel If against its plain
+    """A refreshed grid against another (kernel If or I2f against its plain
     version, or the card against the CPU), both from ``base``: the probed
     voxels' values and flags (a flag may differ only where the threshold
     lies between the two values' densities, on at most max(FUSED_MAX_ROWS,
-    FUSED_SHARE of the probes) voxels), every other voxel unchanged ->
-    (the largest value gap, summary)."""
+    FUSED_SHARE of the probes) voxels), every other voxel unchanged. The
+    density of a value is the logistic density at ``inv_s`` of an SDF (If),
+    or the value itself for ``inv_s`` None (I2f, whose summary also gives
+    the largest relative gap and the voxels filled and emptied) -> (the
+    largest value gap, summary)."""
     import torch
 
     from permuto_sdf_tpu_torch.ops import occupancy_grid as og
@@ -1022,9 +1027,14 @@ def _refresh_compare(label, gcfg, got, want, base, lin, inv_s, thresh):
                 and torch.equal(g.occupancy[~probed], base.occupancy[~probed])):
             fail(f"{label}: {name} changed a voxel no probe visits")
     vk, vp = got.values[probed], want.values[probed]
-    x = lambda v: torch.clamp(v.abs() - gcfg.half_diagonal, 0.0, 1e10)  # noqa: E731
-    dk = og._logistic_density(x(vk), torch.tensor(inv_s))
-    dp = og._logistic_density(x(vp), torch.tensor(inv_s))
+    if not (torch.isfinite(vk).all() and torch.isfinite(vp).all()):
+        fail(f"{label}: non-finite values")
+    if inv_s is None:
+        dk, dp = vk, vp
+    else:
+        x = lambda v: torch.clamp(v.abs() - gcfg.half_diagonal, 0.0, 1e10)  # noqa: E731
+        dk = og._logistic_density(x(vk), torch.tensor(inv_s))
+        dp = og._logistic_density(x(vp), torch.tensor(inv_s))
     differ = got.occupancy[probed] != want.occupancy[probed]
     between = (torch.minimum(dk, dp) <= thresh) & (thresh <= torch.maximum(dk, dp))
     n = int(probed.sum())
@@ -1032,11 +1042,31 @@ def _refresh_compare(label, gcfg, got, want, base, lin, inv_s, thresh):
                "flags_differ_outside_the_tie": int((differ & ~between).sum()),
                "occupied": int(want.occupancy[probed].sum()),
                "max_value_gap": (vk - vp).abs().max().item()}
+    if inv_s is None:
+        was = base.occupancy[probed]
+        summary.update(max_rel_gap=((vk - vp).abs() / vp.abs().clamp_min(1e-30)).max().item(),
+                       filled=int((want.occupancy[probed] & ~was).sum()),
+                       emptied=int((~want.occupancy[probed] & was).sum()))
     limit = max(FUSED_MAX_ROWS, FUSED_SHARE * n)
     if summary["flags_differ_outside_the_tie"] or summary["flags_differ"] > limit:
         fail(f"{label}: {summary} (flags may differ only at the threshold, on at most "
              f"{limit:g} voxels)")
     return summary["max_value_gap"], summary
+
+
+def _table_sectors(enc, spec, centers, K) -> int:
+    """The distinct 32-byte sectors of the interleaved table that the
+    points' K coarsest levels gather (4 slots of 8 bytes a sector)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+
+    scales, E, _ = pe.encoding_constants(spec, None, centers.device)
+    sectors = [torch.zeros((0,), dtype=torch.int64, device=centers.device)]
+    for part in centers.split(32768):
+        ids = pe.flat_slot_ids(part, enc["lattice_values"], enc["shift_per_level"], scales, E, K)
+        sectors.append((ids // 4).unique())
+    return int(torch.cat(sectors).unique().numel())
 
 
 def refresh_bound(params_sdf, sdf_cfg, K, lin, centers):
@@ -1046,17 +1076,7 @@ def refresh_bound(params_sdf, sdf_cfg, K, lin, centers):
     value and flag stores; the operations of the evaluations (K levels of
     lattice math, the MLP and its GELUs) and of the probes' ids, centers and
     densities -> (bound_ms(...), work)."""
-    import torch
-
-    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
-
-    enc = params_sdf["encoding"]
-    scales, E, _ = pe.encoding_constants(sdf_cfg.encoding, None, centers.device)
-    sectors = [torch.zeros((0,), dtype=torch.int64, device=centers.device)]
-    for part in centers.split(32768):  # 4 slots of 8 bytes a sector
-        ids = pe.flat_slot_ids(part, enc["lattice_values"], enc["shift_per_level"], scales, E, K)
-        sectors.append((ids // 4).unique())
-    table_sectors = int(torch.cat(sectors).unique().numel())
+    table_sectors = _table_sectors(params_sdf["encoding"], sdf_cfg.encoding, centers, K)
     lin = lin.long()
     store_sectors = int((lin // 8).unique().numel() + (lin // 32).unique().numel())
     n, n_in = int(lin.numel()), 2 * K + 3
@@ -1162,6 +1182,161 @@ def refresh_cross_check(device, cfg, params):
     return out
 
 
+def density_refresh_bound(params_model, fcfg, lin, centers):
+    """The least time of kernel I2f over this refresh's work: the bytes of
+    the jitter, the distinct 32-byte table sectors of all L levels that the
+    probes gather, the weights, the 32-byte sectors of the old values'
+    reads and of the scattered value and flag stores; the operations at
+    their type's peak: the three 64-wide layers' products on the tensor
+    cores (three TF32 products for each float32 one, the 3xTF32 split) over
+    TF32_FLOPS, and over F32_FLOPS the rest (L levels of lattice math,
+    column 0 of the last layer, the GELUs, the softplus, the probes' ids,
+    centers and updates); the two kinds run on separate units, so the
+    operations side is the larger of their times -> ((least ms, which side
+    bounds it, ms of the bytes side, ms of the operations side), work)."""
+    L, H = fcfg.nr_levels, 64
+    table_sectors = _table_sectors(params_model["encoding"], fcfg.encoding, centers, L)
+    lin = lin.long()
+    value_sectors = int((lin // 8).unique().numel())
+    flag_sectors = int((lin // 32).unique().numel())
+    n, n_in = int(lin.numel()), 2 * L + 3
+    layer_ops = 2 * (n_in * H + 2 * H * H)  # float32 products of the three 64-wide layers
+    simt_ops = (L * OPS_PER_POINT_LEVEL_A + 2 * H + 3 * H * OPS_PER_GELU + OPS_PER_SOFTPLUS
+                + OPS_PER_PROBE_I + OPS_PER_PROBE_I2)
+    nbytes = (12 * n + 32 * table_sectors + 4 * (n_in * H + 2 * H * H + 4 * H + 1)
+              + 32 * (2 * value_sectors + flag_sectors))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n * 3 * layer_ops / TF32_FLOPS, n * simt_ops / F32_FLOPS) * 1e3
+    work = {"probes": n, "table_sectors": table_sectors, "value_sectors": value_sectors,
+            "flag_sectors": flag_sectors, "tensor_core_ops_per_probe": 3 * layer_ops,
+            "simt_ops_per_probe": simt_ops,
+            # every operation at the float32 rate, as a SIMT evaluation would do them
+            "ops_side_at_f32_ms": n * (layer_ops + simt_ops) / F32_FLOPS * 1e3}
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_bytes,
+            t_ops), work
+
+
+def refresh_density_params(params_model):
+    """A copy of a NerfHash model's parameters for the refresh cases: the
+    table scaled by I2F_TABLE_SCALE (a trained table's magnitude) and the
+    density's bias b3[0] moved by I2F_BIAS_SHIFT, so that the densities of
+    a refresh straddle the threshold and voxels both fill and empty."""
+    p = _tree_map(_clone, params_model)
+    p["encoding"]["lattice_values"].mul_(I2F_TABLE_SCALE)
+    p["mlp_feat_and_density"][-1]["b"][0] += I2F_BIAS_SHIFT
+    return p
+
+
+def density_refresh_case(device, ncfg, params_model, it, label, reps=20, plain_reps=3):
+    """Kernel I2f at NeRF's refresh (grid_nr_random_samples probes of the
+    grid, the density on all levels at iteration ``it``) against its plain
+    version on the card, from a random grid, then timed beside the plain
+    version and the unfused refresh it replaced (entry 1, ``nerf_hash_density``'s
+    kernel A and matmuls, I2: CUDA-event ms, device busy ms and launches a
+    call). Returns the kernel row's numbers."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+
+    gcfg, n, thresh = ncfg.grid, ncfg.grid_nr_random_samples, ncfg.grid_occupancy_thresh
+    fcfg = ncfg.fg_model
+    upd = it // ncfg.grid_update_every
+    jitter = (torch.rand((n, 3), generator=torch.Generator().manual_seed(SEED + 5)) - 0.5).to(
+        device)
+    args = (fcfg, params_model, it, n, upd, jitter, ncfg.grid_decay, thresh)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    base = og.OccupancyGridState(
+        values=(torch.rand(gcfg.nr_voxels, generator=gen) * 4 * thresh).to(device),
+        occupancy=(torch.rand(gcfg.nr_voxels, generator=gen) < 0.5).to(device))
+    grids = [og.OccupancyGridState(values=base.values.clone(), occupancy=base.occupancy.clone())
+             for _ in range(3)]
+    launches = og.density_refresh_cuda.launches
+    og.density_refresh_cuda(gcfg, grids[0], *args)
+    if og.density_refresh_cuda.launches != launches + 1:
+        fail("kernel I2f: not one launch a call")
+    og.density_refresh_plain(gcfg, grids[1], *args)
+    centers, lin = og.grid_points_plain(gcfg, n, upd, jitter, device)
+    _, summary = _refresh_compare(f"kernel I2f ({label})", gcfg, grids[0], grids[1], base, lin,
+                                  None, thresh)
+    rel = summary["max_rel_gap"]
+    if not (summary["filled"] and summary["emptied"]):
+        fail(f"kernel I2f ({label}): no voxel filled or none emptied ({summary})")
+
+    def run_k():
+        og.density_refresh_cuda(gcfg, grids[0], *args)
+
+    def unfused():
+        og._density_refresh_through(og.grid_points_cuda, og.density_update_cuda, gcfg, grids[2],
+                                    *args)
+
+    ms = time_ms(run_k, reps, device)
+    pms = time_ms(lambda: og.density_refresh_plain(gcfg, grids[1], *args), plain_reps, device)
+    b, work = density_refresh_bound(params_model, fcfg, lin, centers)
+    _report(f"I2f:{label} n={n} grid={gcfg.nr_voxels_per_dim}^3 L={fcfg.nr_levels} it={it} "
+            f"(flags {summary}; library ms: none)", rel, TOL_I2F, ms, pms, b)
+    dms = device_ms(run_k, "I2f", device, per_launch=True)
+    ums = time_ms(unfused, reps, device)
+    ubusy, ulaunches = device_ms_all(unfused, device)
+    print(f"[kernel I2f:{label}] device ms a launch {dms}; the unfused refresh it replaced: "
+          f"ms={ums:.4f}, device busy ms {ubusy}, {ulaunches} device launches a call",
+          flush=True)
+    return dict(max_abs_err=summary["max_value_gap"], max_rel_err=rel, ms=ms, plain_ms=pms,
+                bound_ms=b[0], bound_by=b[1], device_ms=dms, library_ms=None, unfused_ms=ums,
+                unfused_device_busy_ms=ubusy, unfused_device_launches=ulaunches, work=work,
+                compare=summary)
+
+
+def density_refresh_cross_check(device, ncfg, params):
+    """One NeRF ``occupancy_update`` on the card against the same call on
+    the CPU, with the same parameters and jitter, from the same random
+    grid: the card's call launches I2f once and neither entry 1, A nor I2;
+    the grids agree as ``_refresh_compare`` says, within TOL_I2F."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.ops import permuto_encoding as pe
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+
+    n, thresh = ncfg.grid_nr_random_samples, ncfg.grid_occupancy_thresh
+    jitter = torch.rand((n, 3), generator=torch.Generator().manual_seed(SEED + 15)) - 0.5
+    it = 5 * ncfg.grid_update_every
+    gen = torch.Generator().manual_seed(SEED + 16)
+    base = og.OccupancyGridState(
+        values=torch.rand(ncfg.grid.nr_voxels, generator=gen) * 4 * thresh,
+        occupancy=torch.rand(ncfg.grid.nr_voxels, generator=gen) < 0.5)
+    card = og.OccupancyGridState(values=base.values.to(device), occupancy=base.occupancy.to(device))
+    cpu = og.OccupancyGridState(values=base.values.clone(), occupancy=base.occupancy.clone())
+    cpu_params = _tree_map(lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t,
+                           params)
+    def counted():
+        return (og.density_refresh_cuda.launches, og.grid_points_cuda.launches,
+                pe.encode_fwd_cuda.launches, og.density_update_cuda.launches)
+
+    before = counted()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    tn.occupancy_update(params, card, jitter, it, ncfg)
+    torch.cuda.synchronize(device)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    after = counted()
+    if after != (before[0] + 1,) + before[1:]:
+        fail(f"nerf refresh card vs CPU: launches I2f, I entry 1, A, I2 {before} -> {after}, "
+             f"expected one of I2f alone")
+    t0 = time.perf_counter()
+    tn.occupancy_update(cpu_params, cpu, jitter, it, ncfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    _, lin = og.grid_points_plain(ncfg.grid, n, it // ncfg.grid_update_every)
+    got = og.OccupancyGridState(values=card.values.cpu(), occupancy=card.occupancy.cpu())
+    _, summary = _refresh_compare("nerf refresh card vs CPU", ncfg.grid, got, cpu, base, lin,
+                                  None, thresh)
+    if not summary["max_rel_gap"] <= TOL_I2F:
+        fail(f"nerf refresh card vs CPU: values {summary['max_rel_gap']:.3e} apart (relative), "
+             f"above {TOL_I2F:.1e}")
+    out = {"tol": TOL_I2F, "card_ms": card_ms, "cpu_ms": cpu_ms, **summary}
+    print(f"[nerf refresh card vs CPU] occupancy_update at iteration {it}: {out}", flush=True)
+    return out
+
+
 def counters():
     from permuto_sdf_tpu_torch.ops import compaction
     from permuto_sdf_tpu_torch.ops import marching_cubes as mc
@@ -1187,7 +1362,8 @@ def counters():
             "J3": (st.trace_step_pos_cuda,),
             "C2": (rs.samples_fg_sphere_cuda,),
             "I2": (og.density_update_cuda,), "J3f": (st.trace_loop_pos_cuda,),
-            "J2f": (st.trace_round_cuda,), "If": (og.grid_refresh_cuda,)}
+            "J2f": (st.trace_round_cuda,), "If": (og.grid_refresh_cuda,),
+            "I2f": (og.density_refresh_cuda,)}
 
 
 RENDER_KERNELS = ("A", "B", "C", "D", "E1", "E2")
@@ -1267,7 +1443,7 @@ KERNEL_SYMBOLS = {"A": "encode_fwd_kernel", "B": "encode_point_grad_kernel",
                   "J3": "trace_step_pos_kernel",
                   "C2": "samples_fg_kernel",
                   "I2": "density_update_kernel", "J3f": "trace_loop_pos_kernel",
-                  "J2f": "trace_round_kernel"}
+                  "J2f": "trace_round_kernel", "I2f": "density_refresh_kernel"}
 
 
 def profile_phase(device, cfg, params, grid, width, height, chunk, top=12):
@@ -3908,9 +4084,23 @@ OPS_PER_RAY_SPHERE = 36  # the bound sphere's intersection of a ray (in C2)
 TOL_C2_ULP = 0
 TOL_C2 = 0.0
 OPS_PER_PROBE_I2 = 3  # I2's decay, max and threshold
+OPS_PER_SOFTPLUS = 20  # exp, log1p and the test against 20
+# I2f against its plain version (entry 1, nerf_hash_density, I2) and the
+# card against the CPU: the encoding is kernel A's bit for bit, but I2f's
+# three 64-wide layers are the tensor cores' 3xTF32 products (~22 of
+# float32's 24 bits of a product, summed in the tensor cores' order) where
+# cuBLAS (the CPU's matmul) sums float32 products in its own blocks, so the
+# pre-softplus value moves by float rounding (~1e-6 of its |x| < ~20 on the
+# refresh cases' field, which has no cancellation), which the softplus
+# turns into ~1e-6 relative: the probed values within TOL_I2F relative; a
+# flag may differ only where the threshold lies between the two values, on
+# at most max(FUSED_MAX_ROWS, FUSED_SHARE of the probes) voxels.
+TOL_I2F = 1e-5
+I2F_TABLE_SCALE = 1e3  # the refresh cases' table: a trained table's magnitude
+I2F_BIAS_SHIFT = -7.0  # ... and b3[0] moved so that the densities straddle the threshold
 NERF_SHORT = 2  # the short run whose time the window's run subtracts
 NERF_STEPS = 24  # the NeRF window: 3 grid refreshes (every 8 iterations)
-NERF_KERNELS = ("A", "C", "D", "D'", "F", "I", "I2")
+NERF_KERNELS = ("A", "C", "D", "D'", "F", "I2f")
 GRIDFREE_KERNELS = ("A", "B", "C2", "D", "D'", "E1", "E2", "F", "G")
 
 
@@ -4651,15 +4841,19 @@ def _c2_check(label, got, want):
 
 
 def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
-    """Kernels C2 and I2 against their plain versions at the NeRF step's
-    shapes (``NerfTrainConfig()``): C2, the sphere's intersection and the
-    samples in one launch, on one step's rays (R = 512, S = 64, the jitter
-    on; the flagship step's shapes too) and on a batch of 512 rays with
-    misses, grazes and starts inside and beyond the sphere. I2 on one
+    """Kernels C2, I2 and I2f against their plain versions at the NeRF
+    step's shapes (``NerfTrainConfig()``): C2, the sphere's intersection and
+    the samples in one launch, on one step's rays (R = 512, S = 64, the
+    jitter on; the flagship step's shapes too) and on a batch of 512 rays
+    with misses, grazes and starts inside and beyond the sphere. I2 on one
     refresh's probes (n = 65,536 of the 64^3 grid, the density of the
-    initial field). All exact (C2: TOL_C2_ULP, TOL_C2). I2 is timed from a
-    restored copy of the grid, the restore's own time subtracted. Returns
-    {kernel: numbers}."""
+    initial field). C2 and I2 exact (C2: TOL_C2_ULP, TOL_C2). I2 is timed
+    from a restored copy of the grid, the restore's own time subtracted.
+    I2f (the whole refresh in one launch) at iteration 0 (the c2f window
+    still closes levels) and at an open window, on the initial field with
+    its table and density bias moved (``refresh_density_params``), within
+    TOL_I2F; then one NeRF refresh card against CPU. Returns {kernel:
+    numbers}."""
     import torch
 
     from permuto_sdf_tpu_torch.datasets.tensor_reel import random_rays_from_reel
@@ -4735,6 +4929,14 @@ def nerf_kernel_phases(device, ncfg, params, reel, reps=20, plain_reps=3):
     dms = device_ms(lambda: run_i2(og.density_update_cuda), "I2", device)
     results["I2"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
                          device_ms=dms)
+
+    model = refresh_density_params(params["model"])
+    active = density_refresh_case(device, ncfg, model, 0, "c2f_active", reps, plain_reps)
+    it_open = 2501 * ncfg.grid_update_every + 3  # past the first 64 updates: the ids wrap
+    results["I2f"] = density_refresh_case(device, ncfg, model, it_open, "open", reps,
+                                          plain_reps)
+    results["I2f"]["c2f_active"] = active
+    results["I2f"]["cross_check"] = density_refresh_cross_check(device, ncfg, {"model": model})
     return results
 
 
@@ -4744,7 +4946,8 @@ def nerf_phase(device, reel, ncfg):
     probes every 8 iterations) on the synthetic reel: ``train`` from
     scratch for NERF_SHORT and for NERF_SHORT + NERF_STEPS iterations (the
     same first iterations), ms/step and launches per step from their
-    difference (3 refreshes in it); the loss falls; the valid fg samples of
+    difference (3 refreshes in it; each one launch of I2f, and none of I or
+    I2 in either run); the loss falls; the valid fg samples of
     one batch at the window's end; ``render_image`` of one view (one
     warm-up, one timed); one step card against CPU (loss within
     TOL_LOSS_CROSS, every leaf's gradient within TOL_GRAD_CROSS relative
@@ -4769,13 +4972,19 @@ def nerf_phase(device, reel, ncfg):
     (t_s, c_s, _), (t_w, c_w, hist) = runs["short"], runs["window"]
     _check_copies("nerf train", c_w, params, NERF_SHORT + NERF_STEPS)
     ms = (t_w - t_s) * 1e3 / NERF_STEPS
-    per_step = {k: (c_w[k] - c_s[k]) / NERF_STEPS for k in NERF_KERNELS}
+    per_step = {k: (c_w[k] - c_s[k]) / NERF_STEPS for k in NERF_KERNELS + ("I", "I2")}
     losses = [h[1] for h in hist]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"nerf train: the loss did not fall ({losses[0]} -> {losses[-1]})")
     missing = [k for k in NERF_KERNELS if per_step[k] <= 0]
     if missing:
         fail(f"nerf train: the window launched no kernel {missing}")
+    # every grid refresh is one launch of I2f, and neither entry of I nor I2
+    refreshes = sum(1 for it in range(NERF_SHORT + NERF_STEPS)
+                    if it % ncfg.grid_update_every == 0)
+    if c_w["I2f"] != refreshes or c_w["I"] != 0 or c_w["I2"] != 0:
+        fail(f"nerf train: {refreshes} grid refreshes launched I2f {c_w['I2f']}, I {c_w['I']} "
+             f"and I2 {c_w['I2']} times, expected {refreshes}, 0 and 0")
     it_end = NERF_SHORT + NERF_STEPS
     draws = tn.draw_train_step(tps.step_generators(SEED, it_end)[0], ncfg, reel).to(device)
     o, d, _, _, _ = random_rays_from_reel(reel, ncfg.nr_rays, indices=draws.ray_indices,
@@ -5147,7 +5356,7 @@ def main() -> int:
     nerf_summary, nerf_counts, _ = nerf_phase(device, reel, ncfg)
     gridfree, gridfree_counts = gridfree_phase(device, cfg, tparams, tgrid, reel)
     slice7_s = time.perf_counter() - t0
-    print(f"[slice 7 phases] {slice7_s:.1f} s wall for C3, J3, J3f, J2f, C2 and I2, the "
+    print(f"[slice 7 phases] {slice7_s:.1f} s wall for C3, J3, J3f, J2f, C2, I2 and I2f, the "
           f"plain-traced frames, the NeRF trainer and the grid-free window", flush=True)
 
     # 15. summary lines
@@ -5212,6 +5421,9 @@ def main() -> int:
         "If": ("occupancy_grid_refresh_fused",
                "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
                "permuto_sdf_tpu/train/train_permuto_sdf.py:776"),
+        "I2f": ("occupancy_density_refresh_fused",
+                "permuto_sdf_tpu_torch/kernels/csrc/occupancy_grid.cu",
+                "permuto_sdf_tpu/train/train_nerf.py:102"),
     }
     entries = []
     for k, (name, source, replaces) in meta.items():
@@ -5273,7 +5485,8 @@ def main() -> int:
                                                ("chunk_ms", "chunk_device_ms", "chunk_bound_ms",
                                                 "work", "chunk_work", "grids", "refresh")}},
                       "card": card}), flush=True)
-    print(json.dumps({"nerf": nerf_summary, "gridfree_train": gridfree, "card": card}),
+    print(json.dumps({"nerf": nerf_summary, "nerf_refresh": results["I2f"],
+                      "gridfree_train": gridfree, "card": card}),
           flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -67,6 +67,7 @@ SIGNATURES = {
         "psdf_first_occupied": [_I] + [_P] * 6 + [_I] + [_F] * 5 + [_I] + [_P] * 3,
         "psdf_density_update": [_I, _P, _P, _F, _F] + [_P] * 3,
         "psdf_grid_refresh": [_I, _U, _I] + [_F] * 5 + [_P] * 2 + [_F] * 3 + [_P] * 3,
+        "psdf_density_refresh": [_I, _U, _I] + [_F] * 5 + [_P] * 2 + [_F] * 2 + [_P] * 3,
     },
     "volume_rendering": {
         "psdf_render_weights": [_I] * 3 + [_P] * 6 + [_F] * 2 + [_P] * 6,

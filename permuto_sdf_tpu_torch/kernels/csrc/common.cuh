@@ -62,6 +62,30 @@ __device__ __forceinline__ void psdf_cp_async_wait() {
 }
 #endif
 
+// The tensor cores' TF32 product (mma.sync m16n8k8, sm_80+) for one warp:
+// d += a b, A 16 x 8 (row-major), B 8 x 8 (column-major), float32
+// accumulate, in the PTX fragment layout (g = lane / 4, t = lane % 4):
+// a = {A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]}, b = {B[t][g],
+// B[t + 4][g]}, d = {D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]};
+// a and b are TF32 bit patterns (psdf_tf32: float32 rounded to nearest,
+// ties away, to 10 mantissa bits). The CPU emulation of the tests defines
+// its own.
+#ifndef PSDF_MMA
+__device__ __forceinline__ uint32_t psdf_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void psdf_mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
 // Stages nbytes from global memory src into shared memory dst with the
 // calling warp's lanes: asynchronous 16- or 4-byte copies where both
 // addresses and nbytes allow, else plain byte copies. Start every row of

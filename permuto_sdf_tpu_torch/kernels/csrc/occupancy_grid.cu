@@ -5,6 +5,8 @@
 // Kernel If: the same refresh in one launch, the flagship SDF of the probes
 // evaluated inside it.
 // Kernel I2: the occupancy refresh from density probes (NeRF).
+// Kernel I2f: NeRF's whole refresh in one launch, the density field of the
+// probes evaluated inside it.
 //
 // Replaces: permuto_sdf_tpu/ops/occupancy_grid.py:226
 // `compute_samples_in_occupied_regions` (with `_probe_occupancy` :212) --
@@ -16,7 +18,9 @@
 // them, permuto_sdf_tpu/train/train_permuto_sdf.py:776-791
 // `_occupancy_update_impl` -- and :193
 // `update_with_density_random_sample` -- kernel I2, after the density
-// evaluation of the same probes. The JAX package leaves them to XLA.
+// evaluation of the same probes; kernel I2f: entry 1, the density and I2,
+// permuto_sdf_tpu/train/train_nerf.py:102 `occupancy_update`. The JAX
+// package leaves them to XLA.
 //
 // What bounds C on an H100: bytes and latency of the probes. Each ray
 // reads P = 512 one-byte voxels of the 16.8 MB bool grid at positions that
@@ -111,7 +115,32 @@
 // centers are entry 1's float operations (grid_probe), the occupancy test
 // entry 2's (grid_flag), so with the same sdf the stores are entry 2's bit
 // for bit.
-#include "sdf_net.cuh"
+//
+// Design of I2f: NeRF's refresh was entry 1, `nerf_hash_density` (kernel A
+// on all 24 levels, four matmuls of 64-wide layers with their bias adds and
+// GELUs, the softplus of column 0: 15 device launches, four 16.8 MB
+// intermediates through HBM and a 65 x 64 product of the last layer thrown
+// away) and I2. I2f computes all of it in one launch with density_net.cuh's
+// evaluation: 4 warps a tile of 32 probes split the levels, then the three
+// 64-wide layers on the tensor cores (3xTF32), reading the weights through
+// L1; warp 0 sums column 0 of the last layer, then torch's softplus (x > 20
+// ? x : log1p(exp(x))) and I2's update. Its bound is 0.0104 ms, the bytes
+// (the table's distinct sectors, ~31 MB); the operations take 0.0091 (the
+// layers' 3xTF32 products on the tensor cores; 0.028 with every one of the
+// ~28.6 kFLOP a probe at the float32 rate). What sets its time is the
+// encoding's gathers (kernel A alone on the same probes: 0.099-0.105
+// device ms). Measured on an NVIDIA H100 80GB HBM3 at 700 W (device ms a
+// launch, NerfTrainConfig()'s refresh, profiling/density_refresh_designs.py;
+// the unfused refresh 0.282-0.291 device busy ms): the tensor cores, weights
+// through L1, 4 warps, 2 tiles a block 0.1373-0.1379 (1 tile 0.139-0.142; 8
+// warps 0.144-0.147, 2 warps 0.154-0.162); If's SIMT evaluation at width 64
+// with the weights staged in shared memory a block (~70 KB with the tile, 3
+// blocks an SM), 8 warps 0.280-0.287, 2 tiles a block 0.220-0.229, 4 warps
+// 0.331-0.337; staged by cp.async 0.210-0.212, 2 tiles 0.203-0.205; read
+// through L1 0.209-0.211 (4 warps) and 0.222-0.224; the tensor cores with
+// the staged weights 0.203-0.211; three levels' gathers issued together,
+// 0.159-0.184. The kept form is 1.48x as fast as the best SIMT form.
+#include "density_net.cuh"
 
 namespace {
 
@@ -487,6 +516,48 @@ __global__ void __launch_bounds__(256) density_update_kernel(
   occupancy[at] = v > thresh ? 1 : 0;
 }
 
+// NeRF's density of the field's raw output x: torch's softplus (beta 1,
+// threshold 20).
+__device__ __forceinline__ float softplus_torch(float x) {
+  return x > 20.f ? x : log1pf(expf(x));
+}
+
+// Kernel I2f: entry 1, the density of net (softplus of density_at) at the
+// probe's center and I2's update for the n probes of update `update_idx`,
+// in blocks of kWarps warps that take tiles of 32 probes (lane = probe),
+// block b the tiles b, b + gridDim.x, ... The probes' voxels are distinct:
+// warp 0 reads the old value and stores.
+template <int kWarps>
+__global__ void __launch_bounds__(kWarps * 32) density_refresh_kernel(
+    int n, uint32_t update_idx, int V, uint32_t lin_mask, float voxel_size, float half_extent,
+    float tx, float ty, float tz, const float* __restrict__ jitter, DensityNet net, int n_in,
+    float decay, float thresh, float* __restrict__ values, uint8_t* __restrict__ occupancy) {
+  float* xt = psdf_dynamic_smem<float>();
+  const int n_tiles = (n + 31) / 32;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {  // block-uniform
+    const int k = tile * 32 + (threadIdx.x & 31);
+    const bool real = k < n;
+    float p[3] = {0.f, 0.f, 0.f};
+    uint32_t lin = 0;
+    if (real)
+      lin = grid_probe(k, n, update_idx, V, lin_mask, voxel_size, half_extent, tx, ty, tz,
+                       jitter, p);
+    const float x = density_at<kWarps>(net, n_in, xt, p, real);
+    if (real && threadIdx.x < 32) {
+      const float d = softplus_torch(x);
+      const float old = values[lin] * decay;
+      const float v = (d != d || old != old) ? d + old : fmaxf(d, old);
+      values[lin] = v;
+      occupancy[lin] = v > thresh ? 1 : 0;
+    }
+  }
+}
+
+// Kernel I2f's shape: 4 warps a tile of 32 probes, 2 tiles a block (the
+// fastest measured, profiling/density_refresh_designs.py).
+constexpr int kDensityRefreshWarps = 4;
+constexpr int kDensityRefreshTiles = 2;
+
 }  // namespace
 
 extern "C" int psdf_probe_sampler(int R, const void* origins, const void* dirs,
@@ -625,4 +696,45 @@ extern "C" int psdf_density_update(int n, const void* lin, const void* density,
               (const int*)lin, (const float*)density, decay, thresh,
               (float*)values, (uint8_t*)occupancy);
   return (int)cudaGetLastError();
+}
+
+// Kernel I2f's launch: kWarps warps a block, `grid` blocks (0: one a tile).
+template <int kWarps>
+static int launch_density_refresh(int n, unsigned int update_idx, int V, float voxel_size,
+                                  float half_extent, float tx, float ty, float tz,
+                                  const void* jitter, const DensityNet* net_ptr, float decay,
+                                  float thresh, void* values, void* occupancy, int grid,
+                                  void* stream) {
+  const long long nv = (long long)V * V * V;
+  if ((nv & (nv - 1)) != 0 || nv > (1ll << 31) || n < 0 || n > nv || grid < 0 ||
+      net_ptr == nullptr || !net_ok(*net_ptr) || net_ptr->K != net_ptr->L)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = psdf_blocks(n, 32);
+  if (n_tiles == 0) return 0;
+  const DensityNet net = *net_ptr;
+  const int n_in = 2 * net.L + 3;
+  const auto kernel = density_refresh_kernel<kWarps>;
+  const size_t smem = density_smem_bytes(n_in);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != 0) return err;
+  }
+  PSDF_LAUNCH(kernel, grid > 0 ? min(grid, n_tiles) : n_tiles, kWarps * 32, smem, stream, n,
+              (uint32_t)update_idx, V, (uint32_t)(nv - 1), voxel_size, half_extent, tx, ty, tz,
+              (const float*)jitter, net, n_in, decay, thresh, (float*)values,
+              (uint8_t*)occupancy);
+  return (int)cudaGetLastError();
+}
+
+// Kernel I2f: NeRF's grid refresh of update `update_idx` (n probes, jitter
+// [n, 3] or null) with the density field of *net (hidden width 64, all L
+// levels), in place on values [V^3] float and occupancy [V^3] uint8.
+extern "C" int psdf_density_refresh(int n, unsigned int update_idx, int V, float voxel_size,
+                                    float half_extent, float tx, float ty, float tz,
+                                    const void* jitter, const DensityNet* net, float decay,
+                                    float thresh, void* values, void* occupancy, void* stream) {
+  return launch_density_refresh<kDensityRefreshWarps>(
+      n, update_idx, V, voxel_size, half_extent, tx, ty, tz, jitter, net, decay, thresh, values,
+      occupancy, psdf_blocks(psdf_blocks(n, 32), kDensityRefreshTiles), stream);
 }

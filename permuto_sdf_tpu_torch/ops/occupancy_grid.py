@@ -11,8 +11,10 @@ and ``update_with_sdf_random_sample`` are the two entry points of kernel
 I, and ``refresh_with_sdf`` is the flagship trainer's refresh: on the card
 kernel If (both entries and the SDF between them in one launch) for an SDF
 the fused kernels evaluate (``ops/sdf_net.py``), else the two entries
-around the SDF; ``update_with_density_random_sample`` (NeRF's refresh) is
-kernel I2;
+around the SDF; ``update_with_density_random_sample`` (NeRF's update) is
+kernel I2, and ``refresh_with_density`` NeRF's refresh: on the card kernel
+I2f (entry 1, the density field and I2 in one launch) for every foreground
+``NerfHashConfig``, else entry 1, the density and I2;
 ``chebyshev_empty_distance`` is kernel J0 (``kernels/csrc/sphere_trace.cu``).
 Their plain PyTorch versions below are the CPU path and the kernels'
 reference. ``compute_random_sample_of_grid_points``, ``mip_config``,
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from permuto_sdf_tpu_torch import kernels
-from permuto_sdf_tpu_torch.models.fields import SDFEval
+from permuto_sdf_tpu_torch.models.fields import NerfHashConfig, SDFEval, nerf_hash_density
 from permuto_sdf_tpu_torch.ops import sdf_net as sn
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
 
@@ -422,6 +424,25 @@ def grid_refresh_plain(cfg: OccupancyGridConfig, grid: OccupancyGridState, sdf_e
                             nr_points, update_idx, jitter, inv_s, occupancy_thresh)
 
 
+def _refresh_inputs(what: str, cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                    nr_points: int, jitter):
+    """The grid's device and the contiguous jitter of a one-launch refresh
+    (kernels If and I2f), after checking them."""
+    dev = grid.values.device
+    if (grid.values.dtype != torch.float32 or grid.occupancy.dtype != torch.bool
+            or grid.occupancy.device != dev or not grid.values.is_contiguous()
+            or not grid.occupancy.is_contiguous()):
+        raise ValueError(f"{what}: float32 values and bool occupancy, contiguous, on one device")
+    if cfg.nr_voxels & (cfg.nr_voxels - 1):
+        raise ValueError("the stratified grid sample needs a power-of-2 voxel count")
+    if jitter is not None:
+        jitter = jitter.contiguous()
+        if (jitter.shape != (nr_points, 3) or jitter.dtype != torch.float32
+                or jitter.device != dev):
+            raise ValueError(f"{what}: jitter must be float32 [n, 3] on the grid's device")
+    return dev, jitter
+
+
 def grid_refresh_cuda(cfg: OccupancyGridConfig, grid: OccupancyGridState, sdf_eval: SDFEval,
                       ctx, nr_points: int, update_idx: int, jitter, inv_s: float,
                       occupancy_thresh: float):
@@ -429,19 +450,7 @@ def grid_refresh_cuda(cfg: OccupancyGridConfig, grid: OccupancyGridState, sdf_ev
     the SDF of ``sdf_eval`` (an :class:`SDFEval` with ``ctx = (params_sdf,
     iter_nr)``) at their centers and the update, in one launch. Counts
     launches in ``grid_refresh_cuda.launches``."""
-    dev = grid.values.device
-    if (grid.values.dtype != torch.float32 or grid.occupancy.dtype != torch.bool
-            or grid.occupancy.device != dev or not grid.values.is_contiguous()
-            or not grid.occupancy.is_contiguous()):
-        raise ValueError("grid refresh: float32 values and bool occupancy, contiguous, on one "
-                         "device")
-    if cfg.nr_voxels & (cfg.nr_voxels - 1):
-        raise ValueError("the stratified grid sample needs a power-of-2 voxel count")
-    if jitter is not None:
-        jitter = jitter.contiguous()
-        if (jitter.shape != (nr_points, 3) or jitter.dtype != torch.float32
-                or jitter.device != dev):
-            raise ValueError("grid refresh: jitter must be float32 [n, 3] on the grid's device")
+    dev, jitter = _refresh_inputs("grid refresh", cfg, grid, nr_points, jitter)
     net, keep = sn.sdf_net(sdf_eval, ctx, dev)  # keep: the tensors net points at
     lib = kernels.load("occupancy_grid")
     tx, ty, tz = (float(v) for v in cfg.grid_translation)
@@ -534,6 +543,81 @@ def update_with_density_random_sample(cfg: OccupancyGridConfig, grid: OccupancyG
     and returns it."""
     fn = kernels.dispatch(grid.values.device, density_update_cuda, density_update_plain)
     return fn(cfg, grid, lin_indices, density, decay, occupancy_thresh)
+
+
+# ---------------------------------------------------------------------------
+# Kernel I2f: NeRF's grid refresh in one launch
+# ---------------------------------------------------------------------------
+
+def _density_refresh_through(points_fn, update_fn, cfg: OccupancyGridConfig,
+                             grid: OccupancyGridState, field_cfg: NerfHashConfig, params, iter_nr,
+                             nr_points: int, update_idx: int, jitter, decay: float,
+                             occupancy_thresh: float):
+    """Entry 1 (``points_fn``), ``nerf_hash_density`` of ``params`` at the
+    probes, I2 (``update_fn``), in place."""
+    centers, lin = points_fn(cfg, nr_points, update_idx, jitter, grid.values.device)
+    with torch.no_grad():
+        density = nerf_hash_density(params, centers, iter_nr, field_cfg)
+    return update_fn(cfg, grid, lin, density, decay, occupancy_thresh)
+
+
+def density_refresh_plain(cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                          field_cfg: NerfHashConfig, params, iter_nr, nr_points: int,
+                          update_idx: int, jitter, decay: float, occupancy_thresh: float):
+    """Plain version of kernel I2f (in place): entry 1's plain version,
+    ``nerf_hash_density`` of the probes, I2's plain version."""
+    return _density_refresh_through(grid_points_plain, density_update_plain, cfg, grid,
+                                    field_cfg, params, iter_nr, nr_points, update_idx, jitter,
+                                    decay, occupancy_thresh)
+
+
+def density_refresh_cuda(cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                         field_cfg: NerfHashConfig, params, iter_nr, nr_points: int,
+                         update_idx: int, jitter, decay: float, occupancy_thresh: float):
+    """Kernel I2f launch (in place): the probes of update ``update_idx``,
+    the density of the NerfHash model ``params`` (config ``field_cfg``) at
+    ``iter_nr`` there and I2's update, in one launch. Counts launches in
+    ``density_refresh_cuda.launches``."""
+    dev, jitter = _refresh_inputs("density refresh", cfg, grid, nr_points, jitter)
+    net, keep = sn.density_net(field_cfg, params, iter_nr, dev)  # keep: what net points at
+    lib = kernels.load("occupancy_grid")
+    tx, ty, tz = (float(v) for v in cfg.grid_translation)
+    err = lib.psdf_density_refresh(
+        nr_points, int(update_idx) & 0xFFFFFFFF, cfg.nr_voxels_per_dim, cfg.voxel_size,
+        cfg.grid_extent / 2.0, tx, ty, tz, kernels.ptr(jitter), ctypes.byref(net), float(decay),
+        float(occupancy_thresh), kernels.ptr(grid.values), kernels.ptr(grid.occupancy),
+        kernels.current_stream(dev))
+    kernels.check(lib, err, "occupancy density refresh (kernel I2f)")
+    density_refresh_cuda.launches += 1
+    for t in (grid.values, grid.occupancy):
+        torch.autograd.graph.increment_version(t)
+    return grid
+
+
+density_refresh_cuda.launches = 0
+
+
+def refresh_with_density(cfg: OccupancyGridConfig, grid: OccupancyGridState,
+                         field_cfg: NerfHashConfig, params, iter_nr, nr_points: int,
+                         update_idx: int, jitter, decay: float = 0.7,
+                         occupancy_thresh: float = 1e-3) -> OccupancyGridState:
+    """NeRF's density refresh of ``nr_points`` voxels of update
+    ``update_idx`` (jitter [n, 3] in [-0.5, 0.5) voxels, or None), in place:
+    value = max(density, old * decay) and occupied = value > thresh, the
+    density that of the NerfHash model ``params`` at ``iter_nr``. For a
+    field kernel I2f evaluates (``sdf_net.fused_density_supported``: every
+    foreground ``NerfHashConfig``) kernel I2f on the card; otherwise entry
+    1, ``nerf_hash_density`` and I2. The CPU runs the plain versions. The
+    route comes from the config and the parameters' shapes, before any
+    launch."""
+    args = (field_cfg, params, iter_nr, nr_points, update_idx, jitter, decay, occupancy_thresh)
+    if sn.fused_density_supported(field_cfg, params):
+        fn = kernels.dispatch(grid.values.device, density_refresh_cuda, density_refresh_plain)
+        return fn(cfg, grid, *args)
+    dev = grid.values.device
+    return _density_refresh_through(kernels.dispatch(dev, grid_points_cuda, grid_points_plain),
+                                    kernels.dispatch(dev, density_update_cuda,
+                                                     density_update_plain), cfg, grid, *args)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 
 A NerfHash foreground (the encoding at d = 3, kernel A) and a NerfHash
 background on the NeRF++ 4D parameterisation (d = 4), a 64^3 occupancy grid
-refreshed from the density every 8 iterations (kernel I's stratified
-probes, then kernel I2: decay 0.7, threshold 1e-3), the fg samples placed
+refreshed from the density every 8 iterations (kernel I2f: the
+stratified probes, the density and the update in one launch; decay 0.7,
+threshold 1e-3), the fg samples placed
 through the grid (kernel C) or, with ``use_occupancy_grid=False``,
 uniformly (kernel C2, the bound's intersection in its launch), NeRF
 weights and integration (kernel D in NeRF mode, its backward D'), an MSE
@@ -33,7 +34,7 @@ from permuto_sdf_tpu_torch.datasets.tensor_reel import (
 )
 from permuto_sdf_tpu_torch.device import resolve_device
 from permuto_sdf_tpu_torch.models.fields import (
-    NerfHashConfig, init_colorcal, init_nerf_hash, nerf_hash_apply, nerf_hash_density,
+    NerfHashConfig, init_colorcal, init_nerf_hash, nerf_hash_apply,
 )
 from permuto_sdf_tpu_torch.ops import occupancy_grid as og
 from permuto_sdf_tpu_torch.ops import volume_rendering as vr
@@ -132,18 +133,17 @@ def draw_train_step(generator: torch.Generator, cfg: NerfTrainConfig,
 @torch.no_grad()
 def occupancy_update(params, grid, draws, iter_nr, cfg: NerfTrainConfig):
     """The density refresh of ``grid_nr_random_samples`` voxels, in place:
-    the stratified probes of update ``iter_nr // grid_update_every``
-    (kernel I), the foreground density there, then kernel I2. ``draws`` is
-    a generator or the in-voxel jitter [n, 3] in [-0.5, 0.5)."""
-    device = grid.values.device
+    the stratified probes of update ``iter_nr // grid_update_every``, the
+    foreground density there and I2's update, in one launch of kernel I2f
+    on the card (``og.refresh_with_density``). ``draws`` is a generator or
+    the in-voxel jitter [n, 3] in [-0.5, 0.5)."""
     n = cfg.grid_nr_random_samples
     jitter = (torch.rand((n, 3), generator=draws) - 0.5
               if isinstance(draws, torch.Generator) else draws)
-    centers, lin = og.compute_stratified_sample_of_grid_points(
-        cfg.grid, n, int(iter_nr) // cfg.grid_update_every, jitter.to(device), device)
-    density = nerf_hash_density(params["model"], centers, iter_nr, cfg.fg_model)
-    return og.update_with_density_random_sample(cfg.grid, grid, lin, density, cfg.grid_decay,
-                                                cfg.grid_occupancy_thresh)
+    return og.refresh_with_density(cfg.grid, grid, cfg.fg_model, params["model"], iter_nr, n,
+                                   int(iter_nr) // cfg.grid_update_every,
+                                   jitter.to(grid.values.device), cfg.grid_decay,
+                                   cfg.grid_occupancy_thresh)
 
 
 def _render_rays(params, grid, origins, dirs, img_indices, iter_nr, cfg: NerfTrainConfig,

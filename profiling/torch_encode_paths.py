@@ -80,7 +80,11 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
 - refresh: one flagship ``occupancy_update`` (262,144 probes, the SDF on 14
   levels; random weights): host ms per call, one call profiled (device busy
   ms, device launches, If's or I's and A's device ms), and the host ms of
-  drawing its jitter on the CPU and copying it to the card;
+  drawing its jitter on the CPU and copying it to the card; then the same
+  for NeRF's ``occupancy_update`` at ``NerfTrainConfig()`` (65,536 probes
+  of the 64³ grid, the density on all 24 levels; random weights with the
+  table scaled by 1e3 and the density's bias moved by -7, so that the
+  densities straddle the threshold; I2f's, or I's, A's and I2's device ms);
 - mesh: chip_smoke's sphere scene and its grid SDF at 256³ and 512³ (host
   clock, median of the calls after the first); on each grid, CUDA-event ms per call of the tree's own pieces of kernel M
   (M1, M2, the welding glue that follows M2, and the whole of
@@ -90,7 +94,8 @@ Per tree, on the card (CUDA, one GPU), with the parameters made from a seed
   device ms in it).
 
 Each profile gives the device ms and the launches of kernels A, B, C, C2, C3,
-D, D', E1, E2, F, G, H0, H1, H2, I, If, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and D2' and
+D, D', E1, E2, F, G, H0, H1, H2, I, If, I2, I2f, J0, J1, J2, J2f, J3, J3f, M1, M2, L, D2 and
+D2' and
 their ratio,
 the device ms per launch, and the count of every device activity of the window
 (kernels, memsets and copies: ``device_launches``). Each
@@ -119,12 +124,14 @@ MESH_RES, MESH_REPS = 512, 3
 HOST_CALLS = 2000
 LEVER_STEPS, LEVER_WARMUP = 12, 2
 PROFILED = ("A", "B", "C", "C2", "C3", "D", "D'", "E1", "E2", "F", "G", "H0", "H1", "H2", "I", "If",
-            "J0", "J1", "J2", "J2f", "J3", "J3f", "M1", "M2", "L", "D2", "D2'")
+            "I2", "I2f", "J0", "J1", "J2", "J2f", "J3", "J3f", "M1", "M2", "L", "D2", "D2'")
 LOD_REPS = 20
 PATHS = ("host", "events", "fg", "grid", "plain", "frame", "sphere", "train", "gridfree",
          "lever", "sdf", "nerf", "mesh", "refresh")
 HIT_FRAC = 0.5  # the hit-ray step's bucket fraction, so that its profile holds H1 and H2
 REFRESH_CALLS, REFRESH_ITER = 10, 2000  # the flagship's c2f window still closes levels here
+NERF_REFRESH_TABLE_SCALE = 1e3  # a trained table's magnitude
+NERF_REFRESH_BIAS_SHIFT = -7.0  # the densities straddle the threshold 1e-3
 M_RES = (256, 512)
 M_HOST_CALLS = 10
 M_GRID_CALLS = 4
@@ -813,6 +820,53 @@ def refresh_path(cs, device, cfg):
            "jitter_host_ms_all": jitter, "jitter_host_ms_median": statistics.median(jitter),
            "profile": prof}
     print(f"[refresh] {json.dumps({k: v for k, v in out.items() if k != 'profile'})}",
+          flush=True)
+    out["nerf"] = nerf_refresh_path(cs, device)
+    return out
+
+
+def nerf_refresh_path(cs, device):
+    """NeRF's grid refresh: ``train_nerf.occupancy_update`` at
+    ``NerfTrainConfig()`` with random weights from chip_smoke's seed (the
+    table scaled by NERF_REFRESH_TABLE_SCALE, the density's bias moved by
+    NERF_REFRESH_BIAS_SHIFT), the jitter drawn from a CPU generator and
+    copied to the card as ``train`` does: host clock per call (median of
+    REFRESH_CALLS after two warm-up calls), one call under torch.profiler,
+    and the jitter's draw and copy alone (host clock)."""
+    import torch
+
+    from permuto_sdf_tpu_torch.ops import occupancy_grid as og
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+
+    ncfg = tn.NerfTrainConfig()
+    params = tn.init_params(cs.SEED, ncfg, 1, device=device)
+    params["model"]["encoding"]["lattice_values"].mul_(NERF_REFRESH_TABLE_SCALE)
+    params["model"]["mlp_feat_and_density"][-1]["b"][0] += NERF_REFRESH_BIAS_SHIFT
+    grid = og.make_occupancy_grid(ncfg.grid, device=device)
+    n = ncfg.grid_nr_random_samples
+
+    def call(i):
+        tn.occupancy_update(params, grid, torch.Generator().manual_seed(cs.SEED + i),
+                            i * ncfg.grid_update_every, ncfg)
+
+    def draw(i):
+        return (torch.rand((n, 3), generator=torch.Generator().manual_seed(cs.SEED + i))
+                - 0.5).to(device)
+
+    host, jitter = [], []
+    for i in range(REFRESH_CALLS + 2):
+        for fn, out in ((call, host), (draw, jitter)):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize(device)
+            out.append((time.perf_counter() - t0) * 1e3)
+    host, jitter = host[2:], jitter[2:]
+    prof = _profiled(cs, device, "nerf_refresh", lambda: call(REFRESH_CALLS + 2))
+    out = {"host_ms_all": host, "host_ms_median": statistics.median(host),
+           "jitter_host_ms_all": jitter, "jitter_host_ms_median": statistics.median(jitter),
+           "occupied_share": float(grid.occupancy.float().mean()), "profile": prof}
+    print(f"[nerf refresh] {json.dumps({k: v for k, v in out.items() if k != 'profile'})}",
           flush=True)
     return out
 

@@ -7,7 +7,7 @@
 // __threadfence a sequentially consistent fence, the warp
 // shuffles, ballots, __any_sync, __match_any_sync and __reduce_add_sync
 // exchange values through a per-warp slot array between two barriers
-// (__ffs is the compiler's builtin, __float_as_uint a memcpy; __fns, positive offsets only, a loop
+// (__ffs is the compiler's builtin, __float_as_uint and __uint_as_float a memcpy; __fns, positive offsets only, a loop
 // over the bits), __syncthreads is a
 // barrier of the block's threads, and PSDF_LAUNCH /
 // psdf_dynamic_smem are redefined for that (a launch of thread-block
@@ -18,7 +18,11 @@
 // uint2 and uint4 two and four plain words, so a vector load is a struct copy; cp.async
 // is a synchronous memcpy; cudaFuncSetAttribute accepts any shared-memory
 // size; the device reports 2 streaming multiprocessors that hold one block
-// each). It checks the
+// each; the tensor cores' TF32 product psdf_mma_tf32 gathers the warp's
+// fragments and adds each output's eight exact products to it in double,
+// rounded once to float: the card's accumulation order and rounding are
+// its own, so a kernel that uses it agrees with the card within float
+// rounding, not bit for bit). It checks the
 // kernels' logic, not their speed or the GPU's own float rounding.
 #include <algorithm>
 #include <atomic>
@@ -62,7 +66,7 @@ inline const char* cudaGetErrorString(int) { return "emulated"; }
 struct emu_dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local unsigned char* emu_smem;
-struct EmuWarp { std::unique_ptr<std::barrier<>> bar; uint64_t slot[32]; };
+struct EmuWarp { std::unique_ptr<std::barrier<>> bar; uint64_t slot[32]; float mma[32][10]; };
 inline thread_local EmuWarp* emu_warp;
 inline thread_local std::barrier<>* emu_block_bar;
 inline int emu_lane() { return threadIdx.x & 31; }
@@ -102,6 +106,7 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) {
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
 inline void __syncwarp() { emu_warp->bar->arrive_and_wait(); }
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 template <class T> T __ldg(const T* p) { return *p; }
@@ -182,3 +187,33 @@ template <typename T> T* psdf_dynamic_smem() { return reinterpret_cast<T*>(emu_s
 inline void psdf_cp_async16(void* s, const void* g) { std::memcpy(s, g, 16); }
 inline void psdf_cp_async4(void* s, const void* g) { std::memcpy(s, g, 4); }
 inline void psdf_cp_async_wait() {}
+#define PSDF_MMA
+// cvt.rna.tf32.f32: round to nearest, ties away from zero, to 10 mantissa
+// bits (a NaN stays a NaN)
+inline uint32_t psdf_tf32(float x) {
+  uint32_t u; std::memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) == 0x7f800000u) return (u & 0x007fffffu) ? 0x7fffffffu : u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+inline void psdf_mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int l = emu_lane();
+  float* mine = emu_warp->mma[l];
+  for (int i = 0; i < 4; ++i) std::memcpy(&mine[i], &a[i], 4);
+  for (int i = 0; i < 2; ++i) std::memcpy(&mine[4 + i], &b[i], 4);
+  emu_warp->bar->arrive_and_wait();
+  const int g = l >> 2, t = l & 3;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i >> 1), c = 2 * t + (i & 1);
+    double acc = d[i];
+    for (int k = 0; k < 8; ++k) {
+      const float av = emu_warp->mma[(r % 8) * 4 + k % 4][(r >= 8) + 2 * (k >= 4)];
+      const float bv = emu_warp->mma[c * 4 + k % 4][4 + (k >= 4)];
+      acc += (double)av * (double)bv;
+    }
+    out[i] = (float)acc;
+  }
+  emu_warp->bar->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+

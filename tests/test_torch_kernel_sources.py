@@ -1,7 +1,7 @@
 """The CUDA sources of kernels A-D, F, G, D', I, J0-J2, H0-H2, E1, E2 (its three
-forms), L, D2, D2', M, C3, J3, J3f, J2f, C2 and I2 (and H0's one-launch cluster
-form, ``profiling/h0_variants.cu``, and If's shapes, which the port measured
-and did not keep),
+forms), L, D2, D2', M, C3, J3, J3f, J2f, C2, I2, If and I2f (and H0's one-launch
+cluster form, ``profiling/h0_variants.cu``, and If's and I2f's shapes, which
+the port measured and did not keep),
 compiled for the CPU with g++ against a small CUDA stand-in
 (``tests/cuda_cpu_emulation/cuda_runtime.h``) and run through the port's
 own kernel wrappers, against the plain PyTorch versions.
@@ -37,11 +37,12 @@ from permuto_sdf_tpu_torch.ops.ray_primitives import Sphere
 from permuto_sdf_tpu_torch.ops.ray_samples import RaySamples, prefix_mask
 
 _EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_cpu_emulation")
-# kernel H0's one-launch cluster form and kernel If's persistent shapes,
+# kernel H0's one-launch cluster form and kernel If's and I2f's shapes,
 # measured and not kept by the port
 _H0_VARIANTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "profiling", "h0_variants.cu")
 _REFRESH_VARIANT = os.path.join(os.path.dirname(_H0_VARIANTS), "grid_refresh_variant.cu")
+_DENSITY_VARIANT = os.path.join(os.path.dirname(_H0_VARIANTS), "density_refresh_variant.cu")
 
 
 @pytest.fixture(scope="module")
@@ -63,7 +64,7 @@ def cpu_kernels(tmp_path_factory):
         return name, lib
 
     sources = [str(kernels.CSRC / f"{name}.cu") for name in kernels.LIBRARIES] + [
-        _H0_VARIANTS, _REFRESH_VARIANT]
+        _H0_VARIANTS, _REFRESH_VARIANT, _DENSITY_VARIANT]
     with ThreadPoolExecutor(len(sources)) as ex:
         libs = dict(ex.map(build, sources))
     return {name: (kernels.declare(ctypes.CDLL(str(path)), name) if name in kernels.LIBRARIES
@@ -2052,3 +2053,262 @@ def test_kernel_If_shapes_match_the_port(emulated, cpu_kernels, warps, per_sm):
     assert err == 0
     np.testing.assert_array_equal(got.values.numpy(), want.values.numpy())
     np.testing.assert_array_equal(got.occupancy.numpy(), want.occupancy.numpy())
+
+
+# Kernel I2f: NeRF's grid refresh in one launch. Its values are the density
+# field's through the tensor cores' 3xTF32 products (the split keeps ~22 of
+# float32's 24 bits of a product; the emulation sums each output's exact
+# products in double, the card in its own order) against the plain
+# version's float32 matmuls. The planted field's hidden unit 0 carries ~12
+# through three layers into a cancellation to x ~ -7 (a density of ~1e-3),
+# so float rounding there moves x, and the density relatively, by ~1e-5:
+# measured against a float64 evaluation, the plain version is up to 1.3e-5
+# off and the kernel up to 1.0e-5, in opposite directions. Hence the
+# kernel's values within TOL_I2F_REL of the plain version's, and within
+# TOL_I2F_F64 times the plain version's own error of the float64 density
+# (the split is as accurate as float32 here). A voxel's flag may differ
+# only where the threshold lies between the two values.
+TOL_I2F_REL = 3e-5
+TOL_I2F_F64 = 1.25
+_I2F_SLOPE = 5.0  # the planted density's pre-softplus slope across the plane
+_I2F_X0 = -6.907  # softplus(-6.907) = 1e-3, the refresh's threshold
+
+
+def _planted_density(L, seed=0):
+    """A small NerfHash foreground (L levels of 2^12 slots) whose density is
+    softplus(5 (n . p - offset) - 6.907 + small bumps), so that it crosses
+    the threshold 1e-3 at the planted plane: hidden unit 0 of each layer
+    carries 10 + 5 n . p through GELU (close to the identity there) from the
+    point columns (concatenated at scale 1); every level adds a bump
+    through unit 0's features, and every other hidden unit of every layer
+    reaches the output through weights of ~1e-3, so the kernel's split of
+    the units among warps shows in the density."""
+    from permuto_sdf_tpu_torch.models import fields
+
+    cfg = fields.NerfHashConfig(capacity=2 ** 12, nr_levels=L)
+    gen = torch.Generator().manual_seed(seed)
+    params = fields.init_nerf_hash(gen, cfg, "cpu")
+    mlp = params["mlp_feat_and_density"]
+    n = torch.tensor(_PLANE_N)
+    n = n / n.norm()
+    mlp[0]["w"][:-3, 0] *= 0.05
+    mlp[0]["w"][-3:, 0] = n * _I2F_SLOPE
+    mlp[0]["b"][0] = 10.0
+    for layer in mlp[1:]:
+        layer["w"][:, 0] = 1e-3 * torch.randn(layer["w"].shape[0], generator=gen)
+        layer["w"][0, 0] = 1.0
+        layer["b"][0] = 0.0
+    mlp[-1]["b"][0] = -10.0 - _I2F_SLOPE * _PLANE_OFFSET + _I2F_X0
+    params["encoding"]["lattice_values"] *= 50.0  # a bump of ~1e-3
+    return cfg, params
+
+
+def _density_grid(V, seed):
+    """Values in [0, 4e-3] (their decay crosses the threshold 1e-3) and
+    random flags, so that voxels fill and empty and writes to voxels no
+    probe visits would show."""
+    rng = np.random.default_rng(seed)
+    return og.OccupancyGridState(
+        values=torch.from_numpy(rng.uniform(0.0, 4e-3, V ** 3).astype(np.float32)),
+        occupancy=torch.from_numpy(rng.uniform(size=V ** 3) < 0.5))
+
+
+def _assert_density_refresh_close(gcfg, got, want, before, lin, thresh):
+    """A refreshed grid against the plain version's: the probed voxels'
+    values within TOL_I2F_REL, their flags equal but where the threshold
+    lies between the two values, the other voxels unchanged."""
+    probed = torch.zeros(gcfg.nr_voxels, dtype=torch.bool)
+    probed[lin.long()] = True
+    for a, b in ((got.values, before.values), (got.occupancy, before.occupancy)):
+        np.testing.assert_array_equal(a[~probed].numpy(), b[~probed].numpy())
+    vk, vp = got.values[probed], want.values[probed]
+    np.testing.assert_allclose(vk.numpy(), vp.numpy(), rtol=TOL_I2F_REL, atol=0)
+    differ = got.occupancy[probed] != want.occupancy[probed]
+    between = (torch.minimum(vk, vp) <= thresh) & (thresh <= torch.maximum(vk, vp))
+    assert not bool((differ & ~between).any())
+
+
+def _density_f64(params, fcfg, centers, it):
+    """The density of ``params`` at ``centers`` evaluated in float64 from
+    the encoding's float32 features."""
+    from permuto_sdf_tpu_torch.models.fields import _c2f_t
+
+    window = pe.coarse2fine_window(_c2f_t(it, fcfg.nr_iters_for_c2f), fcfg.nr_levels)
+    x = pe.permuto_encode(params["encoding"], centers, fcfg.encoding, window).double()
+    for i, layer in enumerate(params["mlp_feat_and_density"]):
+        x = x @ layer["w"].double() + layer["b"].double()
+        if i < 3:
+            x = torch.nn.functional.gelu(x, approximate="tanh")
+    return torch.nn.functional.softplus(x[:, 0])
+
+
+def _density_launch_counts():
+    return (og.density_refresh_cuda.launches, og.grid_points_cuda.launches,
+            og.density_update_cuda.launches, pe.encode_fwd_cuda.launches)
+
+
+@pytest.mark.parametrize("c2f_active,wrap,jitter", [(True, False, True), (False, True, True),
+                                                    (False, True, False),
+                                                    (True, False, False)])
+def test_kernel_I2f_source_matches_plain(emulated, monkeypatch, c2f_active, wrap, jitter):
+    """Kernel I2f (the refresh's probes, NeRF's density at their centers
+    and I2's update, in one launch) against its plain version (entry 1,
+    ``nerf_hash_density``, I2) on the planted density over a 16^3 grid of
+    512 probes and 6 levels of 2^12 slots, where many probes lie near the
+    threshold: a c2f window that is active (iteration 0: t = 0.3) and one
+    that is open, update 0 and one whose probe index wraps the uint32,
+    with and without jitter. The jittered cases run through the trainer's
+    ``occupancy_update``, the others through ``refresh_with_density``: one
+    launch of I2f, none of entry 1, A or I2; voxels both fill and empty."""
+    from permuto_sdf_tpu_torch.models.fields import _c2f_t
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+
+    n, every, L = 512, 8, 6
+    update_idx = 2 ** 23 + 1 if wrap else 0  # 2^23 x 512 probes: the index wraps
+    it = update_idx * every + (0 if c2f_active else 3)
+    tcfg = tn.NerfTrainConfig(capacity=2 ** 12, nr_levels=L, grid_nr_voxels_per_dim=16,
+                              grid_nr_random_samples=n, grid_update_every=every)
+    fcfg, params = _planted_density(L)
+    assert fcfg == tcfg.fg_model
+    assert (pe.coarse2fine_window(_c2f_t(it, fcfg.nr_iters_for_c2f), L).min() < 1.0) == (
+        c2f_active)
+    gcfg, thresh = tcfg.grid, tcfg.grid_occupancy_thresh
+    rng = np.random.default_rng(2 * wrap + jitter)
+    jit = (torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)) if jitter
+           else None)
+    args = (fcfg, params, it, n, update_idx, jit, tcfg.grid_decay, thresh)
+    before = _density_grid(16, 4)
+    want = og.density_refresh_plain(gcfg, _density_grid(16, 4), *args)
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    counts = _density_launch_counts()
+    got = _density_grid(16, 4)
+    if jitter:
+        tn.occupancy_update({"model": params}, got, jit, it, tcfg)
+    else:
+        og.refresh_with_density(gcfg, got, *args)
+    assert _density_launch_counts() == (counts[0] + 1,) + counts[1:]
+    centers, lin = og.grid_points_plain(gcfg, n, update_idx, jit)
+    _assert_density_refresh_close(gcfg, got, want, before, lin, thresh)
+    lin = lin.long()
+    # where the density sets the value on both sides: the kernel's error of
+    # the float64 density is float32-level
+    wins = (got.values[lin] > before.values[lin] * tcfg.grid_decay) & (
+        want.values[lin] > before.values[lin] * tcfg.grid_decay)
+    d64 = _density_f64(params, fcfg, centers, it)[wins]
+    err_k = float(((got.values[lin][wins].double() - d64).abs() / d64).max())
+    err_p = float(((want.values[lin][wins].double() - d64).abs() / d64).max())
+    assert err_k <= TOL_I2F_F64 * err_p, (err_k, err_p)
+    fill = want.occupancy[lin] & ~before.occupancy[lin]
+    empty = ~want.occupancy[lin] & before.occupancy[lin]
+    assert int(fill.sum()) > 20 and int(empty.sum()) > 20
+    dens_wins = want.values[lin] > before.values[lin] * tcfg.grid_decay
+    assert 50 < int(dens_wins.sum()) < n - 50
+
+
+def test_kernel_I2f_occupancy_update_matches_jax(emulated, monkeypatch):
+    """The port's NeRF ``occupancy_update`` through the emulated kernel I2f
+    against JAX's ``occupancy_update`` (``permuto_sdf_tpu/train/
+    train_nerf.py``) on the same planted parameters and the jitter of JAX's
+    key: the values within 1e-5 relative (as ``test_occupancy_update_matches
+    _jax``), the flags equal but where the value lies within that of the
+    threshold."""
+    import jax
+    import jax.numpy as jnp
+
+    from permuto_sdf_tpu.ops import occupancy_grid as jog
+    from permuto_sdf_tpu.train import train_nerf as jn
+    from permuto_sdf_tpu_torch.convert import params_from_jax
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+
+    small = dict(capacity=2 ** 12, nr_levels=6, grid_nr_voxels_per_dim=16,
+                 grid_nr_random_samples=512)
+    tcfg, jcfg = tn.NerfTrainConfig(**small), jn.NerfTrainConfig(**small)
+    _, params = _planted_density(6, seed=1)
+    pj = {"model": jax.tree_util.tree_map(lambda t: t.numpy(), params)}
+    base = _density_grid(16, 6)
+    it, key = 16, jax.random.PRNGKey(7)
+    want = jn.occupancy_update(jax.tree_util.tree_map(jnp.asarray, pj), jog.OccupancyGridState(
+        values=jnp.asarray(base.values.numpy()), occupancy=jnp.asarray(base.occupancy.numpy())),
+        key, it, jcfg)
+    jitter = torch.from_numpy(np.array(jax.random.uniform(
+        key, (tcfg.grid_nr_random_samples, 3), minval=-0.5, maxval=0.5)))
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    launches = og.density_refresh_cuda.launches
+    got = tn.occupancy_update(params_from_jax(pj, "cpu"), _density_grid(16, 6), jitter, it, tcfg)
+    assert og.density_refresh_cuda.launches == launches + 1
+    want_v, want_o = np.asarray(want.values), np.asarray(want.occupancy)
+    np.testing.assert_allclose(got.values.numpy(), want_v, rtol=1e-5, atol=1e-9)
+    near = np.abs(want_v - tcfg.grid_occupancy_thresh) <= 1e-5 * tcfg.grid_occupancy_thresh
+    np.testing.assert_array_equal(got.occupancy.numpy()[~near], want_o[~near])
+    assert (want_v != base.values.numpy()).sum() > 100
+    assert (want_o != base.occupancy.numpy()).sum() > 40
+
+
+def test_density_refresh_of_other_fields_takes_the_unfused_route(emulated, monkeypatch):
+    """A density MLP of other widths than kernel I2f evaluates (a first
+    hidden layer of 32) is refreshed by entry 1, ``nerf_hash_density``
+    (kernel A and the MLP) and I2, one launch each and none of I2f, exactly
+    as the plain version; the route is chosen before any launch."""
+    from permuto_sdf_tpu_torch.models.mlp import init_mlp
+    from permuto_sdf_tpu_torch.ops import sdf_net as sn
+
+    cfg, params = _planted_density(4)
+    params = {**params, "mlp_feat_and_density": init_mlp(torch.Generator().manual_seed(5),
+                                                         [2 * 4 + 3, 32, 64, 64, 65])}
+    assert not sn.fused_density_supported(cfg, params)
+    gcfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    jit = torch.from_numpy(np.random.default_rng(9).uniform(-0.5, 0.5, (256, 3)).astype(
+        np.float32))
+    args = (cfg, params, 50, 256, 7, jit, 0.7, 1e-3)
+    want = og.density_refresh_plain(gcfg, _density_grid(16, 1), *args)
+    monkeypatch.setattr(kernels, "dispatch", lambda dev, cuda_fn, plain_fn: cuda_fn)
+    counts = _density_launch_counts()
+    got = og.refresh_with_density(gcfg, _density_grid(16, 1), *args)
+    assert _density_launch_counts() == (counts[0], counts[1] + 1, counts[2] + 1,
+                                        counts[3] + 1)
+    for a, b in ((got.values, want.values), (got.occupancy, want.occupancy)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    with pytest.raises(NotImplementedError, match="MLP"):
+        og.density_refresh_cuda(gcfg, _density_grid(16, 1), *args)
+
+
+@pytest.mark.parametrize("form,warps,tiles", [(3, 4, 1), (3, 8, 2), (3, 8, 3), (3, 2, 1),
+                                              (2, 8, 1), (2, 4, 2), (4, 8, 2), (4, 4, 1),
+                                              (5, 8, 1), (0, 8, 1), (0, 4, 2), (1, 8, 2),
+                                              (6, 8, 1), (6, 4, 2)])
+def test_kernel_I2f_shapes_match_the_port(emulated, cpu_kernels, form, warps, tiles):
+    """The forms and shapes kernel I2f was measured against
+    (``profiling/density_refresh_variant.cu``) write the port's grid: the
+    port's form in other shapes (2, 4 or 8 warps; blocks that take two or
+    three tiles one after another), the weights staged in shared memory and
+    the levels' gathers batched bit for bit; If's SIMT evaluation at width
+    64 (staged by plain loads or cp.async, or read through L1) within
+    TOL_I2F_REL (the sums in another order), the flags equal but where the
+    threshold lies between the two values."""
+    from permuto_sdf_tpu_torch.ops import sdf_net as sn
+
+    lib = cpu_kernels["density_refresh_variant"]
+    _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    lib.psdf_density_refresh_design.argtypes = ([_I, _U, _I] + [_F] * 5 + [_P] * 2
+                                                + [_F] * 2 + [_P] * 2 + [_I, _I, _I, _P])
+    cfg, params = _planted_density(6)
+    gcfg = og.OccupancyGridConfig(nr_voxels_per_dim=16)
+    n, upd, it = 300, 5, 30  # a ragged last tile
+    jit = torch.from_numpy(np.random.default_rng(2).uniform(-0.5, 0.5, (n, 3)).astype(
+        np.float32))
+    want = og.density_refresh_cuda(gcfg, _density_grid(16, 3), cfg, params, it, n, upd, jit,
+                                   0.7, 1e-3)
+    got = _density_grid(16, 3)
+    net, keep = sn.density_net(cfg, params, it, torch.device("cpu"))
+    err = lib.psdf_density_refresh_design(
+        n, upd, 16, gcfg.voxel_size, gcfg.grid_extent / 2.0, 0.0, 0.0, 0.0, kernels.ptr(jit),
+        ctypes.byref(net), 0.7, 1e-3, kernels.ptr(got.values), kernels.ptr(got.occupancy),
+        form, warps, tiles, None)
+    assert err == 0
+    if form in (2, 3, 4, 5):
+        np.testing.assert_array_equal(got.values.numpy(), want.values.numpy())
+        np.testing.assert_array_equal(got.occupancy.numpy(), want.occupancy.numpy())
+    else:
+        _, lin = og.grid_points_plain(gcfg, n, upd, jit)
+        _assert_density_refresh_close(gcfg, got, want, _density_grid(16, 3), lin, 1e-3)
+
