@@ -148,9 +148,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``use_occupancy_grid=False`` (C2 once per step, C and I never, no
    plain bound intersection), then one step of each window under
    torch.profiler (device launches a step, device busy ms, idle share);
-18. print ``render``, ``fg_sets``, ``train``, ``sphere_traced``, ``lod``,
-   ``hit_ray_train``, ``levers``, ``mesh``, ``plain_traced``, ``nerf`` and
-   ``kernels`` JSON lines, then as the last line
+18. slice 21, a DTU-layout scene (``dtu_phase``): DTU_VIEWS views of
+   DTU_WIDTH x DTU_HEIGHT of the bench scene rendered on the card, written
+   with ``export_dtu_scene`` and read back with ``create_reel("dtu")`` (the
+   8-bit values, masks, K and poses gated); the flagship ``main`` at full
+   width from the scene (every kernel of the training path launched, a
+   checkpoint, then ``--resume``), TRAIN_STEPS steps on the DTU reel beside
+   the synthetic reel, one step card against CPU on it, the uint8 reel
+   (rays bit-equal, a short window), the NeRF ``main`` from the scene and
+   the flagship ``main(["--smoke"])``; the phase's wall time and where it
+   goes;
+19. print ``render``, ``fg_sets``, ``train``, ``sphere_traced``, ``lod``,
+   ``hit_ray_train``, ``levers``, ``mesh``, ``plain_traced``, ``nerf``,
+   ``dtu`` and ``kernels`` JSON lines, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs the CUDA toolkit (``nvcc``) and no network. It imports nothing of
@@ -5183,6 +5193,292 @@ def gridfree_phase(device, cfg, params, grid, reel):
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# Slice 21: a DTU-layout scene through the loaders and the trainers' mains
+# ---------------------------------------------------------------------------
+
+DTU_VIEWS, DTU_WIDTH, DTU_HEIGHT = 49, 1600, 1200  # DTU's image count and size
+DTU_SPHERE_FIT = 100  # --set nr_iter_sphere_fit of the flagship main's run
+DTU_ITERS = 160  # its --nr_iters
+DTU_RESUME_ITERS = 180  # --nr_iters of the --resume run
+DTU_UINT8_STEPS = 10  # the window on the quantized reel
+DTU_NERF_ITERS = 40  # the NeRF main's --nr_iters
+TOL_DTU_K = 2e-3  # the source reel's K after the PNG/npz round trip (the JAX tests' tolerance)
+TOL_DTU_POSE = 1e-4  # ... and its poses
+
+
+def _reel_mib(reel) -> float:
+    return sum(t.numel() * t.element_size() for t in (reel.rgb, reel.mask, reel.K,
+                                                      reel.tf_world_cam)
+               if t is not None) / 2 ** 20
+
+
+def _counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with the launch counts reset before and read
+    after -> (result, counts, seconds, printed text). What ``fn`` prints is
+    captured and printed again after it."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args, **kw)
+    finally:
+        sys.stdout.write(buf.getvalue())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, read_counts(), secs, buf.getvalue()
+
+
+def _window_summary(label, run, nr_rays, card):
+    timed = [r["ms"] for r in run["per_step"][WARMUP_STEPS:]]
+    med = statistics.median(timed)
+    samples = statistics.mean(r["nr_samples"] for r in run["per_step"])
+    out = {"first_iter": run["first_iter"], "steps": run["steps"], "warmup_steps": WARMUP_STEPS,
+           "ms_per_step_median": med, "ms_per_step_min": min(timed),
+           "ms_per_step_max": max(timed), "ms_per_step_all": timed,
+           "rays_per_s_median": nr_rays / med * 1e3, "valid_samples_per_step_mean": samples,
+           "valid_samples_per_s_median": samples / med * 1e3}
+    print(f"[dtu] {label} window: {len(timed)} steps after {WARMUP_STEPS} warm-up from "
+          f"iteration {run['first_iter']}: median {med:.2f} ms/step (min {min(timed):.2f}, max "
+          f"{max(timed):.2f}), {out['rays_per_s_median']:.0f} rays/s, "
+          f"{out['valid_samples_per_s_median']:.0f} valid samples/s ({card})", flush=True)
+    return out
+
+
+def dtu_phase(device, cfg, synth_params, synth_grid, synth_reel, card):
+    """Slice 21: the flagship and NeRF trainers from a scene on disk in
+    DTU's IDR layout, through the entry points a user calls.
+
+    1. render DTU_VIEWS views of DTU_WIDTH x DTU_HEIGHT of the bench scene
+       (``bench_scene_sdf``, fov 45, textured background, masks) on the
+       card and write them with ``export_dtu_scene`` into a temporary
+       directory (removed at the end): seconds to render and to write,
+       bytes on disk;
+    2. ``create_reel("dtu", with_mask=True)``: host seconds, decode ms per
+       image (one batch of rgb and one of mask files decoded again alone),
+       the reel's MiB on the card; rgb equal to the written 8-bit values,
+       masks exact, K within TOL_DTU_K and poses within TOL_DTU_POSE of the
+       source; ``low_res=True`` halves the sizes;
+    3. the flagship ``main`` in process at full width (``--dataset dtu
+       --with_mask --config config/train_permuto_sdf.cfg --set
+       nr_iter_sphere_fit=DTU_SPHERE_FIT --nr_iters DTU_ITERS``): every
+       kernel of TRAIN_KERNELS launched, the checkpoint of iteration
+       DTU_ITERS written; then ``--resume`` with ``--nr_iters
+       DTU_RESUME_ITERS`` continues at DTU_ITERS (the first iteration the
+       first run did not take; one E1 launch a step);
+    4. TRAIN_STEPS volumetric steps (WARMUP_STEPS of them warm-up) of
+       ``train`` resumed on the DTU reel and on the synthetic reel beside it
+       (``_train_window``, both on the synthetic training phase's grid):
+       ms/step, rays/s, valid samples/s;
+    5. one step card against CPU on the DTU reel (``train_cross_check``);
+    6. ``quantize_reel`` of the DTU reel: rays and targets bit-equal to the
+       float reel's on the same draws, and DTU_UINT8_STEPS steps on it with
+       finite losses;
+    7. the NeRF ``main`` (``--dataset dtu --config config/train_nerf.cfg
+       --nr_iters DTU_NERF_ITERS``): every kernel of NERF_KERNELS launched;
+    8. the flagship ``main(["--smoke"])``, which raises unless its loss
+       falls.
+    Returns (summary, launch counts of every run of the phase)."""
+    import os
+
+    import torch
+
+    from permuto_sdf_tpu_torch.datasets import image_io
+    from permuto_sdf_tpu_torch.datasets.dtu import export_dtu_scene
+    from permuto_sdf_tpu_torch.datasets.factory import create_reel
+    from permuto_sdf_tpu_torch.datasets.synthetic import bench_scene_sdf, make_synthetic_reel
+    from permuto_sdf_tpu_torch.datasets.tensor_reel import (
+        _dequant, quantize_reel, random_rays_from_reel)
+    from permuto_sdf_tpu_torch.train import checkpoint as ckpt
+    from permuto_sdf_tpu_torch.train import train_nerf as tn
+    from permuto_sdf_tpu_torch.train import train_permuto_sdf as tps
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    secs, totals, out = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, ck = os.path.join(tmp, "scan_bench"), os.path.join(tmp, "checkpoints")
+        # 1. render on the card, write the scene
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        src = make_synthetic_reel(nr_views=DTU_VIEWS, width=DTU_WIDTH, height=DTU_HEIGHT,
+                                  sdf_fn=bench_scene_sdf, fov_deg=45.0, bg_mode="textured",
+                                  device=device)
+        torch.cuda.synchronize(device)
+        secs["render"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        export_dtu_scene(src, scene)
+        secs["write"] = time.perf_counter() - t0
+        files = [os.path.join(r, f) for r, _, fs in os.walk(scene) for f in fs]
+        nbytes = sum(os.path.getsize(f) for f in files)
+        print(f"[dtu] rendered {DTU_VIEWS} views of {DTU_WIDTH}x{DTU_HEIGHT} (bench scene, "
+              f"textured background) in {secs['render']:.1f} s; wrote {len(files)} files, "
+              f"{nbytes / 2 ** 20:.1f} MiB, in {secs['write']:.1f} s", flush=True)
+
+        # 2. load it
+        t0 = time.perf_counter()
+        reel = create_reel("dtu", data_root=scene, with_mask=True, device=device)
+        torch.cuda.synchronize(device)
+        secs["load"] = time.perf_counter() - t0
+        names = sorted(os.listdir(os.path.join(scene, "image")))[:image_io._BATCH]
+        t0 = time.perf_counter()
+        image_io.read_pngs([os.path.join(scene, "image", n) for n in names])
+        rgb_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+        t0 = time.perf_counter()
+        image_io.read_pngs([os.path.join(scene, "mask", n) for n in names])
+        mask_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+        want_rgb = torch.clamp(torch.round(src.rgb * 255.0), 0, 255).to(torch.uint8)
+        rgb_equal = torch.equal(reel.rgb, _dequant(want_rgb))  # u / 255, correctly rounded
+        mask_equal = torch.equal(reel.mask, (src.mask > 0.5).to(torch.float32))
+        k_err = (reel.K - src.K).abs().max().item()
+        pose_err = (reel.tf_world_cam - src.tf_world_cam).abs().max().item()
+        del want_rgb
+        half = create_reel("dtu", data_root=scene, low_res=True, device=device)
+        half_ok = ((half.height, half.width) == (DTU_HEIGHT // 2, DTU_WIDTH // 2)
+                   and torch.allclose(half.K[:, :2] * 2, reel.K[:, :2], rtol=0, atol=4e-3))
+        del half
+        out["load"] = {"views": reel.nr_images, "height": reel.height, "width": reel.width,
+                       "files": len(files), "bytes_on_disk": nbytes,
+                       "render_s": secs["render"], "write_s": secs["write"],
+                       "load_host_s": secs["load"], "decode_ms_per_rgb_image": rgb_ms,
+                       "decode_ms_per_mask_image": mask_ms, "reel_mib": _reel_mib(reel),
+                       "rgb_equal_to_written": rgb_equal, "mask_exact": mask_equal,
+                       "K_max_err": k_err, "pose_max_err": pose_err, "low_res_halves": half_ok}
+        print(f"[dtu] create_reel('dtu', with_mask=True): {secs['load']:.1f} host s, decode "
+              f"{rgb_ms:.0f} ms per rgb image and {mask_ms:.0f} ms per mask (batches of "
+              f"{image_io._BATCH}), {out['load']['reel_mib']:.0f} MiB on the card; rgb equal to "
+              f"the written 8-bit values {rgb_equal}, masks exact {mask_equal}, K err {k_err:.2e}"
+              f", pose err {pose_err:.2e}, low_res halves {half_ok}", flush=True)
+        if not (rgb_equal and mask_equal and half_ok and reel.nr_images == DTU_VIEWS):
+            fail("dtu load: the loaded reel is not the written scene")
+        if not (k_err <= TOL_DTU_K and pose_err <= TOL_DTU_POSE):
+            fail(f"dtu load: K err {k_err} (tol {TOL_DTU_K}), pose err {pose_err} "
+                 f"(tol {TOL_DTU_POSE})")
+        del src
+
+        # 3. the flagship main at full width, then --resume
+        argv = ["--dataset", "dtu", "--scene_dir", scene, "--with_mask",
+                "--config", os.path.join(repo, "config", "train_permuto_sdf.cfg"),
+                "--set", f"nr_iter_sphere_fit={DTU_SPHERE_FIT}",
+                "--checkpoint_path", ck, "--exp_info", "dtu"]
+        (_, _, hist), counts, secs["main"], _ = _counted(
+            tps.main, argv + ["--nr_iters", str(DTU_ITERS)])
+        add(counts)
+        missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
+        if missing:
+            fail(f"dtu main: the training path launched no kernel {missing}")
+        d = os.path.join(ck, "permuto_sdf_dtu", str(DTU_ITERS), "models")
+        if not os.path.isfile(os.path.join(d, "train_state.npz")):
+            fail(f"dtu main: no checkpoint at {d}")
+        saved_iter = int(ckpt.load_train_state(d)["iter"])
+        (dparams, dgrid, hist_r), counts_r, secs["resume"], text = _counted(
+            tps.main, argv + ["--nr_iters", str(DTU_RESUME_ITERS), "--resume"])
+        add(counts_r)
+        resumed = f"resumed from {d} at iter {DTU_ITERS}" in text
+        steps_r = DTU_RESUME_ITERS - DTU_ITERS
+        losses = [h[1] for h in hist + hist_r]
+        out["main"] = {"argv": argv, "iters": DTU_ITERS, "s": secs["main"],
+                       "launches": {k: counts[k] for k in TRAIN_KERNELS},
+                       "checkpoint_iter": saved_iter, "resume_s": secs["resume"],
+                       "resumed_at": DTU_ITERS if resumed else None,
+                       "resume_launches": {k: counts_r[k] for k in TRAIN_KERNELS},
+                       "losses": losses}
+        print(f"[dtu] flagship main: {DTU_ITERS} iterations ({DTU_SPHERE_FIT} of sphere init) in "
+              f"{secs['main']:.1f} s, launches { {k: counts[k] for k in TRAIN_KERNELS} }, "
+              f"checkpoint iter {saved_iter}; --resume: {steps_r} iterations from "
+              f"{DTU_ITERS} in {secs['resume']:.1f} s (E1 {counts_r['E1']} launches); losses "
+              f"{[round(x, 4) for x in losses]}", flush=True)
+        if not (resumed and counts_r["E1"] == steps_r and saved_iter == DTU_ITERS - 1):
+            fail(f"dtu main --resume: resumed {resumed}, {counts_r['E1']} E1 launches for "
+                 f"{steps_r} steps, checkpoint iter {saved_iter}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"dtu main: non-finite loss {losses}")
+
+        # 4. the volumetric window on the DTU reel beside the synthetic reel's
+        start = cfg.nr_iter_sphere_fit + TRAIN_FROM
+        t0 = time.perf_counter()
+        # the same grid on both reels, so only the reel and the weights differ
+        dparams, run_d = _train_window(device, "dtu", cfg, dparams, synth_grid, reel, start,
+                                       TRAIN_STEPS)
+        _, run_s = _train_window(device, "synthetic", cfg, synth_params, synth_grid,
+                                 synth_reel, start, TRAIN_STEPS)
+        secs["windows"] = time.perf_counter() - t0
+        add(run_d["launches"])
+        add(run_s["launches"])
+        out["window"] = {"dtu": _window_summary("DTU reel", run_d, cfg.nr_rays, card),
+                         "synthetic": _window_summary("synthetic reel", run_s, cfg.nr_rays,
+                                                      card)}
+        out["window"]["dtu_over_synthetic"] = (out["window"]["dtu"]["ms_per_step_median"]
+                                               / out["window"]["synthetic"]["ms_per_step_median"])
+
+        # 5. one step card against CPU on the DTU reel
+        t0 = time.perf_counter()
+        out["cross_check"] = train_cross_check(device, cfg, dparams, dgrid, reel,
+                                               label="dtu_cross_check")
+        secs["cross_check"] = time.perf_counter() - t0
+
+        # 6. the uint8 reel
+        t0 = time.perf_counter()
+        q = quantize_reel(reel)
+        draws = tps.draw_train_step(tps.step_generators(SEED, start)[0], cfg, reel)
+        rays_f = random_rays_from_reel(reel, cfg.nr_rays, indices=draws.ray_indices)
+        rays_q = random_rays_from_reel(q, cfg.nr_rays, indices=draws.ray_indices)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(rays_f, rays_q))
+        _, run_q = _train_window(device, "dtu_uint8", cfg, dparams, dgrid, q, start,
+                                 DTU_UINT8_STEPS)
+        add(run_q["launches"])
+        secs["uint8"] = time.perf_counter() - t0
+        out["uint8"] = {"reel_mib": _reel_mib(q), "rays_bit_equal": bit_equal,
+                        "steps": DTU_UINT8_STEPS,
+                        "ms_per_step": [r["ms"] for r in run_q["per_step"]]}
+        print(f"[dtu] uint8 reel: {out['uint8']['reel_mib']:.0f} MiB on the card, rays and "
+              f"targets bit-equal to the float reel's {bit_equal}; {DTU_UINT8_STEPS} steps, "
+              f"finite losses", flush=True)
+        if not bit_equal:
+            fail("dtu uint8 reel: rays or targets differ from the float reel's")
+        del q, reel
+
+        # 7. the NeRF main
+        nargv = ["--dataset", "dtu", "--scene_dir", scene,
+                 "--config", os.path.join(repo, "config", "train_nerf.cfg"),
+                 "--nr_iters", str(DTU_NERF_ITERS)]
+        (_, _, nhist), ncounts, secs["nerf_main"], _ = _counted(tn.main, nargv)
+        add(ncounts)
+        missing = [k for k in NERF_KERNELS if ncounts[k] <= 0]
+        nlosses = [h[1] for h in nhist]
+        out["nerf_main"] = {"argv": nargv, "s": secs["nerf_main"], "losses": nlosses,
+                            "launches": {k: ncounts[k] for k in NERF_KERNELS}}
+        print(f"[dtu] NeRF main: {DTU_NERF_ITERS} iterations in {secs['nerf_main']:.1f} s, "
+              f"losses {[round(x, 4) for x in nlosses]}, launches "
+              f"{out['nerf_main']['launches']}", flush=True)
+        if missing or not all(math.isfinite(x) for x in nlosses):
+            fail(f"dtu NeRF main: no launch of {missing} or a non-finite loss {nlosses}")
+
+    # 8. the flagship --smoke
+    (_, _, shist), scounts, secs["smoke"], _ = _counted(tps.main, ["--smoke"])
+    add(scounts)
+    out["smoke"] = {"s": secs["smoke"], "first": list(shist[0]), "last": list(shist[-1])}
+    secs["phase"] = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"[dtu] flagship main --smoke: {secs['smoke']:.1f} s, {shist[0]} -> {shist[-1]}",
+          flush=True)
+    print(f"[slice 21 phase] {secs['phase']:.1f} s wall: "
+          f"{ {k: round(v, 1) for k, v in secs.items() if k != 'phase'} }", flush=True)
+    return out, totals
+
+
 def _clone(t):
     return t.clone() if hasattr(t, "clone") else t
 
@@ -5359,7 +5655,10 @@ def main() -> int:
     print(f"[slice 7 phases] {slice7_s:.1f} s wall for C3, J3, J3f, J2f, C2, I2 and I2f, the "
           f"plain-traced frames, the NeRF trainer and the grid-free window", flush=True)
 
-    # 15. summary lines
+    # 15. slice 21: a DTU-layout scene through the loaders and both mains
+    dtu_summary, dtu_counts = dtu_phase(device, cfg, tparams, tgrid, reel, card)
+
+    # 16. summary lines
     meta = {
         "A": ("permuto_encode_fwd", "permuto_sdf_tpu_torch/kernels/csrc/permuto_encoding.cu",
               "permuto_sdf_tpu/ops/permuto_encoding.py:504"),
@@ -5434,7 +5733,7 @@ def main() -> int:
                     + sum(v["launches"][k] for v in hit_train["runs"].values())
                     + sum(v["launches"][k] for v in lever_train["runs"].values())
                     + mesh_counts[k] + sum(v["launches"][k] for v in plain_runs.values())
-                    + nerf_counts[k] + gridfree_counts[k])
+                    + nerf_counts[k] + gridfree_counts[k] + dtu_counts.get(k, 0))
         entries.append({"name": f"{k}:{name}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "max_err": GATED[k][0],
@@ -5488,6 +5787,7 @@ def main() -> int:
     print(json.dumps({"nerf": nerf_summary, "nerf_refresh": results["I2f"],
                       "gridfree_train": gridfree, "card": card}),
           flush=True)
+    print(json.dumps({"dtu": dtu_summary, "card": card}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

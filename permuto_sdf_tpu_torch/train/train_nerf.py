@@ -297,7 +297,9 @@ def _save(checkpoint_path, experiment_name, it, params, grid, cfg):
         ckpt.save_model(checkpoint_path, experiment_name, it, "occupancy_grid", grid)
 
 
-def main(argv=None):
+def main(argv=None, device=None):
+    """The trainer's command line (``argv``, else ``sys.argv``) on
+    ``device`` (None means the GPU). Returns what :func:`train` returns."""
     parser = argparse.ArgumentParser(description="Train permuto-NeRF")
     parser.add_argument("--dataset", default="synthetic", help="synthetic | dtu")
     parser.add_argument("--scene_dir", default=None, help="DTU scene directory")
@@ -312,30 +314,36 @@ def main(argv=None):
     parser.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                         dest="overrides", help="config override, repeatable")
     args = parser.parse_args(argv)
-    if args.dataset != "synthetic":
-        raise NotImplementedError(f"--dataset {args.dataset}: the dataset loaders (ROADMAP "
-                                  "Queue 1 item 6) are not ported yet")
-    if args.config or args.overrides:
-        raise NotImplementedError("--config/--set: the config files (config.py, ROADMAP Queue "
-                                  "1 item 6) are not ported yet")
-    from permuto_sdf_tpu_torch.datasets.synthetic import make_synthetic_reel
+    from permuto_sdf_tpu_torch.config import apply_file_and_cli
 
-    device = resolve_device(None)
-    side = 64 if args.smoke else 200
-    reel = make_synthetic_reel(nr_views=8 if args.smoke else 24, width=side, height=side,
-                               device=device)
+    device = resolve_device(device)
+    if args.dataset == "synthetic":
+        from permuto_sdf_tpu_torch.datasets.synthetic import make_synthetic_reel
+
+        side = 64 if args.smoke else 200
+        reel = make_synthetic_reel(nr_views=8 if args.smoke else 24, width=side, height=side,
+                                   device=device)
+    else:
+        from permuto_sdf_tpu_torch.datasets.dtu import load_dtu_scene
+
+        reel = load_dtu_scene(args.scene_dir, low_res=args.low_res, with_mask=args.with_mask,
+                              device=device)
     if args.smoke:
         cfg = NerfTrainConfig(with_mask=args.with_mask, capacity=2 ** 14, nr_levels=8,
                               nr_rays=256, grid_nr_random_samples=4096)
-        _, _, history = train(reel, cfg, nr_iters=300, log_every=50, device=device)
+        cfg = apply_file_and_cli(cfg, args.config, args.overrides)
+        out = train(reel, cfg, nr_iters=300, log_every=50, device=device)
+        history = out[2]
         if not history[-1][1] < history[0][1]:
             raise RuntimeError(f"smoke: loss did not decrease: {history[0][1]} -> "
                                f"{history[-1][1]}")
         print("SMOKE OK: loss", history[0][1], "->", history[-1][1])
-    else:
-        exp = "nerf" + (f"_{args.exp_info}" if args.exp_info else "")
-        train(reel, NerfTrainConfig(with_mask=args.with_mask), nr_iters=args.nr_iters,
-              checkpoint_path=args.checkpoint_path, experiment_name=exp, device=device)
+        return out
+    cfg = apply_file_and_cli(NerfTrainConfig(with_mask=args.with_mask), args.config,
+                             args.overrides)
+    exp = "nerf" + (f"_{args.exp_info}" if args.exp_info else "")
+    return train(reel, cfg, nr_iters=args.nr_iters, checkpoint_path=args.checkpoint_path,
+                 experiment_name=exp, device=device)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ recommended training profile: the train-time LOD (``train_lod_top_k``,
 (:func:`render_image_sphere_traced` and the compacted ray renderer) and
 training and rendering without the occupancy grid
 (``use_occupancy_grid=False``: the uniform fg sampler, the bound's
-intersection in its launch, no grid refresh and no offsurface loss). JAX
+intersection in its launch, no grid refresh and no offsurface loss);
+slice 21 the command line (:func:`main`: a dataset through
+``create_reel``, the config file and ``--set`` overrides, ``--resume``). JAX
 draws its randomness from keys split inside the step; the port takes the
 same draws as tensors (:class:`TrainDraws`), made from a
 ``torch.Generator`` that :func:`train` derives from ``(seed, iteration)``,
@@ -27,6 +29,7 @@ wait for.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import os
@@ -1358,3 +1361,85 @@ def load_from_checkpoint(ckpt_path_full: str, cfg: PermutoSDFTrainConfig, device
         g = params_from_jax(ckpt.load_model(ckpt_path_full, "occupancy_grid"), device)
         grid = og.OccupancyGridState(values=g["values"], occupancy=g["occupancy"].bool())
     return params, grid
+
+
+def main(argv=None, device=None):
+    """The trainer's command line (``argv``, else ``sys.argv``) on
+    ``device`` (None means the GPU): a dataset through
+    :func:`~permuto_sdf_tpu_torch.datasets.factory.create_reel`, the config
+    file and ``--set`` overrides on :class:`PermutoSDFTrainConfig`, and
+    ``--resume`` from a ``models`` dir or, with no value, from the latest
+    train state under ``--checkpoint_path``. ``--smoke`` trains 600
+    iterations of a small model and raises unless the colour loss after
+    sphere init falls by 10%. Returns what :func:`train` returns."""
+    parser = argparse.ArgumentParser(description="Train PermutoSDF")
+    parser.add_argument("--dataset", default="synthetic",
+                        help="synthetic | dtu | bmvs | multiface | custom | "
+                             "phenorobcp1 (datasets/factory.py)")
+    parser.add_argument("--scene", default=None,
+                        help="scene name under --scene_dir (or multiface "
+                             "subject preset id)")
+    parser.add_argument("--scene_dir", default=None)
+    parser.add_argument("--nr_iters", type=int, default=None)
+    parser.add_argument("--low_res", action="store_true")
+    parser.add_argument("--with_mask", action="store_true")
+    parser.add_argument("--smoke", action="store_true")
+    parser.add_argument("--checkpoint_path", default=None)
+    parser.add_argument("--exp_info", default="")
+    parser.add_argument("--resume", nargs="?", const="latest", default=None,
+                        help="resume training: pass a <...>/models dir, or no "
+                             "value to pick the latest checkpoint under "
+                             "--checkpoint_path/<experiment>")
+    parser.add_argument("--config", default=None,
+                        help="hjson-style config file (see config/"
+                             "train_permuto_sdf.cfg) loaded onto "
+                             "PermutoSDFTrainConfig")
+    parser.add_argument("--set", action="append", default=[],
+                        metavar="KEY=VALUE", dest="overrides",
+                        help="config override, repeatable (e.g. --set "
+                             "nr_rays=1024)")
+    args = parser.parse_args(argv)
+    from permuto_sdf_tpu_torch.config import apply_file_and_cli
+
+    device = resolve_device(device)
+    if args.dataset == "synthetic":
+        from permuto_sdf_tpu_torch.datasets.synthetic import make_synthetic_reel
+
+        side = 64 if args.smoke else 200
+        reel = make_synthetic_reel(nr_views=8 if args.smoke else 24, width=side, height=side,
+                                   device=device)
+    else:
+        from permuto_sdf_tpu_torch.datasets.factory import create_reel
+
+        reel = create_reel(args.dataset, scene=args.scene, data_root=args.scene_dir,
+                           low_res=args.low_res, with_mask=args.with_mask, device=device)
+    if args.smoke:
+        cfg = PermutoSDFTrainConfig(
+            with_mask=args.with_mask, capacity=2 ** 14, nr_levels=8,
+            nr_rays=128, nr_iter_sphere_fit=100, sphere_init_points=4096,
+            grid_nr_voxels_per_dim=64, grid_nr_random_samples=8192,
+            sdf_nr_iters_for_c2f=200, forced_variance_finish_iter=400,
+            max_nr_samples_per_ray=32, nr_samples_imp_sampling=8,
+            warmup_iters=100,
+        )
+        cfg = apply_file_and_cli(cfg, args.config, args.overrides)
+        out = train(reel, cfg, nr_iters=600, log_every=50, device=device)
+        post = [h for h in out[2] if h[0] >= cfg.nr_iter_sphere_fit]
+        if not post[-1][2] < post[0][2] * 0.9:
+            raise RuntimeError(f"smoke: rgb loss did not improve {post[0]} -> {post[-1]}")
+        print("SMOKE OK:", post[0], "->", post[-1])
+        return out
+    cfg = apply_file_and_cli(PermutoSDFTrainConfig(with_mask=args.with_mask), args.config,
+                             args.overrides)
+    exp = "permuto_sdf" + (f"_{args.exp_info}" if args.exp_info else "")
+    resume_from = args.resume
+    if resume_from == "latest":
+        resume_from = ckpt.latest_checkpoint_dir(args.checkpoint_path, exp)
+        if resume_from is None:
+            print("no checkpoint to resume from - starting fresh")
+    return train(reel, cfg, nr_iters=args.nr_iters, checkpoint_path=args.checkpoint_path,
+                 experiment_name=exp, resume_from=resume_from, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -458,14 +458,29 @@ def test_nerf_train_loss_falls_and_saves(tiny_reel_t, tmp_path):
     np.testing.assert_array_equal(np.asarray(g.occupancy), grid.occupancy.numpy())
 
 
-def test_nerf_entry_points_need_cuda_and_main_flags_raise(tiny_reel_t, monkeypatch):
+def test_nerf_entry_points_need_cuda_and_main_flags_raise(tiny_reel_t, monkeypatch, tmp_path):
     """device=None means the GPU (``train``, ``render_image`` and ``main``
-    raise without one); ``--dataset dtu``, ``--config`` and ``--set`` wait
-    for the loaders and the config files (ROADMAP Queue 1 item 6)."""
+    raise without one); ``main``'s ``--config`` and ``--set`` reach the
+    config ``train`` gets, also under ``--smoke``, and an unknown key
+    raises ``KeyError``."""
     cfg = tn.NerfTrainConfig(**_NERF)
-    for argv in (["--dataset", "dtu"], ["--config", "x.cfg"], ["--set", "lr=1"]):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tn.main(argv)
+    calls = []
+
+    def record(reel, cfg_, **kw):
+        calls.append(cfg_)
+        return None, None, [(0, 1.0), (299, 0.5)]
+
+    path = str(tmp_path / "n.cfg")
+    with open(path, "w") as f:
+        f.write("{\n  grid_decay: 0.5, // a comment\n  nr_levels: 6,\n}\n")
+    with monkeypatch.context() as m:
+        m.setattr(tn, "train", record)
+        tn.main(["--smoke", "--config", path, "--set", "lr=0.25", "--set", "with_mask=true"],
+                device="cpu")
+        assert (calls[0].grid_decay, calls[0].nr_levels, calls[0].lr) == (0.5, 6, 0.25)
+        assert calls[0].with_mask is True and calls[0].nr_rays == 256  # the smoke config
+        with pytest.raises(KeyError, match="unknown config key 'nope'"):
+            tn.main(["--smoke", "--set", "nope=1"], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="GPU"):
         tn.train(tiny_reel_t, cfg, nr_iters=1)

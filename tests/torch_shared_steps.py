@@ -12,6 +12,10 @@ builds all of them, one right after the other, so that JAX compiles the
 eager primitives the steps share once (~72 s for the lever step instead
 of ~200 s in a process of its own). A session of one side builds only its
 own.
+
+``shared_dir`` does the same for a directory of files, such as a scene
+exported in the DTU layout (``tests/test_torch_datasets.py``,
+``tests/test_torch_main.py``).
 """
 
 import os
@@ -24,21 +28,37 @@ _LEVER_MODULES = ("test_torch_levers",)
 _NERF_MODULES = ("test_torch_nerf",)
 
 
+def _session_root(tmp_path_factory):
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # shared by the workers of this session
+    return root
+
+
 def shared_across_workers(tmp_path_factory, name: str, make):
     """``make()`` once per test session, its (picklable) result shared by
     the modules and the pytest-xdist workers through a file under the
     session's temporary root, the first to take the lock building it
     (pytest-xdist's documented pattern)."""
-    root = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        root = root.parent  # shared by the workers of this session
-    path = root / f"{name}.pkl"
+    path = _session_root(tmp_path_factory) / f"{name}.pkl"
     with FileLock(str(path) + ".lock"):
         if path.is_file():
             return pickle.loads(path.read_bytes())
         data = make()
         path.write_bytes(pickle.dumps(data))
     return data
+
+
+def shared_dir(tmp_path_factory, name: str, write) -> str:
+    """The path of a directory that ``write(path)`` fills once per test
+    session, under the session's temporary root, shared like
+    :func:`shared_across_workers`."""
+    path = _session_root(tmp_path_factory) / name
+    with FileLock(str(path) + ".lock"):
+        if not (path / ".written").is_file():
+            write(str(path))
+            (path / ".written").touch()
+    return str(path)
 
 
 def _session_runs(request, modules) -> bool:
